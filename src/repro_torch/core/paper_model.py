@@ -1,0 +1,167 @@
+"""The paper's §IV network (Fig. 4): per-client VGG-style conv encoders over
+32x32x3 noisy views, and two dense layers at node (J+1).
+
+Reference: src/repro/core/paper_model.py.  The public functions keep the
+reference's layout: an encoder takes views (B, H, W, C), and its flatten
+before the head is in NHWC order, so converted JAX head weights apply
+unchanged.  Inside, the trunk runs NCHW for F.conv2d; `conv`, `bn_apply` and
+`maxpool2` take NCHW tensors.  Conv weights are stored OIHW.
+
+BatchNorm is written by hand, not nn.BatchNorm2d: training statistics use
+the two-pass biased variance, and BN_MOMENTUM = 0.9 weighs the OLD running
+statistic, as the reference does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import bottleneck
+from repro_torch.models import layers
+
+BN_MOMENTUM = 0.9
+
+COMPUTE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def compute_dtype(cfg):
+    """The hot-path matmul/conv dtype from cfg.compute_dtype ("fp32"
+    default, "bf16" for the mixed-precision policy)."""
+    name = getattr(cfg, "compute_dtype", "fp32") or "fp32"
+    try:
+        return COMPUTE_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unknown compute_dtype {name!r}; "
+                         f"known: {sorted(COMPUTE_DTYPES)}") from None
+
+
+# ---------------------------------------------------------------------------
+# Primitives (NCHW)
+# ---------------------------------------------------------------------------
+
+def conv_init(generator: torch.Generator, c_in: int, c_out: int,
+              ksize: int = 3, *, device=None):
+    fan_in = c_in * ksize * ksize
+    w = torch.randn((c_out, c_in, ksize, ksize), generator=generator,
+                    device=device) * math.sqrt(2.0 / fan_in)
+    return {"w": w, "b": torch.zeros((c_out,), device=device)}
+
+
+def conv(p, x):
+    """3x3, stride 1, SAME padding (padding=1) on NCHW x."""
+    return F.conv2d(x, p["w"], p["b"], stride=1, padding=1)
+
+
+def bn_init(c: int, *, device=None):
+    return ({"scale": torch.ones((c,), device=device),
+             "bias": torch.zeros((c,), device=device)},
+            {"mean": torch.zeros((c,), device=device),
+             "var": torch.ones((c,), device=device)})
+
+
+def bn_apply(p, st, x, *, train: bool):
+    """BatchNorm over NCHW x.  Statistics and arithmetic in fp32; the output
+    drops back to x.dtype."""
+    xf = x.to(torch.float32)
+    if train:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.square(xf - mean[None, :, None, None]).mean(
+            dim=(0, 2, 3))
+        new_st = {"mean": BN_MOMENTUM * st["mean"] + (1 - BN_MOMENTUM) * mean,
+                  "var": BN_MOMENTUM * st["var"] + (1 - BN_MOMENTUM) * var}
+    else:
+        mean, var = st["mean"], st["var"]
+        new_st = st
+
+    def per_channel(v):
+        return v.to(torch.float32)[None, :, None, None]
+
+    y = (xf - per_channel(mean)) * torch.rsqrt(per_channel(var) + 1e-5) \
+        * per_channel(p["scale"]) + per_channel(p["bias"])
+    return y.to(x.dtype), new_st
+
+
+def maxpool2(x):
+    """2x2 max-pool, stride 2, VALID, on NCHW x."""
+    return F.max_pool2d(x, 2, 2)
+
+
+# ---------------------------------------------------------------------------
+# Conv encoder trunk (one client branch)
+# ---------------------------------------------------------------------------
+
+def encoder_feat_dim(cfg) -> int:
+    h = cfg.image_shape[0] // (2 ** len(cfg.conv_channels))
+    return h * h * cfg.conv_channels[-1]
+
+
+def encoder_init(generator: torch.Generator, cfg, *, device=None):
+    """cfg: PaperExperimentConfig.  Returns (params, state) of one node."""
+    chans = (cfg.image_shape[-1],) + tuple(cfg.conv_channels)
+    params, state = {"convs": [], "bns": []}, {"bns": []}
+    for i in range(len(cfg.conv_channels)):
+        params["convs"].append(conv_init(generator, chans[i], chans[i + 1],
+                                         device=device))
+        bp, bs = bn_init(chans[i + 1], device=device)
+        params["bns"].append(bp)
+        state["bns"].append(bs)
+    params["head"] = bottleneck.head_init(generator, encoder_feat_dim(cfg),
+                                          cfg.d_bottleneck, device=device)
+    return params, state
+
+
+def encoder_apply(params, state, x, *, train: bool):
+    """x: (B, H, W, C) -> ((mu, logvar) (B, d), new_state)."""
+    new_bns = []
+    h = x.permute(0, 3, 1, 2)                               # NHWC -> NCHW
+    for cp, bp, bs in zip(params["convs"], params["bns"], state["bns"]):
+        h = conv(cp, h)
+        h, nbs = bn_apply(bp, bs, h, train=train)
+        h = torch.relu(h)
+        h = maxpool2(h)
+        new_bns.append(nbs)
+    # the reference flattens NHWC: permute back before the flatten
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+    mu, logvar = bottleneck.head_apply(params["head"], h)
+    return (mu, logvar), {"bns": new_bns}
+
+
+# ---------------------------------------------------------------------------
+# Central node (J+1): fusion decoder + per-branch decoders (Remark 1)
+# ---------------------------------------------------------------------------
+
+def decoder_init(generator: torch.Generator, cfg, *, device=None):
+    J = cfg.num_clients
+    dims = (J * cfg.d_bottleneck,) + tuple(cfg.dense_units) \
+        + (cfg.num_classes,)
+    dense = [layers.dense_init(generator, dims[i], dims[i + 1], bias=True,
+                               device=device)
+             for i in range(len(dims) - 1)]
+    heads = [layers.dense_init(generator, cfg.d_bottleneck, cfg.num_classes,
+                               bias=True, device=device) for _ in range(J)]
+    bh = {k: torch.stack([h[k] for h in heads]) for k in ("w", "b")}
+    return {"dense": dense, "branch_heads": bh}    # stacked (J, d_b, C) / (J, C)
+
+
+def decoder_apply(p, u_cat, *, train: bool, drop: float = 0.3,
+                  drop_masks=None):
+    """u_cat: (B, J*d_bottleneck) -> logits (B, classes).
+
+    drop_masks — pre-drawn keep masks, one (B, units) bool tensor per hidden
+    layer; in training they apply inverted dropout.  Without them there is
+    no dropout (the reference's rng=None)."""
+    h = u_cat
+    for i, dp in enumerate(p["dense"][:-1]):
+        h = torch.relu(layers.dense(dp, h))
+        if train and drop_masks is not None:
+            h = torch.where(drop_masks[i], h / (1.0 - drop),
+                            torch.zeros((), dtype=h.dtype, device=h.device))
+    return layers.dense(p["dense"][-1], h)
+
+
+def branch_heads_apply(p, us):
+    """us: (J, B, d_b) -> per-branch logits (J, B, classes)."""
+    bh = p["branch_heads"]
+    return torch.bmm(us, bh["w"]) + bh["b"][:, None, :]

@@ -1,0 +1,292 @@
+"""Network topology: the inference graph, star only in this slice.
+
+Reference: src/repro/core/topology.py (`Node`, `Edge`, `Topology`, `star`,
+`resolve`, `nontrivial`, `edge_bits`, `edge_wire`, `edge_dtype`), copied
+(the data model is framework-free).  A Topology validates any single-sink
+DAG as the reference does, but the port executes only the default star:
+chains, trees and per-edge overrides run through `graph_cut_and_ship`,
+which comes with the topology slice of the port.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+from repro_torch.core import paper_model
+
+ROLES = ("measure", "relay", "fuse")
+FUSE = "fuse"                     # canonical name of the fusion-center node
+
+
+@dataclass(frozen=True)
+class Node:
+    name: str
+    role: str                     # "measure" | "relay" | "fuse"
+
+
+@dataclass(frozen=True)
+class Edge:
+    src: str
+    dst: str
+    link_bits: Optional[int] = None     # None -> cfg.link_bits
+    wire: Optional[str] = None          # None -> the round's wire=
+    dtype: Optional[str] = None         # None -> cfg compute dtype
+    # unreliability model (the reference's core/linkfault.LinkModel); None
+    # is a PERFECT, unmodelled link.  Link models come with the link-fault
+    # slice of the port; until then the engine refuses an edge that has one.
+    link: Optional[object] = None
+
+    @property
+    def key(self) -> str:
+        return f"{self.src}->{self.dst}"
+
+
+@dataclass(frozen=True)
+class Topology:
+    """A validated single-sink routing graph.  Hashable (usable as a key
+    and inside a frozen config)."""
+    nodes: Tuple[Node, ...]
+    edges: Tuple[Edge, ...]
+
+    def __post_init__(self):
+        names = [n.name for n in self.nodes]
+        if len(set(names)) != len(names):
+            dupes = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(f"duplicate node name(s) {dupes} in {names}; "
+                             "every node needs a unique name — edge keys "
+                             "and the per-view payload map are keyed on it")
+        for n in self.nodes:
+            if n.role not in ROLES:
+                raise ValueError(f"node {n.name!r} has unknown role "
+                                 f"{n.role!r}; roles: {ROLES}")
+            if not n.name:
+                raise ValueError("node names must be non-empty")
+        fuse = [n.name for n in self.nodes if n.role == "fuse"]
+        if len(fuse) != 1:
+            roles = {n.name: n.role for n in self.nodes}
+            raise ValueError(f"a topology needs exactly ONE fuse node "
+                             f"(the single sink); got "
+                             f"{fuse or 'none'} among nodes {roles}")
+        known = set(names)
+        seen = set()
+        out: Dict[str, Edge] = {}
+        for e in self.edges:
+            if e.src not in known or e.dst not in known:
+                missing = sorted({e.src, e.dst} - known)
+                raise ValueError(f"edge {e.key} references unknown node(s) "
+                                 f"{missing}; declared nodes: "
+                                 f"{sorted(known)}")
+            if e.src == e.dst:
+                raise ValueError(f"self-loop {e.key}")
+            if e.key in seen:
+                raise ValueError(f"duplicate edge {e.key}")
+            seen.add(e.key)
+            if e.src in out:
+                raise ValueError(
+                    f"node {e.src!r} has two outgoing edges ({out[e.src].key}"
+                    f", {e.key}); multicast routing duplicates latents and "
+                    "has no eq.-(5) reading — every non-fuse node forwards "
+                    "along exactly one edge")
+            out[e.src] = e
+        (fuse_name,) = fuse
+        if fuse_name in out:
+            raise ValueError(f"the fuse node {fuse_name!r} is the sink; it "
+                             f"cannot have an outgoing edge "
+                             f"({out[fuse_name].key})")
+        indeg = {n.name: 0 for n in self.nodes}
+        for e in self.edges:
+            indeg[e.dst] += 1
+        for n in self.nodes:
+            if n.role == "measure" and indeg[n.name]:
+                raise ValueError(f"measure node {n.name!r} has incoming "
+                                 "edges; sensors are sources — use role="
+                                 "'relay' for a fusing forwarder")
+            if n.role == "relay" and not indeg[n.name]:
+                raise ValueError(f"relay node {n.name!r} receives nothing; "
+                                 "use role='measure' for a leaf")
+        # single out-edge per node => the graph is a union of paths into the
+        # sink iff acyclic; walk each node's unique route and demand it
+        # reaches the fuse node without revisiting anything
+        for n in self.nodes:
+            if n.role == "fuse":
+                continue
+            cur, hops = n.name, 0
+            while cur != fuse_name:
+                if cur not in out:
+                    raise ValueError(f"node {n.name!r} cannot reach the "
+                                     f"fuse node: route dead-ends at "
+                                     f"{cur!r}")
+                cur = out[cur].dst
+                hops += 1
+                if hops > len(self.nodes):
+                    raise ValueError(f"cycle on the route from {n.name!r} "
+                                     "(topologies must be DAGs)")
+
+    # -- structure --------------------------------------------------------
+
+    @property
+    def fuse_node(self) -> str:
+        return next(n.name for n in self.nodes if n.role == "fuse")
+
+    def view_nodes(self) -> Tuple[str, ...]:
+        """View-holding nodes in declaration order: views[j] feeds the j-th
+        name here.  Every measure AND relay node observes a view."""
+        return tuple(n.name for n in self.nodes if n.role != "fuse")
+
+    def num_views(self) -> int:
+        return len(self.view_nodes())
+
+    def out_edge(self, name: str) -> Edge:
+        return next(e for e in self.edges if e.src == name)
+
+    def in_edges(self, name: str) -> Tuple[Edge, ...]:
+        return tuple(e for e in self.edges if e.dst == name)
+
+    def topo_edges(self) -> Tuple[Edge, ...]:
+        """Edges in topological order: an edge appears only after every edge
+        into its source (the order hops execute in)."""
+        done: set = set()
+        ordered = []
+        pending = list(self.edges)
+        while pending:
+            progress = False
+            rest = []
+            for e in pending:
+                if all(i.key in done for i in self.in_edges(e.src)):
+                    ordered.append(e)
+                    done.add(e.key)
+                    progress = True
+                else:
+                    rest.append(e)
+            pending = rest
+            if pending and not progress:     # unreachable post-validation
+                raise ValueError("cyclic edge set")
+        return tuple(ordered)
+
+    def payload(self, edge: Edge) -> Tuple[int, ...]:
+        """View indices whose latents `edge` carries: every view node in the
+        subtree draining through the edge (the source's own latent last —
+        relays append their observation to what they received)."""
+        idx = {name: j for j, name in enumerate(self.view_nodes())}
+        acc: Tuple[int, ...] = ()
+        for e_in in self.in_edges(edge.src):
+            acc = acc + self.payload(e_in)
+        return acc + (idx[edge.src],)
+
+    def levels(self) -> Tuple[Tuple[str, ...], ...]:
+        """Non-fuse nodes grouped by longest hop-distance from a leaf —
+        the per-level schedule the hops (and a real multi-host placement)
+        execute in."""
+        depth: Dict[str, int] = {}
+        for e in self.topo_edges():
+            ins = [depth[i.src] + 1 for i in self.in_edges(e.src)]
+            depth[e.src] = max(ins) if ins else 0
+        if not depth:
+            return ()
+        out = [[] for _ in range(max(depth.values()) + 1)]
+        for name in self.view_nodes():
+            out[depth[name]].append(name)
+        return tuple(tuple(level) for level in out)
+
+    def is_default_star(self) -> bool:
+        """True when this topology IS the implicit star the legacy code
+        paths assume: every view node a measure node wired straight into
+        the fuse node, in declaration order, every edge at the inherited
+        (cfg-level) width/wire/dtype.  Those paths stay bit-identical, so
+        resolvers dispatch them to the pre-topology code.  LinkModels
+        (`Edge.link`) are deliberately NOT considered: they only produce
+        delivery masks (the reference's core/linkfault.py), so a faulty
+        star still runs the star's paths — with partial fusion layered
+        on."""
+        fuse = self.fuse_node
+        if any(n.role == "relay" for n in self.nodes):
+            return False
+        views = self.view_nodes()
+        if len(self.edges) != len(views):
+            return False
+        for name, e in zip(views, self.edges):
+            if (e.src, e.dst) != (name, fuse):
+                return False
+            if (e.link_bits, e.wire, e.dtype) != (None, None, None):
+                return False
+        return True
+
+    def describe(self) -> str:
+        levels = " | ".join(",".join(lv) for lv in self.levels())
+        return (f"Topology({self.num_views()} views -> {self.fuse_node}; "
+                f"levels {levels}; edges "
+                f"{[e.key for e in self.topo_edges()]})")
+
+
+# ---------------------------------------------------------------------------
+# Constructors
+# ---------------------------------------------------------------------------
+
+def _per_edge_bits(link_bits, n: int):
+    if link_bits is None or isinstance(link_bits, int):
+        return (link_bits,) * n
+    bits = tuple(link_bits)
+    if len(bits) != n:
+        raise ValueError(f"need one link_bits per edge ({n}), got {bits}")
+    return bits
+
+
+def star(J: int, *, link_bits=None) -> Topology:
+    """The paper's setting: J measure nodes, each one hop from the fusion
+    center.  `link_bits` — scalar or per-edge sequence; None inherits
+    cfg.link_bits (and keeps the topology on the legacy fast path)."""
+    if J < 1:
+        raise ValueError(f"star needs J >= 1, got {J}")
+    bits = _per_edge_bits(link_bits, J)
+    nodes = tuple(Node(f"m{j}", "measure") for j in range(J)) \
+        + (Node(FUSE, "fuse"),)
+    edges = tuple(Edge(f"m{j}", FUSE, link_bits=bits[j]) for j in range(J))
+    return Topology(nodes, edges)
+
+
+# ---------------------------------------------------------------------------
+# Resolution against a config
+# ---------------------------------------------------------------------------
+
+def resolve(topology: Optional[Topology], cfg) -> Topology:
+    """The topology a round runs: the explicit argument, else cfg.topology,
+    else the implicit `star(cfg.num_clients)`.  Validates the view count
+    against cfg."""
+    topo = topology if topology is not None \
+        else getattr(cfg, "topology", None)
+    if topo is None:
+        return star(cfg.num_clients)
+    if topo.num_views() != cfg.num_clients:
+        raise ValueError(
+            f"topology has {topo.num_views()} view nodes "
+            f"{list(topo.view_nodes())} but cfg.num_clients == "
+            f"{cfg.num_clients}; every measure/relay node observes one of "
+            "the J views")
+    return topo
+
+
+def nontrivial(topology: Optional[Topology], cfg) -> Optional[Topology]:
+    """`resolve`, then None when the result is the default star — callers
+    dispatch None to the pre-topology code paths, which stay bit-identical
+    (golden trajectories included)."""
+    topo = resolve(topology, cfg)
+    return None if topo.is_default_star() else topo
+
+
+def edge_bits(edge: Edge, cfg) -> int:
+    return cfg.link_bits if edge.link_bits is None else edge.link_bits
+
+
+def edge_wire(edge: Edge, default: str) -> str:
+    return default if edge.wire is None else edge.wire
+
+
+def edge_dtype(edge: Edge, cfg):
+    if edge.dtype is None:
+        return paper_model.compute_dtype(cfg)
+    try:
+        return paper_model.COMPUTE_DTYPES[edge.dtype]
+    except KeyError:
+        raise ValueError(f"edge {edge.key} has unknown dtype {edge.dtype!r};"
+                         f" known: {sorted(paper_model.COMPUTE_DTYPES)}"
+                         ) from None

@@ -1,0 +1,110 @@
+"""Builds the hand-written CUDA kernels of `repro_torch/kernels/csrc/`.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
+Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+
+The library goes into `build/kernels/` at the root of the checkout (listed
+in `.gitignore`), named by a hash of its source, so an edited kernel is
+rebuilt and an unchanged one is built once.  Nothing is built when the
+package is imported: the first launch builds what it needs, and
+`build_all()` builds every source at once, one `nvcc` process each, all
+started together.  No `--use_fast_math`: the kernels' numerics are held
+bit for bit against their plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+# what nvcc printed for each library it built (ptxas register/spill report)
+build_logs: Dict[str, str] = {}
+
+
+def sources() -> tuple:
+    """Names of every kernel source in csrc/ (without the .cu suffix)."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and $PATH); the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names: Iterable[str] = None) -> Dict[str, float]:
+    """Compile every named source (default: all of csrc/) that has no
+    up-to-date library, one nvcc process per source, started together.
+    Returns {name: seconds its build took} (0.0 for a library already
+    built).  Raises RuntimeError with nvcc's output if any build fails."""
+    names = tuple(sources() if names is None else names)
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs, seconds = {}, {}
+        t0 = time.perf_counter()
+        for name in names:
+            out = _library_path(name)
+            if out.exists():
+                seconds[name] = 0.0
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            build_logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    with _lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(_library_path(name)))
+        return _loaded[name]

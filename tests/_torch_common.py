@@ -1,0 +1,70 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py).
+
+JAX weights come from `repro.core.inl.init` and reach the port through
+`repro_torch.convert.inl_from_jax`, so the tests never depend on either
+framework's random streams.  The BatchNorm statistics, BatchNorm affine
+parameters and biases that init leaves at 0/1 are overwritten with seeded
+numpy noise, so every weight is non-trivial and non-symmetric: a wrong
+flatten order or a transposed kernel cannot pass.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+import jax
+
+from repro.core import inl as jinl
+from repro_torch import convert
+
+
+def _noisy(tree, rng, *, around=0.0, spread=0.1, positive=False):
+    """Seeded noise of `tree`'s shapes: around + spread * N(0, 1), with
+    |N(0, 1)| where `positive` (a variance stays above `around`)."""
+    def one(x):
+        noise = rng.normal(size=np.shape(x))
+        if positive:
+            noise = np.abs(noise)
+        return (around + spread * noise).astype(np.asarray(x).dtype)
+    return jax.tree.map(one, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_inl(cfg, seed: int = 0):
+    """(numpy params, numpy state) of the reference INL at `cfg`, with
+    non-trivial BatchNorm and bias values."""
+    # jitted: one compile instead of an eager compile per random op
+    params, state = jax.jit(jinl.init, static_argnums=0)(
+        cfg, jax.random.PRNGKey(seed))
+    params = jax.tree.map(np.asarray, params)
+    state = jax.tree.map(np.asarray, state)
+    rng = np.random.default_rng(seed + 100)
+    enc = dict(params.encoders)
+    enc["bns"] = [{"scale": _noisy(b["scale"], rng, around=1.0, spread=0.2),
+                   "bias": _noisy(b["bias"], rng)} for b in enc["bns"]]
+    enc["convs"] = [{"w": c["w"], "b": _noisy(c["b"], rng)}
+                    for c in enc["convs"]]
+    dec = dict(params.decoder)
+    dec["dense"] = [{"w": d["w"], "b": _noisy(d["b"], rng)}
+                    for d in dec["dense"]]
+    params = params._replace(encoders=enc, decoder=dec)
+    state = {"encoders": {"bns": [
+        {"mean": _noisy(s["mean"], rng),
+         "var": _noisy(s["var"], rng, around=1.0, spread=0.2,
+                       positive=True)}
+        for s in state["encoders"]["bns"]]}}
+    return params, state
+
+
+def torch_inl(cfg, seed: int = 0, device="cpu"):
+    """The port's (params, state) holding the same weights as jax_inl."""
+    return convert.inl_from_jax(*jax_inl(cfg, seed), cfg, device=device)
+
+
+def views_np(cfg, n: int, seed: int = 0) -> np.ndarray:
+    """(J, n, H, W, C) views from the reference's data generator."""
+    from repro.data import multiview
+    imgs, _ = multiview.make_base_dataset(n, image_shape=cfg.image_shape,
+                                          seed=seed)
+    return multiview.make_views(imgs, cfg.noise_stds)
