@@ -10,23 +10,56 @@ Phases, each checked; any failed check exits non-zero before the last line:
   2. build    every kernel of repro_torch/kernels/csrc/ compiled by nvcc for
               sm_90a from the checkout's sources, one nvcc each, together.
   3. kernels  each kernel against its plain PyTorch version on the same CUDA
-              tensors: the cut-layer forward over modes {sample, analytic,
-              none}, link widths {1, 2, 4, 8, 16, 32}, fp32/bf16 latents and
-              shapes (5, 64, 64), (5, 7, 64) (ragged), (5, 4096, 96).  u must
-              be identical; at b < 32 only entries whose pre-quantization
-              value lies within 1e-6 of a rounding midpoint may differ (they
-              are counted).  The rate within rtol 1e-5, atol 1e-5.
-  4. serving  the main path: INLScheme at PaperExperimentConfig() (the
-              paper's full width) on the card from a seeded generator, a
-              ServingEngine over buckets (1, 4, 16, 64) answering 256
-              requests through its scheduler thread.  Every launch count is
-              set to 0 just before and read just after; the cut kernel must
-              have launched exactly once per engine launch.  Answers must be
-              finite rows summing to 1, equal bit for bit to the port's
-              predict on the card in the same bucket, within atol 1e-4 of
-              the port on the CPU, and fully delivered on the meter.
-  5. times    per-bucket predict latency, served requests/s, and each
-              kernel's time beside its bound and its plain version, with the
+              tensors, over shapes (5, 64, 64), (5, 7, 64) (ragged) and
+              (5, 4096, 96), link widths {1, 2, 4, 8, 16, 32} and fp32/bf16
+              latents.  Rows with an entry whose pre-quantization value lies
+              within 1e-6 of a rounding midpoint may differ at b < 32 in the
+              sample mode; they are counted.
+                cut_fwd        modes {sample, analytic, none}: u identical,
+                               the rate within rtol 1e-5, atol 1e-5;
+                cut_bwd        the three modes: dmu, dlv, deps within
+                               rtol 1e-5, atol 1e-6;
+                cut_prior_fwd  modes {sample, analytic}, shared (d,) and
+                  cut_prior_bwd  per-node (J, d) priors: u identical, the
+                               per-row gradients within rtol 1e-5 atol 1e-6
+                               (both read one saved u, so on every row),
+                               and two launches of cut_prior_bwd identical
+                               bit for bit.  The sums — the rate, dpmu,
+                               dplv — within rtol/atol 1e-5, or, where
+                               their terms cancel, within 1e-5 of the sum
+                               of the terms' absolute values (fp32 sums in
+                               two orders; such sums are counted);
+              and torch.autograd.grad through ops.cutlayer on CUDA equal to
+              the kernels' outputs for the same cotangents.
+  4. serving  INLScheme at PaperExperimentConfig() (the paper's full width)
+              on the card from a seeded generator, a ServingEngine over
+              buckets (1, 4, 16, 64) answering requests through its
+              scheduler thread.  Launch counts are set to 0 just before and
+              read just after; the cut kernel must have launched exactly once
+              per engine launch.  Answers must be finite rows summing to 1,
+              equal bit for bit to the port's predict on the card in the same
+              bucket, within atol 1e-4 of the port on the CPU, and fully
+              delivered on the meter.
+  5. training the main path: run_scheme("inl") at PaperExperimentConfig(),
+              batch 64, 1024 synthetic samples, 2 epochs (32 train steps, two
+              evaluations), launch counts set to 0 just before and read just
+              after.  Every loss finite; the mean loss of the last 4 rounds
+              below the first 4's; final accuracy >= 0.3; gbits equal to
+              32 x training_step_bits(64, 320, 32) / 1e9 exactly; cut_bwd
+              launched once per step, cut_fwd once per step plus once per
+              evaluation, the prior kernels never.  Then 8 steps with
+              learned_prior=True: each prior kernel once per step, cut_fwd
+              and cut_bwd never, and the priors moved from zero.
+  6. cpu      card against CPU: one set of weights, eps and dropout masks
+              drawn on the CPU and moved to the card, 3 steps on each.  Step
+              1's loss within rtol 1e-3, atol 1e-5, and every gradient leaf
+              as a tensor: |card - cpu| <= 1e-3 |cpu| + 1e-5 sqrt(n) in the
+              2-norm (entries outside the entrywise bar are counted); the
+              losses of steps 2-3 within rtol 1e-3.
+  7. times    per-bucket predict latency, train-step latency (median of 20
+              steps, with the device busy time and idle share from the
+              profiler, and the device time by kernel), and each kernel's
+              device time beside its bound and its plain version, with the
               card's name and power limit on every line.
 
 The line before the last two is {"kernels": [...]}, the one before the last
@@ -47,12 +80,22 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+DEV = "cuda"                        # the card: every phase runs there
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
 MIDPOINT_TOL = 1e-6
 RATE_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
+PRIOR_GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
+CARD_CPU_TOL = dict(rtol=1e-3, atol=1e-5)
 CPU_ATOL = 1e-4
 BUCKETS = (1, 4, 16, 64)
 N_REQUESTS = 256
+SWEEP_SHAPES = ((5, 64, 64), (5, 7, 64), (5, 4096, 96))
+SWEEP_BITS = (1, 2, 4, 8, 16, 32)
+TRAIN_BATCH = 64
+TRAIN_SAMPLES = 1024
+TRAIN_EPOCHS = 2
+PRIOR_STEPS = 8
 
 
 class CheckFailed(RuntimeError):
@@ -137,9 +180,9 @@ def kernel_phase(torch):
     worst = 0.0
     midpoints = 0
     n = 0
-    for shape in ((5, 64, 64), (5, 7, 64), (5, 4096, 96)):
+    for shape in SWEEP_SHAPES:
         d = shape[-1]
-        for bits in (1, 2, 4, 8, 16, 32):
+        for bits in SWEEP_BITS:
             for mode in ("sample", "analytic", "none"):
                 for dtype in (torch.float32, torch.bfloat16):
                     mu, lv, eps = cut_inputs(torch, shape, dtype, bits)
@@ -181,6 +224,251 @@ def kernel_phase(torch):
           f"3 modes x 2 dtypes); {midpoints} u entries at a rounding "
           f"midpoint; max |kernel - plain| {worst:.3g}")
     return worst
+
+
+def grad_inputs(torch, shape, dtype, seed):
+    """cut_inputs plus the cotangents: gu (shape) in `dtype`, grate
+    (shape[:-1]) fp32 at the small scale of a training step's rate
+    cotangent."""
+    mu, lv, eps = cut_inputs(torch, shape, dtype, seed)
+    rng = np.random.default_rng(seed + 7)
+    gu = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    gr = rng.normal(scale=0.1, size=shape[:-1]).astype(np.float32)
+    return mu, lv, eps, gu.cuda().to(dtype), torch.from_numpy(gr).cuda()
+
+
+def prior_inputs(torch, J, d, seed):
+    rng = np.random.default_rng(seed + 11)
+    pm = rng.normal(scale=0.5, size=(J, d)).astype(np.float32)
+    pv = rng.uniform(-1.0, 1.0, size=(J, d)).astype(np.float32)
+    return torch.from_numpy(pm).cuda(), torch.from_numpy(pv).cuda()
+
+
+def midpoint_rows(torch, mu, lv, eps, bits):
+    """Rows (flattened leading axes) with an entry near a rounding
+    midpoint; none at b = 32."""
+    d = mu.shape[-1]
+    if bits >= 32:
+        return np.zeros(mu.numel() // d, bool)
+    pre = (mu.double() + torch.exp(0.5 * lv.double()) * eps.double()) \
+        .cpu().numpy().reshape(-1, d)
+    return near_midpoint(pre, bits).any(axis=-1)
+
+
+def compare_rows(got, want, tol, what):
+    """Per-row comparison of (rows, d) outputs: returns (bool rows that
+    fail `tol`, max |got - want| over the entries that pass)."""
+    a = got.float().cpu().numpy().reshape(got.shape[0], -1)
+    b = want.float().cpu().numpy().reshape(want.shape[0], -1)
+    check(a.shape == b.shape, f"{what}: shapes {a.shape} vs {b.shape}")
+    close = np.isclose(a, b, **tol)
+    err = float(np.abs(a - b)[close].max()) if close.any() else 0.0
+    return ~close.all(axis=-1), err
+
+
+def allow_midpoints(bad, mid, mode, bits, what):
+    """Failing rows are allowed only at rounding midpoints in the sample
+    mode at b < 32; returns how many there were."""
+    if bad.any():
+        check(mode == "sample" and bits < 32 and not (bad & ~mid).any(),
+              f"{what}: {int((bad & ~mid).sum())} rows differ away from a "
+              f"rounding midpoint")
+    return int(bad.sum())
+
+
+def bwd_kernel_phase(torch):
+    """cut_bwd against cutlayer_bwd_ref over the sweep."""
+    from repro_torch.kernels import inl_bottleneck, ref
+    worst, midpoints, n = 0.0, 0, 0
+    for shape in SWEEP_SHAPES:
+        d = shape[-1]
+        for bits in SWEEP_BITS:
+            for mode in ("sample", "analytic", "none"):
+                for dtype in (torch.float32, torch.bfloat16):
+                    mu, lv, eps, gu, gr = grad_inputs(torch, shape, dtype,
+                                                      bits)
+                    rows = [t.reshape(-1, d) for t in (mu, lv, eps, gu)]
+                    k = inl_bottleneck.cut_bwd(*rows, gr.reshape(-1),
+                                               bits=bits, mode=mode)
+                    p = ref.cutlayer_bwd_ref(*rows, gr.reshape(-1), bits,
+                                             mode)
+                    torch.cuda.synchronize()
+                    what = f"cut_bwd {mode} b={bits} {dtype} {shape}"
+                    check([t.dtype for t in k] == [dtype, dtype,
+                                                   torch.float32],
+                          f"{what}: dtypes {[t.dtype for t in k]}")
+                    bad = np.zeros(rows[0].shape[0], bool)
+                    for a, b in zip(k, p):
+                        rb, err = compare_rows(a, b, GRAD_TOL, what)
+                        bad |= rb
+                        worst = max(worst, err)
+                    midpoints += allow_midpoints(
+                        bad, midpoint_rows(torch, mu, lv, eps, bits), mode,
+                        bits, what)
+                    n += 1
+    print(f"kernels: cut_bwd == plain on {n} cases (3 shapes x 6 widths x "
+          f"3 modes x 2 dtypes, rtol 1e-5 atol 1e-6); {midpoints} rows at "
+          f"a rounding midpoint; max |kernel - plain| {worst:.3g}")
+    return worst
+
+
+def sum_scales(torch, mu, lv, u, pm, pv, gr, mode):
+    """Float64 sums of the absolute values of the terms that the prior
+    kernels add up: per row for the rate, per (node, column) for dpmu and
+    dplv.  A sum that cancels can lose its relative digits in fp32 however
+    it is ordered; these scales say how far."""
+    m, l, q = mu.double(), lv.double(), u.double()
+    p, v = pm.double()[:, None, :], pv.double()[:, None, :]
+    g = gr.double()[..., None].abs()
+    if mode == "sample":
+        rate = (q - p) ** 2 * torch.exp(-v) + v.abs() \
+            + (q - m) ** 2 * torch.exp(-l) + l.abs()
+        wq = (q - p) * torch.exp(-v)
+        dpmu = (g * wq.abs()).sum(1)
+        dplv = 0.5 * (g.sum(1) + (g * (wq * (q - p)).abs()).sum(1))
+    else:
+        rate = v.abs() + l.abs() + (torch.exp(l) + (m - p) ** 2) \
+            * torch.exp(-v) + 1.0
+        dm = (m - p) * torch.exp(-v)
+        dpmu = (g * dm.abs()).sum(1)
+        dplv = 0.5 * (g.sum(1) + (g * torch.exp(l - v)).sum(1)
+                      + (g * (dm * (m - p)).abs()).sum(1))
+    return 0.5 * rate.sum(-1), dpmu, dplv
+
+
+def sums_close(got, want, scale, keep, what):
+    """A sum agrees within rtol/atol 1e-5 of its value or, where its terms
+    cancel, within 1e-5 of the sum of their absolute values.  Returns (how
+    many entries needed the second bar, max |got - want|)."""
+    a = got.double().cpu().numpy().ravel()[keep]
+    b = want.double().cpu().numpy().ravel()[keep]
+    sc = scale.cpu().numpy().ravel()[keep]
+    diff = np.abs(a - b)
+    plain = diff <= 1e-5 + 1e-5 * np.abs(b)
+    scaled = diff <= 1e-5 * sc
+    bad = ~(plain | scaled)
+    check(not bad.any(),
+          f"{what}: {int(bad.sum())} sums differ: max |diff| "
+          f"{diff[bad].max() if bad.any() else 0}, value "
+          f"{b[bad][:3] if bad.any() else ''}, scale "
+          f"{sc[bad][:3] if bad.any() else ''}")
+    return int((~plain).sum()), float(diff.max()) if diff.size else 0.0
+
+
+def prior_kernel_phase(torch):
+    """cut_prior_fwd / cut_prior_bwd against their plain versions over the
+    sweep, shared and per-node priors; the backward twice, bit for bit."""
+    from repro_torch.kernels import inl_bottleneck, ref
+    worst = {"cut_prior_fwd": 0.0, "cut_prior_bwd": 0.0}
+    midpoints, cancelling, n = 0, 0, 0
+    for shape in SWEEP_SHAPES:
+        d = shape[-1]
+        for bits in SWEEP_BITS:
+            for mode in ("sample", "analytic"):
+                for prior in ("shared", "node"):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        mu, lv, eps, gu, gr = grad_inputs(torch, shape,
+                                                          dtype, bits)
+                        J = 1 if prior == "shared" else shape[0]
+                        mu, lv, eps, gu = (t.reshape(J, -1, d)
+                                           for t in (mu, lv, eps, gu))
+                        gr = gr.reshape(J, -1)
+                        pm, pv = prior_inputs(torch, J, d, bits)
+                        what = (f"prior {prior} {mode} b={bits} {dtype} "
+                                f"{shape}")
+                        u, rate = inl_bottleneck.cut_prior_fwd(
+                            mu, lv, eps, pm, pv, bits=bits, mode=mode)
+                        pu, prate = ref.cutlayer_prior_fwd_ref(
+                            mu, lv, eps, pm, pv, bits, mode)
+                        k1 = inl_bottleneck.cut_prior_bwd(
+                            mu, lv, eps, pm, pv, u, gu, gr, mode=mode)
+                        k2 = inl_bottleneck.cut_prior_bwd(
+                            mu, lv, eps, pm, pv, u, gu, gr, mode=mode)
+                        p = ref.cutlayer_prior_bwd_ref(
+                            mu, lv, eps, pm, pv, u, gu, gr, bits, mode)
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+                              f"{what}: two launches of cut_prior_bwd "
+                              f"differ")
+                        # forward: u identical but at midpoints; the rate
+                        # on the rows whose u agrees
+                        mid = midpoint_rows(torch, mu, lv, eps, bits)
+                        R = mid.shape[0]
+                        bad_u = (u != pu).reshape(R, d).any(-1).cpu().numpy()
+                        midpoints += allow_midpoints(bad_u, mid, mode, bits,
+                                                     what + " u")
+                        s_rate, s_pmu, s_plv = sum_scales(
+                            torch, mu, lv, u, pm, pv, gr, mode)
+                        c, err = sums_close(rate, prate, s_rate, ~bad_u,
+                                            what + " rate")
+                        cancelling += c
+                        worst["cut_prior_fwd"] = max(worst["cut_prior_fwd"],
+                                                     err)
+                        # backward: both read the same saved u, so every
+                        # row must agree
+                        for name, a, b in zip(("dmu", "dlv", "deps"), k1[:3],
+                                              p[:3]):
+                            rb, err = compare_rows(a.reshape(R, d),
+                                                   b.reshape(R, d),
+                                                   GRAD_TOL, what)
+                            check(not rb.any(), f"{what}: {name} differs "
+                                  f"on {int(rb.sum())} rows beyond rtol "
+                                  f"1e-5 atol 1e-6")
+                            worst["cut_prior_bwd"] = max(
+                                worst["cut_prior_bwd"], err)
+                        for name, a, b, sc in (("dpmu", k1[3], p[3], s_pmu),
+                                               ("dplv", k1[4], p[4], s_plv)):
+                            c, err = sums_close(a, b, sc, slice(None),
+                                                f"{what} {name}")
+                            cancelling += c
+                            worst["cut_prior_bwd"] = max(
+                                worst["cut_prior_bwd"], err)
+                        n += 1
+    print(f"kernels: cut_prior_fwd and cut_prior_bwd == plain on {n} cases "
+          f"(3 shapes x 6 widths x 2 modes x shared/per-node x 2 dtypes); "
+          f"cut_prior_bwd identical bit for bit over two launches; "
+          f"{midpoints} rows at a rounding midpoint; {cancelling} rate or "
+          f"prior-gradient sums that cancel held to 1e-5 of the sum of "
+          f"|terms|; max |kernel - plain| fwd {worst['cut_prior_fwd']:.3g} "
+          f"bwd {worst['cut_prior_bwd']:.3g}")
+    return worst
+
+
+def autograd_phase(torch):
+    """torch.autograd.grad through ops.cutlayer on CUDA == the kernels'
+    outputs for the same cotangents, with and without a learned prior."""
+    from repro_torch.kernels import inl_bottleneck, ops
+    shape, d = (5, 64, 64), 64
+    for mode, bits in (("sample", 8), ("sample", 32), ("analytic", 4),
+                       ("none", 2)):
+        mu, lv, eps, gu, gr = grad_inputs(torch, shape, torch.float32, bits)
+        ins = [t.clone().requires_grad_() for t in (mu, lv)]
+        u, rate = ops.cutlayer(*ins, eps, link_bits=bits,
+                               rate_estimator=mode)
+        got = torch.autograd.grad((u, rate), ins, (gu, gr))
+        want = inl_bottleneck.cut_bwd(mu.reshape(-1, d), lv.reshape(-1, d),
+                                      eps.reshape(-1, d), gu.reshape(-1, d),
+                                      gr.reshape(-1), bits=bits, mode=mode)
+        check(all(torch.equal(a.reshape(-1, d), b)
+                  for a, b in zip(got, want)),
+              f"autograd through ops.cutlayer != cut_bwd ({mode}, b={bits})")
+        if mode == "none":
+            continue
+        pm, pv = prior_inputs(torch, shape[0], d, bits)
+        ins = [t.clone().requires_grad_() for t in (mu, lv, pm, pv)]
+        u, rate = ops.cutlayer(ins[0], ins[1], eps, link_bits=bits,
+                               rate_estimator=mode, prior_mu=ins[2],
+                               prior_logvar=ins[3])
+        got = torch.autograd.grad((u, rate), ins, (gu, gr))
+        k = inl_bottleneck.cut_prior_bwd(mu, lv, eps, pm, pv, u.detach(), gu,
+                                         gr, mode=mode)
+        want = (k[0], k[1], k[3], k[4])
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"autograd through ops.cutlayer(prior) != cut_prior_bwd "
+              f"({mode}, b={bits})")
+    print("kernels: torch.autograd.grad through ops.cutlayer on CUDA equals "
+          "cut_bwd and cut_prior_bwd bit for bit (4 standard, 3 prior "
+          "cases)")
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +567,211 @@ def serving_phase(torch, card_line):
 
 
 # ---------------------------------------------------------------------------
-# 5. times
+# 5. training at full width: the main path
+# ---------------------------------------------------------------------------
+
+def reset_launches():
+    from repro_torch.kernels import inl_bottleneck
+    for k in inl_bottleneck.LAUNCHES:
+        inl_bottleneck.LAUNCHES[k] = 0
+
+
+def read_launches():
+    from repro_torch.kernels import inl_bottleneck
+    return dict(inl_bottleneck.LAUNCHES)
+
+
+def training_data(cfg):
+    from repro_torch.data import multiview
+    imgs, labels = multiview.make_base_dataset(TRAIN_SAMPLES, seed=1)
+    return multiview.make_views(imgs, cfg.noise_stds), labels
+
+
+def training_phase(torch, card_line):
+    """run_scheme("inl") at full width on the card; every round's metrics
+    are recorded by a wrapper around the registered scheme's make_round."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import bandwidth, linkmodel, schemes
+    from repro_torch.core.schemes import runner
+
+    cfg = PaperExperimentConfig()
+    views, labels = training_data(cfg)
+    scheme = schemes.get("inl")
+    losses = []
+    make_round = scheme.make_round
+
+    def recording_make_round(*a, **kw):
+        round_fn = make_round(*a, **kw)
+
+        def rec(*ra, **rkw):
+            st, m = round_fn(*ra, **rkw)
+            losses.append(m["loss"])
+            return st, m
+        return rec
+    scheme.make_round = recording_make_round
+    meter = bandwidth.BandwidthMeter()
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        curve = runner.run_scheme("inl", views, labels, cfg,
+                                  epochs=TRAIN_EPOCHS,
+                                  batch_size=TRAIN_BATCH, eval_n=512,
+                                  meter=meter, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        del scheme.make_round
+    steps = TRAIN_EPOCHS * (TRAIN_SAMPLES // TRAIN_BATCH)
+    loss = [float(x) for x in losses]
+    check(len(loss) == steps, f"{len(loss)} train steps, expected {steps}")
+    check(all(np.isfinite(loss)), f"non-finite loss: {loss}")
+    first, last = np.mean(loss[:4]), np.mean(loss[-4:])
+    check(last < first, f"loss did not fall: first 4 {first}, last 4 {last}")
+    acc = curve[-1].accuracy
+    check(acc >= 0.3, f"final accuracy {acc} < 0.3")
+    want_gbits = steps * linkmodel.training_step_bits(
+        TRAIN_BATCH, cfg.num_clients * cfg.d_bottleneck, cfg.link_bits) / 1e9
+    check(curve[-1].gbits == want_gbits,
+          f"gbits {curve[-1].gbits} != {want_gbits}")
+    check(launches["cut_bwd"] == steps,
+          f"cut_bwd launched {launches['cut_bwd']} times in {steps} steps")
+    check(launches["cut_fwd"] == steps + TRAIN_EPOCHS,
+          f"cut_fwd launched {launches['cut_fwd']} times in {steps} steps "
+          f"and {TRAIN_EPOCHS} evaluations")
+    check(launches["cut_prior_fwd"] == launches["cut_prior_bwd"] == 0,
+          f"prior kernels launched on the standard prior: {launches}")
+    print(f"training: run_scheme('inl') at PaperExperimentConfig(), batch "
+          f"{TRAIN_BATCH}, {TRAIN_SAMPLES} samples, {TRAIN_EPOCHS} epochs = "
+          f"{steps} steps in {wall:.2f} s; loss {loss[0]:.4f} -> "
+          f"{loss[-1]:.4f} (mean of first 4 {first:.4f}, last 4 "
+          f"{last:.4f}); accuracy per epoch "
+          f"{[round(p.accuracy, 4) for p in curve]}; gbits "
+          f"{curve[-1].gbits!r} (measured {curve[-1].measured_gbits!r}); "
+          f"launches {launches} [{card_line}]")
+    return launches, acc
+
+
+def prior_training_phase(torch, card_line):
+    """PRIOR_STEPS train steps with learned_prior=True through the scheme's
+    round: each prior kernel once per step, the standard kernels never."""
+    import dataclasses
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import schemes
+
+    cfg = dataclasses.replace(PaperExperimentConfig(), learned_prior=True)
+    views, labels = training_data(cfg)
+    scheme = schemes.get("inl")
+    state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(2),
+                        device=DEV)
+    round_fn = scheme.make_round(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    v = torch.from_numpy(views).to(DEV)
+    lab = torch.from_numpy(labels).to(DEV).long()
+    losses = []
+    torch.cuda.synchronize()
+    reset_launches()
+    for k in range(PRIOR_STEPS):
+        sl = slice(k * TRAIN_BATCH, (k + 1) * TRAIN_BATCH)
+        state, m = round_fn(state, v[None, :, sl], lab[None, sl], gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    loss = [float(x) for x in losses]
+    check(all(np.isfinite(loss)), f"non-finite loss: {loss}")
+    check(launches["cut_prior_fwd"] == launches["cut_prior_bwd"]
+          == PRIOR_STEPS, f"prior kernels: {launches} in {PRIOR_STEPS} steps")
+    check(launches["cut_fwd"] == launches["cut_bwd"] == 0,
+          f"standard kernels launched with a learned prior: {launches}")
+    pri = state["params"].priors
+    moved = max(float(pri["mu"].abs().max()),
+                float(pri["logvar"].abs().max()))
+    check(moved > 0.0, "the learned priors did not move from zero")
+    print(f"training: learned_prior=True, {PRIOR_STEPS} steps; loss "
+          f"{loss[0]:.4f} -> {loss[-1]:.4f}; max |prior| {moved:.4g}; "
+          f"launches {launches} [{card_line}]")
+    return launches
+
+
+def _loss_and_grads(torch, cfg, params, state, views, labels, eps, masks):
+    from repro_torch import tree_leaves, tree_unflatten
+    from repro_torch.core import inl
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss, _ = inl.loss_fn(tree_unflatten(params, leaves), state, views,
+                          labels, cfg, eps=eps, drop_masks=masks)
+    return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+def card_vs_cpu_phase(torch, card_line):
+    """One set of weights, eps and masks drawn on the CPU: step 1's loss and
+    gradients, and 3 steps' losses, on the card against the CPU port."""
+    from repro_torch import tree_map
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import paper_model, schemes
+
+    cfg = PaperExperimentConfig()
+    views, labels = training_data(cfg)
+    scheme = schemes.get("inl")
+    cpu = scheme.init(cfg, torch.Generator().manual_seed(4), device="cpu")
+    gpu = tree_map(lambda t: t.to(DEV), cpu)
+    v = torch.from_numpy(views[:, :TRAIN_BATCH])
+    lab = torch.from_numpy(labels[:TRAIN_BATCH]).long()
+    gen = torch.Generator().manual_seed(5)
+    draws = []
+    for _ in range(3):
+        eps = torch.randn((cfg.num_clients, TRAIN_BATCH, cfg.d_bottleneck),
+                          generator=gen)
+        draws.append((eps, paper_model.decoder_dropout_masks(
+            gen, cfg.dense_units, TRAIN_BATCH)))
+
+    def on(dev, t):
+        return tree_map(lambda x: x.to(dev), t)
+    l_cpu, g_cpu = _loss_and_grads(torch, cfg, cpu["params"], cpu["state"],
+                                   v, lab, *draws[0])
+    l_gpu, g_gpu = _loss_and_grads(torch, cfg, gpu["params"], gpu["state"],
+                                   v.to(DEV), lab.to(DEV), *on(DEV,
+                                                             draws[0]))
+    check(np.isclose(l_gpu, l_cpu, **CARD_CPU_TOL),
+          f"step-1 loss card {l_gpu} vs cpu {l_cpu}")
+    max_abs, max_leaf, off_entries = 0.0, 0.0, 0
+    for a, b in zip(g_gpu, g_cpu):
+        a, b = a.cpu().double().numpy(), b.double().numpy()
+        # a leaf as a tensor: |a - b| <= rtol |b| + atol sqrt(n) in the 2-norm
+        # (a single entry of a conv-weight gradient sums 65536 products that
+        # cancel, and cuDNN and the CPU add them in other orders)
+        dist, size = np.linalg.norm(a - b), np.linalg.norm(b)
+        bar = CARD_CPU_TOL["rtol"] * size \
+            + CARD_CPU_TOL["atol"] * np.sqrt(a.size)
+        check(dist <= bar, f"gradient leaf {a.shape}: |card - cpu| {dist} "
+              f"> {bar} (|cpu| {size})")
+        max_abs = max(max_abs, float(np.abs(a - b).max()))
+        if size > bar:          # leaves whose gradient is not ~0 (conv
+            max_leaf = max(max_leaf, float(dist / size))   # biases are)
+        off_entries += int((~np.isclose(a, b, **CARD_CPU_TOL)).sum())
+    round_fn = scheme.make_round(cfg)
+    losses = {}
+    for dev, st in (("cpu", cpu), (DEV, gpu)):
+        out = []
+        for eps, masks in draws:
+            st, m = round_fn(st, v[None].to(dev), lab[None].to(dev), None,
+                             eps=eps.to(dev),
+                             drop_masks=[x.to(dev) for x in masks])
+            out.append(float(m["loss"]))
+        losses[dev] = out
+    check(np.allclose(losses[DEV], losses["cpu"], rtol=1e-3, atol=0),
+          f"3-step losses card {losses[DEV]} vs cpu {losses['cpu']}")
+    print(f"cpu: step-1 loss card {l_gpu:.7f} cpu {l_cpu:.7f}; "
+          f"{len(g_gpu)} gradient leaves within rtol 1e-3 atol 1e-5 as "
+          f"tensors, largest |card - cpu| / |cpu| of a leaf {max_leaf:.3g} "
+          f"(leaves above the atol floor), "
+          f"largest entry difference {max_abs:.3g}, {off_entries} entries "
+          f"outside the bar taken entry by entry; 3-step losses card "
+          f"{losses[DEV]} cpu {losses['cpu']} [{card_line}]")
+
+
+# ---------------------------------------------------------------------------
+# 7. times
 # ---------------------------------------------------------------------------
 
 def cuda_ms(torch, fn, reps=200, warmup=20):
@@ -296,9 +788,10 @@ def cuda_ms(torch, fn, reps=200, warmup=20):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps=100, warmup=10):
-    """Device time per call: the sum of the device time of every kernel and
-    copy `fn` runs, from torch.profiler's CUDA trace, over `reps` calls."""
+def device_profile(torch, fn, reps=100, warmup=10):
+    """(device ms per call, [(kernel name, device ms per call), ...] by
+    descending time): the device time of every kernel and copy `fn` runs,
+    from torch.profiler's CUDA trace, over `reps` calls."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -307,18 +800,27 @@ def device_ms(torch, fn, reps=100, warmup=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    check(total_us > 0, "the profiler recorded no device time")
-    return total_us / reps / 1e3
+    by_name = sorted(((e.key, e.self_device_time_total / reps / 1e3)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda kv: -kv[1])
+    total = sum(ms for _, ms in by_name)
+    check(total > 0, "the profiler recorded no device time")
+    return total, by_name
+
+
+def device_ms(torch, fn, reps=100, warmup=10):
+    """Device time per call (see device_profile)."""
+    return device_profile(torch, fn, reps, warmup)[0]
 
 
 def timing_phase(torch, scheme, state, views, card_line):
     from repro_torch.kernels import inl_bottleneck, ref
     for b in BUCKETS:
-        v = torch.from_numpy(views[:, :b]).cuda()
+        v = torch.from_numpy(views[:, :b]).to(DEV)
 
         def predict():
-            scheme.predict(state, v, device="cuda")
+            scheme.predict(state, v, device=DEV)
         times = []
         for i in range(30):
             torch.cuda.synchronize()
@@ -360,6 +862,108 @@ def timing_phase(torch, scheme, state, views, card_line):
     return rows
 
 
+def train_step_timing(torch, card_line):
+    """Train-step latency at full width and batch 64: the median of 20
+    steps on the host's clock, and the device's busy time per step from the
+    profiler, with its breakdown by kernel."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import schemes
+
+    cfg = PaperExperimentConfig()
+    views, labels = training_data(cfg)
+    scheme = schemes.get("inl")
+    state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(6),
+                        device=DEV)
+    round_fn = scheme.make_round(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    v = torch.from_numpy(views[:, :TRAIN_BATCH]).to(DEV)[None]
+    lab = torch.from_numpy(labels[:TRAIN_BATCH]).to(DEV).long()[None]
+    box = [state]
+
+    def step():
+        box[0], _ = round_fn(box[0], v, lab, gen)
+    times = []
+    for i in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if i >= 5:
+            times.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(times)
+    busy, by_name = device_profile(torch, step, reps=10, warmup=2)
+    print(f"train step latency: median {wall:.3f} ms over {len(times)} steps "
+          f"(PaperExperimentConfig, batch {TRAIN_BATCH}); device busy "
+          f"{busy:.4f} ms of it, idle share {1 - busy / wall:.3f} "
+          f"[{card_line}]")
+    kinds = {}
+    for name, ms in by_name:
+        low = name.lower()
+        kind = ("cut-layer kernels" if "cut_" in low else
+                "convolution" if "conv" in low or "cudnn" in low
+                or "xmma" in low or "implicit" in low else
+                "matmul" if "gemm" in low or "sgemm" in low else
+                "copy/fill" if "memcpy" in low or "memset" in low
+                or "fill" in low else
+                "reduction" if "reduce" in low else "elementwise/other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    print("train step device time by kind: " + ", ".join(
+        f"{k} {ms:.4f} ms" for k, ms in sorted(kinds.items(),
+                                              key=lambda kv: -kv[1])))
+    print("train step device time, top kernels: " + "; ".join(
+        f"{name[:60]} {ms:.4f} ms" for name, ms in by_name[:8]))
+    return wall, busy
+
+
+def new_kernel_timing(torch, card_line):
+    """cut_bwd, cut_prior_fwd and cut_prior_bwd: device time at the
+    training shape (R = 320 = 5 nodes x 64, d = 64) and at R = 20480 and
+    262144 (fp32, sample mode, b = 32 as training runs), beside the bytes
+    bound and the plain version."""
+    from repro_torch.kernels import inl_bottleneck, ref
+    rows = {}
+    d, bits, mode = 64, 32, "sample"
+    for R in (320, 20480, 262144):
+        J = 5 if R % 5 == 0 else 4          # nodes of T rows, J * T == R
+        T = R // J
+        mu, lv, eps, gu, gr = grad_inputs(torch, (J, T, d), torch.float32, 0)
+        pm, pv = prior_inputs(torch, J, d, 0)
+        u, _ = inl_bottleneck.cut_prior_fwd(mu, lv, eps, pm, pv, bits=bits,
+                                            mode=mode)
+        flat = [t.reshape(R, d) for t in (mu, lv, eps, gu)]
+        grf = gr.reshape(R)
+        reps = 100 if R < 262144 else 30
+        cases = {
+            "cut_bwd": (
+                lambda: inl_bottleneck.cut_bwd(*flat, grf, bits=bits,
+                                               mode=mode),
+                lambda: ref.cutlayer_bwd_ref(*flat, grf, bits, mode),
+                28 * R * d + 4 * R),
+            "cut_prior_fwd": (
+                lambda: inl_bottleneck.cut_prior_fwd(mu, lv, eps, pm, pv,
+                                                     bits=bits, mode=mode),
+                lambda: ref.cutlayer_prior_fwd_ref(mu, lv, eps, pm, pv,
+                                                   bits, mode),
+                16 * R * d + 4 * R + 8 * J * d),
+            "cut_prior_bwd": (
+                lambda: inl_bottleneck.cut_prior_bwd(mu, lv, eps, pm, pv, u,
+                                                     gu, gr, mode=mode),
+                lambda: ref.cutlayer_prior_bwd_ref(mu, lv, eps, pm, pv, u,
+                                                   gu, gr, bits, mode),
+                32 * R * d + 4 * R + 16 * J * d),
+        }
+        for name, (kernel, plain, nbytes) in cases.items():
+            k_dev = device_ms(torch, kernel, reps=reps)
+            p_dev = device_ms(torch, plain, reps=reps)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            rows[(name, R)] = (k_dev, p_dev, bound)
+            print(f"{name} R={R} d={d} J={J} {mode} b={bits} fp32: device "
+                  f"time kernel {k_dev:.5f} ms, plain {p_dev:.5f} ms, bound "
+                  f"{bound:.5f} ms (bytes {nbytes}, {bound / k_dev:.3f} of "
+                  f"the bound) [{card_line}]")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -380,22 +984,52 @@ def main() -> int:
     t0 = time.perf_counter()
     name, card = device_phase(torch)
     build_phase()
-    worst = kernel_phase(torch)
-    scheme, state, views, launches = serving_phase(torch, card)
+    worst = {"cut_fwd": kernel_phase(torch),
+             "cut_bwd": bwd_kernel_phase(torch),
+             **prior_kernel_phase(torch)}
+    autograd_phase(torch)
+    scheme, state, views, serve_launches = serving_phase(torch, card)
+    train_launches, accuracy = training_phase(torch, card)
+    prior_launches = prior_training_phase(torch, card)
+    card_vs_cpu_phase(torch, card)
     torch.cuda.synchronize()
     rows = timing_phase(torch, scheme, state, views, card)
+    step_ms, step_busy = train_step_timing(torch, card)
+    rows.update(new_kernel_timing(torch, card))
     torch.cuda.synchronize()
-    kernel, plain, bound = rows[(320, "none", 32)]
+    launches = {"cut_fwd": train_launches["cut_fwd"],
+                "cut_bwd": train_launches["cut_bwd"],
+                "cut_prior_fwd": prior_launches["cut_prior_fwd"],
+                "cut_prior_bwd": prior_launches["cut_prior_bwd"]}
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the path never launched: {launches}")
     print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "cut_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/cut_fwd.cu",
-        "replaces": "src/repro/kernels/inl_bottleneck.py:83",
-        "launches": launches["cut_fwd"], "max_abs_err": worst,
-        "ms": kernel, "plain_ms": plain, "bound_ms": bound,
-        "bound_by": "bytes", "library_ms": None,
-        "shape": "R=320 d=64 fp32 none b=32"}]}))
+          f"{time.perf_counter() - t0:.1f} s; final accuracy {accuracy}, "
+          f"train step {step_ms:.3f} ms (device busy {step_busy:.4f} ms)")
+    src = "src/repro_torch/kernels/csrc/"
+    replaces = "src/repro/kernels/inl_bottleneck.py:"
+    kernels = []
+    for kname, line, shape, key, per_step, path in (
+            ("cut_fwd", 83, "R=320 d=64 fp32 none b=32 (serving)",
+             (320, "none", 32), f"1 + 1 per evaluation; serving: "
+             f"{serve_launches['cut_fwd']} in its run", "training"),
+            ("cut_bwd", 169, "R=320 d=64 fp32 sample b=32 (training)",
+             ("cut_bwd", 320), 1, "training"),
+            ("cut_prior_fwd", 279,
+             "J=5 T=64 d=64 fp32 sample b=32 (training)",
+             ("cut_prior_fwd", 320), 1, "training, learned prior"),
+            ("cut_prior_bwd", 298,
+             "J=5 T=64 d=64 fp32 sample (training)",
+             ("cut_prior_bwd", 320), 1, "training, learned prior")):
+        k_ms, p_ms, b_ms = rows[key]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": f"{src}{kname}.cu",
+            "replaces": f"{replaces}{line}", "launches": launches[kname],
+            "max_abs_err": worst[kname], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
+            "shape": shape, "launches_per_train_step": per_step,
+            "path": path})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -29,17 +29,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def tree_map(fn: Callable[[torch.Tensor], Any], tree):
+def tree_map(fn: Callable[..., Any], tree, *rest):
     """Apply `fn` to every tensor leaf of nested dicts, lists, tuples and
-    NamedTuples, keeping the structure."""
+    NamedTuples, keeping the structure; with `rest`, to the leaves of
+    several trees of one structure at once (fn(leaf, *rest_leaves))."""
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
+        return type(tree)(*(tree_map(fn, *vs) for vs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
     return tree
 
 
@@ -48,3 +50,10 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(tree, leaves):
+    """`tree`'s structure with its tensor leaves replaced, in `tree_map`
+    order, by `leaves`."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)

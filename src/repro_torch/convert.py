@@ -9,6 +9,8 @@ attributes and dict keys only; the port imports nothing of JAX or `repro`.
     dense weights  (d_in, d_out), unchanged: the port stores them so
     head weights   unchanged: the port flattens NHWC as the reference does
     BatchNorm      scale/bias and running mean/var copied
+    priors         the learned (J, d) prior mean/log-variance copied ({}
+                   for the standard normal)
 """
 from __future__ import annotations
 
@@ -27,9 +29,6 @@ def inl_from_jax(params_np, state_np, cfg, device=None):
     """(reference INLParams of numpy leaves, {"encoders": ...} state) ->
     the port's (INLParams, state) on `device` (None: cuda)."""
     device = resolve_device(device)
-    if params_np.priors:
-        raise NotImplementedError("learned priors come with the "
-                                  "learned-prior slice of the port")
     enc = params_np.encoders
     if len(enc["convs"]) != len(cfg.conv_channels):
         raise ValueError(f"{len(enc['convs'])} conv layers in the "
@@ -50,6 +49,8 @@ def inl_from_jax(params_np, state_np, cfg, device=None):
     state = {"encoders": {"bns": [
         {k: _tensor(s[k], device) for k in ("mean", "var")}
         for s in state_np["encoders"]["bns"]]}}
+    priors = {k: _tensor(params_np.priors[k], device)
+              for k in ("mu", "logvar")} if params_np.priors else {}
     params = INLParams({"convs": convs, "bns": bns, "head": head}, decoder,
-                       {})
+                       priors)
     return params, state

@@ -1,17 +1,28 @@
-"""In-network learning (INL) — the paper's architecture (§III), inference.
+"""In-network learning (INL) — the paper's architecture (§III).
 
 Reference: src/repro/core/inl.py (`INLParams`, `init`, `_encode_mu_logvar`,
-`encode` on its deterministic branch, `decode`, `predict` on the star,
-`evaluate`).  J edge nodes encode their views into bottleneck latents u_j;
-node (J+1) concatenates them (eq. 5) and decodes.
+`encode_and_rate`, `encode`, `decode`, `loss_fn`, `make_train_step`,
+`predict` and `evaluate`, on the star).  J edge nodes encode their views
+into bottleneck latents u_j; node (J+1) concatenates them (eq. 5) and
+decodes.  Training optimises eq. (6) end to end: autograd through the
+concatenation hands node j only its chunk delta[j] of the decoder-input
+cotangent, and the cut layer's hand-written backward adds the gradient of
+its own rate term (eq. 10).
 
 Encoder parameters are STACKED along a leading J axis, as in the reference,
 so converted JAX parameters keep their layout.  The J encoders run in a
-loop; the cut layer then folds all J nodes into ONE kernel launch.
+loop; the cut layer then folds all J nodes into ONE kernel launch per
+direction.
 
-Training (`loss_fn`, the train step), learned priors, the stochastic
-`encode`, delivery masks and non-star topologies come with later slices of
-the port and raise NotImplementedError here.
+Randomness: JAX's threefry streams cannot be reproduced in torch.  A
+training step draws its noise from a torch.Generator — eps (J, B, d) first,
+then the decoder's dropout keep masks, layer by layer — or takes them as
+`eps=` / `drop_masks=`, which is how the parity tests feed it the
+reference's draws.
+
+Delivery masks, non-star topologies, the packed wires and the
+heterogeneous-encoder variant come with later slices of the port and raise
+NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -19,15 +30,16 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import resolve_device, tree_leaves, tree_map
-from repro_torch.core import bottleneck, losses, paper_model
+from repro_torch import resolve_device, tree_leaves, tree_map, tree_unflatten
+from repro_torch.core import bottleneck, linkmodel, losses, paper_model
 from repro_torch.core import topology as topology_lib
+from repro_torch.core import wirefmt
 
 
 class INLParams(NamedTuple):
     encoders: dict          # stacked: leading axis J
     decoder: dict
-    priors: dict            # {} when standard-normal
+    priors: dict            # {} when standard-normal, else (J, d) leaves
 
 
 def _generator(generator, device: torch.device) -> torch.Generator:
@@ -43,27 +55,27 @@ def init(cfg, generator, *, device=None):
     """cfg: PaperExperimentConfig; generator: a torch.Generator on `device`
     or an int seed.  Returns (INLParams, state) on `device` (None: cuda).
 
-    Deterministic in the generator, but not the reference's numbers: JAX's
-    threefry streams cannot be reproduced in torch.  For parity, convert
-    the reference's parameters with repro_torch.convert.inl_from_jax."""
+    cfg.learned_prior=True adds per-node trainable Gaussian priors ((J, d)
+    mean and log-variance, starting at the standard normal); the rate then
+    runs on the prior kernels.  Deterministic in the generator, but not the
+    reference's numbers: for parity, convert the reference's parameters
+    with repro_torch.convert.inl_from_jax."""
     device = resolve_device(device)
-    if getattr(cfg, "learned_prior", False):
-        raise NotImplementedError("learned priors come with the "
-                                  "learned-prior slice of the port")
     gen = _generator(generator, device)
     nodes = [paper_model.encoder_init(gen, cfg, device=device)
              for _ in range(cfg.num_clients)]
     enc_params = _stack([p for p, _ in nodes])
     enc_state = _stack([s for _, s in nodes])
     dec = paper_model.decoder_init(gen, cfg, device=device)
-    return INLParams(enc_params, dec, {}), {"encoders": enc_state}
+    priors = bottleneck.prior_init(
+        cfg.d_bottleneck, learned=getattr(cfg, "learned_prior", False),
+        num_nodes=cfg.num_clients, device=device)
+    return INLParams(enc_params, dec, priors), {"encoders": enc_state}
 
 
 def _stack(trees):
     """Per-node trees of one structure -> one tree with a leading J axis."""
-    flat = [tree_leaves(t) for t in trees]
-    stacked = iter(torch.stack(ts) for ts in zip(*flat))
-    return tree_map(lambda _: next(stacked), trees[0])
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
 def params_device(params: INLParams) -> torch.device:
@@ -85,15 +97,38 @@ def _encode_mu_logvar(params: INLParams, state, views, *, train: bool):
     return (torch.stack(mus), torch.stack(lvs)), _stack(new_states)
 
 
+def encode_and_rate(params: INLParams, state, views, *, train: bool,
+                    generator=None, eps=None, link_bits: int = 32,
+                    rate_estimator: str = "sample"):
+    """The fused edge hot path: views (J, B, H, W, C) ->
+    (u (J, B, d), mu, logvar, rate (J, B), new_state).
+
+    After the per-node encoders produce (mu, logvar), ONE cut-layer launch
+    (the client axis folded into the rows) yields the quantized
+    transmission u and the per-sample eq.-(6) rate; learned priors
+    (params.priors non-empty) ride the prior kernels.  The noise comes from
+    `generator` or `eps`."""
+    (mu, logvar), new_state = _encode_mu_logvar(params, state, views,
+                                                train=train)
+    u, rate = bottleneck.fused_sample_rate(
+        generator, mu, logvar, link_bits=link_bits,
+        rate_estimator=rate_estimator, prior=params.priors, eps=eps)
+    return u, mu, logvar, rate, {"encoders": new_state}
+
+
 def encode(params: INLParams, state, views, *, train: bool, generator=None,
            link_bits: int = 32, sample_latent: bool = True):
     """views: (J, B, H, W, C) -> (u (J, B, d), mu, logvar, new_state).
 
-    The deterministic path (inference, u = quantize(mu)) is the cut-layer
-    kernel's no-noise "none" mode, one launch for all J nodes."""
+    Everything that runs AT THE EDGE; u is what crosses the links.  With a
+    generator (and sample_latent) u is the stochastic sample; otherwise the
+    deterministic u = quantize(mu), the cut-layer kernel's no-noise "none"
+    mode.  Both are one launch for all J nodes."""
     if sample_latent and generator is not None:
-        raise NotImplementedError("the stochastic encode (sample + rate) "
-                                  "comes with the training slice")
+        u, mu, logvar, _, new_state = encode_and_rate(
+            params, state, views, train=train, generator=generator,
+            link_bits=link_bits)
+        return u, mu, logvar, new_state
     (mu, logvar), new_state = _encode_mu_logvar(params, state, views,
                                                 train=train)
     u_sent, _ = bottleneck.fused_sample_rate(
@@ -101,12 +136,17 @@ def encode(params: INLParams, state, views, *, train: bool, generator=None,
     return u_sent, mu, logvar, {"encoders": new_state}
 
 
-def decode(params: INLParams, u, *, train: bool, u_joint=None):
-    """Node (J+1): u (J, B, d) -> (joint_logits, branch_logits (J, B, C))."""
+def decode(params: INLParams, u, *, train: bool, u_joint=None,
+           drop_masks=None):
+    """Node (J+1): u (J, B, d) -> (joint_logits, branch_logits (J, B, C)).
+
+    u_joint — the latents as received over the wire (defaults to u); the
+    fusion decoder reads it, the branch heads read u.  drop_masks — the
+    decoder's dropout keep masks in training (none: no dropout)."""
     if u_joint is None:
         u_joint = u
     joint = paper_model.decoder_apply(params.decoder, _concat(u_joint),
-                                      train=train)
+                                      train=train, drop_masks=drop_masks)
     branch = paper_model.branch_heads_apply(params.decoder, u)
     return joint, branch
 
@@ -114,6 +154,117 @@ def decode(params: INLParams, u, *, train: bool, u_joint=None):
 def _concat(u):
     J, B, d = u.shape
     return u.permute(1, 0, 2).reshape(B, J * d)            # eq. (5) concat
+
+
+def _star_only(cfg, topology, delivery, *, train=None) -> None:
+    """Refuse what the clean star does not cover: delivery masks, non-star
+    graphs and, in a loss (train True or False, not None for predict), link
+    models and the training edge-dropout curriculum."""
+    if delivery is not None:
+        raise NotImplementedError("delivery masks (fuse-what-arrived) come "
+                                  "with the link-fault slice of the port")
+    if cfg is None:
+        return
+    topo = topology_lib.resolve(topology, cfg)
+    if train is not None and (
+            any(e.link is not None for e in topo.edges)
+            or (train and getattr(cfg, "edge_dropout", 0.0) > 0.0)):
+        raise NotImplementedError("link models and edge dropout come with "
+                                  "the link-fault slice of the port")
+    if not topo.is_default_star():
+        raise NotImplementedError("non-star topologies come with the "
+                                  "topology slice of the port")
+
+
+def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
+            eps=None, drop_masks=None, train: bool = True,
+            rate_estimator: str = "sample", wire: str = "dense",
+            topology=None, delivery=None):
+    """Full eq.-(6) loss on the clean star.  Returns (loss, (metrics,
+    new_state)); new_state's BatchNorm statistics are detached.
+
+    The cut layer runs the fused kernel, which also emits the per-sample
+    rate; losses.inl_loss takes it instead of recomputing it.
+    cfg.compute_dtype="bf16" applies the mixed-precision policy: params
+    and views drop to bf16 INSIDE this function, so the gradients and the
+    optimizer's parameters stay fp32.
+
+    Noise: eps (J, B, d) fp32, else drawn from `generator`; in training,
+    drop_masks (one (B, units) bool tensor per hidden decoder layer), else
+    drawn from `generator` after eps (paper_model.decoder_dropout_masks)."""
+    _star_only(cfg, topology, delivery, train=train)
+    dt = paper_model.compute_dtype(cfg)
+    params_c = paper_model.cast_compute(params, dt)
+    views = views.to(dt)
+    if eps is None and generator is None:
+        raise ValueError("loss_fn draws eps from `generator`; pass "
+                         "generator= or eps=")
+    (mu, logvar), new_enc = _encode_mu_logvar(params_c, state, views,
+                                              train=train)
+    u, rate, u_joint = wirefmt.cut_and_ship(
+        generator if eps is None else None, mu, logvar,
+        link_bits=cfg.link_bits, rate_estimator=rate_estimator, wire=wire,
+        prior=params_c.priors, eps=eps)
+    B = labels.shape[0]
+    if train and drop_masks is None:
+        if generator is None:
+            raise ValueError("training draws dropout masks from "
+                             "`generator`; pass generator= or drop_masks=")
+        drop_masks = paper_model.decoder_dropout_masks(
+            generator, cfg.dense_units, B, device=mu.device)
+    joint, branch = decode(params_c, u, train=train, u_joint=u_joint,
+                           drop_masks=drop_masks)
+    J = u.shape[0]
+    loss, metrics = losses.inl_loss(
+        joint, list(branch), labels, list(mu), list(logvar), list(u),
+        s=cfg.s, rate_estimator=rate_estimator, rates=list(rate))
+    metrics["accuracy"] = losses.accuracy(joint, labels)
+    # §III-C accounting: activations forward + error vectors backward
+    bits_sent = linkmodel.training_step_bits(B, J * cfg.d_bottleneck,
+                                             cfg.link_bits)
+    metrics["bits_sent"] = torch.tensor(float(bits_sent),
+                                        dtype=torch.float32)
+    new_state = tree_map(torch.Tensor.detach, {"encoders": new_enc})
+    return loss, (metrics, new_state)
+
+
+def make_train_step(cfg, optimizer, *, rate_estimator: str = "sample",
+                    wire: str = "dense", topology=None,
+                    explicit_delivery: bool = False):
+    """The train step closed over the experiment config and optimizer:
+
+        step(params, state, opt_state, views, labels, generator, *,
+             eps=None, drop_masks=None)
+            -> (new_params, new_state, new_opt_state, metrics)
+
+    One eq.-(6) loss, its gradient with respect to the parameters only
+    (the BatchNorm statistics come back as new, detached state) and one
+    optimizer update.  The metrics are detached tensors."""
+    if explicit_delivery:
+        raise NotImplementedError("the transport-mode step (explicit "
+                                  "delivery masks) comes with the "
+                                  "link-fault slice of the port")
+    _star_only(cfg, topology, None, train=True)
+    wirefmt.resolve_wire(wire, cfg.link_bits)
+
+    def step(params, state, opt_state, views, labels, generator, *,
+             eps=None, drop_masks=None):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        p_req = tree_unflatten(params, leaves)
+        with torch.enable_grad():
+            loss, (metrics, new_state) = loss_fn(
+                p_req, state, views, labels, cfg, generator=generator,
+                eps=eps, drop_masks=drop_masks, train=True,
+                rate_estimator=rate_estimator, wire=wire, topology=topology)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+        new_params, new_opt = optimizer.update(grads, opt_state, params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return new_params, new_state, new_opt, metrics
+    return step
 
 
 def predict(params: INLParams, state, views, *, cfg=None, topology=None,
@@ -128,12 +279,7 @@ def predict(params: INLParams, state, views, *, cfg=None, topology=None,
     if pdev.type != device.type or device.index not in (None, pdev.index):
         raise ValueError(f"parameters lie on {pdev}, predict was asked to "
                          f"run on {device}")
-    if delivery is not None:
-        raise NotImplementedError("delivery masks (fuse-what-arrived) come "
-                                  "with the link-fault slice of the port")
-    if cfg is not None and topology_lib.nontrivial(topology, cfg) is not None:
-        raise NotImplementedError("non-star topologies come with the "
-                                  "topology slice of the port")
+    _star_only(cfg, topology, delivery)
     views = torch.as_tensor(views, dtype=torch.float32, device=pdev)
     with torch.no_grad():
         u, _, _, _ = encode(params, state, views, train=False,

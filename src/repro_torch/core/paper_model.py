@@ -1,11 +1,13 @@
 """The paper's §IV network (Fig. 4): per-client VGG-style conv encoders over
 32x32x3 noisy views, and two dense layers at node (J+1).
 
-Reference: src/repro/core/paper_model.py.  The public functions keep the
-reference's layout: an encoder takes views (B, H, W, C), and its flatten
-before the head is in NHWC order, so converted JAX head weights apply
-unchanged.  Inside, the trunk runs NCHW for F.conv2d; `conv`, `bn_apply` and
-`maxpool2` take NCHW tensors.  Conv weights are stored OIHW.
+Reference: src/repro/core/paper_model.py (`compute_dtype`, `cast_compute`,
+the encoder, the decoder, `decoder_dropout_masks`).  The public functions
+keep the reference's layout: an encoder takes views (B, H, W, C), and its
+flatten before the head is in NHWC order, so converted JAX head weights
+apply unchanged.  Inside, the trunk runs NCHW for F.conv2d; `conv`,
+`bn_apply` and `maxpool2` take NCHW tensors.  Conv weights are stored
+OIHW.
 
 BatchNorm is written by hand, not nn.BatchNorm2d: training statistics use
 the two-pass biased variance, and BN_MOMENTUM = 0.9 weighs the OLD running
@@ -18,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree_map
 from repro_torch.core import bottleneck
 from repro_torch.models import layers
 
@@ -35,6 +38,18 @@ def compute_dtype(cfg):
     except KeyError:
         raise ValueError(f"unknown compute_dtype {name!r}; "
                          f"known: {sorted(COMPUTE_DTYPES)}") from None
+
+
+def cast_compute(tree, dtype):
+    """Cast the fp32 leaves of a parameter tree to the compute dtype.
+
+    Applied INSIDE the loss function, so autograd casts the gradients back
+    to fp32 and the optimizer keeps full-precision parameters (the
+    mixed-precision split).  The identity for fp32."""
+    if dtype == torch.float32:
+        return tree
+    return tree_map(
+        lambda x: x.to(dtype) if x.dtype == torch.float32 else x, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +174,16 @@ def decoder_apply(p, u_cat, *, train: bool, drop: float = 0.3,
             h = torch.where(drop_masks[i], h / (1.0 - drop),
                             torch.zeros((), dtype=h.dtype, device=h.device))
     return layers.dense(p["dense"][-1], h)
+
+
+def decoder_dropout_masks(generator: torch.Generator, dense_units,
+                          batch: int, drop: float = 0.3, *, device=None):
+    """Keep masks for `decoder_apply(drop_masks=)`: one (batch, units) bool
+    tensor per hidden layer, each entry kept with probability 1 - drop,
+    drawn from `generator` (on `device`) layer after layer."""
+    return [torch.rand((batch, units), generator=generator,
+                       device=device) < (1.0 - drop)
+            for units in dense_units]
 
 
 def branch_heads_apply(p, us):

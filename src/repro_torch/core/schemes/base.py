@@ -1,30 +1,82 @@
 """The `Scheme` interface registered schemes implement.
 
-Reference: src/repro/core/schemes/base.py (`Scheme.serve_buckets`,
-`predict`, `predict_batched`).  A scheme's `state` is an opaque dict of
-tensors bundling its parameters and model state; only the scheme looks
-inside.  The training half of the interface (`make_round`, the bandwidth
-ledgers) comes with the training slice of the port.
+Reference: src/repro/core/schemes/base.py (`Scheme.batches_per_round`,
+`init`, `make_round`, `make_epoch`, `predict`, `serve_buckets`,
+`predict_batched`, the bandwidth ledgers `bits_per_round`,
+`epoch_overhead_bits`, `wire_bytes_per_round`,
+`epoch_overhead_wire_bytes`, `edge_ledger`, and `evaluate_accuracy`).  A
+scheme's `state` is an opaque dict of tensors bundling its parameters,
+model state and optimizer state; only the scheme looks inside.
+
+Rounds vs batches: a "round" is the scheme's training transaction (one
+optimizer step for INL); `batches_per_round` tells the runner how many
+(views, labels) minibatches to stack into one round call, which receives
+them as (R, J, B, ...) / (R, B) tensors.  Randomness comes from a
+torch.Generator the runner owns and hands to every round.
+
+The transport round, the sharded round and the fault-aware predicts come
+with their slices of the port.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 
 class Scheme:
-    """Base class: override `init` and `predict`."""
+    """Base class: override `init`, `make_round`, `predict` and the
+    bandwidth ledgers."""
 
     name: str = ""
+
+    def batches_per_round(self, cfg) -> int:
+        """Minibatches one round consumes (the runner stacks this many)."""
+        return 1
+
+    def init(self, cfg, generator, *, lr: float = 2e-3, device=None) -> Any:
+        """Build parameters and optimizer state for `cfg`
+        (PaperExperimentConfig) on `device` (None: cuda), deterministic in
+        `generator`; `lr` must match `make_round`'s."""
+        raise NotImplementedError
+
+    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
+                   topology=None):
+        """Return round_fn(state, views, labels, generator, *, eps=None,
+        drop_masks=None) -> (new_state, metrics) with views (R, J, B, H, W,
+        C), labels (R, B), R == batches_per_round(cfg).  The round draws its
+        randomness from `generator` unless it is given; metrics include
+        "loss"."""
+        raise NotImplementedError
+
+    def make_epoch(self, cfg, *, lr: float = 2e-3, mesh=None,
+                   wire: str = "dense", topology=None):
+        """K rounds in one call: epoch_fn(state, views, labels, generator)
+        -> (state, metrics) with views (K, R, J, B, ...), labels (K, R, B)
+        and metrics stacked (K,).  The reference runs them as one jitted
+        lax.scan; eager PyTorch has no scan, so this is a Python loop over
+        `make_round`, drawing from `generator` round after round exactly as
+        K separate rounds would."""
+        if mesh is not None:
+            raise NotImplementedError("mesh execution comes with the "
+                                      "sharded slice of the port")
+        round_fn = self.make_round(cfg, lr=lr, wire=wire, topology=topology)
+
+        def epoch_fn(state, views, labels, generator):
+            per_round = []
+            for k in range(views.shape[0]):
+                state, metrics = round_fn(state, views[k], labels[k],
+                                          generator)
+                per_round.append(metrics)
+            stacked = {key: torch.stack([m[key] for m in per_round])
+                       for key in (per_round[0] if per_round else {})}
+            return state, stacked
+        return epoch_fn
 
     # serving bucket sizes (repro_torch/serving): in-flight requests are
     # padded to the smallest bucket, so the engine runs at most one batch
     # shape per bucket size
     serve_buckets: Tuple[int, ...] = (1, 4, 16, 64)
-
-    def init(self, cfg, generator, *, device=None) -> Any:
-        """Build the state for `cfg` (PaperExperimentConfig) on `device`
-        (None: cuda), deterministic in `generator`."""
-        raise NotImplementedError
 
     def predict(self, state, views, topology=None, cfg=None, *,
                 device=None) -> Any:
@@ -43,5 +95,48 @@ class Scheme:
         return self.predict(state, views, topology=topology, cfg=cfg,
                             device=device)
 
+    def bits_per_round(self, cfg, state, batch_size: int, *,
+                       topology=None) -> float:
+        """Bits moved by ONE round, via the core/bandwidth.py closed
+        forms."""
+        raise NotImplementedError
+
+    def epoch_overhead_bits(self, cfg, state) -> float:
+        """Bits charged once per epoch on top of the per-round cost.
+        Default 0."""
+        return 0.0
+
+    def wire_bytes_per_round(self, cfg, state, batch_size: int, *,
+                             wire: str = "dense", topology=None) -> float:
+        """MEASURED bytes one round puts on the wire under `wire`: the
+        nbytes of the transmitted buffers (core/wirefmt.py), not the
+        closed-form accounting."""
+        raise NotImplementedError
+
+    def epoch_overhead_wire_bytes(self, cfg, state) -> float:
+        """Measured bytes of the once-per-epoch transfers.  Default 0."""
+        return 0.0
+
+    def edge_ledger(self, cfg, state, batch_size: int, *,
+                    wire: str = "dense",
+                    topology=None) -> Optional[Dict[str, Tuple[float,
+                                                               float]]]:
+        """Per-edge bandwidth of one round: {edge_key: (closed-form bits,
+        measured wire bytes)}, summing to bits_per_round /
+        wire_bytes_per_round exactly.  None (the default) for schemes whose
+        exchange has no per-edge decomposition."""
+        return None
+
     def __repr__(self):
         return f"<Scheme {self.name!r}>"
+
+
+def evaluate_accuracy(scheme: Scheme, state, views, labels, topology=None,
+                      cfg=None, *, device=None) -> float:
+    """Top-1 accuracy through the scheme's own predict convention, one
+    predict over all of `views`."""
+    probs = scheme.predict(state, views, topology=topology, cfg=cfg,
+                           device=device)
+    labels = torch.as_tensor(labels, device=probs.device)
+    return float((torch.argmax(probs, dim=-1) == labels)
+                 .to(torch.float32).mean())

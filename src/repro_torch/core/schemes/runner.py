@@ -1,0 +1,180 @@
+"""Registry-driven training runner — one loop for every scheme.
+
+Reference: src/repro/core/schemes/runner.py (`CurvePoint`,
+`rounds_per_epoch`, `run_scheme` on its per-round dispatch, `run_all`,
+`efficiency`).  The scheme supplies init / round / predict / bandwidth
+through the Scheme interface; this module supplies the epoch loop,
+minibatch grouping, the BandwidthMeter and the accuracy-vs-Gbit curve.
+
+The port has one dispatch, "per_round": one round call per group of
+minibatches, the reference's `_run_per_round`.  The reference's default
+"scan" (a whole epoch as one jitted lax.scan) has no eager counterpart yet:
+a CUDA graph per epoch would be one, and it comes with a later slice, as do
+`mesh=` (the sharded slice), `transport=` (the transport slice) and
+`ckpt_dir=` (the checkpoint slice); each raises NotImplementedError.
+
+The data set moves to the device once; each round gathers its minibatch
+there from the reference's seeded batch indices (data/multiview), so the
+port sees the same batches in the same order.  A torch.Generator seeded
+with `seed + 1` supplies every round's eps and dropout masks, in that
+order; the initial state comes from one seeded with `seed`.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import bandwidth, schemes
+from repro_torch.core.schemes import base
+from repro_torch.data import multiview
+
+
+class CurvePoint(NamedTuple):
+    epoch: int
+    accuracy: float
+    gbits: float                 # cumulative ACCOUNTED bits (§III-C), Gbit
+    measured_gbits: float = 0.0  # cumulative MEASURED wire-buffer bits, Gbit
+    delivered_gbits: float = 0.0  # what actually reached its consumer, Gbit
+
+
+def _round_charges(scheme, cfg, state, batch_size, *, wire, topology):
+    """ONE round's bandwidth charges, computed once per run: the per-edge
+    ledger where the scheme decomposes its exchange over the topology's
+    links, else the scalar totals under the key None."""
+    ledger = scheme.edge_ledger(cfg, state, batch_size, wire=wire,
+                                topology=topology)
+    if ledger is not None:
+        return ledger
+    return {None: (scheme.bits_per_round(cfg, state, batch_size,
+                                         topology=topology),
+                   scheme.wire_bytes_per_round(cfg, state, batch_size,
+                                               wire=wire,
+                                               topology=topology))}
+
+
+def _meter_rounds(meter, charges) -> None:
+    """Charge one round as offered traffic and, on the clean network,
+    credit the same on the delivered ledger."""
+    for edge, (bits, nbytes) in charges.items():
+        if edge is None:
+            meter.add(bits)
+            meter.add_measured(nbytes)
+        else:
+            meter.add_edge(edge, bits=bits, nbytes=nbytes)
+    for edge, (bits, nbytes) in charges.items():
+        meter.add_delivered(bits=bits, nbytes=nbytes, edge=edge)
+
+
+def _meter_overheads(meter, scheme, cfg, state) -> None:
+    """Once-per-epoch charges, charged and delivered in full."""
+    bits = scheme.epoch_overhead_bits(cfg, state)
+    nbytes = scheme.epoch_overhead_wire_bytes(cfg, state)
+    meter.add(bits)
+    meter.add_measured(nbytes)
+    meter.add_delivered(bits=bits, nbytes=nbytes)
+
+
+def rounds_per_epoch(scheme, cfg, n: int, batch_size: int) -> int:
+    """Rounds one epoch of an n-sample set runs: full minibatches grouped
+    by the scheme's batches_per_round."""
+    return (n // batch_size) // scheme.batches_per_round(cfg)
+
+
+def _refuse_deferred(dispatch, mesh, transport, ckpt_dir) -> None:
+    if dispatch == "scan":
+        raise NotImplementedError(
+            "dispatch='scan' (a whole epoch per dispatch; a CUDA graph per "
+            "epoch in eager PyTorch) comes with a later slice of the port; "
+            "use dispatch='per_round'")
+    if dispatch != "per_round":
+        raise ValueError(f"unknown dispatch {dispatch!r}")
+    if mesh is not None:
+        raise NotImplementedError("mesh= comes with the sharded slice of "
+                                  "the port")
+    if transport is not None:
+        raise NotImplementedError("transport= comes with the transport "
+                                  "slice of the port")
+    if ckpt_dir is not None:
+        raise NotImplementedError("ckpt_dir= comes with the checkpoint "
+                                  "slice of the port")
+
+
+def run_scheme(name: str, views, labels, cfg, *, epochs: int,
+               batch_size: int = 64, lr: float = 2e-3, seed: int = 0,
+               eval_n: int = 512, dispatch: str = "per_round", mesh=None,
+               wire: str = "dense", topology=None, meter=None,
+               transport=None, ckpt_dir=None,
+               device=None) -> List[CurvePoint]:
+    """Train scheme `name` for `epochs` over the (J, n, ...) multi-view set
+    (numpy or tensors) on `device` (None: cuda) and return its
+    accuracy/bandwidth curve (paper Figs. 5/7 rows).
+
+    Minibatches are grouped `batches_per_round(cfg)` at a time into round
+    calls; a trailing partial group is dropped.  Bandwidth accrues on two
+    ledgers: the §III-C closed forms (`gbits`) and the measured bytes of
+    the wire buffers (`measured_gbits`), per edge where the scheme
+    decomposes its exchange (pass `meter=` a BandwidthMeter to read the
+    per-edge ledgers afterwards).  After each epoch, accuracy is one
+    predict over the first `eval_n` samples."""
+    _refuse_deferred(dispatch, mesh, transport, ckpt_dir)
+    device = resolve_device(device)
+    scheme = schemes.get(name)
+    state = scheme.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                        lr=lr, device=device)
+    round_fn = scheme.make_round(cfg, lr=lr, wire=wire, topology=topology)
+    bpr = scheme.batches_per_round(cfg)
+    views = torch.as_tensor(np.asarray(views), dtype=torch.float32,
+                            device=device)
+    labels = torch.as_tensor(np.asarray(labels), device=device).long()
+    n = labels.shape[0]
+    meter = bandwidth.BandwidthMeter() if meter is None else meter
+    charges = _round_charges(scheme, cfg, state, batch_size, wire=wire,
+                             topology=topology)
+    rounds = rounds_per_epoch(scheme, cfg, n, batch_size)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    n_eval = min(eval_n, n)
+    ev, el = views[:, :n_eval], labels[:n_eval]
+
+    curve: List[CurvePoint] = []
+    for ep in range(epochs):
+        # the epoch's batch indices go to the device in one copy
+        batches = list(multiview.batch_indices(n, batch_size, seed=ep))
+        idx = torch.as_tensor(
+            np.array(batches[:rounds * bpr], dtype=np.int64).reshape(
+                rounds, bpr, batch_size), device=device)
+        for r in range(rounds):
+            # (bpr, J, B, ...) views and (bpr, B) labels, gathered on device
+            v = views[:, idx[r]].transpose(0, 1)
+            state, _ = round_fn(state, v, labels[idx[r]], gen)
+            _meter_rounds(meter, charges)
+        _meter_overheads(meter, scheme, cfg, state)
+        acc = base.evaluate_accuracy(scheme, state, ev, el,
+                                     topology=topology, cfg=cfg,
+                                     device=device)
+        curve.append(CurvePoint(ep + 1, acc, meter.gbits,
+                                meter.measured_gbits, meter.delivered_gbits))
+    return curve
+
+
+def run_all(names: Sequence[str], views, labels, cfg, *, epochs: int,
+            **kw) -> dict:
+    """Curves for several registered schemes on the same data.  A
+    caller-supplied `meter=` would accumulate every earlier scheme's
+    traffic into the later curves, so it is refused for several schemes."""
+    if kw.get("meter") is not None and len(names) > 1:
+        raise ValueError("meter= accumulates across runs; pass it to "
+                         "run_scheme per scheme (or run one scheme)")
+    return {n: run_scheme(n, views, labels, cfg, epochs=epochs, **kw)
+            for n in names}
+
+
+def efficiency(curve: Sequence[CurvePoint]) -> float:
+    """Final accuracy per Gbit exchanged (the paper's headline metric);
+    0.0 for an empty curve."""
+    if not curve:
+        return 0.0
+    last = curve[-1]
+    return last.accuracy / max(last.gbits, 1e-9)

@@ -1,18 +1,21 @@
 """Network topology: the inference graph, star only in this slice.
 
 Reference: src/repro/core/topology.py (`Node`, `Edge`, `Topology`, `star`,
-`resolve`, `nontrivial`, `edge_bits`, `edge_wire`, `edge_dtype`), copied
-(the data model is framework-free).  A Topology validates any single-sink
-DAG as the reference does, but the port executes only the default star:
-chains, trees and per-edge overrides run through `graph_cut_and_ship`,
-which comes with the topology slice of the port.
+`resolve`, `nontrivial`, `edge_bits`, `edge_wire`, `edge_dtype`, and the
+per-edge bandwidth `round_edge_bits`, `round_edge_wire_bytes`,
+`round_bits`, `round_wire_bytes`), copied (the data model is
+framework-free).  A Topology validates any single-sink DAG as the
+reference does, but the port executes only the default star, and the
+bandwidth functions take star graphs only: chains, trees and per-edge
+overrides run through `graph_cut_and_ship`, which comes with the topology
+slice of the port.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-from repro_torch.core import paper_model
+from repro_torch.core import paper_model, wirefmt
 
 ROLES = ("measure", "relay", "fuse")
 FUSE = "fuse"                     # canonical name of the fusion-center node
@@ -290,3 +293,52 @@ def edge_dtype(edge: Edge, cfg):
         raise ValueError(f"edge {edge.key} has unknown dtype {edge.dtype!r};"
                          f" known: {sorted(paper_model.COMPUTE_DTYPES)}"
                          ) from None
+
+
+# ---------------------------------------------------------------------------
+# Per-edge bandwidth of a star: closed forms and measured bytes
+# ---------------------------------------------------------------------------
+
+def _require_star(topo: Topology) -> None:
+    fuse = topo.fuse_node
+    if any(n.role == "relay" for n in topo.nodes) \
+            or any(e.dst != fuse for e in topo.edges):
+        raise NotImplementedError(
+            f"per-edge bandwidth of non-star graphs ({topo.describe()}) "
+            "comes with the topology slice of the port")
+
+
+def round_edge_bits(topo: Topology, cfg, batch_size: int) -> Dict[str, float]:
+    """Closed-form §III-C charge of ONE training round, per edge: the
+    forward activations and backward error vectors for every latent the
+    edge carries — 2 * batch * |payload| * d_bottleneck * link_bits.  For
+    `star(J)` the J edges sum to the Table-I total."""
+    _require_star(topo)
+    return {e.key: float(2 * batch_size * len(topo.payload(e))
+                         * cfg.d_bottleneck * edge_bits(e, cfg))
+            for e in topo.topo_edges()}
+
+
+def round_edge_wire_bytes(topo: Topology, cfg, batch_size: int, *,
+                          wire: str = "dense") -> Dict[str, float]:
+    """MEASURED bytes of one round, per edge: what the edge's wire buffers
+    occupy for its payload (core/wirefmt.round_wire_bytes), both
+    directions."""
+    _require_star(topo)
+    out = {}
+    for e in topo.topo_edges():
+        n_vec = batch_size * len(topo.payload(e))
+        out[e.key] = float(wirefmt.round_wire_bytes(
+            n_vec, cfg.d_bottleneck, link_bits=edge_bits(e, cfg),
+            wire=edge_wire(e, wire), dtype=edge_dtype(e, cfg))["total"])
+    return out
+
+
+def round_bits(topo: Topology, cfg, batch_size: int) -> float:
+    return float(sum(round_edge_bits(topo, cfg, batch_size).values()))
+
+
+def round_wire_bytes(topo: Topology, cfg, batch_size: int, *,
+                     wire: str = "dense") -> float:
+    return float(sum(round_edge_wire_bytes(topo, cfg, batch_size,
+                                           wire=wire).values()))

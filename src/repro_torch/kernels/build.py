@@ -7,12 +7,13 @@ Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`:
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 The library goes into `build/kernels/` at the root of the checkout (listed
-in `.gitignore`), named by a hash of its source, so an edited kernel is
-rebuilt and an unchanged one is built once.  Nothing is built when the
-package is imported: the first launch builds what it needs, and
-`build_all()` builds every source at once, one `nvcc` process each, all
-started together.  No `--use_fast_math`: the kernels' numerics are held
-bit for bit against their plain versions.
+in `.gitignore`), named by a hash of its source and of the shared headers
+(`csrc/*.cuh`), so an edited kernel or header is rebuilt and an unchanged
+one is built once.  Nothing is built when the package is imported: the
+first launch builds what it needs, and `build_all()` builds every source at
+once, one `nvcc` process each, all started together.  No
+`--use_fast_math`: the kernels' numerics are held bit for bit against their
+plain versions.
 """
 from __future__ import annotations
 
@@ -56,10 +57,14 @@ def nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """build/kernels/lib<name>-<hash>.so, the hash over the source, every
+    shared header of csrc/ (*.cuh, name and content) and the flags, so an
+    edited header rebuilds every library that may include it."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = None) -> Dict[str, float]:

@@ -21,43 +21,20 @@
 // neighbouring addresses; the per-row rate is reduced in registers with
 // __shfl_xor_sync and written by lane 0.  The grid covers ceil(rows / 8)
 // blocks of 8 warps and a warp whose row lies past the end returns, so ragged
-// row counts need no padding.  All arithmetic is fp32.
-//
-// Numerics, held bit for bit against the plain PyTorch version
-// (repro_torch/kernels/ref.py) and the JAX reference:
-//   * rintf rounds half to even, as jnp.round and torch.round do;
-//   * scale = ((1 << b) - 1) / (2 r) is computed in double and cast to fp32,
-//     as JAX casts the Python float;
-//   * the dequantize is a true division, idx / scale - r;
-//   * the quantizer chain is written with __fmul_rn / __fadd_rn / __fdiv_rn
-//     so nvcc cannot contract it into an FMA and move a codeword across a
-//     rounding midpoint (the file is built without --use_fast_math);
-//   * expf, not __expf.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// row counts need no padding.  All arithmetic is fp32; the quantizer chain
+// and its numerics are in cut_common.cuh, shared with the backward.
+#include "cut_common.cuh"
 
 namespace {
 
-constexpr int kSample = 0;
-constexpr int kAnalytic = 1;
-constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+using namespace cut;
 
 template <typename T>
 __global__ void cut_fwd_kernel(const T* __restrict__ mu,
                                const T* __restrict__ lv,
                                const float* __restrict__ eps,
                                T* __restrict__ u, float* __restrict__ rate,
-                               int64_t rows, int d, int quantize, float scale,
+                               int64_t rows, int d, int quant, float scale,
                                float r, int mode) {
   const int lane = threadIdx.x & 31;
   const int64_t row =
@@ -69,15 +46,8 @@ __global__ void cut_fwd_kernel(const T* __restrict__ mu,
     const float m = to_f32(mu[base + c]);
     const float l = to_f32(lv[base + c]);
     const float e = eps[base + c];
-    const float sigma = expf(__fmul_rn(0.5f, l));
-    const float pre = __fadd_rn(m, __fmul_rn(sigma, e));
-    float q = pre;
-    if (quantize) {
-      // comparisons (not fminf/fmaxf) so a NaN propagates as jnp.clip does
-      const float cl = pre < -r ? -r : (pre > r ? r : pre);
-      const float idx = rintf(__fmul_rn(__fadd_rn(cl, r), scale));
-      q = __fsub_rn(__fdiv_rn(idx, scale), r);
-    }
+    const float sigma = expf(mul(0.5f, l));
+    const float q = quantize(add(m, mul(sigma, e)), quant, scale, r);
     store(u + base + c, q);
     if (mode == kSample) {
       const float diff = q - m;
@@ -86,9 +56,7 @@ __global__ void cut_fwd_kernel(const T* __restrict__ mu,
       acc += expf(l) + m * m - 1.f - l;
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  acc = warp_sum(acc);
   if (lane == 0) rate[row] = 0.5f * acc;
 }
 
@@ -102,10 +70,8 @@ extern "C" int cut_fwd_launch(const void* mu, const void* lv, const void* eps,
                               int bits, float r, int mode, int is_bf16,
                               void* stream) {
   if (rows <= 0 || d <= 0 || bits < 1) return (int)cudaErrorInvalidValue;
-  const int quantize = bits < 32;
-  float scale = 1.f;
-  if (quantize)
-    scale = (float)((double)((1ull << bits) - 1ull) / (2.0 * (double)r));
+  const int quant = bits < 32;
+  const float scale = quant_scale(bits, r);
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
   cudaStream_t s = (cudaStream_t)stream;
@@ -113,11 +79,11 @@ extern "C" int cut_fwd_launch(const void* mu, const void* lv, const void* eps,
     cut_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
         (const __nv_bfloat16*)mu, (const __nv_bfloat16*)lv,
         (const float*)eps, (__nv_bfloat16*)u, (float*)rate, rows, d,
-        quantize, scale, r, mode);
+        quant, scale, r, mode);
   } else {
     cut_fwd_kernel<float><<<grid, block, 0, s>>>(
         (const float*)mu, (const float*)lv, (const float*)eps, (float*)u,
-        (float*)rate, rows, d, quantize, scale, r, mode);
+        (float*)rate, rows, d, quant, scale, r, mode);
   }
   return (int)cudaGetLastError();
 }

@@ -1,22 +1,34 @@
-"""Fused cut-layer forward: the CUDA kernel's wrapper.
+"""Fused cut layer: the CUDA kernels' wrappers and the autograd Functions.
 
-Reference: src/repro/kernels/inl_bottleneck.py, `cutlayer_fused` (the
-forward: `_cutlayer_call` folding the leading axes into rows, the Pallas
-kernel `_cut_fwd_kernel`).  Here the kernel is `csrc/cut_fwd.cu`, written
-for Hopper: one warp per row, so ragged row counts need no padding to a
-block size.
+Reference: src/repro/kernels/inl_bottleneck.py.  The Pallas kernels and
+their counterparts here, written for Hopper (`csrc/`):
+
+    _cut_fwd_kernel        -> csrc/cut_fwd.cu        cut_fwd
+    _cut_bwd_kernel        -> csrc/cut_bwd.cu        cut_bwd
+    _cut_prior_fwd_kernel  -> csrc/cut_prior_fwd.cu  cut_prior_fwd
+    _cut_prior_bwd_kernel  -> csrc/cut_prior_bwd.cu  cut_prior_bwd
+
+Each kernel takes one warp per row, so ragged row counts need no padding to
+a block size.
 
     u    = Q_b(mu + exp(logvar/2) * eps)   (..., d) in mu.dtype
     rate = the per-row rate of the mode    (...,)   fp32
 
-Dispatch is by the device of the tensors: CPU tensors take the plain
-version (kernels/ref.py), CUDA tensors the kernel, which raises if it cannot
-build or launch.  There is no fallback from one to the other.  Forward
-only: the backward kernel (`_cut_bwd_kernel`) comes with training, so a
-call that would need a gradient raises.
+`cutlayer_fused` folds the leading axes into rows and runs one of two
+`torch.autograd.Function`s, the counterparts of the reference's custom
+VJPs: `_CutLayer` saves (mu, logvar, eps) and its backward is the eq.-(10)
+split (`cut_bwd`); `_CutLayerPrior` (a learned prior, (d,) shared or (J, d)
+per node) also saves u and its backward yields the prior gradients too
+(`cut_prior_bwd`).  Autograd never differentiates a kernel body.
 
-`LAUNCHES` counts kernel launches by kernel name: each launch adds one, and
-nothing else does.
+Dispatch is by the device of the tensors: CPU tensors take the plain
+versions (kernels/ref.py), CUDA tensors the kernels, which raise if they
+cannot build or launch.  There is no fallback from one to the other.
+
+`LAUNCHES` counts kernel launches by kernel name: each call of a wrapper
+that launches its kernel adds one, and nothing else does.  `cut_prior_bwd`
+runs as two CUDA kernels one after the other (the rows with per-block
+partial sums, then the in-order sum of the partials); that call counts once.
 """
 from __future__ import annotations
 
@@ -28,44 +40,95 @@ import torch
 from repro_torch.kernels import build, ref
 
 MODES = ("sample", "analytic", "none")
+PRIOR_MODES = ("sample", "analytic")
 _MODE_ID = {"sample": 0, "analytic": 1, "none": 2}
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the prior backward keeps 4 x 8 warps x d fp32 sums in shared memory; the
+# card gives a block at most 227 KB of it
+PRIOR_BWD_MAX_D = 1792
 
-LAUNCHES = {"cut_fwd": 0}
+LAUNCHES = {"cut_fwd": 0, "cut_bwd": 0, "cut_prior_fwd": 0,
+            "cut_prior_bwd": 0}
+
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+# (source, C function) -> (argtypes, restype)
+_SIGNATURES = {
+    ("cut_fwd", "cut_fwd_launch"): ([_P] * 5 + [_L, _I, _I, _F, _I, _I, _P],
+                                    _I),
+    ("cut_bwd", "cut_bwd_launch"): ([_P] * 8 + [_L, _I, _I, _F, _I, _I, _P],
+                                    _I),
+    ("cut_prior_fwd", "cut_prior_fwd_launch"): (
+        [_P] * 7 + [_I, _L, _I, _I, _F, _I, _I, _P], _I),
+    ("cut_prior_bwd", "cut_prior_bwd_launch"): (
+        [_P] * 14 + [_I, _L, _I, _I, _I, _P], _I),
+    ("cut_prior_bwd", "cut_prior_bwd_scratch"): ([_I, _L, _I], _L),
+}
 
 
-def _launcher():
-    fn = build.load("cut_fwd").cut_fwd_launch
+def _c_function(source: str, name: str):
+    fn = getattr(build.load(source), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i,
-                       ctypes.c_float, i, i, p]
-        fn.restype = i
+        fn.argtypes, fn.restype = _SIGNATURES[(source, name)]
     return fn
 
 
-def cut_fwd(mu, logvar, eps, *, bits: int, mode: str):
-    """Launch the CUDA kernel on (R, d) rows: mu/logvar fp32 or bf16 (the
-    same type), eps fp32, all contiguous on one CUDA device.  Returns
-    (u (R, d) in mu.dtype, rate (R,) fp32), on the current stream."""
-    if mode not in _MODE_ID:
-        raise ValueError(f"unknown rate_estimator {mode!r}")
-    tensors = (mu, logvar, eps)
+def _check_cuda(name: str, tensors) -> None:
     if any(t.device.type != "cuda" for t in tensors):
-        raise ValueError("cut_fwd takes CUDA tensors; got devices "
+        raise ValueError(f"{name} takes CUDA tensors; got devices "
                          f"{[str(t.device) for t in tensors]}")
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("cut_fwd inputs lie on different devices")
-    if mu.dtype not in _KERNEL_DTYPES or logvar.dtype != mu.dtype:
-        raise TypeError(f"cut_fwd takes mu and logvar both fp32 or both "
-                        f"bf16; got {mu.dtype}, {logvar.dtype}")
-    if eps.dtype != torch.float32:
-        raise TypeError(f"cut_fwd takes fp32 eps; got {eps.dtype}")
+        raise ValueError(f"{name} inputs lie on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _check_latent_dtypes(name: str, mu, *same) -> None:
+    if mu.dtype not in _KERNEL_DTYPES or any(t.dtype != mu.dtype
+                                             for t in same):
+        raise TypeError(f"{name} takes mu, logvar (and u, gu) all fp32 or "
+                        f"all bf16; got {mu.dtype}, "
+                        f"{[t.dtype for t in same]}")
+
+
+def _check_fp32(name: str, **tensors) -> None:
+    for what, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes fp32 {what}; got {t.dtype}")
+
+
+def _check_mode(mode: str, allowed=MODES) -> None:
+    if mode not in allowed:
+        raise ValueError(f"unknown rate_estimator {mode!r} (this kernel "
+                         f"takes {allowed})")
+
+
+def _launch(name: str, fn, device, *args, what: str) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc} "
+                           f"({what})")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers: CUDA tensors only
+# ---------------------------------------------------------------------------
+
+def cut_fwd(mu, logvar, eps, *, bits: int, mode: str):
+    """Launch the forward kernel on (R, d) rows: mu/logvar fp32 or bf16 (the
+    same type), eps fp32, all contiguous on one CUDA device.  Returns
+    (u (R, d) in mu.dtype, rate (R,) fp32), on the current stream."""
+    _check_mode(mode)
+    tensors = (mu, logvar, eps)
+    _check_cuda("cut_fwd", tensors)
+    _check_latent_dtypes("cut_fwd", mu, logvar)
+    _check_fp32("cut_fwd", eps=eps)
     if mu.dim() != 2 or logvar.shape != mu.shape or eps.shape != mu.shape:
         raise ValueError(f"cut_fwd takes three equal (R, d) shapes; got "
                          f"{[tuple(t.shape) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("cut_fwd takes contiguous tensors")
     if bits < 1:
         raise ValueError(f"link_bits must be >= 1, got {bits}")
     R, d = mu.shape
@@ -73,47 +136,243 @@ def cut_fwd(mu, logvar, eps, *, bits: int, mode: str):
     rate = torch.empty((R,), dtype=torch.float32, device=mu.device)
     if R == 0 or d == 0:
         return u, rate.zero_()
-    launch = _launcher()
-    with torch.cuda.device(mu.device):
-        stream = torch.cuda.current_stream(mu.device).cuda_stream
-        rc = launch(
+    _launch("cut_fwd", _c_function("cut_fwd", "cut_fwd_launch"), mu.device,
             mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), u.data_ptr(),
             rate.data_ptr(), R, d, int(bits), ref.QUANT_RANGE, _MODE_ID[mode],
-            int(mu.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"cut_fwd launch failed with CUDA error {rc} "
-                           f"(R={R}, d={d}, bits={bits}, mode={mode})")
-    LAUNCHES["cut_fwd"] += 1
+            int(mu.dtype == torch.bfloat16),
+            what=f"R={R}, d={d}, bits={bits}, mode={mode}")
     return u, rate
 
 
+def cut_bwd(mu, logvar, eps, gu, grate, *, bits: int, mode: str):
+    """Launch the eq.-(10) backward kernel on (R, d) rows: mu/logvar/gu fp32
+    or bf16 (one type), eps fp32, grate (R,) fp32 (not read in the "none"
+    mode).  Returns (dmu, dlv, deps) in the dtypes of (mu, logvar, eps)."""
+    _check_mode(mode)
+    tensors = (mu, logvar, eps, gu, grate)
+    _check_cuda("cut_bwd", tensors)
+    _check_latent_dtypes("cut_bwd", mu, logvar, gu)
+    _check_fp32("cut_bwd", eps=eps, grate=grate)
+    if (mu.dim() != 2 or any(t.shape != mu.shape for t in (logvar, eps, gu))
+            or grate.shape != mu.shape[:1]):
+        raise ValueError(f"cut_bwd takes four equal (R, d) shapes and an "
+                         f"(R,) grate; got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if bits < 1:
+        raise ValueError(f"link_bits must be >= 1, got {bits}")
+    R, d = mu.shape
+    dmu, dlv = torch.empty_like(mu), torch.empty_like(logvar)
+    deps = torch.empty_like(eps)
+    if R == 0 or d == 0:
+        return dmu, dlv, deps
+    _launch("cut_bwd", _c_function("cut_bwd", "cut_bwd_launch"), mu.device,
+            mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), gu.data_ptr(),
+            grate.data_ptr(), dmu.data_ptr(), dlv.data_ptr(),
+            deps.data_ptr(), R, d, int(bits), ref.QUANT_RANGE,
+            _MODE_ID[mode], int(mu.dtype == torch.bfloat16),
+            what=f"R={R}, d={d}, bits={bits}, mode={mode}")
+    return dmu, dlv, deps
+
+
+def _check_prior_rows(name, mu, pmu, plv) -> None:
+    if mu.dim() != 3 or pmu.dim() != 2 or plv.shape != pmu.shape \
+            or pmu.shape != (mu.shape[0], mu.shape[2]):
+        raise ValueError(f"{name} takes (J, T, d) rows and (J, d) priors; "
+                         f"got {tuple(mu.shape)}, {tuple(pmu.shape)}, "
+                         f"{tuple(plv.shape)}")
+
+
+def cut_prior_fwd(mu, logvar, eps, pmu, plv, *, bits: int, mode: str):
+    """Launch the learned-prior forward kernel on (J, T, d) rows with (J, d)
+    fp32 priors; mode "sample" or "analytic".  Returns (u (J, T, d) in
+    mu.dtype, rate (J, T) fp32)."""
+    _check_mode(mode, PRIOR_MODES)
+    tensors = (mu, logvar, eps, pmu, plv)
+    _check_cuda("cut_prior_fwd", tensors)
+    _check_latent_dtypes("cut_prior_fwd", mu, logvar)
+    _check_fp32("cut_prior_fwd", eps=eps, prior_mu=pmu, prior_logvar=plv)
+    _check_prior_rows("cut_prior_fwd", mu, pmu, plv)
+    if logvar.shape != mu.shape or eps.shape != mu.shape:
+        raise ValueError("cut_prior_fwd takes three equal (J, T, d) shapes")
+    if bits < 1:
+        raise ValueError(f"link_bits must be >= 1, got {bits}")
+    J, T, d = mu.shape
+    u = torch.empty_like(mu)
+    rate = torch.empty((J, T), dtype=torch.float32, device=mu.device)
+    if J * T == 0 or d == 0:
+        return u, rate.zero_()
+    _launch("cut_prior_fwd",
+            _c_function("cut_prior_fwd", "cut_prior_fwd_launch"), mu.device,
+            mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), pmu.data_ptr(),
+            plv.data_ptr(), u.data_ptr(), rate.data_ptr(), J, T, d,
+            int(bits), ref.QUANT_RANGE, _MODE_ID[mode],
+            int(mu.dtype == torch.bfloat16),
+            what=f"J={J}, T={T}, d={d}, bits={bits}, mode={mode}")
+    return u, rate
+
+
+def cut_prior_bwd(mu, logvar, eps, pmu, plv, u, gu, grate, *, mode: str):
+    """Launch the learned-prior backward on (J, T, d) rows, (J, d) fp32
+    priors, the saved forward output u, its cotangent gu (both in mu's
+    dtype) and grate (J, T) fp32.  Returns (dmu, dlv, deps, dpmu, dplv),
+    the prior gradients (J, d) fp32, each node's sum over its T rows in a
+    fixed order: two launches on the same inputs give the same bits."""
+    _check_mode(mode, PRIOR_MODES)
+    tensors = (mu, logvar, eps, pmu, plv, u, gu, grate)
+    _check_cuda("cut_prior_bwd", tensors)
+    _check_latent_dtypes("cut_prior_bwd", mu, logvar, u, gu)
+    _check_fp32("cut_prior_bwd", eps=eps, prior_mu=pmu, prior_logvar=plv,
+                grate=grate)
+    _check_prior_rows("cut_prior_bwd", mu, pmu, plv)
+    if any(t.shape != mu.shape for t in (logvar, eps, u, gu)) \
+            or grate.shape != mu.shape[:2]:
+        raise ValueError("cut_prior_bwd takes five equal (J, T, d) shapes "
+                         "and a (J, T) grate")
+    J, T, d = mu.shape
+    if d > PRIOR_BWD_MAX_D:
+        raise ValueError(f"cut_prior_bwd takes d <= {PRIOR_BWD_MAX_D} (its "
+                         f"per-column sums live in shared memory); got {d}")
+    dmu, dlv = torch.empty_like(mu), torch.empty_like(logvar)
+    deps = torch.empty_like(eps)
+    dpmu, dplv = torch.empty_like(pmu), torch.empty_like(plv)
+    if J * T == 0 or d == 0:
+        return dmu, dlv, deps, dpmu.zero_(), dplv.zero_()
+    n_scratch = _c_function("cut_prior_bwd", "cut_prior_bwd_scratch")(J, T, d)
+    partial = torch.empty((n_scratch,), dtype=torch.float32,
+                          device=mu.device)
+    _launch("cut_prior_bwd",
+            _c_function("cut_prior_bwd", "cut_prior_bwd_launch"), mu.device,
+            *(t.data_ptr() for t in (mu, logvar, eps, pmu, plv, u, gu, grate,
+                                     dmu, dlv, deps, dpmu, dplv, partial)),
+            J, T, d, _MODE_ID[mode], int(mu.dtype == torch.bfloat16),
+            what=f"J={J}, T={T}, d={d}, mode={mode}")
+    return dmu, dlv, deps, dpmu, dplv
+
+
+# ---------------------------------------------------------------------------
+# Autograd Functions (the reference's custom VJPs) and the public entries
+# ---------------------------------------------------------------------------
+
+class _CutLayer(torch.autograd.Function):
+    """(R, d) rows -> (u, rate); backward: the eq.-(10) split."""
+
+    @staticmethod
+    def forward(ctx, mu, logvar, eps, bits, mode):
+        ctx.bits, ctx.mode = bits, mode
+        ctx.save_for_backward(mu, logvar, eps)
+        if mu.device.type == "cpu":
+            return ref.cutlayer_fwd_ref(mu, logvar, eps, bits, mode)
+        return cut_fwd(mu, logvar, eps, bits=bits, mode=mode)
+
+    @staticmethod
+    def backward(ctx, gu, grate):
+        mu, logvar, eps = ctx.saved_tensors
+        grads = cutlayer_backward(mu, logvar, eps, gu, grate,
+                                  link_bits=ctx.bits,
+                                  rate_estimator=ctx.mode)
+        return (*grads, None, None)
+
+
+class _CutLayerPrior(torch.autograd.Function):
+    """(J, T, d) rows and (J, d) fp32 priors -> (u, rate); saves u as a
+    residual, as the reference's `_cutlayer_prior_fwd` does."""
+
+    @staticmethod
+    def forward(ctx, mu, logvar, eps, pmu, plv, bits, mode):
+        ctx.mode = mode
+        if mu.device.type == "cpu":
+            u, rate = ref.cutlayer_prior_fwd_ref(mu, logvar, eps, pmu, plv,
+                                                 bits, mode)
+        else:
+            u, rate = cut_prior_fwd(mu, logvar, eps, pmu, plv, bits=bits,
+                                    mode=mode)
+        ctx.save_for_backward(mu, logvar, eps, pmu, plv, u)
+        return u, rate
+
+    @staticmethod
+    def backward(ctx, gu, grate):
+        mu, logvar, eps, pmu, plv, u = ctx.saved_tensors
+        gu, grate = gu.contiguous(), grate.contiguous()
+        if mu.device.type == "cpu":
+            # bits: the plain backward reads the saved u, never requantizes
+            grads = ref.cutlayer_prior_bwd_ref(mu, logvar, eps, pmu, plv, u,
+                                               gu, grate, 32, ctx.mode)
+        else:
+            grads = cut_prior_bwd(mu, logvar, eps, pmu, plv, u, gu, grate,
+                                  mode=ctx.mode)
+        return (*grads, None, None)
+
+
+def _device_type(tensors) -> str:
+    devices = {t.device.type for t in tensors}
+    if devices not in ({"cpu"}, {"cuda"}):
+        raise ValueError(f"the cut layer runs on CPU or CUDA tensors, all "
+                         f"on one device; got {sorted(devices)}")
+    return devices.pop()
+
+
 def cutlayer_fused(mu, logvar, eps, *, link_bits: int = 32,
-                   rate_estimator: str = "analytic"):
-    """One fused pass over the cut layer, all J nodes in one launch.
+                   rate_estimator: str = "analytic", prior_mu=None,
+                   prior_logvar=None):
+    """One fused pass over the cut layer, all J nodes in one launch, with
+    the hand-written backward under autograd.
 
     mu/logvar/eps: (..., d); every leading axis (J clients, batch) folds
     into the row count.  Returns (u (..., d) in mu.dtype, rate (...,)
-    fp32).  link_bits >= 32 disables the quantizer."""
+    fp32).  link_bits >= 32 disables the quantizer.  prior_mu/prior_logvar
+    — (d,) shared, or (J, d) per node with mu shaped (J, ..., d) — switch
+    the rate to a learned Gaussian prior (the prior kernels), whose
+    gradients the backward also yields; with rate_estimator "none" the
+    prior is irrelevant and ignored, as in the reference."""
     if rate_estimator not in MODES:
         raise ValueError(f"unknown rate_estimator {rate_estimator!r}")
-    if torch.is_grad_enabled() and (mu.requires_grad or logvar.requires_grad
-                                    or eps.requires_grad):
-        raise NotImplementedError(
-            "the cut-layer backward kernel is not ported yet (it comes with "
-            "the training slice); call under torch.no_grad()")
+    shape = mu.shape
+    d = shape[-1]
+    if prior_mu is None or rate_estimator == "none":
+        _device_type((mu, logvar, eps))
+        R = math.prod(shape[:-1])
+        u, rate = _CutLayer.apply(
+            *(t.reshape(R, d).contiguous() for t in (mu, logvar, eps)),
+            link_bits, rate_estimator)
+        return u.reshape(shape), rate.reshape(shape[:-1])
+    _device_type((mu, logvar, eps, prior_mu, prior_logvar))
+    if prior_logvar.shape != prior_mu.shape or prior_mu.shape[-1] != d:
+        raise ValueError(f"prior shapes {tuple(prior_mu.shape)}, "
+                         f"{tuple(prior_logvar.shape)} do not fit latents "
+                         f"of width {d}")
+    if prior_mu.dim() == 1:                 # shared prior: one node group
+        J = 1
+        pmu, plv = prior_mu[None], prior_logvar[None]
+    else:                                   # per-node (J, d) priors
+        J = prior_mu.shape[0]
+        if shape[0] != J:
+            raise ValueError(f"per-node prior J={J} vs mu leading axis "
+                             f"{shape[0]}")
+        pmu, plv = prior_mu, prior_logvar
+    T = math.prod(shape[:-1]) // J
+    # the kernels take fp32 priors; autograd casts their gradients back
+    pmu, plv = (p.to(torch.float32).contiguous() for p in (pmu, plv))
+    u, rate = _CutLayerPrior.apply(
+        *(t.reshape(J, T, d).contiguous() for t in (mu, logvar, eps)),
+        pmu, plv, link_bits, rate_estimator)
+    return u.reshape(shape), rate.reshape(shape[:-1])
+
+
+def cutlayer_backward(mu, logvar, eps, gu, grate, *, link_bits: int,
+                      rate_estimator: str = "sample"):
+    """The fused eq.-(10) backward as a plain dispatch (the kernel the
+    `_CutLayer` Function runs), for callers that own their gradient.
+    (..., d) tensors and (...,) grate; CPU tensors take the plain version,
+    CUDA tensors the kernel.  Returns (dmu, dlv, deps)."""
+    if rate_estimator not in MODES:
+        raise ValueError(f"unknown rate_estimator {rate_estimator!r}")
     shape = mu.shape
     d = shape[-1]
     R = math.prod(shape[:-1])
-    mu2, lv2, eps2 = (t.reshape(R, d) for t in (mu, logvar, eps))
-    devices = {t.device.type for t in (mu, logvar, eps)}
-    if devices == {"cpu"}:
-        u, rate = ref.cutlayer_fwd_ref(mu2, lv2, eps2, link_bits,
-                                       rate_estimator)
-    elif devices == {"cuda"}:
-        u, rate = cut_fwd(mu2.contiguous(), lv2.contiguous(),
-                          eps2.contiguous(), bits=link_bits,
-                          mode=rate_estimator)
+    rows = [t.reshape(R, d).contiguous() for t in (mu, logvar, eps, gu)]
+    gr = grate.reshape(R).contiguous()
+    if _device_type((*rows, gr)) == "cpu":
+        grads = ref.cutlayer_bwd_ref(*rows, gr, link_bits, rate_estimator)
     else:
-        raise ValueError(f"cutlayer_fused runs on CPU or CUDA tensors, all "
-                         f"on one device; got {sorted(devices)}")
-    return u.reshape(shape), rate.reshape(shape[:-1])
+        grads = cut_bwd(*rows, gr, bits=link_bits, mode=rate_estimator)
+    return tuple(g.reshape(shape) for g in grads)

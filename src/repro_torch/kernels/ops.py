@@ -16,21 +16,22 @@ from repro_torch.kernels import inl_bottleneck as _bn
 def cutlayer(mu, logvar, eps, *, link_bits: int = 32,
              rate_estimator: str = "sample", prior_mu=None,
              prior_logvar=None):
-    """Fused cut layer: (u_quantized, per-row rate) in one kernel pass.
-    mu/logvar/eps: (..., d) with all leading axes (clients, batch) folded
-    into the rows — one launch for all J nodes.  rate_estimator "none"
-    zeroes the rate (the deterministic cut).
+    """Fused cut layer: (u_quantized, per-row rate) in one kernel pass, the
+    hand-written eq.-(10) backward under autograd.  mu/logvar/eps: (..., d)
+    with all leading axes (clients, batch) folded into the rows — one
+    launch for all J nodes.  rate_estimator "none" zeroes the rate (the
+    deterministic cut); prior_mu/prior_logvar — (d,) shared or (J, d) per
+    node — evaluate the rate against a learned Gaussian prior on the prior
+    kernels, whose backward also yields the prior gradients ("none" ignores
+    the prior).
 
     Dtype contract: u comes back in mu.dtype and the rate in fp32, whatever
     the kernel's internal arithmetic; anything else raises TypeError, so a
     kernel regression cannot silently widen the hot path."""
-    if prior_mu is not None or prior_logvar is not None:
-        raise NotImplementedError(
-            "learned priors run on the prior kernels (`_cut_prior_fwd_kernel`"
-            ", `_cut_prior_bwd_kernel`), which come with the learned-prior "
-            "slice of the port")
     u, rate = _bn.cutlayer_fused(mu, logvar, eps, link_bits=link_bits,
-                                 rate_estimator=rate_estimator)
+                                 rate_estimator=rate_estimator,
+                                 prior_mu=prior_mu,
+                                 prior_logvar=prior_logvar)
     if u.dtype != mu.dtype:
         raise TypeError(f"cutlayer kernel changed the latent dtype: "
                         f"{mu.dtype} in, {u.dtype} out")

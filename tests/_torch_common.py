@@ -12,11 +12,13 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import pytest
 
 import jax
 
 from repro.core import inl as jinl
 from repro_torch import convert
+from repro_torch.kernels import ref
 
 
 def _noisy(tree, rng, *, around=0.0, spread=0.1, positive=False):
@@ -68,3 +70,34 @@ def views_np(cfg, n: int, seed: int = 0) -> np.ndarray:
     imgs, _ = multiview.make_base_dataset(n, image_shape=cfg.image_shape,
                                           seed=seed)
     return multiview.make_views(imgs, cfg.noise_stds)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: decided when the test runs, never at import, so
+    every xdist worker collects the same tests."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run this file on the H100 (see "
+                    "README)")
+    return torch.device("cuda")
+
+
+def cut_inputs(shape, seed=0):
+    """Seeded (mu, logvar, eps) fp32 numpy arrays of the cut layer."""
+    rng = np.random.default_rng(seed)
+    mu = rng.normal(scale=2.0, size=shape).astype(np.float32)
+    lv = rng.uniform(-3.0, 3.0, size=shape).astype(np.float32)
+    eps = rng.normal(size=shape).astype(np.float32)
+    return mu, lv, eps
+
+
+def near_midpoint(mu, lv, eps, bits, tol=1e-6):
+    """Entries whose pre-quantization value lies within `tol` of a rounding
+    midpoint of the `bits`-bit grid (computed in float64)."""
+    pre = mu.astype(np.float64) + np.exp(0.5 * lv.astype(np.float64)) \
+        * eps.astype(np.float64)
+    r = ref.QUANT_RANGE
+    scale = ((1 << bits) - 1) / (2.0 * r)
+    t = (np.clip(pre, -r, r) + r) * scale
+    return np.abs(t - np.floor(t) - 0.5) / scale < tol

@@ -21,9 +21,9 @@ Bars:
   * rate: rtol 1e-5, atol 1e-5 (fp32 sums in another order).
 
 The CUDA kernel itself runs only on the card: its test takes the
-`cuda_device` fixture, which skips with a reason when no card is present
-(decided when the test runs, not at import, so every xdist worker collects
-the same tests).
+`cuda_device` fixture (tests/_torch_common.py), which skips with a reason
+when no card is present (decided when the test runs, not at import, so
+every xdist worker collects the same tests).
 """
 import numpy as np
 import pytest
@@ -33,45 +33,18 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import inl_bottleneck as jbn  # noqa: E402
-from repro_torch.core import bottleneck  # noqa: E402
+from repro_torch.core import bottleneck, wirefmt  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import inl_bottleneck as tbn  # noqa: E402
+from _torch_common import cuda_device  # noqa: E402,F401 (fixture)
+from _torch_common import cut_inputs as _inputs  # noqa: E402
+from _torch_common import near_midpoint  # noqa: E402
 
 MODES = ("sample", "analytic", "none")
 BITS = (1, 2, 4, 8, 32)
 SHAPE = (5, 7, 16)
 TORCH_DT = {"fp32": torch.float32, "bf16": torch.bfloat16}
 JAX_DT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
-
-
-@pytest.fixture
-def cuda_device():
-    """The card, or a skip: decided when the test runs, never at import.
-    (Defined here, not in a shared helper, so that this file alone runs on
-    the card's machine.)"""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; run this file on the H100 (see "
-                    "README)")
-    return torch.device("cuda")
-
-
-def _inputs(shape, seed=0):
-    rng = np.random.default_rng(seed)
-    mu = rng.normal(scale=2.0, size=shape).astype(np.float32)
-    lv = rng.uniform(-3.0, 3.0, size=shape).astype(np.float32)
-    eps = rng.normal(size=shape).astype(np.float32)
-    return mu, lv, eps
-
-
-def near_midpoint(mu, lv, eps, bits, tol=1e-6):
-    """Entries whose pre-quantization value lies within `tol` of a rounding
-    midpoint of the `bits`-bit grid (computed in float64)."""
-    pre = mu.astype(np.float64) + np.exp(0.5 * lv.astype(np.float64)) \
-        * eps.astype(np.float64)
-    r = ref.QUANT_RANGE
-    scale = ((1 << bits) - 1) / (2.0 * r)
-    t = (np.clip(pre, -r, r) + r) * scale
-    return np.abs(t - np.floor(t) - 0.5) / scale < tol
 
 
 def codewords(u, bits):
@@ -171,12 +144,17 @@ def test_dispatch_is_by_device_without_fallback():
 
 
 def test_unported_paths_raise():
+    """The learned prior and the backward are ported; the cut layer's
+    packed wires (the pack kernels) are not yet."""
     mu, lv, eps = (torch.from_numpy(x) for x in _inputs((3, 8)))
-    with pytest.raises(NotImplementedError, match="learned-prior"):
-        ops.cutlayer(mu, lv, eps, prior_mu=torch.zeros(8),
-                     prior_logvar=torch.zeros(8))
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.cutlayer(mu.requires_grad_(), lv, eps)
+    u, rate = ops.cutlayer(mu.requires_grad_(), lv, eps,
+                           prior_mu=torch.zeros(8),
+                           prior_logvar=torch.zeros(8))
+    (rate.sum() + u.sum()).backward()
+    assert mu.grad is not None and mu.grad.shape == mu.shape
+    for wire in ("packed", "packed_duplex"):
+        with pytest.raises(NotImplementedError, match="packed-wire"):
+            wirefmt.cut_and_ship(None, mu, lv, link_bits=4, wire=wire)
 
 
 def test_fused_sample_rate_eps_from_generator():
@@ -194,7 +172,8 @@ def test_fused_sample_rate_eps_from_generator():
 
 def test_build_module_finds_sources_and_names_missing_nvcc(monkeypatch,
                                                            tmp_path):
-    assert build.sources() == ("cut_fwd",)
+    assert build.sources() == ("cut_bwd", "cut_fwd", "cut_prior_bwd",
+                               "cut_prior_fwd")
     assert str(build.BUILD_DIR).endswith("build/kernels")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

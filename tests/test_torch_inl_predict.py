@@ -98,9 +98,13 @@ def test_init_is_seeded_and_shaped_like_the_reference():
         assert torch.equal(a, b) and a.shape == c.shape
     probs = tinl.predict(p1, s1, views_np(cfg, 3), device="cpu")
     assert torch.isfinite(probs).all()
-    with pytest.raises(NotImplementedError, match="learned"):
-        tinl.init(dataclasses.replace(cfg, learned_prior=True), 0,
-                  device="cpu")
+    # learned priors: per-node (J, d) zeros, as the reference's
+    lp = dataclasses.replace(cfg, learned_prior=True)
+    pp, _ = tinl.init(lp, 0, device="cpu")
+    jp, _ = jinl.init(lp, jax.random.PRNGKey(0))
+    assert set(pp.priors) == set(jp.priors) == {"mu", "logvar"}
+    for k in pp.priors:
+        assert np.array_equal(pp.priors[k].numpy(), np.asarray(jp.priors[k]))
 
 
 def test_predict_refuses_unported_options():

@@ -21,6 +21,7 @@ import repro_torch  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.paper_inl import SMOKE  # noqa: E402
 from repro_torch.core import inl, schemes  # noqa: E402
+from repro_torch.core.schemes import runner  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 SRC = Path(repro_torch.__file__).resolve().parent
@@ -33,8 +34,11 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.kernels.inl_bottleneck" in mods
-    assert "repro_torch.serving.engine" in mods
+    for m in ("repro_torch.kernels.inl_bottleneck",
+              "repro_torch.serving.engine", "repro_torch.optim",
+              "repro_torch.core.linkmodel",
+              "repro_torch.core.schemes.runner"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -74,6 +78,8 @@ def test_device_none_means_cuda_and_raises_without_a_card(monkeypatch):
         lambda: ServingEngine(scheme, st, SMOKE),
         lambda: convert.inl_from_jax(params, {"encoders": {"bns": []}},
                                      SMOKE),
+        lambda: runner.run_scheme("inl", views, torch.zeros(1), SMOKE,
+                                  epochs=1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
