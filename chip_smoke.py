@@ -30,7 +30,18 @@ Phases, each checked; any failed check exits non-zero before the last line:
                                of the terms' absolute values (fp32 sums in
                                two orders; such sums are counted);
               and torch.autograd.grad through ops.cutlayer on CUDA equal to
-              the kernels' outputs for the same cotangents.
+              the kernels' outputs for the same cotangents.  The packed
+              wire's kernels over the same shapes, widths
+              b in {1, 2, 3, 4, 8, 16} and fp32/bf16:
+                cut_fwd_pack   modes {sample, analytic, none}: (u, rate)
+                               identical to cut_fwd's, u and the lanes
+                               identical to the plain version's (rows at a
+                               rounding midpoint excepted and counted);
+                pack           the lanes of u identical to cut_fwd_pack's
+                               and the plain version's (bf16 at b <= 8; at
+                               b > 8 pack_values must refuse bf16);
+                unpack_dequant unpack(lanes) == u bit for bit, and equal to
+                               the plain version.
   4. serving  INLScheme at PaperExperimentConfig() (the paper's full width)
               on the card from a seeded generator, a ServingEngine over
               buckets (1, 4, 16, 64) answering requests through its
@@ -50,6 +61,22 @@ Phases, each checked; any failed check exits non-zero before the last line:
               evaluation, the prior kernels never.  Then 8 steps with
               learned_prior=True: each prior kernel once per step, cut_fwd
               and cut_bwd never, and the priors moved from zero.
+  5b. packed the packed wire at PaperExperimentConfig(link_bits=8), batch
+              64, each path with launch counts set to 0 just before and read
+              just after: run_scheme("inl", wire="packed") (cut_fwd_pack,
+              unpack_dequant and cut_bwd once per step, cut_fwd once per
+              evaluation, pack never); one packed step equal to one dense
+              step bit for bit (loss and every gradient leaf, under
+              torch.use_deterministic_algorithms); wire="packed_duplex";
+              learned_prior=True on "packed" (the prior kernels, pack and
+              unpack_dequant once per step); run_scheme("sl",
+              wire="packed") (cut_fwd, pack, unpack_dequant and cut_bwd
+              once per step, cut_fwd once more per evaluation); and
+              run_scheme("fl") rounds (cut_fwd and cut_bwd once per local
+              step).  Every loss finite and falling; the measured bytes
+              exactly 320 x 16 x 4 forward + 320 x 64 x 4 backward per
+              packed round and 2 x 320 x 16 x 4 per duplex round (the
+              closed form's 2 x 64 x 320 x 8 bits).
   6. cpu      card against CPU: one set of weights, eps and dropout masks
               drawn on the CPU and moved to the card, 3 steps on each.  Step
               1's loss within rtol 1e-3, atol 1e-5, and every gradient leaf
@@ -58,9 +85,10 @@ Phases, each checked; any failed check exits non-zero before the last line:
               losses of steps 2-3 within rtol 1e-3.
   7. times    per-bucket predict latency, train-step latency (median of 20
               steps, with the device busy time and idle share from the
-              profiler, and the device time by kernel), and each kernel's
-              device time beside its bound and its plain version, with the
-              card's name and power limit on every line.
+              profiler, and the device time by kernel) on the dense,
+              packed and duplex wires, and each kernel's device time beside
+              its bound and its plain version, with the card's name and
+              power limit on every line.
 
 The line before the last two is {"kernels": [...]}, the one before the last
 nvidia-smi's name and power limit, and the last
@@ -96,6 +124,10 @@ TRAIN_BATCH = 64
 TRAIN_SAMPLES = 1024
 TRAIN_EPOCHS = 2
 PRIOR_STEPS = 8
+PACK_BITS = (1, 2, 3, 4, 8, 16)
+WIRE_BITS = 8                       # the packed wire's width on the path
+PACKED_SAMPLES = 1024               # 16 steps of 64 in one epoch
+FL_ROUNDS = 4                       # each round: 5 clients x 2 local steps
 
 
 class CheckFailed(RuntimeError):
@@ -471,6 +503,87 @@ def autograd_phase(torch):
           "cases)")
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (uint32 lanes through an int32 view)."""
+    import torch
+    if a.dtype == torch.uint32 and b.dtype == torch.uint32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def pack_kernel_phase(torch):
+    """cut_fwd_pack, pack and unpack_dequant against their plain versions
+    and against cut_fwd, over the sweep at the packable widths."""
+    from repro_torch.kernels import inl_bottleneck, ref
+    worst = {"cut_fwd_pack": 0.0, "pack": 0.0, "unpack_dequant": 0.0}
+    midpoints, n = 0, 0
+    for shape in SWEEP_SHAPES:
+        d = shape[-1]
+        for bits in PACK_BITS:
+            for mode in ("sample", "analytic", "none"):
+                for dtype in (torch.float32, torch.bfloat16):
+                    mu, lv, eps = (t.reshape(-1, d) for t in
+                                   cut_inputs(torch, shape, dtype, bits))
+                    what = f"pack {mode} b={bits} {dtype} {shape}"
+                    u, lanes, rate = inl_bottleneck.cut_fwd_pack(
+                        mu, lv, eps, bits=bits, mode=mode)
+                    u1, rate1 = inl_bottleneck.cut_fwd(mu, lv, eps,
+                                                       bits=bits, mode=mode)
+                    pu, plan, prate = ref.cutlayer_pack_fwd_ref(
+                        mu, lv, eps, bits, mode)
+                    back = inl_bottleneck.unpack(lanes, d=d, bits=bits,
+                                                 dtype=dtype)
+                    pback = ref.unpack_dequant_ref(lanes, d, bits,
+                                                   dtype=dtype)
+                    torch.cuda.synchronize()
+                    check(u.dtype == dtype and lanes.dtype == torch.uint32
+                          and lanes.shape == (mu.shape[0],
+                                              ref.packed_width(d, bits)),
+                          f"{what}: {u.dtype} {lanes.dtype} {lanes.shape}")
+                    check(same_bits(u, u1) and same_bits(rate, rate1),
+                          f"{what}: (u, rate) differ from cut_fwd's")
+                    check(same_bits(back, u) and same_bits(pback, back),
+                          f"{what}: unpack(lanes) != u or != its plain "
+                          f"version")
+                    # the plain version: lanes and u equal but on rows at a
+                    # rounding midpoint
+                    mid = midpoint_rows(torch, mu, lv, eps, bits)
+                    bad = ((lanes.view(torch.int32) != plan.view(torch.int32))
+                           .any(-1) | (u != pu).any(-1)).cpu().numpy()
+                    check(not (bad & ~mid).any(),
+                          f"{what}: {int((bad & ~mid).sum())} rows differ "
+                          f"from the plain version away from a midpoint")
+                    midpoints += int(bad.sum())
+                    keep = torch.from_numpy(~bad).to(DEV)
+                    rb, err = compare_rows(rate[keep][:, None],
+                                           prate[keep][:, None], RATE_TOL,
+                                           what + " rate")
+                    check(not rb.any(), f"{what}: rate differs from the "
+                          f"plain version")
+                    worst["cut_fwd_pack"] = max(worst["cut_fwd_pack"], err)
+                    if dtype == torch.float32 or bits <= 8:
+                        k = inl_bottleneck.pack(u, bits=bits)
+                        p = ref.pack_values_ref(u, bits)
+                        torch.cuda.synchronize()
+                        check(same_bits(k, lanes) and same_bits(p, lanes),
+                              f"{what}: pack(u) differs from the lanes")
+                    else:
+                        try:
+                            inl_bottleneck.pack_values(u, link_bits=bits)
+                        except ValueError:
+                            pass
+                        else:
+                            check(False, f"{what}: pack_values took bf16 "
+                                         f"values at {bits} bits")
+                    n += 1
+    print(f"kernels: cut_fwd_pack, pack, unpack_dequant on {n} cases (3 "
+          f"shapes x 6 widths x 3 modes x 2 dtypes): (u, rate) == cut_fwd "
+          f"bit for bit, lanes == plain, unpack(pack(u)) == u bit for bit; "
+          f"{midpoints} rows at a rounding midpoint; max |rate - plain| "
+          f"{worst['cut_fwd_pack']:.3g}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # 4. serving at full width: the main path
 # ---------------------------------------------------------------------------
@@ -581,23 +694,24 @@ def read_launches():
     return dict(inl_bottleneck.LAUNCHES)
 
 
-def training_data(cfg):
+def training_data(cfg, n=TRAIN_SAMPLES):
     from repro_torch.data import multiview
-    imgs, labels = multiview.make_base_dataset(TRAIN_SAMPLES, seed=1)
+    imgs, labels = multiview.make_base_dataset(n, seed=1)
     return multiview.make_views(imgs, cfg.noise_stds), labels
 
 
-def training_phase(torch, card_line):
-    """run_scheme("inl") at full width on the card; every round's metrics
-    are recorded by a wrapper around the registered scheme's make_round."""
-    from repro_torch.configs.paper_inl import PaperExperimentConfig
-    from repro_torch.core import bandwidth, linkmodel, schemes
+def recorded_run(torch, name, cfg, views, labels, *, epochs, wire="dense",
+                 seed=0):
+    """run_scheme(name) on the card, with the launch counts set to 0 just
+    before and read just after, and every round's loss recorded by a
+    wrapper around the registered scheme's make_round.  Returns (curve,
+    losses, launches, meter, seconds, the rounds' mean rates (INL; empty
+    for SL and FL))."""
+    from repro_torch.core import bandwidth, schemes
     from repro_torch.core.schemes import runner
 
-    cfg = PaperExperimentConfig()
-    views, labels = training_data(cfg)
-    scheme = schemes.get("inl")
-    losses = []
+    scheme = schemes.get(name)
+    losses, rates = [], []
     make_round = scheme.make_round
 
     def recording_make_round(*a, **kw):
@@ -606,6 +720,8 @@ def training_phase(torch, card_line):
         def rec(*ra, **rkw):
             st, m = round_fn(*ra, **rkw)
             losses.append(m["loss"])
+            if "rate_mean" in m:
+                rates.append(m["rate_mean"])
             return st, m
         return rec
     scheme.make_round = recording_make_round
@@ -614,21 +730,41 @@ def training_phase(torch, card_line):
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        curve = runner.run_scheme("inl", views, labels, cfg,
-                                  epochs=TRAIN_EPOCHS,
+        curve = runner.run_scheme(name, views, labels, cfg, epochs=epochs,
                                   batch_size=TRAIN_BATCH, eval_n=512,
-                                  meter=meter, device=DEV)
+                                  meter=meter, wire=wire, seed=seed,
+                                  device=DEV)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
     finally:
         del scheme.make_round
-    steps = TRAIN_EPOCHS * (TRAIN_SAMPLES // TRAIN_BATCH)
     loss = [float(x) for x in losses]
+    check(all(np.isfinite(loss)), f"{name} {wire}: non-finite loss {loss}")
+    return curve, loss, launches, meter, wall, [float(x) for x in rates]
+
+
+def falls(loss, k=4) -> tuple:
+    """(mean of the first k losses, of the last k); checks the second is
+    below the first."""
+    first, last = float(np.mean(loss[:k])), float(np.mean(loss[-k:]))
+    check(last < first, f"loss did not fall: first {k} {first}, last {k} "
+                        f"{last}")
+    return first, last
+
+
+def training_phase(torch, card_line):
+    """run_scheme("inl") at full width on the card."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkmodel
+
+    cfg = PaperExperimentConfig()
+    views, labels = training_data(cfg)
+    curve, loss, launches, meter, wall, _ = recorded_run(
+        torch, "inl", cfg, views, labels, epochs=TRAIN_EPOCHS)
+    steps = TRAIN_EPOCHS * (TRAIN_SAMPLES // TRAIN_BATCH)
     check(len(loss) == steps, f"{len(loss)} train steps, expected {steps}")
-    check(all(np.isfinite(loss)), f"non-finite loss: {loss}")
-    first, last = np.mean(loss[:4]), np.mean(loss[-4:])
-    check(last < first, f"loss did not fall: first 4 {first}, last 4 {last}")
+    first, last = falls(loss)
     acc = curve[-1].accuracy
     check(acc >= 0.3, f"final accuracy {acc} < 0.3")
     want_gbits = steps * linkmodel.training_step_bits(
@@ -642,6 +778,9 @@ def training_phase(torch, card_line):
           f"and {TRAIN_EPOCHS} evaluations")
     check(launches["cut_prior_fwd"] == launches["cut_prior_bwd"] == 0,
           f"prior kernels launched on the standard prior: {launches}")
+    check(launches["cut_fwd_pack"] == launches["pack"]
+          == launches["unpack_dequant"] == 0,
+          f"pack kernels launched on the dense wire: {launches}")
     print(f"training: run_scheme('inl') at PaperExperimentConfig(), batch "
           f"{TRAIN_BATCH}, {TRAIN_SAMPLES} samples, {TRAIN_EPOCHS} epochs = "
           f"{steps} steps in {wall:.2f} s; loss {loss[0]:.4f} -> "
@@ -692,6 +831,143 @@ def prior_training_phase(torch, card_line):
           f"{loss[0]:.4f} -> {loss[-1]:.4f}; max |prior| {moved:.4g}; "
           f"launches {launches} [{card_line}]")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 5b. the packed wire and the SL/FL baselines at full width
+# ---------------------------------------------------------------------------
+
+def expect_launches(launches, want, what):
+    """Every kernel's count equal to `want`'s (absent: 0)."""
+    full = {k: want.get(k, 0) for k in launches}
+    check(launches == full, f"{what}: launches {launches}, expected {full}")
+
+
+def packed_training_phase(torch, card_line):
+    """The packed-wire paths, each driven through run_scheme with the launch
+    counts set to 0 just before and read just after.  Returns {path:
+    launches}."""
+    import dataclasses
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkmodel, paper_model
+
+    cfg = PaperExperimentConfig(link_bits=WIRE_BITS)
+    views, labels = training_data(cfg, PACKED_SAMPLES)
+    steps = PACKED_SAMPLES // TRAIN_BATCH
+    R, d = cfg.num_clients * TRAIN_BATCH, cfg.d_bottleneck      # 320, 64
+    W = d * WIRE_BITS // 32                                       # 16 lanes
+    per_round = {"packed": R * W * 4 + R * d * 4,
+                 "packed_duplex": 2 * R * W * 4}
+    closed = linkmodel.training_step_bits(TRAIN_BATCH, cfg.num_clients * d,
+                                          WIRE_BITS)
+    # SL also moves its client-side weights once an epoch, J hand-offs of
+    # J fp32 encoders
+    handoff = cfg.num_clients * cfg.num_clients * 4 \
+        * paper_model.encoder_param_count(cfg)
+    check(per_round["packed_duplex"] * 8 == closed,
+          f"duplex bytes {per_round['packed_duplex']} vs closed form "
+          f"{closed} bits")
+    out = {}
+    runs = (("inl", "packed", cfg, views, labels),
+            ("inl", "packed_duplex", cfg, views, labels),
+            ("inl+learned_prior", "packed",
+             dataclasses.replace(cfg, learned_prior=True), views, labels),
+            ("sl", "packed", cfg, views, labels))
+    for path, wire, c, v, lab in runs:
+        name = path.split("+")[0]
+        curve, loss, launches, meter, wall, rates = recorded_run(
+            torch, name, c, v, lab, epochs=1, wire=wire)
+        check(len(loss) == steps, f"{path} {wire}: {len(loss)} steps")
+        first, last = falls(loss)
+        if path == "inl+learned_prior":
+            want = {"cut_prior_fwd": steps, "cut_prior_bwd": steps,
+                    "pack": steps, "unpack_dequant": steps, "cut_fwd": 1}
+        elif name == "inl":
+            want = {"cut_fwd_pack": steps, "unpack_dequant": steps,
+                    "cut_bwd": steps, "cut_fwd": 1}
+        else:                       # sl: its cut, then ship; + evaluation
+            want = {"cut_fwd": steps + 1, "pack": steps,
+                    "unpack_dequant": steps, "cut_bwd": steps}
+        expect_launches(launches, want, f"{path} {wire}")
+        extra = handoff if name == "sl" else 0
+        check(meter.measured_bytes == steps * per_round[wire] + extra,
+              f"{path} {wire}: measured {meter.measured_bytes} bytes, "
+              f"expected {steps} x {per_round[wire]} + {extra}")
+        if wire == "packed_duplex":
+            check(meter.measured_bits == meter.total_bits,
+                  f"duplex measured {meter.measured_bits} bits != closed "
+                  f"form {meter.total_bits}")
+        out[f"{path} {wire}"] = launches
+        print(f"packed: run_scheme('{name}', wire='{wire}') at "
+              f"PaperExperimentConfig(link_bits={WIRE_BITS}"
+              f"{', learned_prior=True' if 'prior' in path else ''}), "
+              f"{steps} steps of {TRAIN_BATCH} in {wall:.2f} s; loss "
+              f"{loss[0]:.4f} -> {loss[-1]:.4f} (first 4 {first:.4f}, last "
+              f"4 {last:.4f}); mean rate "
+              f"{[round(r, 1) for r in rates[::5]] if rates else 'n/a'}; "
+              f"accuracy {curve[-1].accuracy:.4f}; gbits "
+              f"{curve[-1].gbits!r}, measured {curve[-1].measured_gbits!r} "
+              f"({per_round[wire]} bytes a round); launches {launches} "
+              f"[{card_line}]")
+    # FL: J clients x 2 local steps a round, one full model each
+    rounds_samples = FL_ROUNDS * cfg.num_clients * 2 * TRAIN_BATCH
+    fv, fl_labels = training_data(cfg, rounds_samples)
+    curve, loss, launches, meter, wall, _ = recorded_run(
+        torch, "fl", cfg, fv, fl_labels, epochs=1)
+    local = FL_ROUNDS * cfg.num_clients * 2
+    check(len(loss) == FL_ROUNDS, f"fl: {len(loss)} rounds")
+    falls(loss, k=1)
+    expect_launches(launches, {"cut_fwd": local + 1, "cut_bwd": local},
+                    "fl")
+    out["fl"] = launches
+    print(f"packed: run_scheme('fl') at PaperExperimentConfig(link_bits="
+          f"{WIRE_BITS}), {FL_ROUNDS} rounds of {cfg.num_clients} clients x "
+          f"2 local steps of {TRAIN_BATCH} in {wall:.2f} s; round loss "
+          f"{[round(x, 4) for x in loss]}; accuracy "
+          f"{curve[-1].accuracy:.4f}; gbits {curve[-1].gbits!r}, measured "
+          f"{curve[-1].measured_gbits!r}; launches {launches} "
+          f"[{card_line}]")
+    return out
+
+
+def packed_step_equals_dense(torch, card_line):
+    """From one state and one set of draws, the loss and every gradient leaf
+    of a packed step equal a dense step's, bit for bit (deterministic
+    algorithms on for the comparison)."""
+    from repro_torch import tree_leaves, value_and_grad
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import inl, paper_model, schemes
+
+    cfg = PaperExperimentConfig(link_bits=WIRE_BITS)
+    views, labels = training_data(cfg)
+    st = schemes.get("inl").init(cfg, torch.Generator(device=DEV)
+                                 .manual_seed(8), device=DEV)
+    v = torch.from_numpy(views[:, :TRAIN_BATCH]).to(DEV)
+    lab = torch.from_numpy(labels[:TRAIN_BATCH]).to(DEV).long()
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    eps = torch.randn((cfg.num_clients, TRAIN_BATCH, cfg.d_bottleneck),
+                      generator=gen, device=DEV)
+    masks = paper_model.decoder_dropout_masks(gen, cfg.dense_units,
+                                              TRAIN_BATCH, device=DEV)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for wire in ("dense", "packed"):
+            loss, _, grads = value_and_grad(
+                inl.loss_fn, st["params"], st["state"], v, lab, cfg,
+                eps=eps, drop_masks=masks, wire=wire)
+            out[wire] = (loss, tree_leaves(grads))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (ld, gd), (lp, gp) = out["dense"], out["packed"]
+    check(same_bits(ld, lp), f"packed step loss {float(lp)} != dense "
+                             f"{float(ld)}")
+    check(len(gd) == len(gp) > 0 and all(same_bits(a, b)
+                                         for a, b in zip(gd, gp)),
+          "a gradient leaf of the packed step differs from the dense one")
+    print(f"packed: one packed step == one dense step bit for bit (loss "
+          f"{float(ld)!r}, {len(gd)} gradient leaves) [{card_line}]")
 
 
 def _loss_and_grads(torch, cfg, params, state, views, labels, eps, masks):
@@ -862,19 +1138,19 @@ def timing_phase(torch, scheme, state, views, card_line):
     return rows
 
 
-def train_step_timing(torch, card_line):
-    """Train-step latency at full width and batch 64: the median of 20
-    steps on the host's clock, and the device's busy time per step from the
-    profiler, with its breakdown by kernel."""
+def train_step_timing(torch, card_line, *, wire="dense", link_bits=32):
+    """Train-step latency at full width and batch 64 on `wire`: the median
+    of 20 steps on the host's clock, and the device's busy time per step
+    from the profiler, with its breakdown by kernel."""
     from repro_torch.configs.paper_inl import PaperExperimentConfig
     from repro_torch.core import schemes
 
-    cfg = PaperExperimentConfig()
+    cfg = PaperExperimentConfig(link_bits=link_bits)
     views, labels = training_data(cfg)
     scheme = schemes.get("inl")
     state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(6),
                         device=DEV)
-    round_fn = scheme.make_round(cfg)
+    round_fn = scheme.make_round(cfg, wire=wire)
     gen = torch.Generator(device=DEV).manual_seed(7)
     v = torch.from_numpy(views[:, :TRAIN_BATCH]).to(DEV)[None]
     lab = torch.from_numpy(labels[:TRAIN_BATCH]).to(DEV).long()[None]
@@ -892,10 +1168,10 @@ def train_step_timing(torch, card_line):
             times.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(times)
     busy, by_name = device_profile(torch, step, reps=10, warmup=2)
-    print(f"train step latency: median {wall:.3f} ms over {len(times)} steps "
-          f"(PaperExperimentConfig, batch {TRAIN_BATCH}); device busy "
-          f"{busy:.4f} ms of it, idle share {1 - busy / wall:.3f} "
-          f"[{card_line}]")
+    print(f"train step latency ({wire}, link_bits={link_bits}): median "
+          f"{wall:.3f} ms over {len(times)} steps (PaperExperimentConfig, "
+          f"batch {TRAIN_BATCH}); device busy {busy:.4f} ms of it, idle "
+          f"share {1 - busy / wall:.3f} [{card_line}]")
     kinds = {}
     for name, ms in by_name:
         low = name.lower()
@@ -907,10 +1183,10 @@ def train_step_timing(torch, card_line):
                 or "fill" in low else
                 "reduction" if "reduce" in low else "elementwise/other")
         kinds[kind] = kinds.get(kind, 0.0) + ms
-    print("train step device time by kind: " + ", ".join(
+    print(f"train step ({wire}) device time by kind: " + ", ".join(
         f"{k} {ms:.4f} ms" for k, ms in sorted(kinds.items(),
                                               key=lambda kv: -kv[1])))
-    print("train step device time, top kernels: " + "; ".join(
+    print(f"train step ({wire}) device time, top kernels: " + "; ".join(
         f"{name[:60]} {ms:.4f} ms" for name, ms in by_name[:8]))
     return wall, busy
 
@@ -964,6 +1240,47 @@ def new_kernel_timing(torch, card_line):
     return rows
 
 
+def pack_kernel_timing(torch, card_line):
+    """cut_fwd_pack, pack and unpack_dequant: device time at the training
+    shape (R = 320, d = 64) and at R = 20480 and 262144, fp32, b = 8 (the
+    path's width), cut_fwd_pack in the sample mode, beside the bytes bound
+    and the plain version."""
+    from repro_torch.kernels import inl_bottleneck, ref
+    rows = {}
+    d, bits, mode = 64, WIRE_BITS, "sample"
+    W = ref.packed_width(d, bits)
+    for R in (320, 20480, 262144):
+        mu, lv, eps = cut_inputs(torch, (R, d), torch.float32, 0)
+        u, lanes, _ = inl_bottleneck.cut_fwd_pack(mu, lv, eps, bits=bits,
+                                                  mode=mode)
+        reps = 100 if R < 262144 else 30
+        cases = {
+            "cut_fwd_pack": (
+                lambda: inl_bottleneck.cut_fwd_pack(mu, lv, eps, bits=bits,
+                                                    mode=mode),
+                lambda: ref.cutlayer_pack_fwd_ref(mu, lv, eps, bits, mode),
+                R * (16 * d + 4 * W + 4)),
+            "pack": (
+                lambda: inl_bottleneck.pack(u, bits=bits),
+                lambda: ref.pack_values_ref(u, bits),
+                R * (4 * d + 4 * W)),
+            "unpack_dequant": (
+                lambda: inl_bottleneck.unpack(lanes, d=d, bits=bits),
+                lambda: ref.unpack_dequant_ref(lanes, d, bits),
+                R * (4 * d + 4 * W)),
+        }
+        for name, (kernel, plain, nbytes) in cases.items():
+            k_dev = device_ms(torch, kernel, reps=reps)
+            p_dev = device_ms(torch, plain, reps=reps)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            rows[(name, R)] = (k_dev, p_dev, bound)
+            print(f"{name} R={R} d={d} W={W} b={bits} fp32: device time "
+                  f"kernel {k_dev:.5f} ms, plain {p_dev:.5f} ms, bound "
+                  f"{bound:.5f} ms (bytes {nbytes}, {bound / k_dev:.3f} of "
+                  f"the bound) [{card_line}]")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -986,26 +1303,39 @@ def main() -> int:
     build_phase()
     worst = {"cut_fwd": kernel_phase(torch),
              "cut_bwd": bwd_kernel_phase(torch),
-             **prior_kernel_phase(torch)}
+             **prior_kernel_phase(torch),
+             **pack_kernel_phase(torch)}
     autograd_phase(torch)
     scheme, state, views, serve_launches = serving_phase(torch, card)
     train_launches, accuracy = training_phase(torch, card)
     prior_launches = prior_training_phase(torch, card)
+    packed_launches = packed_training_phase(torch, card)
+    packed_step_equals_dense(torch, card)
     card_vs_cpu_phase(torch, card)
     torch.cuda.synchronize()
     rows = timing_phase(torch, scheme, state, views, card)
-    step_ms, step_busy = train_step_timing(torch, card)
+    steps = {wire: train_step_timing(torch, card, wire=wire,
+                                     link_bits=bits)
+             for wire, bits in (("dense", 32), ("packed", WIRE_BITS),
+                                ("packed_duplex", WIRE_BITS))}
     rows.update(new_kernel_timing(torch, card))
+    rows.update(pack_kernel_timing(torch, card))
     torch.cuda.synchronize()
     launches = {"cut_fwd": train_launches["cut_fwd"],
                 "cut_bwd": train_launches["cut_bwd"],
                 "cut_prior_fwd": prior_launches["cut_prior_fwd"],
-                "cut_prior_bwd": prior_launches["cut_prior_bwd"]}
+                "cut_prior_bwd": prior_launches["cut_prior_bwd"],
+                "cut_fwd_pack": packed_launches["inl packed"]["cut_fwd_pack"],
+                "pack": packed_launches["sl packed"]["pack"],
+                "unpack_dequant":
+                    packed_launches["inl packed"]["unpack_dequant"]}
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the path never launched: {launches}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s; final accuracy {accuracy}, "
-          f"train step {step_ms:.3f} ms (device busy {step_busy:.4f} ms)")
+          f"train step " + ", ".join(
+              f"{w} {ms:.3f} ms (device busy {busy:.4f} ms)"
+              for w, (ms, busy) in steps.items()))
     src = "src/repro_torch/kernels/csrc/"
     replaces = "src/repro/kernels/inl_bottleneck.py:"
     kernels = []
@@ -1020,7 +1350,13 @@ def main() -> int:
              ("cut_prior_fwd", 320), 1, "training, learned prior"),
             ("cut_prior_bwd", 298,
              "J=5 T=64 d=64 fp32 sample (training)",
-             ("cut_prior_bwd", 320), 1, "training, learned prior")):
+             ("cut_prior_bwd", 320), 1, "training, learned prior"),
+            ("cut_fwd_pack", 117, "R=320 d=64 fp32 sample b=8 (training)",
+             ("cut_fwd_pack", 320), 1, "INL training, packed wire"),
+            ("pack", 143, "R=320 d=64 fp32 b=8 (training)", ("pack", 320),
+             1, "SL training and learned prior, packed wire"),
+            ("unpack_dequant", 153, "R=320 d=64 fp32 b=8 (training)",
+             ("unpack_dequant", 320), 1, "every packed path")):
         k_ms, p_ms, b_ms = rows[key]
         kernels.append({
             "name": kname, "route": "cuda", "source": f"{src}{kname}.cu",

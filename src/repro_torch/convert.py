@@ -1,16 +1,22 @@
 """Parameters of the JAX package, in the port's layout.
 
-`inl_from_jax` takes the reference's `repro.core.inl.INLParams` and state as
-numpy trees (for example `jax.tree.map(np.asarray, params)`) and returns the
-port's, so both packages compute the same function.  It reads plain
-attributes and dict keys only; the port imports nothing of JAX or `repro`.
+`inl_from_jax`, `sl_from_jax` and `fl_from_jax` take the reference's
+parameters and state as numpy trees (for example `jax.tree.map(np.asarray,
+params)`) and return the port's, so both packages compute the same
+function.  They read plain attributes and dict keys only; the port imports
+nothing of JAX or `repro`.
 
-    conv weights   HWIO (J, 3, 3, I, O) -> OIHW (J, O, I, 3, 3)
+    conv weights   HWIO (..., 3, 3, I, O) -> OIHW (..., O, I, 3, 3), any
+                   leading axes (INL's stacked J nodes, FL's J clients)
     dense weights  (d_in, d_out), unchanged: the port stores them so
     head weights   unchanged: the port flattens NHWC as the reference does
     BatchNorm      scale/bias and running mean/var copied
     priors         the learned (J, d) prior mean/log-variance copied ({}
                    for the standard normal)
+
+INL stacks its J encoders along a leading axis; SL and FL keep a list of J
+per-branch encoders, as the reference does, and FL stacks the J client
+copies of everything along a leading axis.
 """
 from __future__ import annotations
 
@@ -25,32 +31,70 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
-def inl_from_jax(params_np, state_np, cfg, device=None):
-    """(reference INLParams of numpy leaves, {"encoders": ...} state) ->
-    the port's (INLParams, state) on `device` (None: cuda)."""
-    device = resolve_device(device)
-    enc = params_np.encoders
+def _encoder(enc, cfg, device) -> dict:
+    """One encoder tree (leaves with any leading axes) in the port's
+    layout."""
     if len(enc["convs"]) != len(cfg.conv_channels):
         raise ValueError(f"{len(enc['convs'])} conv layers in the "
                          f"parameters, cfg has {len(cfg.conv_channels)}")
-    convs = [{"w": _tensor(np.transpose(c["w"], (0, 4, 3, 1, 2)), device),
-              "b": _tensor(c["b"], device)} for c in enc["convs"]]
+
+    def oihw(w):
+        n = np.ndim(w)
+        lead = tuple(range(n - 4))
+        return np.transpose(w, lead + (n - 1, n - 2, n - 4, n - 3))
+    convs = [{"w": _tensor(oihw(c["w"]), device), "b": _tensor(c["b"], device)}
+             for c in enc["convs"]]
     bns = [{k: _tensor(b[k], device) for k in ("scale", "bias")}
            for b in enc["bns"]]
     head = {k: {"w": _tensor(enc["head"][k]["w"], device),
                 "b": _tensor(enc["head"][k]["b"], device)}
             for k in ("mu", "logvar")}
-    dec = params_np.decoder
-    decoder = {"dense": [{"w": _tensor(p["w"], device),
-                          "b": _tensor(p["b"], device)}
-                         for p in dec["dense"]],
-               "branch_heads": {k: _tensor(dec["branch_heads"][k], device)
-                                for k in ("w", "b")}}
-    state = {"encoders": {"bns": [
-        {k: _tensor(s[k], device) for k in ("mean", "var")}
-        for s in state_np["encoders"]["bns"]]}}
+    return {"convs": convs, "bns": bns, "head": head}
+
+
+def _encoder_state(st, device) -> dict:
+    return {"bns": [{k: _tensor(s[k], device) for k in ("mean", "var")}
+                    for s in st["bns"]]}
+
+
+def _decoder(dec, device) -> dict:
+    return {"dense": [{"w": _tensor(p["w"], device),
+                       "b": _tensor(p["b"], device)} for p in dec["dense"]],
+            "branch_heads": {k: _tensor(dec["branch_heads"][k], device)
+                             for k in ("w", "b")}}
+
+
+def inl_from_jax(params_np, state_np, cfg, device=None):
+    """(reference INLParams of numpy leaves, {"encoders": ...} state) ->
+    the port's (INLParams, state) on `device` (None: cuda)."""
+    device = resolve_device(device)
     priors = {k: _tensor(params_np.priors[k], device)
               for k in ("mu", "logvar")} if params_np.priors else {}
-    params = INLParams({"convs": convs, "bns": bns, "head": head}, decoder,
-                       priors)
+    params = INLParams(_encoder(params_np.encoders, cfg, device),
+                       _decoder(params_np.decoder, device), priors)
+    return params, {"encoders": _encoder_state(state_np["encoders"], device)}
+
+
+def sl_from_jax(client_np, server_np, state_np, cfg, device=None):
+    """The reference SL's (client {"encoders": [J]}, server {"decoder"},
+    state {"encoders": [J]}) -> the port's, on `device` (None: cuda)."""
+    device = resolve_device(device)
+    client = {"encoders": [_encoder(e, cfg, device)
+                           for e in client_np["encoders"]]}
+    server = {"decoder": _decoder(server_np["decoder"], device)}
+    state = {"encoders": [_encoder_state(s, device)
+                          for s in state_np["encoders"]]}
+    return client, server, state
+
+
+def fl_from_jax(params_np, state_np, cfg, device=None):
+    """The reference FL's stacked client copies (params {"encoders": [J],
+    "decoder"}, state {"encoders": [J]}, every leaf with a leading client
+    axis) -> the port's, on `device` (None: cuda)."""
+    device = resolve_device(device)
+    params = {"encoders": [_encoder(e, cfg, device)
+                           for e in params_np["encoders"]],
+              "decoder": _decoder(params_np["decoder"], device)}
+    state = {"encoders": [_encoder_state(s, device)
+                          for s in state_np["encoders"]]}
     return params, state

@@ -53,6 +53,18 @@ def sample(generator: torch.Generator, mu, logvar):
     return u.to(mu.dtype)
 
 
+def cut_noise(generator: Optional[torch.Generator], mu, eps=None):
+    """The cut layer's eps: `eps` as given, else N(0, 1) of mu's shape drawn
+    from `generator` on mu's device, else (generator=None) zero, the
+    deterministic cut."""
+    if eps is None:
+        return torch.zeros(mu.shape, dtype=torch.float32, device=mu.device) \
+            if generator is None else _normal(generator, mu)
+    if generator is not None:
+        raise ValueError("pass either generator or eps, not both")
+    return eps
+
+
 def fused_sample_rate(generator: Optional[torch.Generator], mu, logvar, *,
                       link_bits: int = 32, rate_estimator: str = "sample",
                       prior: dict = None, eps=None):
@@ -71,11 +83,7 @@ def fused_sample_rate(generator: Optional[torch.Generator], mu, logvar, *,
     through the same kernel.  prior — a {"mu", "logvar"} dict of (d,)
     shared or (J, d) per-node learned-prior parameters — switches the rate
     to Q_psi on the prior kernels."""
-    if eps is None:
-        eps = torch.zeros(mu.shape, dtype=torch.float32, device=mu.device) \
-            if generator is None else _normal(generator, mu)
-    elif generator is not None:
-        raise ValueError("pass either generator or eps, not both")
+    eps = cut_noise(generator, mu, eps)
     prior = prior or {}
     return ops.cutlayer(mu, logvar, eps, link_bits=link_bits,
                         rate_estimator=rate_estimator,

@@ -20,7 +20,10 @@ then the decoder's dropout keep masks, layer by layer — or takes them as
 `eps=` / `drop_masks=`, which is how the parity tests feed it the
 reference's draws.
 
-Delivery masks, non-star topologies, the packed wires and the
+The wire (`wire=`, core/wirefmt.py): "dense", or the packed wires, whose
+forward runs the pack-emitting cut kernel and the unpack ("packed" trains
+bit for bit as "dense"; "packed_duplex" also quantizes the error vectors
+on the way back).  Delivery masks, non-star topologies and the
 heterogeneous-encoder variant come with later slices of the port and raise
 NotImplementedError here.
 """
@@ -30,7 +33,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import resolve_device, tree_leaves, tree_map, tree_unflatten
+from repro_torch import (as_generator, as_input, resolve_device, tree_map,
+                         tree_stack, value_and_grad)
 from repro_torch.core import bottleneck, linkmodel, losses, paper_model
 from repro_torch.core import topology as topology_lib
 from repro_torch.core import wirefmt
@@ -40,15 +44,6 @@ class INLParams(NamedTuple):
     encoders: dict          # stacked: leading axis J
     decoder: dict
     priors: dict            # {} when standard-normal, else (J, d) leaves
-
-
-def _generator(generator, device: torch.device) -> torch.Generator:
-    if isinstance(generator, int):
-        return torch.Generator(device=device).manual_seed(generator)
-    if generator.device.type != device.type:
-        raise ValueError(f"generator lives on {generator.device}, the "
-                         f"parameters on {device}; draw them on one device")
-    return generator
 
 
 def init(cfg, generator, *, device=None):
@@ -61,25 +56,16 @@ def init(cfg, generator, *, device=None):
     reference's numbers: for parity, convert the reference's parameters
     with repro_torch.convert.inl_from_jax."""
     device = resolve_device(device)
-    gen = _generator(generator, device)
+    gen = as_generator(generator, device)
     nodes = [paper_model.encoder_init(gen, cfg, device=device)
              for _ in range(cfg.num_clients)]
-    enc_params = _stack([p for p, _ in nodes])
-    enc_state = _stack([s for _, s in nodes])
+    enc_params = tree_stack([p for p, _ in nodes])
+    enc_state = tree_stack([s for _, s in nodes])
     dec = paper_model.decoder_init(gen, cfg, device=device)
     priors = bottleneck.prior_init(
         cfg.d_bottleneck, learned=getattr(cfg, "learned_prior", False),
         num_nodes=cfg.num_clients, device=device)
     return INLParams(enc_params, dec, priors), {"encoders": enc_state}
-
-
-def _stack(trees):
-    """Per-node trees of one structure -> one tree with a leading J axis."""
-    return tree_map(lambda *ts: torch.stack(ts), *trees)
-
-
-def params_device(params: INLParams) -> torch.device:
-    return params.decoder["dense"][0]["w"].device
 
 
 def _encode_mu_logvar(params: INLParams, state, views, *, train: bool):
@@ -94,7 +80,7 @@ def _encode_mu_logvar(params: INLParams, state, views, *, train: bool):
         mus.append(mu)
         lvs.append(lv)
         new_states.append(ns)
-    return (torch.stack(mus), torch.stack(lvs)), _stack(new_states)
+    return (torch.stack(mus), torch.stack(lvs)), tree_stack(new_states)
 
 
 def encode_and_rate(params: INLParams, state, views, *, train: bool,
@@ -145,15 +131,11 @@ def decode(params: INLParams, u, *, train: bool, u_joint=None,
     decoder's dropout keep masks in training (none: no dropout)."""
     if u_joint is None:
         u_joint = u
-    joint = paper_model.decoder_apply(params.decoder, _concat(u_joint),
+    joint = paper_model.decoder_apply(params.decoder,
+                                      paper_model.concat_latents(u_joint),
                                       train=train, drop_masks=drop_masks)
     branch = paper_model.branch_heads_apply(params.decoder, u)
     return joint, branch
-
-
-def _concat(u):
-    J, B, d = u.shape
-    return u.permute(1, 0, 2).reshape(B, J * d)            # eq. (5) concat
 
 
 def _star_only(cfg, topology, delivery, *, train=None) -> None:
@@ -191,7 +173,8 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
 
     Noise: eps (J, B, d) fp32, else drawn from `generator`; in training,
     drop_masks (one (B, units) bool tensor per hidden decoder layer), else
-    drawn from `generator` after eps (paper_model.decoder_dropout_masks)."""
+    drawn from `generator` after eps (paper_model.decoder_dropout_masks).
+    wire — the cut layer's wire format (core/wirefmt.cut_and_ship)."""
     _star_only(cfg, topology, delivery, train=train)
     dt = paper_model.compute_dtype(cfg)
     params_c = paper_model.cast_compute(params, dt)
@@ -249,18 +232,10 @@ def make_train_step(cfg, optimizer, *, rate_estimator: str = "sample",
 
     def step(params, state, opt_state, views, labels, generator, *,
              eps=None, drop_masks=None):
-        leaves = [t.detach().requires_grad_(True)
-                  for t in tree_leaves(params)]
-        p_req = tree_unflatten(params, leaves)
-        with torch.enable_grad():
-            loss, (metrics, new_state) = loss_fn(
-                p_req, state, views, labels, cfg, generator=generator,
-                eps=eps, drop_masks=drop_masks, train=True,
-                rate_estimator=rate_estimator, wire=wire, topology=topology)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
+        _, (metrics, new_state), grads = value_and_grad(
+            loss_fn, params, state, views, labels, cfg, generator=generator,
+            eps=eps, drop_masks=drop_masks, train=True,
+            rate_estimator=rate_estimator, wire=wire, topology=topology)
         new_params, new_opt = optimizer.update(grads, opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return new_params, new_state, new_opt, metrics
@@ -270,23 +245,20 @@ def make_train_step(cfg, optimizer, *, rate_estimator: str = "sample",
 def predict(params: INLParams, state, views, *, cfg=None, topology=None,
             delivery=None, wire: str = "dense", device=None):
     """Inference phase (§III-B): deterministic latents (u = mu, shipped
-    unquantized on the star as in the reference), soft output (B, C).
+    unquantized on the star as in the reference, which ignores `wire`
+    there), soft output (B, C).
 
     views — a tensor or array (J, B, H, W, C), moved to `device` (None:
     cuda), where the parameters must already lie."""
-    device = resolve_device(device)
-    pdev = params_device(params)
-    if pdev.type != device.type or device.index not in (None, pdev.index):
-        raise ValueError(f"parameters lie on {pdev}, predict was asked to "
-                         f"run on {device}")
+    views = as_input(params, views, device)
     _star_only(cfg, topology, delivery)
-    views = torch.as_tensor(views, dtype=torch.float32, device=pdev)
     with torch.no_grad():
         u, _, _, _ = encode(params, state, views, train=False,
                             sample_latent=False)
         # the branch heads of `decode` are dead code at inference (the
         # reference's jit drops them); eager PyTorch would run them
-        joint = paper_model.decoder_apply(params.decoder, _concat(u),
+        joint = paper_model.decoder_apply(params.decoder,
+                                          paper_model.concat_latents(u),
                                           train=False)
         return torch.softmax(joint, dim=-1)
 

@@ -2,7 +2,8 @@
 32x32x3 noisy views, and two dense layers at node (J+1).
 
 Reference: src/repro/core/paper_model.py (`compute_dtype`, `cast_compute`,
-the encoder, the decoder, `decoder_dropout_masks`).  The public functions
+the encoder, the decoder, `decoder_dropout_masks`, the parameter counts and
+the FL/SL full model `fl_model_init` / `fl_model_apply`).  The public functions
 keep the reference's layout: an encoder takes views (B, H, W, C), and its
 flatten before the head is in NHWC order, so converted JAX head weights
 apply unchanged.  Inside, the trunk runs NCHW for F.conv2d; `conv`,
@@ -112,6 +113,16 @@ def encoder_feat_dim(cfg) -> int:
     return h * h * cfg.conv_channels[-1]
 
 
+def encoder_param_count(cfg) -> int:
+    chans = (cfg.image_shape[-1],) + tuple(cfg.conv_channels)
+    n = 0
+    for i in range(len(cfg.conv_channels)):
+        n += 9 * chans[i] * chans[i + 1] + chans[i + 1]   # conv w+b
+        n += 2 * chans[i + 1]                              # bn scale+bias
+    n += 2 * (encoder_feat_dim(cfg) * cfg.d_bottleneck + cfg.d_bottleneck)
+    return n
+
+
 def encoder_init(generator: torch.Generator, cfg, *, device=None):
     """cfg: PaperExperimentConfig.  Returns (params, state) of one node."""
     chans = (cfg.image_shape[-1],) + tuple(cfg.conv_channels)
@@ -190,3 +201,68 @@ def branch_heads_apply(p, us):
     """us: (J, B, d_b) -> per-branch logits (J, B, classes)."""
     bh = p["branch_heads"]
     return torch.bmm(us, bh["w"]) + bh["b"][:, None, :]
+
+
+def decoder_param_count(cfg) -> int:
+    J = cfg.num_clients
+    dims = (J * cfg.d_bottleneck,) + tuple(cfg.dense_units) \
+        + (cfg.num_classes,)
+    n = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1))
+    n += J * (cfg.d_bottleneck * cfg.num_classes + cfg.num_classes)
+    return n
+
+
+# ---------------------------------------------------------------------------
+# The FL full model (Fig. 4's entire network on each client) and SL's split
+# ---------------------------------------------------------------------------
+
+def fl_model_init(generator: torch.Generator, cfg, *, device=None):
+    """The whole Fig.-4 network, one copy: J conv branches and the fusion
+    decoder.  Returns (params {"encoders": [J per-branch trees], "decoder"},
+    state {"encoders": [J]}), as the reference lays them out."""
+    encs = [encoder_init(generator, cfg, device=device)
+            for _ in range(cfg.num_clients)]
+    params = {"encoders": [p for p, _ in encs],
+              "decoder": decoder_init(generator, cfg, device=device)}
+    return params, {"encoders": [s for _, s in encs]}
+
+
+def branch_latents(params, state, views, *, train: bool,
+                   link_bits: int = 32):
+    """The J branches of the full model: views (J, B, H, W, C) ->
+    (u (J, B, d), new state).  The latents cross the in-model cut through
+    the fused cut kernel in its deterministic mode (eps == 0, rate 0:
+    u = quantize(mu), one launch for all J branches), the substrate the
+    three schemes share."""
+    mus, lvs, new_states = [], [], []
+    for ep, es, v in zip(params["encoders"], state["encoders"], views):
+        (mu, lv), ns = encoder_apply(ep, es, v, train=train)
+        mus.append(mu)
+        lvs.append(lv)
+        new_states.append(ns)
+    u, _ = bottleneck.fused_sample_rate(
+        None, torch.stack(mus), torch.stack(lvs), link_bits=link_bits,
+        rate_estimator="none")
+    return u, {"encoders": new_states}
+
+
+def concat_latents(u):
+    """(J, B, d) -> (B, J*d), the eq.-(5) concatenation."""
+    J, B, d = u.shape
+    return u.permute(1, 0, 2).reshape(B, J * d)
+
+
+def fl_model_apply(params, state, views, *, train: bool, drop_masks=None):
+    """views (J, B, H, W, C) — all J views of the same images, or one image
+    broadcast to the J branch inputs (FL's Exp-2 inference) -> (logits
+    (B, classes), new state).  The cut is full precision (link_bits 32,
+    u == mu); drop_masks as in `decoder_apply`."""
+    u, new_state = branch_latents(params, state, views, train=train)
+    logits = decoder_apply(params["decoder"], concat_latents(u), train=train,
+                           drop_masks=drop_masks)
+    return logits, new_state
+
+
+def fl_param_count(cfg) -> int:
+    return cfg.num_clients * encoder_param_count(cfg) \
+        + decoder_param_count(cfg)

@@ -1,8 +1,8 @@
 """Unified Scheme API: the registry.
 
 Reference: src/repro/core/schemes/__init__.py (`register`, `get`,
-`available`).  This slice registers INL; FL, SL, splitfed and hybrid come
-with their slices of the port.
+`available`).  The port registers INL, SL and FL, the paper's three-way
+comparison; splitfed and hybrid come with their slice of the port.
 """
 from __future__ import annotations
 
@@ -35,4 +35,4 @@ def available():
 
 
 # importing the built-in schemes self-registers them
-from repro_torch.core.schemes import inl  # noqa: E402,F401
+from repro_torch.core.schemes import fl, inl, sl  # noqa: E402,F401

@@ -23,6 +23,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tree_leaves
+from repro_torch.core import topology as topology_lib
+
 
 class Scheme:
     """Base class: override `init`, `make_round`, `predict` and the
@@ -127,8 +130,30 @@ class Scheme:
         exchange has no per-edge decomposition."""
         return None
 
+    @staticmethod
+    def param_count(tree) -> int:
+        return sum(t.numel() for t in tree_leaves(tree))
+
     def __repr__(self):
         return f"<Scheme {self.name!r}>"
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor leaf of `tree`: what moving it costs."""
+    return sum(t.nbytes for t in tree_leaves(tree))
+
+
+def clean_star(cfg, topology, *, scheme: str) -> None:
+    """What FL and SL run in this slice: the star (`require_star`) on
+    reliable links.  Link models and the edge-dropout curriculum come with
+    the link-fault slice of the port."""
+    topology_lib.require_star(topology, cfg, scheme=scheme)
+    topo = topology_lib.resolve(topology, cfg)
+    if any(e.link is not None for e in topo.edges) \
+            or getattr(cfg, "edge_dropout", 0.0) > 0.0:
+        raise NotImplementedError(f"{scheme} over unreliable links (link "
+                                  "models, edge dropout) comes with the "
+                                  "link-fault slice of the port")
 
 
 def evaluate_accuracy(scheme: Scheme, state, views, labels, topology=None,

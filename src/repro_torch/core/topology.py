@@ -1,10 +1,10 @@
 """Network topology: the inference graph, star only in this slice.
 
 Reference: src/repro/core/topology.py (`Node`, `Edge`, `Topology`, `star`,
-`resolve`, `nontrivial`, `edge_bits`, `edge_wire`, `edge_dtype`, and the
-per-edge bandwidth `round_edge_bits`, `round_edge_wire_bytes`,
-`round_bits`, `round_wire_bytes`), copied (the data model is
-framework-free).  A Topology validates any single-sink DAG as the
+`resolve`, `nontrivial`, `require_star`, `edge_bits`, `edge_wire`,
+`edge_dtype`, and the per-edge bandwidth `round_edge_bits`,
+`round_edge_wire_bytes`, `round_bits`, `round_wire_bytes`), copied (the
+data model is framework-free).  A Topology validates any single-sink DAG as the
 reference does, but the port executes only the default star, and the
 bandwidth functions take star graphs only: chains, trees and per-edge
 overrides run through `graph_cut_and_ship`, which comes with the topology
@@ -274,6 +274,30 @@ def nontrivial(topology: Optional[Topology], cfg) -> Optional[Topology]:
     (golden trajectories included)."""
     topo = resolve(topology, cfg)
     return None if topo.is_default_star() else topo
+
+
+def require_star(topology: Optional[Topology], cfg, *, scheme: str):
+    """Schemes whose exchange has no multi-hop reading (FL's weight
+    transfer, SL's single client->server boundary) accept `topology=` for
+    interface parity but only run the star."""
+    topo = nontrivial(topology, cfg)
+    if topo is not None:
+        relays = [n.name for n in topo.nodes if n.role == "relay"]
+        custom = [e.key for e in topo.edges
+                  if (e.link_bits, e.wire, e.dtype) != (None, None, None)]
+        detail = []
+        if relays:
+            detail.append(f"relay node(s) {relays}")
+        if custom:
+            detail.append(f"per-edge transport override(s) on {custom}")
+        if not detail:
+            detail.append(f"non-star edge(s) "
+                          f"{[e.key for e in topo.edges]}")
+        raise ValueError(
+            f"scheme {scheme!r} runs the star topology only (its exchange "
+            f"is a single client<->server transaction) but the given "
+            f"topology has {'; '.join(detail)}; multi-hop graphs are an "
+            "INL execution concept")
 
 
 def edge_bits(edge: Edge, cfg) -> int:

@@ -21,8 +21,11 @@
 // neighbouring addresses; the per-row rate is reduced in registers with
 // __shfl_xor_sync and written by lane 0.  The grid covers ceil(rows / 8)
 // blocks of 8 warps and a warp whose row lies past the end returns, so ragged
-// row counts need no padding.  All arithmetic is fp32; the quantizer chain
-// and its numerics are in cut_common.cuh, shared with the backward.
+// row counts need no padding.  All arithmetic is fp32; the quantizer chain,
+// the rate's per-element term and their numerics are in cut_common.cuh,
+// shared with the backward and with cut_fwd_pack.cu, whose (u, rate) equal
+// this kernel's bit for bit: each lane adds its columns' terms in the same
+// order (lane, lane + 32, ...) before the same warp sum.
 #include "cut_common.cuh"
 
 namespace {
@@ -49,12 +52,7 @@ __global__ void cut_fwd_kernel(const T* __restrict__ mu,
     const float sigma = expf(mul(0.5f, l));
     const float q = quantize(add(m, mul(sigma, e)), quant, scale, r);
     store(u + base + c, q);
-    if (mode == kSample) {
-      const float diff = q - m;
-      acc += q * q - diff * diff * expf(-l) - l;
-    } else if (mode == kAnalytic) {
-      acc += expf(l) + m * m - 1.f - l;
-    }
+    if (mode != kNone) acc = add(acc, rate_term(q, m, l, mode));
   }
   acc = warp_sum(acc);
   if (lane == 0) rate[row] = 0.5f * acc;

@@ -7,6 +7,9 @@ their counterparts here, written for Hopper (`csrc/`):
     _cut_bwd_kernel        -> csrc/cut_bwd.cu        cut_bwd
     _cut_prior_fwd_kernel  -> csrc/cut_prior_fwd.cu  cut_prior_fwd
     _cut_prior_bwd_kernel  -> csrc/cut_prior_bwd.cu  cut_prior_bwd
+    _cut_fwd_pack_kernel   -> csrc/cut_fwd_pack.cu   cut_fwd_pack
+    _pack_kernel           -> csrc/pack.cu           pack
+    _unpack_dequant_kernel -> csrc/unpack_dequant.cu unpack
 
 Each kernel takes one warp per row, so ragged row counts need no padding to
 a block size.
@@ -24,6 +27,12 @@ per node) also saves u and its backward yields the prior gradients too
 Dispatch is by the device of the tensors: CPU tensors take the plain
 versions (kernels/ref.py), CUDA tensors the kernels, which raise if they
 cannot build or launch.  There is no fallback from one to the other.
+
+The packed wire's entries — `cutlayer_pack_forward` (u, the codeword lanes
+and the rate from one read), `pack_values` and `unpack_dequant` — have no
+gradient rule, as in the reference: core/wirefmt.py owns the autograd
+Functions around them, whose backward is `cutlayer_backward`.  Lanes are
+torch.uint32, 32 // b codewords each (kernels/ref.py).
 
 `LAUNCHES` counts kernel launches by kernel name: each call of a wrapper
 that launches its kernel adds one, and nothing else does.  `cut_prior_bwd`
@@ -48,7 +57,8 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 PRIOR_BWD_MAX_D = 1792
 
 LAUNCHES = {"cut_fwd": 0, "cut_bwd": 0, "cut_prior_fwd": 0,
-            "cut_prior_bwd": 0}
+            "cut_prior_bwd": 0, "cut_fwd_pack": 0, "pack": 0,
+            "unpack_dequant": 0}
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -63,6 +73,11 @@ _SIGNATURES = {
     ("cut_prior_bwd", "cut_prior_bwd_launch"): (
         [_P] * 14 + [_I, _L, _I, _I, _I, _P], _I),
     ("cut_prior_bwd", "cut_prior_bwd_scratch"): ([_I, _L, _I], _L),
+    ("cut_fwd_pack", "cut_fwd_pack_launch"): (
+        [_P] * 6 + [_L, _I, _I, _F, _I, _I, _P], _I),
+    ("pack", "pack_launch"): ([_P, _P, _L, _I, _I, _F, _I, _P], _I),
+    ("unpack_dequant", "unpack_dequant_launch"): (
+        [_P, _P, _L, _I, _I, _F, _I, _P], _I),
 }
 
 
@@ -249,6 +264,78 @@ def cut_prior_bwd(mu, logvar, eps, pmu, plv, u, gu, grate, *, mode: str):
     return dmu, dlv, deps, dpmu, dplv
 
 
+def cut_fwd_pack(mu, logvar, eps, *, bits: int, mode: str):
+    """Launch the pack-emitting forward kernel on (R, d) rows (as `cut_fwd`,
+    at a packable 1 <= bits <= 16).  Returns (u (R, d) in mu.dtype, lanes
+    (R, W) uint32, rate (R,) fp32); (u, rate) equal `cut_fwd`'s bit for
+    bit."""
+    _check_mode(mode)
+    tensors = (mu, logvar, eps)
+    _check_cuda("cut_fwd_pack", tensors)
+    _check_latent_dtypes("cut_fwd_pack", mu, logvar)
+    _check_fp32("cut_fwd_pack", eps=eps)
+    if mu.dim() != 2 or logvar.shape != mu.shape or eps.shape != mu.shape:
+        raise ValueError(f"cut_fwd_pack takes three equal (R, d) shapes; "
+                         f"got {[tuple(t.shape) for t in tensors]}")
+    R, d = mu.shape
+    # packed_width refuses a width outside 1..16
+    lanes = torch.empty((R, ref.packed_width(d, bits)), dtype=torch.uint32,
+                        device=mu.device)
+    u = torch.empty_like(mu)
+    rate = torch.empty((R,), dtype=torch.float32, device=mu.device)
+    if R == 0 or d == 0:
+        return u, lanes, rate.zero_()
+    _launch("cut_fwd_pack", _c_function("cut_fwd_pack",
+                                        "cut_fwd_pack_launch"), mu.device,
+            mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), u.data_ptr(),
+            lanes.data_ptr(), rate.data_ptr(), R, d, int(bits),
+            ref.QUANT_RANGE, _MODE_ID[mode], int(mu.dtype == torch.bfloat16),
+            what=f"R={R}, d={d}, bits={bits}, mode={mode}")
+    return u, lanes, rate
+
+
+def pack(u, *, bits: int):
+    """Launch the pack kernel: (R, d) fp32 or bf16 values -> (R, W) uint32
+    codeword lanes at 1 <= bits <= 16."""
+    _check_cuda("pack", (u,))
+    if u.dtype not in _KERNEL_DTYPES or u.dim() != 2:
+        raise TypeError(f"pack takes (R, d) fp32 or bf16 values; got "
+                        f"{u.dtype} {tuple(u.shape)}")
+    R, d = u.shape
+    lanes = torch.empty((R, ref.packed_width(d, bits)), dtype=torch.uint32,
+                        device=u.device)
+    if R == 0 or d == 0:
+        return lanes
+    _launch("pack", _c_function("pack", "pack_launch"), u.device,
+            u.data_ptr(), lanes.data_ptr(), R, d, int(bits), ref.QUANT_RANGE,
+            int(u.dtype == torch.bfloat16),
+            what=f"R={R}, d={d}, bits={bits}")
+    return lanes
+
+
+def unpack(lanes, *, d: int, bits: int, dtype=torch.float32):
+    """Launch the unpack-dequantize kernel: (R, W) uint32 lanes -> (R, d)
+    quantized values in `dtype` (fp32 or bf16)."""
+    _check_cuda("unpack_dequant", (lanes,))
+    W = ref.packed_width(d, bits)
+    if lanes.dtype != torch.uint32 or lanes.dim() != 2 or lanes.shape[1] != W:
+        raise ValueError(f"unpack_dequant takes (R, {W}) uint32 lanes for "
+                         f"d={d} at {bits} bits; got {lanes.dtype} "
+                         f"{tuple(lanes.shape)}")
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"unpack_dequant writes fp32 or bf16, not {dtype}")
+    R = lanes.shape[0]
+    out = torch.empty((R, d), dtype=dtype, device=lanes.device)
+    if R == 0 or d == 0:
+        return out
+    _launch("unpack_dequant",
+            _c_function("unpack_dequant", "unpack_dequant_launch"),
+            lanes.device, lanes.data_ptr(), out.data_ptr(), R, d, int(bits),
+            ref.QUANT_RANGE, int(dtype == torch.bfloat16),
+            what=f"R={R}, d={d}, bits={bits}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Autograd Functions (the reference's custom VJPs) and the public entries
 # ---------------------------------------------------------------------------
@@ -376,3 +463,69 @@ def cutlayer_backward(mu, logvar, eps, gu, grate, *, link_bits: int,
     else:
         grads = cut_bwd(*rows, gr, bits=link_bits, mode=rate_estimator)
     return tuple(g.reshape(shape) for g in grads)
+
+
+# ---------------------------------------------------------------------------
+# The packed wire's entries: no gradient rule (core/wirefmt.py owns them)
+# ---------------------------------------------------------------------------
+
+def cutlayer_pack_forward(mu, logvar, eps, *, link_bits: int,
+                          rate_estimator: str = "sample"):
+    """Pack-emitting fused forward: (u (..., d) in mu.dtype, lanes (..., W)
+    uint32, rate (...,) fp32) in one pass, every leading axis folded into
+    the rows.  Bit-identical to `cutlayer_fused` on (u, rate).  No
+    gradient rule: callers wrap it in an autograd Function whose backward
+    is `cutlayer_backward`."""
+    if rate_estimator not in MODES:
+        raise ValueError(f"unknown rate_estimator {rate_estimator!r}")
+    ref.vals_per_word(link_bits)            # refuses a width outside 1..16
+    shape = mu.shape
+    d = shape[-1]
+    R = math.prod(shape[:-1])
+    rows = [t.reshape(R, d).contiguous() for t in (mu, logvar, eps)]
+    if _device_type(rows) == "cpu":
+        u, lanes, rate = ref.cutlayer_pack_fwd_ref(*rows, link_bits,
+                                                   rate_estimator)
+    else:
+        u, lanes, rate = cut_fwd_pack(*rows, bits=link_bits,
+                                      mode=rate_estimator)
+    return (u.reshape(shape), lanes.reshape(shape[:-1] + lanes.shape[-1:]),
+            rate.reshape(shape[:-1]))
+
+
+def pack_values(u, *, link_bits: int):
+    """Quantized values -> codeword lanes, (..., d) -> (..., W) uint32;
+    lossless on values on the link_bits grid.
+
+    A value stored in bf16 holds a grid of at most 8 bits exactly; a wider
+    code would decode to other values, so it is refused (pack from the
+    kernel's fp32 internals with `cutlayer_pack_forward` instead)."""
+    if u.element_size() < 4 and link_bits > 8:
+        raise ValueError(f"cannot re-encode {u.dtype} values at "
+                         f"{link_bits}-bit codes (> 8 bits exceeds the "
+                         "half-precision mantissa); pack from the kernel's "
+                         "fp32 internals via cutlayer_pack_forward instead")
+    shape = u.shape
+    d = shape[-1]
+    rows = u.reshape(math.prod(shape[:-1]), d).contiguous()
+    if _device_type((rows,)) == "cpu":
+        lanes = ref.pack_values_ref(rows, link_bits)
+    else:
+        lanes = pack(rows, bits=link_bits)
+    return lanes.reshape(shape[:-1] + lanes.shape[-1:])
+
+
+def unpack_dequant(packed, d: int, *, link_bits: int, dtype=torch.float32):
+    """Fusion-node unpack: (..., W) uint32 lanes -> (..., d) quantized
+    values in `dtype`, one extract-and-dequantize pass."""
+    W = ref.packed_width(d, link_bits)
+    if packed.shape[-1] != W:
+        raise ValueError(f"packed width {packed.shape[-1]} does not match "
+                         f"d={d} at {link_bits} bits (want {W})")
+    shape = packed.shape
+    rows = packed.reshape(math.prod(shape[:-1]), W).contiguous()
+    if _device_type((rows,)) == "cpu":
+        out = ref.unpack_dequant_ref(rows, d, link_bits, dtype=dtype)
+    else:
+        out = unpack(rows, d=d, bits=link_bits, dtype=dtype)
+    return out.reshape(shape[:-1] + (d,))

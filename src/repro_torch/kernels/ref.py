@@ -2,7 +2,10 @@
 
 Reference: src/repro/kernels/ref.py (`QUANT_RANGE`, `quantize_value`,
 `cutlayer_fwd_ref`, `cutlayer_bwd_ref`, `cutlayer_prior_fwd_ref`,
-`cutlayer_prior_bwd_ref`), in the same fp32 order.  CPU tensors take these
+`cutlayer_prior_bwd_ref`, and the packed wire: `vals_per_word`,
+`packed_width`, `quantize_index`, `dequantize_index`, `pack_indices`,
+`unpack_indices`, `pack_values_ref`, `unpack_dequant_ref`,
+`cutlayer_pack_fwd_ref`), in the same fp32 order.  CPU tensors take these
 in place of the CUDA kernels (kernels/inl_bottleneck.py), and chip_smoke.py
 holds each kernel against them on the card.  They repeat the kernels' fp32
 arithmetic step for step and are no yardstick of speed.
@@ -10,6 +13,14 @@ arithmetic step for step and are no yardstick of speed.
 Modes: "sample" (the paper's eq.-(6) estimator at the quantized latent),
 "analytic" (closed-form Gaussian KL) and "none" (rate == 0, the
 deterministic cut: with eps == 0, u == quantize(mu)).
+
+The packed wire carries b-bit codeword indices, 32 // b of them in each
+uint32 lane, little-endian (codeword k of a lane at bit k*b), the tail of
+the last lane zero.  PyTorch has no shifts or sums for torch.uint32, so the
+codewords here are int64 and the lanes are assembled in int64 and stored
+as torch.uint32, bit for bit the reference's np.uint32 lanes.  Every
+function also runs on meta tensors, which is how the wire's byte counts
+are sized (core/wirefmt.shipped_nbytes).
 """
 from __future__ import annotations
 
@@ -34,6 +45,16 @@ def quantize_value(u, bits: int, *, u_range: float = QUANT_RANGE):
     return idx / torch.tensor(scale, dtype=u.dtype, device=u.device) - u_range
 
 
+def _rate(u, muf, lv, mode: str):
+    """The per-row rate of a mode at the fp32 quantized latent u."""
+    if mode == "sample":
+        return 0.5 * torch.sum(u * u - (u - muf) ** 2 * torch.exp(-lv) - lv,
+                               dim=-1)
+    if mode == "analytic":
+        return 0.5 * torch.sum(torch.exp(lv) + muf * muf - 1.0 - lv, dim=-1)
+    return torch.zeros(u.shape[:-1], dtype=torch.float32, device=u.device)
+
+
 def cutlayer_fwd_ref(mu, logvar, eps, bits: int, mode: str):
     """Fused cut-layer forward, (R, d) rows -> (u (R, d) in mu.dtype,
     rate (R,) fp32), in the fp32 arithmetic order of the kernel."""
@@ -42,15 +63,100 @@ def cutlayer_fwd_ref(mu, logvar, eps, bits: int, mode: str):
     sigma = torch.exp(0.5 * lv)
     pre = muf + sigma * eps.to(torch.float32)
     u = quantize_value(pre, bits)
-    if mode == "sample":
-        rate = 0.5 * torch.sum(u * u - (u - muf) ** 2 * torch.exp(-lv) - lv,
-                               dim=-1)
-    elif mode == "analytic":
-        rate = 0.5 * torch.sum(torch.exp(lv) + muf * muf - 1.0 - lv, dim=-1)
-    else:
-        rate = torch.zeros(u.shape[:-1], dtype=torch.float32,
-                           device=u.device)
-    return u.to(mu.dtype), rate
+    return u.to(mu.dtype), _rate(u, muf, lv, mode)
+
+
+# ---------------------------------------------------------------------------
+# Packed wire format: b-bit codeword indices in uint32 lanes
+# ---------------------------------------------------------------------------
+
+def vals_per_word(bits: int) -> int:
+    """Codewords per uint32 lane (16 at 2 bits, 4 at 8; 10 at the odd 3-bit
+    width, whose lanes then carry 2 bits of padding)."""
+    if not 1 <= bits <= 16:
+        raise ValueError(f"packable link_bits must be in [1, 16], got {bits}")
+    return 32 // bits
+
+
+def packed_width(d: int, bits: int) -> int:
+    """uint32 lanes per d-vector: ceil(d / vals_per_word)."""
+    return -(-d // vals_per_word(bits))
+
+
+def _index_scale(bits: int, u_range: float) -> float:
+    return ((1 << bits) - 1) / (2.0 * u_range)
+
+
+def quantize_index(u, bits: int, *, u_range: float = QUANT_RANGE):
+    """Codeword index of the uniform link quantizer, int64 in [0, 2^bits).
+
+    `dequantize_index(quantize_index(u, bits), bits)` is
+    `quantize_value(u, bits)` bit for bit (the same fp32 expression)."""
+    clipped = torch.clamp(u.to(torch.float32), -u_range, u_range)
+    return torch.round((clipped + u_range)
+                       * _index_scale(bits, u_range)).to(torch.int64)
+
+
+def dequantize_index(idx, bits: int, *, dtype=torch.float32,
+                     u_range: float = QUANT_RANGE):
+    """Value of a codeword index: the fusion node's side of the link.  A
+    true division by the fp32 scale, as the kernels divide."""
+    scale = torch.tensor(_index_scale(bits, u_range), dtype=torch.float32,
+                         device=idx.device)
+    return (idx.to(torch.float32) / scale - u_range).to(dtype)
+
+
+def pack_indices(idx, bits: int):
+    """(..., d) codewords -> (..., W) torch.uint32 lanes, little-endian
+    within the lane (codeword k at bit offset k*bits), the tail zero."""
+    vpw = vals_per_word(bits)
+    d = idx.shape[-1]
+    W = packed_width(d, bits)
+    idx = torch.nn.functional.pad(idx.to(torch.int64), (0, W * vpw - d))
+    grouped = idx.reshape(idx.shape[:-1] + (W, vpw))
+    shifts = torch.arange(vpw, dtype=torch.int64, device=idx.device) * bits
+    lanes = torch.sum(grouped << shifts, dim=-1)          # in [0, 2^32)
+    # int64 -> uint32 through int32 (two's complement), which every device
+    # converts; the bits are the lane's
+    lanes = torch.where(lanes >= 1 << 31, lanes - (1 << 32), lanes)
+    return lanes.to(torch.int32).view(torch.uint32)
+
+
+def unpack_indices(packed, d: int, bits: int):
+    """Inverse of pack_indices: (..., W) uint32 lanes -> (..., d) int64
+    codewords."""
+    vpw = vals_per_word(bits)
+    lanes = packed.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(vpw, dtype=torch.int64,
+                          device=packed.device) * bits
+    ext = (lanes[..., None] >> shifts) & ((1 << bits) - 1)   # (..., W, vpw)
+    return ext.reshape(packed.shape[:-1] + (-1,))[..., :d]
+
+
+def pack_values_ref(u, bits: int):
+    """Quantized values -> packed codeword lanes; lossless for u on the
+    `bits`-bit grid (any cut-layer output with link_bits == bits)."""
+    return pack_indices(quantize_index(u, bits), bits)
+
+
+def unpack_dequant_ref(packed, d: int, bits: int, *, dtype=torch.float32):
+    """Packed codeword lanes -> dense quantized values in `dtype`."""
+    return dequantize_index(unpack_indices(packed, d, bits), bits,
+                            dtype=dtype)
+
+
+def cutlayer_pack_fwd_ref(mu, logvar, eps, bits: int, mode: str):
+    """Pack-emitting fused forward, (R, d) rows -> (u (R, d) in mu.dtype,
+    packed (R, W) uint32, rate (R,) fp32).  The codeword index is the
+    shared intermediate (u == dequantize_index(idx)), so (u, rate) equal
+    `cutlayer_fwd_ref`'s bit for bit.  Needs 1 <= bits <= 16."""
+    muf = mu.to(torch.float32)
+    lv = logvar.to(torch.float32)
+    sigma = torch.exp(0.5 * lv)
+    pre = muf + sigma * eps.to(torch.float32)
+    idx = quantize_index(pre, bits)
+    u = dequantize_index(idx, bits)
+    return u.to(mu.dtype), pack_indices(idx, bits), _rate(u, muf, lv, mode)
 
 
 def cutlayer_bwd_ref(mu, logvar, eps, gu, grate, bits: int, mode: str):

@@ -26,8 +26,11 @@ run another convolution or matrix-product algorithm).
 
 Not in this slice, and refused with NotImplementedError: `transport=` and
 `speculative=` (the transport slice), `deadline_ms=` and link models on the
-edges (the link-fault slice), non-star topologies (the topology slice) and
-`wire` other than "dense" (the packed-wire slice).  The reference's
+edges (the link-fault slice) and non-star topologies (the topology
+slice).  `wire` ("dense", "packed", "packed_duplex") leaves the answers as
+they are on the star, where the reference's predict ships unquantized
+latents and ignores it, and sets what the meter charges: a packed wire's
+codeword lanes (core/wirefmt.shipped_nbytes).  The reference's
 `trace_counts` has no counterpart: eager PyTorch does not trace.  A CUDA
 graph captured per bucket, a later step, brings it back.
 """
@@ -136,9 +139,6 @@ class ServingEngine:
             raise NotImplementedError(
                 "non-star topologies come with the topology slice of the "
                 "port")
-        if wire != "dense":
-            raise NotImplementedError(
-                f"wire={wire!r} comes with the packed-wire slice of the port")
         self.device = resolve_device(device)
         self.scheme, self.state, self.cfg = scheme, state, cfg
         self.topology = topology

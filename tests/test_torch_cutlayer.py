@@ -144,8 +144,8 @@ def test_dispatch_is_by_device_without_fallback():
 
 
 def test_unported_paths_raise():
-    """The learned prior and the backward are ported; the cut layer's
-    packed wires (the pack kernels) are not yet."""
+    """The learned prior, the backward and the packed wires are ported; the
+    wire's collective over a client axis (the sharded slice) is not yet."""
     mu, lv, eps = (torch.from_numpy(x) for x in _inputs((3, 8)))
     u, rate = ops.cutlayer(mu.requires_grad_(), lv, eps,
                            prior_mu=torch.zeros(8),
@@ -153,8 +153,12 @@ def test_unported_paths_raise():
     (rate.sum() + u.sum()).backward()
     assert mu.grad is not None and mu.grad.shape == mu.shape
     for wire in ("packed", "packed_duplex"):
-        with pytest.raises(NotImplementedError, match="packed-wire"):
-            wirefmt.cut_and_ship(None, mu, lv, link_bits=4, wire=wire)
+        u, _, shipped = wirefmt.cut_and_ship(None, mu, lv, link_bits=4,
+                                             wire=wire)
+        assert torch.equal(shipped, u)
+        with pytest.raises(NotImplementedError, match="sharded slice"):
+            wirefmt.cut_and_ship(None, mu, lv, link_bits=4, wire=wire,
+                                 axis_name="client")
 
 
 def test_fused_sample_rate_eps_from_generator():
@@ -172,8 +176,9 @@ def test_fused_sample_rate_eps_from_generator():
 
 def test_build_module_finds_sources_and_names_missing_nvcc(monkeypatch,
                                                            tmp_path):
-    assert build.sources() == ("cut_bwd", "cut_fwd", "cut_prior_bwd",
-                               "cut_prior_fwd")
+    assert build.sources() == ("cut_bwd", "cut_fwd", "cut_fwd_pack",
+                               "cut_prior_bwd", "cut_prior_fwd", "pack",
+                               "unpack_dequant")
     assert str(build.BUILD_DIR).endswith("build/kernels")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

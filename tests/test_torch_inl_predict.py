@@ -170,7 +170,8 @@ def test_star_topology_and_dense_wire_equal_the_reference():
                        (torch.bfloat16, jnp.bfloat16)):
         assert twire.shipped_nbytes(20, 64, link_bits=8, dtype=dt_t) == \
             jwire.shipped_nbytes(20, 64, link_bits=8, dtype=dt_j)
-    with pytest.raises(NotImplementedError, match="packed-wire"):
-        twire.shipped_nbytes(20, 64, link_bits=8, wire="packed")
+    assert twire.shipped_nbytes(20, 64, link_bits=8, wire="packed") == \
+        jwire.shipped_nbytes(20, 64, link_bits=8, wire="packed") \
+        == 20 * 16 * 4
     with pytest.raises(ValueError, match="unknown wire"):
         twire.shipped_nbytes(20, 64, link_bits=8, wire="bogus")

@@ -37,7 +37,9 @@ def test_every_module_imports_without_jax_or_repro():
     for m in ("repro_torch.kernels.inl_bottleneck",
               "repro_torch.serving.engine", "repro_torch.optim",
               "repro_torch.core.linkmodel",
-              "repro_torch.core.schemes.runner"):
+              "repro_torch.core.schemes.runner", "repro_torch.core.wirefmt",
+              "repro_torch.core.sl", "repro_torch.core.fl",
+              "repro_torch.core.schemes.sl", "repro_torch.core.schemes.fl"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -7,7 +7,8 @@ JAX reference's.
     per-edge ledgers) equal, exactly, what the reference's `run_scheme`
     meters for the same settings: the closed forms do not depend on the
     weights or the random streams;
-  * the options that come with later slices raise NotImplementedError.
+  * the options that come with later slices raise NotImplementedError, and
+    a packed wire at an unpackable width (CFG's 32 bits) a ValueError.
 """
 import pytest
 
@@ -71,7 +72,7 @@ def test_run_scheme_trains_and_meters_as_the_reference():
     ({"mesh": object()}, NotImplementedError, "sharded slice"),
     ({"transport": object()}, NotImplementedError, "transport slice"),
     ({"ckpt_dir": "ckpt"}, NotImplementedError, "checkpoint slice"),
-    ({"wire": "packed"}, NotImplementedError, "packed-wire"),
+    ({"wire": "packed"}, ValueError, "packable"),
     ({"topology": topology.star(CFG.num_clients, link_bits=4)},
      NotImplementedError, "topology slice"),
 ], ids=["scan", "unknown", "mesh", "transport", "ckpt", "packed",

@@ -264,7 +264,6 @@ def _relay_chain():
     (dict(deadline_ms=10.0), "link-fault"),
     (dict(topology="lossy"), "link-fault"),
     (dict(topology="chain"), "topology"),
-    (dict(wire="packed"), "packed-wire"),
 ])
 def test_unported_options_raise(option, slice_name):
     scheme, state, _ = _inl()

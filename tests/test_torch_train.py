@@ -206,7 +206,7 @@ def test_deferred_training_options_raise():
                                                    link_bits=4))
     with pytest.raises(NotImplementedError, match="link-fault"):
         inl.make_train_step(_cfg(edge_dropout=0.2), optim.adam(1e-3))
-    with pytest.raises(NotImplementedError, match="packed-wire"):
+    with pytest.raises(ValueError, match="packable"):     # link_bits 32
         inl.make_train_step(cfg, optim.adam(1e-3), wire="packed")
 
 
