@@ -17,6 +17,12 @@ nothing of JAX or `repro`.
 INL stacks its J encoders along a leading axis; SL and FL keep a list of J
 per-branch encoders, as the reference does, and FL stacks the J client
 copies of everything along a leading axis.
+
+`zoo_from_jax` maps the reference's `models.zoo.init_params` tree onto the
+port's (`repro_torch.models.zoo`): the trees have one structure, dense
+(d_in, d_out) and conv1d (width, C) weights and the stacked (nper, ...)
+period leaves copy unchanged, and every leaf takes the model's dtype but
+A_log, D and dt_bias, which stay fp32 as in the reference.
 """
 from __future__ import annotations
 
@@ -98,3 +104,24 @@ def fl_from_jax(params_np, state_np, cfg, device=None):
     state = {"encoders": [_encoder_state(s, device)
                           for s in state_np["encoders"]]}
     return params, state
+
+
+FP32_LEAVES = ("A_log", "D", "dt_bias")
+
+
+def zoo_from_jax(params_np, cfg, *, device=None, dtype=None):
+    """The reference LLM's params (nested dicts and lists of numpy leaves,
+    any float type: a bf16 leaf is read through float32) -> the port's, on
+    `device` (None: cuda) in `dtype` (None: cfg.dtype)."""
+    from repro_torch.models import zoo
+    device = resolve_device(device)
+    dtype = dtype if dtype is not None else zoo.model_dtype(cfg)
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, name) for v in tree]
+        t = _tensor(tree, device)
+        return t if name in FP32_LEAVES else t.to(dtype)
+    return walk(params_np)

@@ -27,6 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -101,6 +103,39 @@ def build_all(names: Iterable[str] = None) -> Dict[str, float]:
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         return seconds
+
+
+def c_function(source: str, name: str, argtypes, restype=ctypes.c_int):
+    """The C function `name` of csrc/<source>.cu, with its ctypes
+    signature set (pointers as c_void_p, so none is cut to 32 bits)."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+def check_cuda(name: str, tensors) -> None:
+    """Raise unless `tensors` are contiguous and on one CUDA device."""
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{name} takes CUDA tensors; got devices "
+                         f"{[str(t.device) for t in tensors]}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name} inputs lie on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def launch(name: str, fn, device, *args, what: str) -> None:
+    """Call the C launcher `fn` with `args` and the current CUDA stream of
+    `device` as its last argument; raise if it returns a CUDA error (a
+    launch refused for its threads or shared memory never runs, and no
+    synchronize reports it)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc} "
+                           f"({what})")
 
 
 def load(name: str) -> ctypes.CDLL:

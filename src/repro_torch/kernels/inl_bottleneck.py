@@ -82,20 +82,7 @@ _SIGNATURES = {
 
 
 def _c_function(source: str, name: str):
-    fn = getattr(build.load(source), name)
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = _SIGNATURES[(source, name)]
-    return fn
-
-
-def _check_cuda(name: str, tensors) -> None:
-    if any(t.device.type != "cuda" for t in tensors):
-        raise ValueError(f"{name} takes CUDA tensors; got devices "
-                         f"{[str(t.device) for t in tensors]}")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{name} inputs lie on different devices")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} takes contiguous tensors")
+    return build.c_function(source, name, *_SIGNATURES[(source, name)])
 
 
 def _check_latent_dtypes(name: str, mu, *same) -> None:
@@ -119,12 +106,7 @@ def _check_mode(mode: str, allowed=MODES) -> None:
 
 
 def _launch(name: str, fn, device, *args, what: str) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc} "
-                           f"({what})")
+    build.launch(name, fn, device, *args, what=what)
     LAUNCHES[name] += 1
 
 
@@ -138,7 +120,7 @@ def cut_fwd(mu, logvar, eps, *, bits: int, mode: str):
     (u (R, d) in mu.dtype, rate (R,) fp32), on the current stream."""
     _check_mode(mode)
     tensors = (mu, logvar, eps)
-    _check_cuda("cut_fwd", tensors)
+    build.check_cuda("cut_fwd", tensors)
     _check_latent_dtypes("cut_fwd", mu, logvar)
     _check_fp32("cut_fwd", eps=eps)
     if mu.dim() != 2 or logvar.shape != mu.shape or eps.shape != mu.shape:
@@ -165,7 +147,7 @@ def cut_bwd(mu, logvar, eps, gu, grate, *, bits: int, mode: str):
     mode).  Returns (dmu, dlv, deps) in the dtypes of (mu, logvar, eps)."""
     _check_mode(mode)
     tensors = (mu, logvar, eps, gu, grate)
-    _check_cuda("cut_bwd", tensors)
+    build.check_cuda("cut_bwd", tensors)
     _check_latent_dtypes("cut_bwd", mu, logvar, gu)
     _check_fp32("cut_bwd", eps=eps, grate=grate)
     if (mu.dim() != 2 or any(t.shape != mu.shape for t in (logvar, eps, gu))
@@ -203,7 +185,7 @@ def cut_prior_fwd(mu, logvar, eps, pmu, plv, *, bits: int, mode: str):
     mu.dtype, rate (J, T) fp32)."""
     _check_mode(mode, PRIOR_MODES)
     tensors = (mu, logvar, eps, pmu, plv)
-    _check_cuda("cut_prior_fwd", tensors)
+    build.check_cuda("cut_prior_fwd", tensors)
     _check_latent_dtypes("cut_prior_fwd", mu, logvar)
     _check_fp32("cut_prior_fwd", eps=eps, prior_mu=pmu, prior_logvar=plv)
     _check_prior_rows("cut_prior_fwd", mu, pmu, plv)
@@ -234,7 +216,7 @@ def cut_prior_bwd(mu, logvar, eps, pmu, plv, u, gu, grate, *, mode: str):
     fixed order: two launches on the same inputs give the same bits."""
     _check_mode(mode, PRIOR_MODES)
     tensors = (mu, logvar, eps, pmu, plv, u, gu, grate)
-    _check_cuda("cut_prior_bwd", tensors)
+    build.check_cuda("cut_prior_bwd", tensors)
     _check_latent_dtypes("cut_prior_bwd", mu, logvar, u, gu)
     _check_fp32("cut_prior_bwd", eps=eps, prior_mu=pmu, prior_logvar=plv,
                 grate=grate)
@@ -271,7 +253,7 @@ def cut_fwd_pack(mu, logvar, eps, *, bits: int, mode: str):
     bit."""
     _check_mode(mode)
     tensors = (mu, logvar, eps)
-    _check_cuda("cut_fwd_pack", tensors)
+    build.check_cuda("cut_fwd_pack", tensors)
     _check_latent_dtypes("cut_fwd_pack", mu, logvar)
     _check_fp32("cut_fwd_pack", eps=eps)
     if mu.dim() != 2 or logvar.shape != mu.shape or eps.shape != mu.shape:
@@ -297,7 +279,7 @@ def cut_fwd_pack(mu, logvar, eps, *, bits: int, mode: str):
 def pack(u, *, bits: int):
     """Launch the pack kernel: (R, d) fp32 or bf16 values -> (R, W) uint32
     codeword lanes at 1 <= bits <= 16."""
-    _check_cuda("pack", (u,))
+    build.check_cuda("pack", (u,))
     if u.dtype not in _KERNEL_DTYPES or u.dim() != 2:
         raise TypeError(f"pack takes (R, d) fp32 or bf16 values; got "
                         f"{u.dtype} {tuple(u.shape)}")
@@ -316,7 +298,7 @@ def pack(u, *, bits: int):
 def unpack(lanes, *, d: int, bits: int, dtype=torch.float32):
     """Launch the unpack-dequantize kernel: (R, W) uint32 lanes -> (R, d)
     quantized values in `dtype` (fp32 or bf16)."""
-    _check_cuda("unpack_dequant", (lanes,))
+    build.check_cuda("unpack_dequant", (lanes,))
     W = ref.packed_width(d, bits)
     if lanes.dtype != torch.uint32 or lanes.dim() != 2 or lanes.shape[1] != W:
         raise ValueError(f"unpack_dequant takes (R, {W}) uint32 lanes for "

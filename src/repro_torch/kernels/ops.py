@@ -1,7 +1,8 @@
 """Dispatching wrappers for the kernels.
 
-Reference: src/repro/kernels/ops.py (`cutlayer`).  The JAX package picks an
-implementation with `backend="auto"|"pallas"|"reference"`; here the device
+Reference: src/repro/kernels/ops.py (`cutlayer`, `attention`,
+`ssd_scan`).  The JAX package picks an implementation with
+`backend="auto"|"pallas"|"reference"`; here the device
 of the tensors decides, and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor the hand-written kernel or an exception.  There is no
 setting that sends a CUDA tensor to the plain version.
@@ -10,7 +11,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import inl_bottleneck as _bn
+from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ssd
 
 
 def cutlayer(mu, logvar, eps, *, link_bits: int = 32,
@@ -39,3 +43,27 @@ def cutlayer(mu, logvar, eps, *, link_bits: int = 32,
         raise TypeError(f"cutlayer rate must accumulate in fp32, got "
                         f"{rate.dtype}")
     return u, rate
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              q_offset: int = 0):
+    """Causal (GQA) attention forward.  q: (B, Sq, H, Dh); k, v:
+    (B, Sk, KV, Dh).  CPU tensors take `ref.attention_ref`, CUDA tensors
+    the flash kernel (csrc/flash_attn_fwd.cu).  Returns (B, Sq, H, Dh) in
+    q's dtype."""
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    return _fa.flash_attn_fwd(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+
+
+def ssd_scan(x, dt, a, bm, cm, dskip, *, chunk: int):
+    """Chunked Mamba2/SSD scan from a zero state.  x: (B, S, H, P); dt:
+    (B, S, H) fp32 post-softplus; a, dskip: (H,) fp32; bm, cm: (B, S, N).
+    CPU tensors take `ref.ssd_chunked_ref`, CUDA tensors the scan kernel
+    (csrc/ssd_scan.cu).  Returns (y (B, S, H, P) in x's dtype, final state
+    (B, H, N, P) fp32)."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, a, bm, cm, dskip, chunk=chunk)
+    return _ssd.ssd_scan(x, dt, a, bm, cm, dskip, chunk=chunk)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the cut-layer kernels.
+"""Plain PyTorch versions of the kernels.
 
 Reference: src/repro/kernels/ref.py (`QUANT_RANGE`, `quantize_value`,
 `cutlayer_fwd_ref`, `cutlayer_bwd_ref`, `cutlayer_prior_fwd_ref`,
@@ -9,6 +9,11 @@ Reference: src/repro/kernels/ref.py (`QUANT_RANGE`, `quantize_value`,
 in place of the CUDA kernels (kernels/inl_bottleneck.py), and chip_smoke.py
 holds each kernel against them on the card.  They repeat the kernels' fp32
 arithmetic step for step and are no yardstick of speed.
+
+The LLM stack's: `attention_ref` (the flash-attention kernel's function),
+`ssd_chunked_ref` (the SSD scan kernel's: the port of the JAX model's
+`_ssd_chunked`, with its final state) and `ssd_scan_ref` (the sequential
+definition of the scan, for the tests).
 
 Modes: "sample" (the paper's eq.-(6) estimator at the quantized latent),
 "analytic" (closed-form Gaussian KL) and "none" (rate == 0, the
@@ -24,6 +29,7 @@ are sized (core/wirefmt.shipped_nbytes).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 QUANT_RANGE = 4.0   # Gaussian bottlenecks: 4 sigma covers the latents
@@ -275,3 +281,109 @@ def cutlayer_prior_bwd_ref(mu, logvar, eps, pmu, plv, u, gu, grate,
                       - torch.sum(c * (muf - pm), dim=1))
     return (dmu.to(mu.dtype), dlv.to(logvar.dtype), deps.to(eps.dtype),
             dpmu.to(pmu.dtype), dplv.to(plv.dtype))
+
+
+# ---------------------------------------------------------------------------
+# The LLM stack: attention and the SSD scan
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  q_offset: int = 0):
+    """Masked softmax attention, in fp32.  q: (B, Sq, H, Dh); k, v:
+    (B, Sk, KV, Dh) with H % KV == 0, query head h reading kv head
+    h // (H / KV) (by a reshape, no copy).  q_offset is the position of
+    q[0] minus k[0]; window > 0 keeps keys with q_pos - k_pos < window.
+    Masked scores are -1e30.  Returns (B, Sq, H, Dh) in q's dtype."""
+    B, Sq, H, Dh = q.shape
+    _, Sk, KV, _ = k.shape
+    g = H // KV
+    scale = 1.0 / float(np.sqrt(Dh))
+    qf = (q.float() * scale).reshape(B, Sq, KV, g, Dh)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.float())
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (q_pos - k_pos < window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def ssd_chunked_ref(x, dt, a, bm, cm, dskip, *, chunk: int):
+    """Chunked SSD scan (Mamba2, ngroups=1), the port of the reference
+    model's `_ssd_chunked` in its fp32 order.
+
+    x: (B, S, H, P); dt: (B, S, H) post-softplus; a: (H,) negative; bm, cm:
+    (B, S, N) shared over heads; dskip: (H,).  chunk = min(chunk, S) must
+    divide S.  The scan starts from a zero state.  Returns (y (B, S, H, P)
+    in x's dtype, final_state (B, H, N, P) fp32)."""
+    Bsz, S, H, P = x.shape
+    N = bm.shape[-1]
+    chunk = min(chunk, S)
+    nc = S // chunk
+    if nc * chunk != S:
+        raise ValueError(f"seq {S} not divisible by chunk {chunk}")
+    xc = x.reshape(Bsz, nc, chunk, H, P).float()
+    dtc = dt.reshape(Bsz, nc, chunk, H).float()
+    Bc = bm.reshape(Bsz, nc, chunk, N).float()
+    Cc = cm.reshape(Bsz, nc, chunk, N).float()
+
+    dA = dtc * a.float()[None, None, None, :]            # (B,nc,cs,H), <= 0
+    cum = torch.cumsum(dA, dim=2)                        # within-chunk cumsum
+
+    # intra-chunk: decay(i <- j) = exp(cum_i - cum_j), j <= i
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,i,j,H)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg),
+                        torch.zeros((), device=x.device))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    att = cb[..., None] * decay * dtc[:, :, None, :, :]  # weight dt_j
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", att, xc)
+
+    # chunk-final states
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)    # (B,nc,cs,H)
+    chunk_states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc,
+                                decay_to_end * dtc, xc)  # (B,nc,H,N,P)
+
+    # inter-chunk recurrence over the nc chunks
+    gamma = torch.exp(cum[:, :, -1, :])                  # (B,nc,H)
+    state = torch.zeros((Bsz, H, N, P), device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)                           # state entering c
+        state = state * gamma[:, c, :, None, None] + chunk_states[:, c]
+    entering = torch.stack(entering, dim=1)              # (B,nc,H,N,P)
+
+    y_inter = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, torch.exp(cum),
+                           entering)
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    y = y + dskip.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), state
+
+
+def ssd_scan_ref(x, dt, a, bm, cm, dskip):
+    """The sequential SSM recurrence (the definition, not the chunked
+    form): h_t = exp(dt_t a) h_{t-1} + dt_t B_t x_t^T; y_t = C_t h_t + D x_t.
+    Shapes as `ssd_chunked_ref`; returns (y in x's dtype, final state
+    (B, H, N, P) fp32)."""
+    B, S, H, P = x.shape
+    N = bm.shape[-1]
+    xf, dtf, bf, cf = x.float(), dt.float(), bm.float(), cm.float()
+    h = torch.zeros((B, H, N, P), device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * a.float())         # (B,H)
+        upd = torch.einsum("bh,bn,bhp->bhnp", dtf[:, t], bf[:, t], xf[:, t])
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], h))
+    y = torch.stack(ys, dim=1)
+    y = y + dskip.float()[None, None, :, None] * xf
+    return y.to(x.dtype), h

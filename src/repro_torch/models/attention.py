@@ -1,0 +1,162 @@
+"""Attention: GQA/MQA/MHA with RoPE, sliding windows and KV caches.
+
+Reference: src/repro/models/attention.py (`gqa_init`, `gqa_param_count`,
+`gqa_make_cache`, `gqa_apply`, `decode_attention` and the `attn_*`
+fronts).  Prefill goes through `kernels/ops.attention`: the flash kernel
+on the card, its plain version on the CPU (the reference's model runs the
+same contract as a jnp blockwise scan).  Decode is one token against the
+cache in plain torch, softmax in fp32.  DeepSeek-V2's MLA comes with a
+later slice of the LLM stack and raises here.
+
+The decode step writes the new token's k/v into the cache in place (the
+reference donates the cache buffers to the same effect) and returns the
+same cache.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+_MLA = ("MLA (DeepSeek-V2 multi-head latent attention) is not ported yet; "
+        "it comes with the LLM stack's MLA slice (ROADMAP queue 1, item 6)")
+
+
+def decode_attention(q, k_cache, v_cache, cache_len: int, k_new, v_new, *,
+                     exclude_slot=None):
+    """Single-token attention against a cache.
+
+    q: (B, 1, H, Dh); caches: (B, W, KV, Dh); cache_len: the count of valid
+    entries (for a ring buffer, W once wrapped); entries >= cache_len are
+    masked.  k_new/v_new (B, 1, KV, Dh): the current token's kv, attended
+    explicitly so the cache is read before it is written."""
+    B, _, H, Dh = q.shape
+    _, W, KV, _ = k_cache.shape
+    g = H // KV
+    qf = (q.float() * (1.0 / math.sqrt(Dh))).reshape(B, KV, g, Dh)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.float())
+    valid = torch.arange(W, device=q.device) < cache_len
+    if exclude_slot is not None:
+        # ring buffer wrapped: the stale entry that the current token is
+        # about to overwrite must not be attended
+        valid = valid & (torch.arange(W, device=q.device) != exclude_slot)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    s_new = torch.einsum("bkgd,bkd->bkg", qf, k_new[:, 0].float())
+    m = torch.maximum(s.amax(dim=-1), s_new)
+    p = torch.exp(s - m[..., None])
+    p_new = torch.exp(s_new - m)
+    denom = p.sum(dim=-1) + p_new
+    out = (torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+           + p_new[..., None] * v_new[:, 0, :, None, :].float()
+           ) / denom[..., None]
+    return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA module
+# ---------------------------------------------------------------------------
+
+def gqa_init(generator, cfg, dtype, device=None):
+    d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(bias=cfg.qkv_bias, dtype=dtype, device=device)
+    return {
+        "wq": layers.dense_init(generator, d, H * Dh, **kw),
+        "wk": layers.dense_init(generator, d, KV * Dh, **kw),
+        "wv": layers.dense_init(generator, d, KV * Dh, **kw),
+        "wo": layers.dense_init(generator, H * Dh, d, dtype=dtype,
+                                device=device),
+    }
+
+
+def gqa_param_count(cfg) -> int:
+    d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n = d * H * Dh * 2 + d * KV * Dh * 2
+    if cfg.qkv_bias:
+        n += H * Dh + 2 * KV * Dh
+    return n
+
+
+def gqa_make_cache(cfg, batch: int, max_len: int, dtype, device=None):
+    W = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (batch, W, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_apply(p, cfg, x, positions, *, mode: str, cache=None,
+              cache_len=None):
+    """x: (B, S, d).  mode 'prefill' -> full-sequence causal attention
+    (`ops.attention`) and a filled cache; mode 'decode' -> S == 1 against
+    the cache, which is updated in place.  Returns (y, new_cache)."""
+    B, S, d = x.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = layers.dense(p["wq"], x).reshape(B, S, H, Dh)
+    k = layers.dense(p["wk"], x).reshape(B, S, KV, Dh)
+    v = layers.dense(p["wv"], x).reshape(B, S, KV, Dh)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+
+    if mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token and a cache")
+        W = cache["k"].shape[1]
+        slot = (cache_len % W) if cfg.sliding_window else cache_len
+        # attend over the old cache + the new token explicitly, then write
+        n_valid = min(cache_len, W)
+        excl = slot if cfg.sliding_window else None
+        out = decode_attention(q, cache["k"], cache["v"], n_valid, k, v,
+                               exclude_slot=excl)
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        new_cache = cache
+    elif mode == "prefill":
+        out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
+        W = min(S, cfg.sliding_window) if cfg.sliding_window else S
+        kc, vc = k[:, S - W:], v[:, S - W:]
+        if cfg.sliding_window and S > W:
+            # ring alignment: slot j must hold the token with pos % W == j
+            shift = (S - W) % W
+            kc = torch.roll(kc, shift, dims=1)
+            vc = torch.roll(vc, shift, dims=1)
+        new_cache = {"k": kc.contiguous(), "v": vc.contiguous()}
+    else:
+        raise NotImplementedError(
+            f"attention mode {mode!r}: the port serves (prefill, decode); "
+            "training comes with the LLM training slice (ROADMAP queue 1, "
+            "item 6)")
+    y = layers.dense(p["wo"], out.reshape(B, S, H * Dh))
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Unified front (MLA raises)
+# ---------------------------------------------------------------------------
+
+def attn_init(generator, cfg, dtype, device=None):
+    if cfg.use_mla:
+        raise NotImplementedError(_MLA)
+    return gqa_init(generator, cfg, dtype, device)
+
+
+def attn_param_count(cfg) -> int:
+    if cfg.use_mla:
+        raise NotImplementedError(_MLA)
+    return gqa_param_count(cfg)
+
+
+def attn_make_cache(cfg, batch: int, max_len: int, dtype, device=None):
+    if cfg.use_mla:
+        raise NotImplementedError(_MLA)
+    return gqa_make_cache(cfg, batch, max_len, dtype, device)
+
+
+def attn_apply(p, cfg, x, positions, *, mode: str, cache=None,
+               cache_len=None):
+    if cfg.use_mla:
+        raise NotImplementedError(_MLA)
+    return gqa_apply(p, cfg, x, positions, mode=mode, cache=cache,
+                     cache_len=cache_len)

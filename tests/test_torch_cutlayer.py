@@ -177,7 +177,8 @@ def test_fused_sample_rate_eps_from_generator():
 def test_build_module_finds_sources_and_names_missing_nvcc(monkeypatch,
                                                            tmp_path):
     assert build.sources() == ("cut_bwd", "cut_fwd", "cut_fwd_pack",
-                               "cut_prior_bwd", "cut_prior_fwd", "pack",
+                               "cut_prior_bwd", "cut_prior_fwd",
+                               "flash_attn_fwd", "pack", "ssd_scan",
                                "unpack_dequant")
     assert str(build.BUILD_DIR).endswith("build/kernels")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -39,7 +39,13 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.core.linkmodel",
               "repro_torch.core.schemes.runner", "repro_torch.core.wirefmt",
               "repro_torch.core.sl", "repro_torch.core.fl",
-              "repro_torch.core.schemes.sl", "repro_torch.core.schemes.fl"):
+              "repro_torch.core.schemes.sl", "repro_torch.core.schemes.fl",
+              "repro_torch.configs.base", "repro_torch.configs.zamba2_2_7b",
+              "repro_torch.data.tokens", "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.ssm_scan", "repro_torch.models.attention",
+              "repro_torch.models.ssm", "repro_torch.models.transformer",
+              "repro_torch.models.zoo", "repro_torch.launch.steps",
+              "repro_torch.launch.serve"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
