@@ -8,7 +8,10 @@ Phases, each checked; any failed check exits non-zero before the last line:
   1. device   the card's name, capability (9, 0), name and power limit
               from nvidia-smi; TF32 switched off for fp32 matmuls and convs.
   2. build    every kernel of repro_torch/kernels/csrc/ compiled by nvcc for
-              sm_90a from the checkout's sources, one nvcc each, together.
+              sm_90a from the checkout's sources, one nvcc each, together;
+              ptxas's register and spill report of each; the HMMA
+              (tensor-core) instructions in the SASS of flash_attn_fwd and
+              ssd_scan counted (cuobjdump -sass), none failing the run.
   3. kernels  each kernel against its plain PyTorch version on the same CUDA
               tensors, over shapes (5, 64, 64), (5, 7, 64) (ragged) and
               (5, 4096, 96), link widths {1, 2, 4, 8, 16, 32} and fp32/bf16
@@ -126,10 +129,14 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              256 against prefill of 255 + one decode step
                              within 1e-3;
                 times        prefill latency at (4, 512) and (4, 2048) and
-                             decode latency per token, with device busy time
-                             and idle share; both kernels' device time at
+                             decode latency per token, with device busy time,
+                             idle share and the prefill's time in the top
+                             kernels and in the two hand-written ones (the
+                             profiler); both kernels' device time at
                              (4, 512) and (4, 2048) beside the bound, the
-                             plain version and, for attention,
+                             plain version, the first (SIMT) kernels' times
+                             from PERF.md, the scan's four launches by the
+                             profiler and, for attention,
                              scaled_dot_product_attention (timed only).
 
 The line before the last two is {"kernels": [...]}, the one before the last
@@ -184,6 +191,12 @@ LLM_CPU_TOL = dict(rtol=1e-3, atol=1e-3)
 LLM_CPU_STEPS = 8
 LLM_MARGIN = 1e-2                   # top-2 logit margin of a decided token
 LLM_CONSIST_P = 255                 # P and P + 1 both prefill in one chunk
+TENSOR_CORE_KERNELS = ("flash_attn_fwd", "ssd_scan")
+# graph_ms of the first, SIMT (fp32 FMA) kernels at the bf16 shapes of
+# llm_kernel_timing, (kernel, S) -> ms: the final chip_smoke.py run that
+# measured them on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
+SIMT_MS = {("flash_attn_fwd", 512): 0.4703, ("flash_attn_fwd", 2048): 5.0504,
+           ("ssd_scan", 512): 0.6286, ("ssd_scan", 2048): 2.5219}
 
 
 class CheckFailed(RuntimeError):
@@ -240,6 +253,30 @@ def build_phase():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    tensor_core_phase(build)
+
+
+def tensor_core_phase(build):
+    """The bf16 paths of the LLM kernels run on tensor cores: count the
+    HMMA instructions in the SASS of their libraries (cuobjdump -sass),
+    beside ptxas's spill report of each library."""
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    parts = []
+    for name in TENSOR_CORE_KERNELS:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build._library_path(name))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        hmma = sum("HMMA" in line for line in sass.splitlines())
+        ldsm = sum("LDSM" in line for line in sass.splitlines())
+        spills = sorted({line.split(",", 1)[1].strip()
+                         for line in build.build_logs.get(name, "")
+                         .splitlines() if "spill" in line})
+        check(hmma > 0, f"{name}: no HMMA instruction in its SASS; its bf16 "
+                        f"path does not run on tensor cores")
+        parts.append(f"{name} {hmma} HMMA, {ldsm} LDSM (ptxas: "
+                     f"{'; '.join(spills) or 'no report, built earlier'})")
+    print("tensor cores: " + "; ".join(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -1734,9 +1771,14 @@ def llm_timing(torch, cfg, params, card_line):
         busy, by_name = device_profile(torch, fn, reps=3, warmup=1)
         out[f"prefill_{P}"] = (wall, busy)
         top = "; ".join(f"{n[:48]} {ms:.3f} ms" for n, ms in by_name[:5])
+        own = {k: sum(ms for n, ms in by_name if tag in n)
+               for k, tag in (("flash_attn_fwd", "flash_fwd"),
+                              ("ssd_scan", "ssd_"))}
         print(f"llm prefill latency (B={LLM_B}, P={P}): median {wall:.3f} ms "
               f"over 5; device busy {busy:.3f} ms, idle share "
-              f"{1 - busy / wall:.3f}; top kernels: {top} [{card_line}]")
+              f"{1 - busy / wall:.3f}; top kernels: {top}; the hand-written "
+              f"kernels: flash_attn_fwd {own['flash_attn_fwd']:.3f} ms, "
+              f"ssd_scan {own['ssd_scan']:.3f} ms [{card_line}]")
     prompts = serve.prompts_for(cfg, LLM_B, LLM_PROMPT, 4).to(DEV)
     _, cache = prefill(params, {"tokens": prompts})
     steps_n = 24
@@ -1781,10 +1823,12 @@ def llm_kernel_timing(torch, card_line):
             qt, kt, vt, is_causal=True))
         rows[("flash_attn_fwd", S)] = (k_ms, p_ms, bound, by, l_ms)
         print(f"flash_attn_fwd B={LLM_B} S={S} H=KV=32 Dh=80 bf16 causal: "
-              f"device time kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"scaled_dot_product_attention {l_ms:.4f} ms, bound "
-              f"{bound:.4f} ms by {by} ({flops:.3g} flops, {nbytes} bytes; "
-              f"{bound / k_ms:.3f} of the bound) [{card_line}]")
+              f"device time kernel {k_ms:.4f} ms (the SIMT kernel: "
+              f"{SIMT_MS['flash_attn_fwd', S]} ms, PERF.md), plain "
+              f"{p_ms:.4f} ms, scaled_dot_product_attention {l_ms:.4f} ms, "
+              f"bound {bound:.4f} ms by {by} ({flops:.3g} flops, {nbytes} "
+              f"bytes; {bound / k_ms:.3f} of the bound, "
+              f"{flops / k_ms / 1e9:.1f} TFLOP/s) [{card_line}]")
         x, dt, a, bm, cm, d = ssd_inputs(torch, LLM_B, S, 80, 64, 64, bf16, 6)
         flops, nbytes = ssd_cost(torch, LLM_B, S, 80, 64, 64, 256, bf16)
         bound, by = bound_of(flops, nbytes, BF16_FLOPS)
@@ -1793,8 +1837,15 @@ def llm_kernel_timing(torch, card_line):
         p_ms = timed(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm, d,
                                                  chunk=256))
         rows[("ssd_scan", S)] = (k_ms, p_ms, bound, by, None)
+        _, stages = device_profile(
+            torch, lambda: ssm_scan.ssd_scan(x, dt, a, bm, cm, d, chunk=256),
+            reps=10, warmup=2)
+        stages = ", ".join(f"{n.split('::')[-1].split('(')[0]} {ms:.4f}"
+                           for n, ms in stages)
         print(f"ssd_scan B={LLM_B} S={S} H=80 P=64 N=64 chunk 256 bf16: "
-              f"device time kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"device time kernel {k_ms:.4f} ms (the SIMT kernel: "
+              f"{SIMT_MS['ssd_scan', S]} ms, PERF.md; its launches by the "
+              f"profiler: {stages} ms), plain {p_ms:.4f} ms, bound "
               f"{bound:.4f} ms by {by} ({flops:.3g} flops, {nbytes} bytes; "
               f"{bound / k_ms:.3f} of the bound); no single torch call "
               f"[{card_line}]")

@@ -9,7 +9,10 @@ q (B, Sq, H, Dh) and k, v (B, Sk, KV, Dh), H % KV == 0, are read in that
 layout: the kernel takes the kv head h // (H / KV) by index and masks a
 ragged last tile, so nothing is transposed, repeated or padded (the Pallas
 wrapper's transposes and its `Sq % block_q == 0` exist for BlockSpecs).
-The plain version is `kernels/ref.attention_ref`; `kernels/ops.attention`
+bf16 runs on tensor cores (FlashAttention-2 on `mma.sync`, P fed to P.V as
+bf16 hi + lo); fp32 runs the first, SIMT kernel, whose fp32 products the
+fp32 parity checks need.  Dispatch is by dtype, never by failure.  The plain
+version is `kernels/ref.attention_ref`; `kernels/ops.attention`
 dispatches between the two by the tensors' device.
 
 `LAUNCHES` counts kernel launches: each call that launches the kernel adds
@@ -34,7 +37,8 @@ HEAD_DIMS = (32, 64, 80, 128)   # the instances csrc/flash_attn_fwd.cu builds
 def flash_attn_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                    q_offset: int = 0):
     """Launch the kernel: q (B, Sq, H, Dh), k and v (B, Sk, KV, Dh), all
-    fp32 or all bf16, contiguous on one CUDA device; Dh in HEAD_DIMS.
+    fp32 or all bf16 (16-byte aligned, as allocations are), contiguous on
+    one CUDA device; Dh in HEAD_DIMS.
     Returns o (B, Sq, H, Dh) in q's dtype, on the current stream."""
     name = "flash_attn_fwd"
     build.check_cuda(name, (q, k, v))
@@ -55,6 +59,10 @@ def flash_attn_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if q_offset < 0 or window < 0:
         raise ValueError(f"{name} takes q_offset >= 0 and window >= 0; got "
                          f"{q_offset}, {window}")
+    if q.dtype == torch.bfloat16 and \
+            any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name} takes 16-byte aligned bf16 tensors (its "
+                         f"copies are 16 bytes); clone an offset view")
     o = torch.empty_like(q)
     fn = build.c_function(name, "flash_attn_fwd_launch", _ARGTYPES)
     build.launch(name, fn, q.device, q.data_ptr(), k.data_ptr(),

@@ -5,15 +5,19 @@ counterpart here, written for Hopper (`csrc/`):
 
     _ssd_kernel -> csrc/ssd_scan.cu   ssd_scan
 
-One block per (b, h) walks the chunks in order and holds the (N, P) fp32
-state on chip, as the Pallas sequential grid holds it in VMEM; unlike the
-Pallas kernel it also returns the final state, which the model's prefill
-keeps in its cache (`_ssd_chunked` in src/repro/models/ssm.py returns it).
-The plain version is `kernels/ref.ssd_chunked_ref`; `kernels/ops.ssd_scan`
+bf16 runs on tensor cores as the SSD decomposition, chunk-parallel: C.B^T
+once per (b, chunk), each chunk's own state, the state passed over the
+chunks, then the output per 64-row tile and pair of heads, four launches
+on the current stream with scratch allocated here; fp32 runs the first,
+SIMT kernel, one block per (b, h) walking the chunks in order with the
+(N, P) state on chip.  Dispatch is by dtype, never by failure.  Unlike the
+Pallas kernel both return the final state, which the model's prefill keeps
+in its cache (`_ssd_chunked` in src/repro/models/ssm.py returns it).  The
+plain version is `kernels/ref.ssd_chunked_ref`; `kernels/ops.ssd_scan`
 dispatches between the two by the tensors' device.
 
 `LAUNCHES` counts kernel launches: each call that launches the kernel adds
-one, and nothing else does.
+one (the bf16 path's four stages are one call), and nothing else does.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from repro_torch.kernels import build
 LAUNCHES = {"ssd_scan": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 8 + [_I] * 7 + [_P, _P]
 MAX_DIM = 64          # state_dim N and head_dim P
 MAX_CHUNK = 8192
 
@@ -63,11 +67,18 @@ def ssd_scan(x, dt, a, bm, cm, dskip, *, chunk: int):
                          f"chunk is above {MAX_CHUNK})")
     y = torch.empty_like(x)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    nbytes = build.c_function(name, "ssd_scan_workspace_bytes", [_I] * 7,
+                              restype=ctypes.c_longlong)(
+        B, S, H, P, N, chunk, is_bf16)
+    # freed on return: the caching allocator hands it out again only behind
+    # the work already queued on this stream
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     fn = build.c_function(name, "ssd_scan_launch", _ARGTYPES)
     build.launch(name, fn, x.device, x.data_ptr(), dt.data_ptr(),
                  a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
                  dskip.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H,
-                 P, N, chunk, int(x.dtype == torch.bfloat16),
+                 P, N, chunk, is_bf16, workspace.data_ptr() or None,
                  what=f"B={B} S={S} H={H} P={P} N={N} chunk={chunk}")
     LAUNCHES[name] += 1
     return y, state

@@ -157,7 +157,11 @@ def test_ssd_chunked_ref_refuses_a_ragged_chunk():
 @pytest.mark.parametrize("B,S,H,KV,Dh,window,q_offset", [
     (1, 128, 4, 4, 32, 0, 0), (2, 256, 8, 2, 64, 100, 0),
     (1, 256, 8, 1, 64, 0, 64), (2, 192, 32, 32, 80, 0, 0),
-    (1, 512, 2, 2, 128, 100, 64)])
+    (1, 512, 2, 2, 128, 100, 64),
+    # the tensor-core kernel's tile edges: S not a multiple of 16, Sq != Sk
+    # with q_offset, and Zamba2's serving shape
+    (2, 200, 4, 4, 64, 0, 0), (1, 200, 4, 2, 80, 50, 72),
+    (4, 512, 32, 32, 80, 0, 0)])
 def test_flash_kernel_matches_plain_on_cuda(cuda_device, B, S, H, KV, Dh,
                                             window, q_offset, dtype):
     dt = getattr(torch, dtype)
@@ -176,7 +180,11 @@ def test_flash_kernel_matches_plain_on_cuda(cuda_device, B, S, H, KV, Dh,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 64, 128),
-    (1, 192, 2, 16, 8, 64)])
+    (1, 192, 2, 16, 8, 64),
+    # the tensor-core stages' edges: L=96 (a ragged 64-row tile), N=8 with
+    # P=16, and Zamba2's serving shape
+    (1, 192, 2, 16, 8, 96), (2, 128, 3, 16, 8, 128),
+    (4, 512, 80, 64, 64, 256)])
 def test_ssd_kernel_matches_plain_on_cuda(cuda_device, B, S, H, P, N, chunk,
                                           dtype):
     x, dt, a, bm, cm, d = t(*ssd_inputs(B, S, H, P, N, seed=7),
