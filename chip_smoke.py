@@ -2,6 +2,7 @@
 """Drive the PyTorch port (src/repro_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times
 
 Phases, each checked; any failed check exits non-zero before the last line:
 
@@ -31,7 +32,15 @@ Phases, each checked; any failed check exits non-zero before the last line:
                                dplv — within rtol/atol 1e-5, or, where
                                their terms cancel, within 1e-5 of the sum
                                of the terms' absolute values (fp32 sums in
-                               two orders; such sums are counted);
+                               two orders; such sums are counted); dpmu and
+                               dplv equal bit for bit to the plain sums in
+                               the kernel's order
+                               (ref.cutlayer_prior_bwd_sums_ordered).  Then
+                               cut_prior_bwd on J in {1, 5} nodes of T in
+                               {1, 65, 4097} rows (its 8-row chunks and
+                               ~264-block grid), d in {64, 37}: the same
+                               checks, three launches and two replays of
+                               one CUDA-graph capture identical;
               and torch.autograd.grad through ops.cutlayer on CUDA equal to
               the kernels' outputs for the same cotangents.  The packed
               wire's kernels over the same shapes, widths
@@ -44,7 +53,12 @@ Phases, each checked; any failed check exits non-zero before the last line:
                                and the plain version's (bf16 at b <= 8; at
                                b > 8 pack_values must refuse bf16);
                 unpack_dequant unpack(lanes) == u bit for bit, and equal to
-                               the plain version.
+                               the plain version; then at every b in 1..16,
+                               d in {7, 33, 64, 100}, R in {1, 7, 257}, fp32
+                               and bf16, on lanes one row into their
+                               allocation: equal to the plain version bit
+                               for bit, unpack(pack(u)) == u (fp32; bf16 at
+                               b <= 8).
   4. serving  INLScheme at PaperExperimentConfig() (the paper's full width)
               on the card from a seeded generator, a ServingEngine over
               buckets (1, 4, 16, 64) answering requests through its
@@ -90,8 +104,10 @@ Phases, each checked; any failed check exits non-zero before the last line:
               steps, with the device busy time and idle share from the
               profiler, and the device time by kernel) on the dense,
               packed and duplex wires, and each kernel's device time beside
-              its bound and its plain version, with the card's name and
-              power limit on every line.
+              its bound and its plain version (cut_prior_bwd and
+              unpack_dequant beside their first designs' times, with
+              cut_prior_bwd's first two launches apart), with the card's
+              name and power limit on every line.
   8. llm      the LLM stack, Zamba2-2.7B:
                 llm kernels  flash_attn_fwd against its plain version over
                              (B, S, H, KV, Dh) in {(1,128,4,4,32),
@@ -144,10 +160,18 @@ nvidia-smi's name and power limit, and the last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
+
+With --kernel-times it runs phase 1, builds the cut-layer kernels and
+prints only their device times (phase 7's kernel lines, each kernel a call
+launches by name with its time), and no result line.  It times the
+checkout it sits in: to compare two checkouts on one card, copy it into
+both and run them in turns, one after another on the same card.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -173,6 +197,7 @@ TRAIN_BATCH = 64
 TRAIN_SAMPLES = 1024
 TRAIN_EPOCHS = 2
 PRIOR_STEPS = 8
+PRIOR_GEOMETRY_T = (1, 65, 4097)    # rows a node: 8-row chunks, ~264 blocks
 PACK_BITS = (1, 2, 3, 4, 8, 16)
 WIRE_BITS = 8                       # the packed wire's width on the path
 PACKED_SAMPLES = 1024               # 16 steps of 64 in one epoch
@@ -197,6 +222,25 @@ TENSOR_CORE_KERNELS = ("flash_attn_fwd", "ssd_scan")
 # measured them on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
 SIMT_MS = {("flash_attn_fwd", 512): 0.4703, ("flash_attn_fwd", 2048): 5.0504,
            ("ssd_scan", 512): 0.6286, ("ssd_scan", 2048): 2.5219}
+# device ms (profiler) of the first designs of the two redesigned kernels,
+# at the shapes of new_kernel_timing / pack_kernel_timing, (kernel, R) ->
+# ms: the final chip_smoke.py run that measured them on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (PERF.md section 6)
+FIRST_DESIGN_MS = {("cut_prior_bwd", 320): 0.00982,
+                   ("cut_prior_bwd", 20480): 0.03317,
+                   ("cut_prior_bwd", 262144): 0.54090,
+                   ("unpack_dequant", 320): 0.00182,
+                   ("unpack_dequant", 20480): 0.00750,
+                   ("unpack_dequant", 262144): 0.07647}
+# the first design of cut_prior_bwd ran two launches; (rows, reduce) device
+# ms by kernel name, R -> ms: this script's --kernel-times run in a checkout
+# of that design, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6)
+FIRST_PRIOR_BWD_STAGES = {320: (0.00856, 0.00125),
+                          20480: (0.02247, 0.01116),
+                          262144: (0.23076, 0.31338)}
+# the two kernels redesigned after their first designs, and how
+REDESIGNED = {"cut_prior_bwd": "one launch, parallel fixed-order reduction",
+              "unpack_dequant": "one thread per lane word, vector stores"}
 
 
 class CheckFailed(RuntimeError):
@@ -242,10 +286,12 @@ def device_phase(torch):
 # 2. build
 # ---------------------------------------------------------------------------
 
-def build_phase():
+def build_phase(names=None):
+    """Build every kernel (or `names`); with every kernel, count the LLM
+    kernels' tensor-core instructions."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    seconds = build.build_all()
+    seconds = build.build_all(names)
     print(f"build: {sorted(seconds)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process "
           f"per source)")
@@ -253,7 +299,8 @@ def build_phase():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    tensor_core_phase(build)
+    if names is None:
+        tensor_core_phase(build)
 
 
 def tensor_core_phase(build):
@@ -511,10 +558,16 @@ def prior_kernel_phase(torch):
                             mu, lv, eps, pm, pv, u, gu, gr, mode=mode)
                         p = ref.cutlayer_prior_bwd_ref(
                             mu, lv, eps, pm, pv, u, gu, gr, bits, mode)
+                        o = ref.cutlayer_prior_bwd_sums_ordered(
+                            mu, lv, pm, pv, u, gr, mode)
                         torch.cuda.synchronize()
                         check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
                               f"{what}: two launches of cut_prior_bwd "
                               f"differ")
+                        check(torch.equal(k1[3], o[0])
+                              and torch.equal(k1[4], o[1]),
+                              f"{what}: dpmu, dplv differ from the ordered "
+                              f"plain sums")
                         # forward: u identical but at midpoints; the rate
                         # on the rows whose u agrees
                         mid = midpoint_rows(torch, mu, lv, eps, bits)
@@ -551,11 +604,82 @@ def prior_kernel_phase(torch):
                         n += 1
     print(f"kernels: cut_prior_fwd and cut_prior_bwd == plain on {n} cases "
           f"(3 shapes x 6 widths x 2 modes x shared/per-node x 2 dtypes); "
-          f"cut_prior_bwd identical bit for bit over two launches; "
+          f"cut_prior_bwd identical bit for bit over two launches, its "
+          f"dpmu and dplv equal to the ordered plain sums bit for bit; "
           f"{midpoints} rows at a rounding midpoint; {cancelling} rate or "
           f"prior-gradient sums that cancel held to 1e-5 of the sum of "
           f"|terms|; max |kernel - plain| fwd {worst['cut_prior_fwd']:.3g} "
           f"bwd {worst['cut_prior_bwd']:.3g}")
+    worst["cut_prior_bwd"] = max(worst["cut_prior_bwd"],
+                                 prior_geometry_phase(torch))
+    return worst
+
+
+def prior_geometry_phase(torch):
+    """cut_prior_bwd on rows that fill, straddle and overrun its 8-row
+    chunks and its ~264-block grid (T in PRIOR_GEOMETRY_T, J in {1, 5}), at
+    an even d (column pairs) and an odd one, fp32 and bf16, both modes:
+    dpmu, dplv equal the ordered plain sums bit for bit, the per-row
+    gradients the plain backward within rtol 1e-5, atol 1e-6; three
+    launches identical; one CUDA-graph capture replayed twice identical to
+    the eager call.  Returns the max |kernel - plain| of the row
+    gradients."""
+    from repro_torch.kernels import inl_bottleneck, ref
+    worst, n = 0.0, 0
+    for J in (1, 5):
+        for T in PRIOR_GEOMETRY_T:
+            for d in (64, 37):
+                for dtype in (torch.float32, torch.bfloat16):
+                    mu, lv, eps, gu, gr = grad_inputs(torch, (J, T, d),
+                                                      dtype, T + d)
+                    pm, pv = prior_inputs(torch, J, d, T)
+                    for mode in ("sample", "analytic"):
+                        what = f"cut_prior_bwd J={J} T={T} d={d} {dtype} " \
+                               f"{mode}"
+                        u, _ = inl_bottleneck.cut_prior_fwd(
+                            mu, lv, eps, pm, pv, bits=WIRE_BITS, mode=mode)
+
+                        def call():
+                            return inl_bottleneck.cut_prior_bwd(
+                                mu, lv, eps, pm, pv, u, gu, gr, mode=mode)
+                        runs = [call() for _ in range(3)]
+                        graph = torch.cuda.CUDAGraph()
+                        with torch.cuda.graph(graph):
+                            captured = call()
+                        replays = []
+                        for _ in range(2):
+                            for t in captured:
+                                t.fill_(float("nan"))
+                            graph.replay()
+                            replays.append([t.clone() for t in captured])
+                        o = ref.cutlayer_prior_bwd_sums_ordered(
+                            mu, lv, pm, pv, u, gr, mode)
+                        p = ref.cutlayer_prior_bwd_ref(
+                            mu, lv, eps, pm, pv, u, gu, gr, WIRE_BITS, mode)
+                        torch.cuda.synchronize()
+                        check(all(same_bits(a, b) for k in runs[1:] + replays
+                                  for a, b in zip(runs[0], k)),
+                              f"{what}: three launches and two graph "
+                              f"replays are not identical")
+                        check(same_bits(runs[0][3], o[0])
+                              and same_bits(runs[0][4], o[1]),
+                              f"{what}: dpmu, dplv differ from the ordered "
+                              f"plain sums")
+                        for name, a, b in zip(("dmu", "dlv", "deps"),
+                                              runs[0][:3], p[:3]):
+                            rb, err = compare_rows(a.reshape(J * T, d),
+                                                   b.reshape(J * T, d),
+                                                   GRAD_TOL, what)
+                            check(not rb.any(), f"{what}: {name} differs "
+                                  f"on {int(rb.sum())} rows")
+                            worst = max(worst, err)
+                        del graph
+                        n += 1
+    print(f"kernels: cut_prior_bwd geometry on {n} cases (J in {{1, 5}} x "
+          f"T in {PRIOR_GEOMETRY_T} x d in {{64, 37}} x 2 dtypes x 2 "
+          f"modes): dpmu, dplv == ordered plain sums bit for bit, three "
+          f"launches and two CUDA-graph replays identical; max |kernel - "
+          f"plain| of the row gradients {worst:.3g}")
     return worst
 
 
@@ -674,7 +798,47 @@ def pack_kernel_phase(torch):
           f"bit for bit, lanes == plain, unpack(pack(u)) == u bit for bit; "
           f"{midpoints} rows at a rounding midpoint; max |rate - plain| "
           f"{worst['cut_fwd_pack']:.3g}")
+    unpack_width_phase(torch)
     return worst
+
+
+def unpack_width_phase(torch):
+    """unpack_dequant at every b in 1..16 (vpw a power of two or not, lanes
+    with unused bits), d in {7, 33, 64, 100} (a row's last word partly
+    used; row starts off the vector's alignment), R in {1, 7, 257}, fp32
+    and bf16, on lanes that start one row into their allocation: equal to
+    the plain version bit for bit, and unpack(pack(u)) == u where pack
+    takes the type (fp32, or bf16 at b <= 8)."""
+    from repro_torch.kernels import inl_bottleneck, ref
+    rng = np.random.default_rng(16)
+    n = 0
+    for bits in range(1, 17):
+        for d in (7, 33, 64, 100):
+            for R in (1, 7, 257):
+                idx = torch.from_numpy(rng.integers(
+                    0, 1 << bits, size=(R + 1, d))).to(DEV)
+                lanes = ref.pack_indices(idx, bits)[1:]
+                for dtype in (torch.float32, torch.bfloat16):
+                    what = f"unpack_dequant b={bits} d={d} R={R} {dtype}"
+                    back = inl_bottleneck.unpack(lanes, d=d, bits=bits,
+                                                 dtype=dtype)
+                    want = ref.unpack_dequant_ref(lanes, d, bits,
+                                                  dtype=dtype)
+                    torch.cuda.synchronize()
+                    check(same_bits(back, want),
+                          f"{what}: differs from the plain version")
+                    if dtype == torch.float32 or bits <= 8:
+                        again = inl_bottleneck.unpack(
+                            inl_bottleneck.pack(back, bits=bits), d=d,
+                            bits=bits, dtype=dtype)
+                        torch.cuda.synchronize()
+                        check(same_bits(again, back),
+                              f"{what}: unpack(pack(u)) != u")
+                    n += 1
+    print(f"kernels: unpack_dequant on {n} cases (b in 1..16 x d in "
+          f"{{7, 33, 64, 100}} x R in {{1, 7, 257}} x fp32/bf16, lanes one "
+          f"row into their allocation) == plain bit for bit, "
+          f"unpack(pack(u)) == u (fp32, bf16 at b <= 8)")
 
 
 # ---------------------------------------------------------------------------
@@ -1357,14 +1521,25 @@ def new_kernel_timing(torch, card_line):
                 32 * R * d + 4 * R + 16 * J * d),
         }
         for name, (kernel, plain, nbytes) in cases.items():
-            k_dev = device_ms(torch, kernel, reps=reps)
+            k_dev, launched = device_profile(torch, kernel, reps=reps)
             p_dev = device_ms(torch, plain, reps=reps)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             rows[(name, R)] = (k_dev, p_dev, bound)
+            earlier = ""
+            if name == "cut_prior_bwd":
+                stages = FIRST_PRIOR_BWD_STAGES[R]
+                names = []
+                for k, ms in launched:        # by kernel name
+                    m = re.search(r"(\w+)(?:<[^>]*>)?\(", k)
+                    names.append(f"{m.group(1) if m else k[:48]} "
+                                 f"{ms:.5f} ms")
+                earlier = (f" ({' + '.join(names)}; the first design's two "
+                           f"launches: {FIRST_DESIGN_MS[name, R]} ms, rows "
+                           f"{stages[0]} + reduce {stages[1]} ms, PERF.md)")
             print(f"{name} R={R} d={d} J={J} {mode} b={bits} fp32: device "
-                  f"time kernel {k_dev:.5f} ms, plain {p_dev:.5f} ms, bound "
-                  f"{bound:.5f} ms (bytes {nbytes}, {bound / k_dev:.3f} of "
-                  f"the bound) [{card_line}]")
+                  f"time kernel {k_dev:.5f} ms{earlier}, plain {p_dev:.5f} "
+                  f"ms, bound {bound:.5f} ms (bytes {nbytes}, "
+                  f"{bound / k_dev:.3f} of the bound) [{card_line}]")
     return rows
 
 
@@ -1402,10 +1577,13 @@ def pack_kernel_timing(torch, card_line):
             p_dev = device_ms(torch, plain, reps=reps)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             rows[(name, R)] = (k_dev, p_dev, bound)
+            earlier = (f" (the first design's: "
+                       f"{FIRST_DESIGN_MS[name, R]} ms, PERF.md)"
+                       if (name, R) in FIRST_DESIGN_MS else "")
             print(f"{name} R={R} d={d} W={W} b={bits} fp32: device time "
-                  f"kernel {k_dev:.5f} ms, plain {p_dev:.5f} ms, bound "
-                  f"{bound:.5f} ms (bytes {nbytes}, {bound / k_dev:.3f} of "
-                  f"the bound) [{card_line}]")
+                  f"kernel {k_dev:.5f} ms{earlier}, plain {p_dev:.5f} ms, "
+                  f"bound {bound:.5f} ms (bytes {nbytes}, "
+                  f"{bound / k_dev:.3f} of the bound) [{card_line}]")
     return rows
 
 
@@ -1852,7 +2030,17 @@ def llm_kernel_timing(torch, card_line):
     return rows
 
 
+CUT_LAYER_SOURCES = ("cut_fwd", "cut_bwd", "cut_prior_fwd", "cut_prior_bwd",
+                     "cut_fwd_pack", "pack", "unpack_dequant")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch port on one NVIDIA H100.")
+    parser.add_argument("--kernel-times", action="store_true",
+                        help="build the cut-layer kernels and print only "
+                             "their device times")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -1871,6 +2059,11 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     name, card = device_phase(torch)
+    if args.kernel_times:
+        build_phase(CUT_LAYER_SOURCES)
+        new_kernel_timing(torch, card)
+        pack_kernel_timing(torch, card)
+        return 0
     build_phase()
     worst = {"cut_fwd": kernel_phase(torch),
              "cut_bwd": bwd_kernel_phase(torch),
@@ -1944,13 +2137,19 @@ def main() -> int:
             ("unpack_dequant", 153, "R=320 d=64 fp32 b=8 (training)",
              ("unpack_dequant", 320), 1, "every packed path")):
         k_ms, p_ms, b_ms = rows[key]
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda", "source": f"{src}{kname}.cu",
             "replaces": f"{replaces}{line}", "launches": launches[kname],
             "max_abs_err": worst[kname], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
             "shape": shape, "launches_per_train_step": per_step,
-            "path": path})
+            "path": path}
+        if kname in REDESIGNED:
+            entry["redesigned"] = REDESIGNED[kname]
+            entry["at_large_r"] = {
+                f"R={R}": dict(zip(("ms", "plain_ms", "bound_ms"),
+                                   rows[kname, R])) for R in (20480, 262144)}
+        kernels.append(entry)
     for kname, line, source in (
             ("flash_attn_fwd", "flash_attention.py:31",
              "flash_attn_fwd.cu"),

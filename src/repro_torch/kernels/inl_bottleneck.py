@@ -11,8 +11,9 @@ their counterparts here, written for Hopper (`csrc/`):
     _pack_kernel           -> csrc/pack.cu           pack
     _unpack_dequant_kernel -> csrc/unpack_dequant.cu unpack
 
-Each kernel takes one warp per row, so ragged row counts need no padding to
-a block size.
+No kernel pads ragged row counts to a block size: most take one warp per
+row; `unpack` takes one thread per lane word, and `cut_prior_bwd` spreads
+each node's rows over a fixed number of blocks.
 
     u    = Q_b(mu + exp(logvar/2) * eps)   (..., d) in mu.dtype
     rate = the per-row rate of the mode    (...,)   fp32
@@ -35,9 +36,9 @@ Functions around them, whose backward is `cutlayer_backward`.  Lanes are
 torch.uint32, 32 // b codewords each (kernels/ref.py).
 
 `LAUNCHES` counts kernel launches by kernel name: each call of a wrapper
-that launches its kernel adds one, and nothing else does.  `cut_prior_bwd`
-runs as two CUDA kernels one after the other (the rows with per-block
-partial sums, then the in-order sum of the partials); that call counts once.
+that launches its kernel adds one, and nothing else does.  Each wrapper
+makes one launch; `cut_prior_bwd` sums its per-block partials inside that
+launch, in the last block of each node to finish.
 """
 from __future__ import annotations
 
@@ -52,9 +53,6 @@ MODES = ("sample", "analytic", "none")
 PRIOR_MODES = ("sample", "analytic")
 _MODE_ID = {"sample": 0, "analytic": 1, "none": 2}
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# the prior backward keeps 4 x 8 warps x d fp32 sums in shared memory; the
-# card gives a block at most 227 KB of it
-PRIOR_BWD_MAX_D = 1792
 
 LAUNCHES = {"cut_fwd": 0, "cut_bwd": 0, "cut_prior_fwd": 0,
             "cut_prior_bwd": 0, "cut_fwd_pack": 0, "pack": 0,
@@ -71,8 +69,7 @@ _SIGNATURES = {
     ("cut_prior_fwd", "cut_prior_fwd_launch"): (
         [_P] * 7 + [_I, _L, _I, _I, _F, _I, _I, _P], _I),
     ("cut_prior_bwd", "cut_prior_bwd_launch"): (
-        [_P] * 14 + [_I, _L, _I, _I, _I, _P], _I),
-    ("cut_prior_bwd", "cut_prior_bwd_scratch"): ([_I, _L, _I], _L),
+        [_P] * 15 + [_I, _I, _L, _I, _I, _I, _P], _I),
     ("cut_fwd_pack", "cut_fwd_pack_launch"): (
         [_P] * 6 + [_L, _I, _I, _F, _I, _I, _P], _I),
     ("pack", "pack_launch"): ([_P, _P, _L, _I, _I, _F, _I, _P], _I),
@@ -208,12 +205,29 @@ def cut_prior_fwd(mu, logvar, eps, pmu, plv, *, bits: int, mode: str):
     return u, rate
 
 
+# cut_prior_bwd's hand-off counters, one per (node, column tile): zero
+# between launches (the last block of a node resets its own).  One set per
+# (device, stream, count), so launches on two streams never share one, and
+# none is freed while a captured CUDA graph may still point at it.
+_PRIOR_BWD_TICKETS = {}
+
+
+def _prior_bwd_tickets(device, n: int):
+    key = (device, torch.cuda.current_stream(device).cuda_stream, n)
+    tickets = _PRIOR_BWD_TICKETS.get(key)
+    if tickets is None:
+        tickets = torch.zeros((n,), dtype=torch.int32, device=device)
+        _PRIOR_BWD_TICKETS[key] = tickets
+    return tickets
+
+
 def cut_prior_bwd(mu, logvar, eps, pmu, plv, u, gu, grate, *, mode: str):
     """Launch the learned-prior backward on (J, T, d) rows, (J, d) fp32
     priors, the saved forward output u, its cotangent gu (both in mu's
     dtype) and grate (J, T) fp32.  Returns (dmu, dlv, deps, dpmu, dplv),
     the prior gradients (J, d) fp32, each node's sum over its T rows in a
-    fixed order: two launches on the same inputs give the same bits."""
+    fixed order (ref.cutlayer_prior_bwd_sums_ordered): two launches, or two
+    replays of a captured CUDA graph, give the same bits."""
     _check_mode(mode, PRIOR_MODES)
     tensors = (mu, logvar, eps, pmu, plv, u, gu, grate)
     build.check_cuda("cut_prior_bwd", tensors)
@@ -226,22 +240,23 @@ def cut_prior_bwd(mu, logvar, eps, pmu, plv, u, gu, grate, *, mode: str):
         raise ValueError("cut_prior_bwd takes five equal (J, T, d) shapes "
                          "and a (J, T) grate")
     J, T, d = mu.shape
-    if d > PRIOR_BWD_MAX_D:
-        raise ValueError(f"cut_prior_bwd takes d <= {PRIOR_BWD_MAX_D} (its "
-                         f"per-column sums live in shared memory); got {d}")
     dmu, dlv = torch.empty_like(mu), torch.empty_like(logvar)
     deps = torch.empty_like(eps)
     dpmu, dplv = torch.empty_like(pmu), torch.empty_like(plv)
     if J * T == 0 or d == 0:
         return dmu, dlv, deps, dpmu.zero_(), dplv.zero_()
-    n_scratch = _c_function("cut_prior_bwd", "cut_prior_bwd_scratch")(J, T, d)
-    partial = torch.empty((n_scratch,), dtype=torch.float32,
+    nb = ref.prior_bwd_blocks(J, T, d)
+    # per (node, block): 4 partial sums of d columns
+    partial = torch.empty((J * nb * 4 * d,), dtype=torch.float32,
                           device=mu.device)
+    tickets = _prior_bwd_tickets(mu.device, J * -(-d // ref.PRIOR_BWD_TILE))
     _launch("cut_prior_bwd",
             _c_function("cut_prior_bwd", "cut_prior_bwd_launch"), mu.device,
             *(t.data_ptr() for t in (mu, logvar, eps, pmu, plv, u, gu, grate,
-                                     dmu, dlv, deps, dpmu, dplv, partial)),
-            J, T, d, _MODE_ID[mode], int(mu.dtype == torch.bfloat16),
+                                     dmu, dlv, deps, dpmu, dplv, partial,
+                                     tickets)),
+            nb, J, T, d, _MODE_ID[mode],
+            int(mu.dtype == torch.bfloat16),
             what=f"J={J}, T={T}, d={d}, mode={mode}")
     return dmu, dlv, deps, dpmu, dplv
 

@@ -9,6 +9,8 @@ Reference: src/repro/kernels/ref.py (`QUANT_RANGE`, `quantize_value`,
 in place of the CUDA kernels (kernels/inl_bottleneck.py), and chip_smoke.py
 holds each kernel against them on the card.  They repeat the kernels' fp32
 arithmetic step for step and are no yardstick of speed.
+`cutlayer_prior_bwd_sums_ordered` sums the prior gradients in the order of
+the CUDA kernel, not of the reference, for the tests' bit-for-bit check.
 
 The LLM stack's: `attention_ref` (the flash-attention kernel's function),
 `ssd_chunked_ref` (the SSD scan kernel's: the port of the JAX model's
@@ -281,6 +283,69 @@ def cutlayer_prior_bwd_ref(mu, logvar, eps, pmu, plv, u, gu, grate,
                       - torch.sum(c * (muf - pm), dim=1))
     return (dmu.to(mu.dtype), dlv.to(logvar.dtype), deps.to(eps.dtype),
             dpmu.to(pmu.dtype), dplv.to(plv.dtype))
+
+
+# The geometry of csrc/cut_prior_bwd.cu, which fixes the order of its sums:
+# its kWarps and kTileCols (the tests read the .cu file and hold these to
+# them), and the blocks of a large call, which the wrapper passes to it.
+PRIOR_BWD_ROWS = 8              # rows of a chunk, one for each warp
+PRIOR_BWD_TILE = 64             # columns of a block
+PRIOR_BWD_TARGET_BLOCKS = 264   # blocks of a large call: 2 an SM on 132
+
+
+def prior_bwd_blocks(J: int, T: int, d: int) -> int:
+    """The blocks each (node, column tile) takes in cut_prior_bwd's grid:
+    min(chunks of PRIOR_BWD_ROWS rows, ceil(target / (J * tiles)))."""
+    chunks = -(-T // PRIOR_BWD_ROWS)
+    tiles = -(-d // PRIOR_BWD_TILE)
+    return min(chunks, -(-PRIOR_BWD_TARGET_BLOCKS // (J * tiles)))
+
+
+def cutlayer_prior_bwd_sums_ordered(mu, logvar, pmu, plv, u, grate,
+                                    mode: str):
+    """(dpmu, dplv) fp32 of the learned-prior backward, summed in the CUDA
+    kernel's partition and order, every fp32 add a separate torch op, so
+    that on the card they equal the kernel's bit for bit (tests and
+    chip_smoke.py only; `cutlayer_prior_bwd_ref` is the definition).
+
+    The kernel (csrc/cut_prior_bwd.cu): node j's rows fall into chunks of
+    PRIOR_BWD_ROWS; with nb = prior_bwd_blocks(J, T, d), block b takes
+    chunks b, b + nb, ..., its warp w row w of each, and adds that row's
+    terms, chunk after chunk, from 0; the block adds its warps' sums in
+    warp order, from 0; the node's nb block sums are added in block order,
+    from 0.  Rows past T add a zero, which leaves a sum that starts at +0
+    unchanged."""
+    J, T, d = mu.shape
+    muf = mu.to(torch.float32)
+    lv = logvar.to(torch.float32)
+    pm = pmu.to(torch.float32)[:, None, :]
+    pv = plv.to(torch.float32)[:, None, :]
+    gr = grate.to(torch.float32)[..., None].expand(J, T, d)
+    if mode == "sample":
+        upm = u.to(torch.float32) - pm
+        c = gr * (upm * torch.exp(-pv))
+        terms = (gr, c, c * upm, torch.zeros_like(c))
+    else:                                   # "analytic"
+        mpm = muf - pm
+        c = gr * (mpm * torch.exp(-pv))
+        terms = (gr, c, gr * torch.exp(lv - pv), c * mpm)
+    nb = prior_bwd_blocks(J, T, d)
+    rows = PRIOR_BWD_ROWS
+    steps = -(-T // (rows * nb))            # chunks a block takes, at most
+    terms = torch.nn.functional.pad(torch.stack(terms),
+                                    (0, 0, 0, steps * nb * rows - T))
+    terms = terms.reshape(4, J, steps, nb, rows, d)
+    acc = torch.zeros((4, J, nb, rows, d), dtype=torch.float32,
+                      device=mu.device)
+    for i in range(steps):                  # chunk order
+        acc = acc + terms[:, :, i]
+    block = torch.zeros((4, J, nb, d), dtype=torch.float32, device=mu.device)
+    for w in range(rows):                   # warp order
+        block = block + acc[:, :, :, w]
+    s = torch.zeros((4, J, d), dtype=torch.float32, device=mu.device)
+    for b in range(nb):                     # block order
+        s = s + block[:, :, b]
+    return -s[1], 0.5 * ((s[0] - s[2]) - s[3])
 
 
 # ---------------------------------------------------------------------------

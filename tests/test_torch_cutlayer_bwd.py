@@ -267,7 +267,8 @@ def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
 def test_cuda_backward_kernels_match_plain_versions(cuda_device):
     """On the card: cut_bwd, cut_prior_fwd and cut_prior_bwd against their
     plain versions on the same CUDA tensors; the prior backward twice, bit
-    for bit; autograd through ops.cutlayer equal to the kernels."""
+    for bit, its prior gradients equal to the ordered plain sums bit for
+    bit."""
     for shape in ((5, 64, 64), (5, 7, 64)):
         d = shape[-1]
         for bits in (2, 8, 32):
@@ -299,6 +300,10 @@ def test_cuda_backward_kernels_match_plain_versions(cuda_device):
                     k2 = tbn.cut_prior_bwd(*c[:3], *c[5:], u, c[3], c[4],
                                            mode=mode)
                     assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+                    o = ref.cutlayer_prior_bwd_sums_ordered(
+                        c[0], c[1], *c[5:], u, c[4], mode)
+                    assert torch.equal(k1[3], o[0]) and \
+                        torch.equal(k1[4], o[1])
                     p = ref.cutlayer_prior_bwd_ref(*c[:3], *c[5:], u, c[3],
                                                    c[4], bits, mode)
                     for a, b in zip(k1[:3], p[:3]):
@@ -307,3 +312,54 @@ def test_cuda_backward_kernels_match_plain_versions(cuda_device):
                     for a, b in zip(k1[3:], p[3:]):
                         torch.testing.assert_close(a, b, rtol=1e-5,
                                                    atol=1e-5)
+
+
+def test_cuda_prior_backward_geometry_repeats_and_graph_replays(cuda_device):
+    """On the card: cut_prior_bwd on rows that fill, straddle and overrun
+    its 8-row chunks and its ~264-block grid (T in {1, 65, 4097}, J in
+    {1, 5}), at an even d (pairs) and an odd one (single columns), fp32 and
+    bf16: dpmu, dplv equal the ordered plain sums bit for bit, the per-row
+    gradients the plain backward within rtol 1e-5, atol 1e-6; three
+    launches identical; one CUDA-graph capture replayed twice identical to
+    the eager call (the kernel's counters start every launch from zero)."""
+    for J in (1, 5):
+        for T in (1, 65, 4097):
+            for d in (80, 37):
+                for dt in ("fp32", "bf16"):
+                    mu, lv, eps, gu, gr, pri = _case((J, T, d), dt, T + d,
+                                                     "node")
+                    c = [torch.from_numpy(x).to(cuda_device)
+                         for x in (mu, lv, eps, gu, gr, *pri)]
+                    for t in (0, 1, 3):
+                        c[t] = c[t].to(TORCH_DT[dt])
+                    for mode in ("sample", "analytic"):
+                        u, _ = tbn.cut_prior_fwd(*c[:3], *c[5:], bits=8,
+                                                 mode=mode)
+
+                        def call():
+                            return tbn.cut_prior_bwd(*c[:3], *c[5:], u, c[3],
+                                                     c[4], mode=mode)
+                        runs = [call() for _ in range(3)]
+                        torch.cuda.synchronize()
+                        for k in runs[1:]:
+                            assert all(torch.equal(a, b)
+                                       for a, b in zip(runs[0], k))
+                        o = ref.cutlayer_prior_bwd_sums_ordered(
+                            c[0], c[1], *c[5:], u, c[4], mode)
+                        assert torch.equal(runs[0][3], o[0])
+                        assert torch.equal(runs[0][4], o[1])
+                        p = ref.cutlayer_prior_bwd_ref(
+                            *c[:3], *c[5:], u, c[3], c[4], 8, mode)
+                        for a, b in zip(runs[0][:3], p[:3]):
+                            torch.testing.assert_close(a, b, rtol=1e-5,
+                                                       atol=1e-6)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        captured = call()
+                    for _ in range(2):
+                        for t in captured:
+                            t.fill_(float("nan"))
+                        graph.replay()
+                        torch.cuda.synchronize()
+                        assert all(torch.equal(a, b)
+                                   for a, b in zip(captured, runs[0]))

@@ -381,3 +381,31 @@ def test_pack_kernels_on_cuda_equal_their_plain_versions(cuda_device):
                     assert torch.equal(
                         tbn.pack(u, bits=bits).view(torch.int32),
                         lanes.view(torch.int32))
+
+
+def test_unpack_kernel_on_cuda_covers_every_width(cuda_device):
+    """On the H100: unpack_dequant at every b in 1..16 (vpw a power of two
+    or not, lanes with unused bits), d in {7, 33, 64, 100} (a row's last
+    word partly used; row starts off the vector's alignment), R in {1, 7,
+    257}, fp32 and bf16, and lanes that start mid-allocation: equal to the
+    plain version bit for bit, and unpack(pack(u)) == u where pack takes
+    the type (fp32, or bf16 at b <= 8)."""
+    rng = np.random.default_rng(16)
+    for bits in range(1, 17):
+        for d in (7, 33, 64, 100):
+            for R in (1, 7, 257):
+                idx = torch.from_numpy(rng.integers(
+                    0, 1 << bits, size=(R + 1, d))).to(cuda_device)
+                # rows 1..R: a lane array that starts one row in
+                lanes = ref.pack_indices(idx, bits)[1:]
+                for dtype in (torch.float32, torch.bfloat16):
+                    back = tbn.unpack(lanes, d=d, bits=bits, dtype=dtype)
+                    want = ref.unpack_dequant_ref(lanes, d, bits,
+                                                  dtype=dtype)
+                    torch.cuda.synchronize()
+                    assert back.dtype == dtype and back.shape == (R, d)
+                    assert torch.equal(back, want), (bits, d, R, dtype)
+                    if dtype == torch.float32 or bits <= 8:
+                        again = tbn.unpack(tbn.pack(back, bits=bits), d=d,
+                                           bits=bits, dtype=dtype)
+                        assert torch.equal(again, back), (bits, d, R, dtype)
