@@ -58,7 +58,14 @@ Phases, each checked; any failed check exits non-zero before the last line:
                                and bf16, on lanes one row into their
                                allocation: equal to the plain version bit
                                for bit, unpack(pack(u)) == u (fp32; bf16 at
-                               b <= 8).
+                               b <= 8);
+                pack           then at every b in 1..16, d in {7, 33, 64,
+                               100}, R in {1, 7, 257}, fp32 and bf16 (b <=
+                               8), on values one row into their allocation,
+                               off-grid (past the clip range, a quarter at
+                               rounding midpoints) and on the grid: the
+                               lanes equal the plain version's bit for bit,
+                               unpack(pack(u)) == u on the grid.
   4. serving  INLScheme at PaperExperimentConfig() (the paper's full width)
               on the card from a seeded generator, a ServingEngine over
               buckets (1, 4, 16, 64) answering requests through its
@@ -100,12 +107,30 @@ Phases, each checked; any failed check exits non-zero before the last line:
               as a tensor: |card - cpu| <= 1e-3 |cpu| + 1e-5 sqrt(n) in the
               2-norm (entries outside the entrywise bar are counted); the
               losses of steps 2-3 within rtol 1e-3.
+  6b. topology non-star graphs at full width, batch 64, each through
+              run_scheme("inl", topology=...) for 16 steps with launch counts
+              set to 0 just before and read just after: chain(5) at
+              link_bits=8 on "packed" and "packed_duplex" (cut_fwd and
+              cut_bwd once per step, pack and unpack_dequant 5 times a step,
+              once per edge), tree(2, 2) dense with six views, and
+              chain(5, link_bits=(2, 4, 8, 8, 32)) dense (cut_fwd and cut_bwd
+              once per first-hop width group, 4 a step); cut_fwd once more
+              per group for the evaluation.  Losses finite and falling, the
+              meter's per-edge bits and bytes steps x the closed forms and
+              wirefmt sizes (measured == closed form on duplex and fp32
+              links).  One step on the packed chain(5) == the dense chain(5)
+              == the star bit for bit; step 1 of the packed chain(5) and of
+              tree(2, 2) against the CPU port as in phase 6; chain(5) served
+              on the packed wire over buckets (1, 4, 16, 64): one cut_fwd and
+              5 pack and unpack_dequant an engine launch, rows bit for bit
+              equal to predict on the card in their bucket.
   7. times    per-bucket predict latency, train-step latency (median of 20
               steps, with the device busy time and idle share from the
               profiler, and the device time by kernel) on the dense,
-              packed and duplex wires, and each kernel's device time beside
-              its bound and its plain version (cut_prior_bwd and
-              unpack_dequant beside their first designs' times, with
+              packed and duplex wires and on the packed chain(5), tree(2, 2)
+              and the mixed-width chain, and each kernel's device time beside
+              its bound and its plain version (cut_prior_bwd, unpack_dequant
+              and pack beside their first designs' times, with
               cut_prior_bwd's first two launches apart), with the card's
               name and power limit on every line.
   8. llm      the LLM stack, Zamba2-2.7B:
@@ -202,6 +227,9 @@ PACK_BITS = (1, 2, 3, 4, 8, 16)
 WIRE_BITS = 8                       # the packed wire's width on the path
 PACKED_SAMPLES = 1024               # 16 steps of 64 in one epoch
 FL_ROUNDS = 4                       # each round: 5 clients x 2 local steps
+GRAPH_SAMPLES = 1024                # 16 steps of 64 in one epoch
+TREE_STDS = (0.4, 1.0, 2.0, 3.0, 4.0, 0.7)   # the reference's test_topology
+HET_BITS = (2, 4, 8, 8, 32)         # chain(5)'s per-edge widths
 PROFILE_TRIES = 3
 BF16_FLOPS = 989e12                 # H100 SXM dense bf16 tensor cores
 FP32_BAR, BF16_BAR = 2e-5, 2e-2     # the bars of tests/test_kernels.py
@@ -222,25 +250,29 @@ TENSOR_CORE_KERNELS = ("flash_attn_fwd", "ssd_scan")
 # measured them on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
 SIMT_MS = {("flash_attn_fwd", 512): 0.4703, ("flash_attn_fwd", 2048): 5.0504,
            ("ssd_scan", 512): 0.6286, ("ssd_scan", 2048): 2.5219}
-# device ms (profiler) of the first designs of the two redesigned kernels,
-# at the shapes of new_kernel_timing / pack_kernel_timing, (kernel, R) ->
-# ms: the final chip_smoke.py run that measured them on an NVIDIA H100 80GB
-# HBM3 at 700.00 W (PERF.md section 6)
+# device ms (profiler) of the first designs of the three redesigned
+# kernels, at the shapes of new_kernel_timing / pack_kernel_timing,
+# (kernel, R) -> ms: the final chip_smoke.py run that measured them on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
 FIRST_DESIGN_MS = {("cut_prior_bwd", 320): 0.00982,
                    ("cut_prior_bwd", 20480): 0.03317,
                    ("cut_prior_bwd", 262144): 0.54090,
                    ("unpack_dequant", 320): 0.00182,
                    ("unpack_dequant", 20480): 0.00750,
-                   ("unpack_dequant", 262144): 0.07647}
+                   ("unpack_dequant", 262144): 0.07647,
+                   ("pack", 320): 0.00176,
+                   ("pack", 20480): 0.00642,
+                   ("pack", 262144): 0.06924}
 # the first design of cut_prior_bwd ran two launches; (rows, reduce) device
 # ms by kernel name, R -> ms: this script's --kernel-times run in a checkout
 # of that design, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6)
 FIRST_PRIOR_BWD_STAGES = {320: (0.00856, 0.00125),
                           20480: (0.02247, 0.01116),
                           262144: (0.23076, 0.31338)}
-# the two kernels redesigned after their first designs, and how
+# the kernels redesigned after their first designs, and how
 REDESIGNED = {"cut_prior_bwd": "one launch, parallel fixed-order reduction",
-              "unpack_dequant": "one thread per lane word, vector stores"}
+              "unpack_dequant": "one thread per lane word, vector stores",
+              "pack": "one thread per lane word, vector loads"}
 
 
 class CheckFailed(RuntimeError):
@@ -799,6 +831,7 @@ def pack_kernel_phase(torch):
           f"{midpoints} rows at a rounding midpoint; max |rate - plain| "
           f"{worst['cut_fwd_pack']:.3g}")
     unpack_width_phase(torch)
+    pack_width_phase(torch)
     return worst
 
 
@@ -839,6 +872,56 @@ def unpack_width_phase(torch):
           f"{{7, 33, 64, 100}} x R in {{1, 7, 257}} x fp32/bf16, lanes one "
           f"row into their allocation) == plain bit for bit, "
           f"unpack(pack(u)) == u (fp32, bf16 at b <= 8)")
+
+
+def pack_width_phase(torch):
+    """pack at every b in 1..16 (vpw a power of two or not, lanes with
+    unused bits), d in {7, 33, 64, 100} (a row's last word partly used; row
+    starts off the vector's alignment), R in {1, 7, 257}, fp32 and bf16 (b
+    <= 8), on values that start one row into their allocation: off-grid
+    values (N(0, 2.5^2), past the clip range, a quarter of them at rounding
+    midpoints) and values on the b-bit grid.  The lanes equal the plain
+    version's bit for bit, and unpack(pack(u)) == u on the grid."""
+    from repro_torch.kernels import inl_bottleneck, ref
+    rng = np.random.default_rng(17)
+    n = 0
+    for bits in range(1, 17):
+        scale = ((1 << bits) - 1) / (2.0 * ref.QUANT_RANGE)
+        for d in (7, 33, 64, 100):
+            for R in (1, 7, 257):
+                shape = (R + 1, d)
+                off = rng.normal(scale=2.5, size=shape)
+                mids = (rng.integers(0, (1 << bits) - 1, size=shape) + 0.5) \
+                    / scale - ref.QUANT_RANGE
+                off = np.where(rng.random(shape) < 0.25, mids, off)
+                grid = ref.dequantize_index(torch.from_numpy(rng.integers(
+                    0, 1 << bits, size=shape)).to(DEV), bits)
+                for kind, vals in (
+                        ("off-grid", torch.from_numpy(
+                            off.astype(np.float32)).to(DEV)),
+                        ("on-grid", grid)):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        if dtype == torch.bfloat16 and bits > 8:
+                            continue
+                        what = f"pack {kind} b={bits} d={d} R={R} {dtype}"
+                        u = vals.to(dtype)[1:]
+                        lanes = inl_bottleneck.pack(u, bits=bits)
+                        want = ref.pack_values_ref(u, bits)
+                        torch.cuda.synchronize()
+                        check(same_bits(lanes, want),
+                              f"{what}: lanes differ from the plain version")
+                        if kind == "on-grid":
+                            back = inl_bottleneck.unpack(lanes, d=d,
+                                                         bits=bits,
+                                                         dtype=dtype)
+                            torch.cuda.synchronize()
+                            check(same_bits(back, u),
+                                  f"{what}: unpack(pack(u)) != u")
+                        n += 1
+    print(f"kernels: pack on {n} cases (b in 1..16 x d in {{7, 33, 64, 100}}"
+          f" x R in {{1, 7, 257}} x off-grid/on-grid values x fp32/bf16 at "
+          f"b <= 8, values one row into their allocation) == plain bit for "
+          f"bit, unpack(pack(u)) == u on the grid")
 
 
 # ---------------------------------------------------------------------------
@@ -963,7 +1046,7 @@ def training_data(cfg, n=TRAIN_SAMPLES):
 
 
 def recorded_run(torch, name, cfg, views, labels, *, epochs, wire="dense",
-                 seed=0):
+                 seed=0, topology=None):
     """run_scheme(name) on the card, with the launch counts set to 0 just
     before and read just after, and every round's loss recorded by a
     wrapper around the registered scheme's make_round.  Returns (curve,
@@ -995,7 +1078,7 @@ def recorded_run(torch, name, cfg, views, labels, *, epochs, wire="dense",
         curve = runner.run_scheme(name, views, labels, cfg, epochs=epochs,
                                   batch_size=TRAIN_BATCH, eval_n=512,
                                   meter=meter, wire=wire, seed=seed,
-                                  device=DEV)
+                                  topology=topology, device=DEV)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
@@ -1232,13 +1315,39 @@ def packed_step_equals_dense(torch, card_line):
           f"{float(ld)!r}, {len(gd)} gradient leaves) [{card_line}]")
 
 
-def _loss_and_grads(torch, cfg, params, state, views, labels, eps, masks):
+def _loss_and_grads(torch, cfg, params, state, views, labels, eps, masks,
+                    **kw):
     from repro_torch import tree_leaves, tree_unflatten
     from repro_torch.core import inl
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     loss, _ = inl.loss_fn(tree_unflatten(params, leaves), state, views,
-                          labels, cfg, eps=eps, drop_masks=masks)
+                          labels, cfg, eps=eps, drop_masks=masks, **kw)
     return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+def grads_close(l_gpu, l_cpu, g_gpu, g_cpu, what):
+    """Step-1 loss within rtol 1e-3, atol 1e-5 and every gradient leaf as a
+    tensor: |card - cpu| <= 1e-3 |cpu| + 1e-5 sqrt(n) in the 2-norm.
+    Returns (largest |card - cpu| / |cpu| of a leaf above the atol floor,
+    largest entry difference, entries outside the bar entry by entry)."""
+    check(np.isclose(l_gpu, l_cpu, **CARD_CPU_TOL),
+          f"{what}: step-1 loss card {l_gpu} vs cpu {l_cpu}")
+    max_abs, max_leaf, off_entries = 0.0, 0.0, 0
+    for a, b in zip(g_gpu, g_cpu):
+        a, b = a.cpu().double().numpy(), b.double().numpy()
+        # a leaf as a tensor: |a - b| <= rtol |b| + atol sqrt(n) in the 2-norm
+        # (a single entry of a conv-weight gradient sums 65536 products that
+        # cancel, and cuDNN and the CPU add them in other orders)
+        dist, size = np.linalg.norm(a - b), np.linalg.norm(b)
+        bar = CARD_CPU_TOL["rtol"] * size \
+            + CARD_CPU_TOL["atol"] * np.sqrt(a.size)
+        check(dist <= bar, f"{what}: gradient leaf {a.shape}: |card - cpu| "
+              f"{dist} > {bar} (|cpu| {size})")
+        max_abs = max(max_abs, float(np.abs(a - b).max()))
+        if size > bar:          # leaves whose gradient is not ~0 (conv
+            max_leaf = max(max_leaf, float(dist / size))   # biases are)
+        off_entries += int((~np.isclose(a, b, **CARD_CPU_TOL)).sum())
+    return max_leaf, max_abs, off_entries
 
 
 def card_vs_cpu_phase(torch, card_line):
@@ -1270,23 +1379,8 @@ def card_vs_cpu_phase(torch, card_line):
     l_gpu, g_gpu = _loss_and_grads(torch, cfg, gpu["params"], gpu["state"],
                                    v.to(DEV), lab.to(DEV), *on(DEV,
                                                              draws[0]))
-    check(np.isclose(l_gpu, l_cpu, **CARD_CPU_TOL),
-          f"step-1 loss card {l_gpu} vs cpu {l_cpu}")
-    max_abs, max_leaf, off_entries = 0.0, 0.0, 0
-    for a, b in zip(g_gpu, g_cpu):
-        a, b = a.cpu().double().numpy(), b.double().numpy()
-        # a leaf as a tensor: |a - b| <= rtol |b| + atol sqrt(n) in the 2-norm
-        # (a single entry of a conv-weight gradient sums 65536 products that
-        # cancel, and cuDNN and the CPU add them in other orders)
-        dist, size = np.linalg.norm(a - b), np.linalg.norm(b)
-        bar = CARD_CPU_TOL["rtol"] * size \
-            + CARD_CPU_TOL["atol"] * np.sqrt(a.size)
-        check(dist <= bar, f"gradient leaf {a.shape}: |card - cpu| {dist} "
-              f"> {bar} (|cpu| {size})")
-        max_abs = max(max_abs, float(np.abs(a - b).max()))
-        if size > bar:          # leaves whose gradient is not ~0 (conv
-            max_leaf = max(max_leaf, float(dist / size))   # biases are)
-        off_entries += int((~np.isclose(a, b, **CARD_CPU_TOL)).sum())
+    max_leaf, max_abs, off_entries = grads_close(l_gpu, l_cpu, g_gpu, g_cpu,
+                                                 "star")
     round_fn = scheme.make_round(cfg)
     losses = {}
     for dev, st in (("cpu", cpu), (DEV, gpu)):
@@ -1306,6 +1400,237 @@ def card_vs_cpu_phase(torch, card_line):
           f"largest entry difference {max_abs:.3g}, {off_entries} entries "
           f"outside the bar taken entry by entry; 3-step losses card "
           f"{losses[DEV]} cpu {losses['cpu']} [{card_line}]")
+
+
+# ---------------------------------------------------------------------------
+# 6b. non-star topologies at full width
+# ---------------------------------------------------------------------------
+
+def graph_runs():
+    """(label, topology, config, wire) of the graph training runs."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import topology as T
+    cfg8 = PaperExperimentConfig(link_bits=WIRE_BITS)
+    return (("chain(5) packed", T.chain(5), cfg8, "packed"),
+            ("chain(5) packed_duplex", T.chain(5), cfg8, "packed_duplex"),
+            ("tree(2, 2) dense", T.tree(2, 2),
+             PaperExperimentConfig(num_clients=6, noise_stds=TREE_STDS),
+             "dense"),
+            (f"chain(5, link_bits={HET_BITS}) dense",
+             T.chain(5, link_bits=HET_BITS), PaperExperimentConfig(),
+             "dense"))
+
+
+def topology_phase(torch, card_line):
+    """The graph paths at full width, batch 64, each driven through
+    run_scheme("inl", topology=...) with the launch counts set to 0 just
+    before and read just after: one cut_fwd and one cut_bwd a first-hop
+    width group a step (one more cut_fwd a group for the evaluation, on the
+    dense wire), one pack and one unpack_dequant an edge a step on a packed
+    wire; the meter's per-edge bytes equal steps x the closed forms'
+    wirefmt sizes.  Returns {label: launches}."""
+    from repro_torch.core import topology as T
+
+    steps = GRAPH_SAMPLES // TRAIN_BATCH
+    out = {}
+    for label, topo, cfg, wire in graph_runs():
+        views, labels = training_data(cfg, GRAPH_SAMPLES)
+        curve, loss, launches, meter, wall, rates = recorded_run(
+            torch, "inl", cfg, views, labels, epochs=1, wire=wire,
+            topology=topo)
+        check(len(loss) == steps, f"{label}: {len(loss)} steps")
+        first, last = falls(loss)
+        groups = len(T.first_hop_groups(topo, cfg)[0])
+        hops = 0 if wire == "dense" else len(topo.edges)
+        expect_launches(launches, {
+            "cut_fwd": groups * (steps + 1), "cut_bwd": groups * steps,
+            "pack": hops * steps, "unpack_dequant": hops * steps}, label)
+        bits = T.round_edge_bits(topo, cfg, TRAIN_BATCH)
+        nbytes = T.round_edge_wire_bytes(topo, cfg, TRAIN_BATCH, wire=wire)
+        check(meter.edge_bits == {k: steps * v for k, v in bits.items()}
+              and meter.edge_measured_bytes
+              == {k: steps * v for k, v in nbytes.items()},
+              f"{label}: per-edge ledger {meter.edge_bits} "
+              f"{meter.edge_measured_bytes} != {steps} x {bits} {nbytes}")
+        if wire == "packed_duplex" or cfg.link_bits == 32 and all(
+                e.link_bits in (None, 32) for e in topo.edges):
+            check(all(nbytes[k] * 8 == bits[k] for k in bits),
+                  f"{label}: measured bytes differ from the closed forms")
+        out[label] = launches
+        per_edge = "; ".join(
+            f"{k} payload {len(topo.payload(e))}: closed {bits[k]:.0f} "
+            f"bits, measured {nbytes[k]:.0f} bytes"
+            for e in topo.topo_edges() for k in [e.key])
+        print(f"topology: run_scheme('inl') on {label} at full width, "
+              f"{cfg.num_clients} views, {steps} steps of {TRAIN_BATCH} in {wall:.2f} s; loss "
+              f"{loss[0]:.4f} -> {loss[-1]:.4f} (first 4 {first:.4f}, last "
+              f"4 {last:.4f}); accuracy {curve[-1].accuracy:.4f}; "
+              f"{groups} first-hop group(s), {hops} packed hop(s) a step; "
+              f"launches {launches} [{card_line}]")
+        print(f"topology: {label} per edge and round: {per_edge}")
+    return out
+
+
+def graph_step_checks(torch, card_line):
+    """From one state and one set of draws at PaperExperimentConfig(link_bits
+    =8): the loss and every gradient leaf of a step on the packed chain(5)
+    equal the dense chain's, and the dense chain's the star's, bit for bit
+    (deterministic algorithms on); then step 1 of the packed chain(5) and
+    of tree(2, 2) on the card against the CPU port (grads_close)."""
+    from repro_torch import tree_leaves, tree_map, value_and_grad
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import inl, paper_model, schemes
+    from repro_torch.core import topology as T
+
+    cfg = PaperExperimentConfig(link_bits=WIRE_BITS)
+    views, labels = training_data(cfg)
+    st = schemes.get("inl").init(cfg, torch.Generator(device=DEV)
+                                 .manual_seed(10), device=DEV)
+    v = torch.from_numpy(views[:, :TRAIN_BATCH]).to(DEV)
+    lab = torch.from_numpy(labels[:TRAIN_BATCH]).to(DEV).long()
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    eps = torch.randn((cfg.num_clients, TRAIN_BATCH, cfg.d_bottleneck),
+                      generator=gen, device=DEV)
+    masks = paper_model.decoder_dropout_masks(gen, cfg.dense_units,
+                                              TRAIN_BATCH, device=DEV)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label, topo, wire in (("star", None, "dense"),
+                                  ("chain dense", T.chain(5), "dense"),
+                                  ("chain packed", T.chain(5), "packed")):
+            loss, _, grads = value_and_grad(
+                inl.loss_fn, st["params"], st["state"], v, lab, cfg,
+                eps=eps, drop_masks=masks, wire=wire, topology=topo)
+            out[label] = (loss, tree_leaves(grads))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in (("chain dense", "star"), ("chain packed", "chain dense")):
+        (la, ga), (lb, gb) = out[a], out[b]
+        check(same_bits(la, lb), f"{a} step loss {float(la)} != {b} "
+                                 f"{float(lb)}")
+        check(len(ga) == len(gb) > 0 and all(same_bits(x, y)
+                                             for x, y in zip(ga, gb)),
+              f"a gradient leaf of the {a} step differs from the {b} one")
+    print(f"topology: one step on the packed chain(5) == the dense chain(5) "
+          f"== the star, bit for bit (loss {float(out['star'][0])!r}, "
+          f"{len(out['star'][1])} gradient leaves) [{card_line}]")
+
+    for label, topo, c, wire in graph_runs()[::2]:
+        cv, cl = training_data(c)
+        cpu = schemes.get("inl").init(c, torch.Generator().manual_seed(12),
+                                      device="cpu")
+        g = torch.Generator().manual_seed(13)
+        e = torch.randn((c.num_clients, TRAIN_BATCH, c.d_bottleneck),
+                        generator=g)
+        m = paper_model.decoder_dropout_masks(g, c.dense_units, TRAIN_BATCH)
+        vc = torch.from_numpy(cv[:, :TRAIN_BATCH])
+        lc = torch.from_numpy(cl[:TRAIN_BATCH]).long()
+        kw = dict(topology=topo, wire=wire)
+        l_cpu, g_cpu = _loss_and_grads(torch, c, cpu["params"],
+                                       cpu["state"], vc, lc, e, m, **kw)
+        gpu = tree_map(lambda t: t.to(DEV), cpu)
+        l_gpu, g_gpu = _loss_and_grads(
+            torch, c, gpu["params"], gpu["state"], vc.to(DEV), lc.to(DEV),
+            e.to(DEV), [x.to(DEV) for x in m], **kw)
+        max_leaf, max_abs, off = grads_close(l_gpu, l_cpu, g_gpu, g_cpu,
+                                             label)
+        print(f"topology: {label} step 1, card against the CPU port: loss "
+              f"{l_gpu:.7f} / {l_cpu:.7f}; {len(g_gpu)} gradient leaves "
+              f"within rtol 1e-3 atol 1e-5 as tensors, largest |card - cpu|"
+              f" / |cpu| of a leaf {max_leaf:.3g}, largest entry difference "
+              f"{max_abs:.3g}, {off} entries outside the bar taken entry by "
+              f"entry [{card_line}]")
+
+
+def graph_serving_phase(torch, card_line):
+    """chain(5) served at PaperExperimentConfig(link_bits=8) on the packed
+    wire over buckets (1, 4, 16, 64), launch counts set to 0 just before
+    and read just after: one cut_fwd and five pack and unpack_dequant an
+    engine launch; answers finite rows summing to 1, equal bit for bit to
+    predict on the card in the same bucket; every edge metered."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import schemes
+    from repro_torch.core import topology as T
+    from repro_torch.data import multiview
+    from repro_torch.serving import ServingEngine, metering
+
+    cfg = PaperExperimentConfig(link_bits=WIRE_BITS)
+    topo = T.chain(5)
+    scheme = schemes.get("inl")
+    state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(14),
+                        device=DEV)
+    imgs, _ = multiview.make_base_dataset(N_REQUESTS, seed=cfg.seed)
+    views = multiview.make_views(imgs, cfg.noise_stds)
+    engine = ServingEngine(scheme, state, cfg, topology=topo, wire="packed",
+                           buckets=BUCKETS, device=DEV)
+    engine.warmup()
+    torch.cuda.synchronize()
+    reset_launches()
+    futs, view_of = [], {}
+
+    def submit():
+        m = len(futs) % N_REQUESTS
+        rid, fut = engine.submit(views[:, m])
+        view_of[rid] = m
+        futs.append(fut)
+        return fut
+
+    with engine:
+        for k in (1, 2, 4, 7, 16, 33, 64) * 2:
+            burst = [submit() for _ in range(k)]
+            for f in burst:
+                f.result(timeout=60)
+        t0 = time.perf_counter()
+        flood = [submit() for _ in range(N_REQUESTS)]
+        for f in flood:
+            f.result(timeout=60)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    results = [f.result(timeout=60) for f in futs]
+    stats = engine.stats
+    n_edges = len(topo.edges)
+    expect_launches(launches, {"cut_fwd": stats.launches,
+                               "pack": n_edges * stats.launches,
+                               "unpack_dequant": n_edges * stats.launches},
+                    "chain(5) serving")
+    probs = np.stack([r.probs for r in results])
+    check(np.isfinite(probs).all()
+          and np.abs(probs.sum(-1) - 1.0).max() <= 1e-5,
+          "chain(5) serving: rows not finite or not summing to 1")
+    per_req = metering.request_edge_wire_bytes(topo, cfg, wire="packed")
+    check(engine.meter.edge_measured_bytes
+          == {k: len(results) * v for k, v in per_req.items()},
+          f"chain(5) serving: per-edge bytes "
+          f"{engine.meter.edge_measured_bytes}")
+    # bit for bit against predict on the card in the same bucket: within a
+    # bucket no request's answer depends on the batch it rode in
+    checked = 0
+    for b in sorted({r.bucket for r in results}):
+        rows = [r for r in results if r.bucket == b]
+        for c in range(0, len(rows), b):
+            chunk = rows[c:c + b]
+            idx = [view_of[r.rid] for r in chunk]
+            idx += [idx[-1]] * (b - len(idx))
+            ref = scheme.predict_batched(state, views[:, idx],
+                                         topology=topo, cfg=cfg,
+                                         wire="packed", device=DEV)
+            ref = ref.cpu().numpy()[:len(chunk)]
+            got = np.stack([r.probs for r in chunk])
+            check(np.array_equal(got, ref),
+                  f"chain(5) served rows differ from predict in bucket {b}:"
+                  f" max {np.abs(got - ref).max()}")
+            checked += len(chunk)
+    used = sorted({r.bucket for r in results})
+    print(f"topology: served chain(5) (packed, link_bits={WIRE_BITS}): "
+          f"{len(results)} requests in {stats.launches} engine launches "
+          f"over buckets {used}, {checked} rows == predict(cuda) bit for "
+          f"bit in their bucket; flood of {N_REQUESTS} at "
+          f"{N_REQUESTS / wall:.1f} requests/s, p50 latency "
+          f"{statistics.median(stats.latencies_ms[-N_REQUESTS:]):.3f} ms; "
+          f"launches {launches} [{card_line}]")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1430,19 +1755,22 @@ def timing_phase(torch, scheme, state, views, card_line):
     return rows
 
 
-def train_step_timing(torch, card_line, *, wire="dense", link_bits=32):
-    """Train-step latency at full width and batch 64 on `wire`: the median
-    of 20 steps on the host's clock, and the device's busy time per step
-    from the profiler, with its breakdown by kernel."""
+def train_step_timing(torch, card_line, *, wire="dense", link_bits=32,
+                      topology=None, cfg=None, label=None):
+    """Train-step latency at full width and batch 64 on `wire` (on the star,
+    or on `topology` at `cfg`): the median of 20 steps on the host's clock,
+    and the device's busy time per step from the profiler, with its
+    breakdown by kernel."""
     from repro_torch.configs.paper_inl import PaperExperimentConfig
     from repro_torch.core import schemes
 
-    cfg = PaperExperimentConfig(link_bits=link_bits)
+    cfg = cfg or PaperExperimentConfig(link_bits=link_bits)
+    label = label or wire
     views, labels = training_data(cfg)
     scheme = schemes.get("inl")
     state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(6),
                         device=DEV)
-    round_fn = scheme.make_round(cfg, wire=wire)
+    round_fn = scheme.make_round(cfg, wire=wire, topology=topology)
     gen = torch.Generator(device=DEV).manual_seed(7)
     v = torch.from_numpy(views[:, :TRAIN_BATCH]).to(DEV)[None]
     lab = torch.from_numpy(labels[:TRAIN_BATCH]).to(DEV).long()[None]
@@ -1460,10 +1788,11 @@ def train_step_timing(torch, card_line, *, wire="dense", link_bits=32):
             times.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(times)
     busy, by_name = device_profile(torch, step, reps=10, warmup=2)
-    print(f"train step latency ({wire}, link_bits={link_bits}): median "
-          f"{wall:.3f} ms over {len(times)} steps (PaperExperimentConfig, "
-          f"batch {TRAIN_BATCH}); device busy {busy:.4f} ms of it, idle "
-          f"share {1 - busy / wall:.3f} [{card_line}]")
+    print(f"train step latency ({label}, link_bits={cfg.link_bits}): "
+          f"median {wall:.3f} ms over {len(times)} steps "
+          f"(PaperExperimentConfig, batch {TRAIN_BATCH}); device busy "
+          f"{busy:.4f} ms of it, idle share {1 - busy / wall:.3f} "
+          f"[{card_line}]")
     kinds = {}
     for name, ms in by_name:
         low = name.lower()
@@ -1475,10 +1804,10 @@ def train_step_timing(torch, card_line, *, wire="dense", link_bits=32):
                 or "fill" in low else
                 "reduction" if "reduce" in low else "elementwise/other")
         kinds[kind] = kinds.get(kind, 0.0) + ms
-    print(f"train step ({wire}) device time by kind: " + ", ".join(
+    print(f"train step ({label}) device time by kind: " + ", ".join(
         f"{k} {ms:.4f} ms" for k, ms in sorted(kinds.items(),
                                               key=lambda kv: -kv[1])))
-    print(f"train step ({wire}) device time, top kernels: " + "; ".join(
+    print(f"train step ({label}) device time, top kernels: " + "; ".join(
         f"{name[:60]} {ms:.4f} ms" for name, ms in by_name[:8]))
     return wall, busy
 
@@ -2076,12 +2405,20 @@ def main() -> int:
     packed_launches = packed_training_phase(torch, card)
     packed_step_equals_dense(torch, card)
     card_vs_cpu_phase(torch, card)
+    graph_launches = topology_phase(torch, card)
+    graph_step_checks(torch, card)
+    graph_serve_launches = graph_serving_phase(torch, card)
     torch.cuda.synchronize()
     rows = timing_phase(torch, scheme, state, views, card)
     steps = {wire: train_step_timing(torch, card, wire=wire,
                                      link_bits=bits)
              for wire, bits in (("dense", 32), ("packed", WIRE_BITS),
                                 ("packed_duplex", WIRE_BITS))}
+    for label, topo, cfg, wire in graph_runs():
+        if wire != "packed_duplex":
+            steps[label] = train_step_timing(torch, card, wire=wire,
+                                             topology=topo, cfg=cfg,
+                                             label=label)
     rows.update(new_kernel_timing(torch, card))
     rows.update(pack_kernel_timing(torch, card))
     torch.cuda.synchronize()
@@ -2100,9 +2437,9 @@ def main() -> int:
                 "cut_prior_fwd": prior_launches["cut_prior_fwd"],
                 "cut_prior_bwd": prior_launches["cut_prior_bwd"],
                 "cut_fwd_pack": packed_launches["inl packed"]["cut_fwd_pack"],
-                "pack": packed_launches["sl packed"]["pack"],
+                "pack": graph_launches["chain(5) packed"]["pack"],
                 "unpack_dequant":
-                    packed_launches["inl packed"]["unpack_dequant"],
+                    graph_launches["chain(5) packed"]["unpack_dequant"],
                 "flash_attn_fwd": llm_launches["flash_attn_fwd"],
                 "ssd_scan": llm_launches["ssd_scan"]}
     check(all(n > 0 for n in launches.values()),
@@ -2133,9 +2470,13 @@ def main() -> int:
             ("cut_fwd_pack", 117, "R=320 d=64 fp32 sample b=8 (training)",
              ("cut_fwd_pack", 320), 1, "INL training, packed wire"),
             ("pack", 143, "R=320 d=64 fp32 b=8 (training)", ("pack", 320),
-             1, "SL training and learned prior, packed wire"),
+             f"5 on the packed chain(5) (64-320 rows a hop), 1 on SL and "
+             f"the learned prior; serving chain(5): "
+             f"{graph_serve_launches['pack']} in its run",
+             "INL on chain(5), SL and learned prior, packed wire"),
             ("unpack_dequant", 153, "R=320 d=64 fp32 b=8 (training)",
-             ("unpack_dequant", 320), 1, "every packed path")):
+             ("unpack_dequant", 320), "5 on the packed chain(5), 1 on "
+             "every other packed path", "every packed path")):
         k_ms, p_ms, b_ms = rows[key]
         entry = {
             "name": kname, "route": "cuda", "source": f"{src}{kname}.cu",

@@ -1,6 +1,7 @@
 """Parameters of the JAX package, in the port's layout.
 
-`inl_from_jax`, `sl_from_jax` and `fl_from_jax` take the reference's
+`inl_from_jax`, `inl_heterogeneous_from_jax`, `sl_from_jax` and
+`fl_from_jax` take the reference's
 parameters and state as numpy trees (for example `jax.tree.map(np.asarray,
 params)`) and return the port's, so both packages compute the same
 function.  They read plain attributes and dict keys only; the port imports
@@ -14,9 +15,11 @@ nothing of JAX or `repro`.
     priors         the learned (J, d) prior mean/log-variance copied ({}
                    for the standard normal)
 
-INL stacks its J encoders along a leading axis; SL and FL keep a list of J
-per-branch encoders, as the reference does, and FL stacks the J client
-copies of everything along a leading axis.
+INL stacks its J encoders along a leading axis (its heterogeneous-encoder
+variant keeps a list of J encoders of differing architectures,
+`inl_heterogeneous_from_jax`); SL and FL keep a list of J per-branch
+encoders, as the reference does, and FL stacks the J client copies of
+everything along a leading axis.
 
 `zoo_from_jax` maps the reference's `models.zoo.init_params` tree onto the
 port's (`repro_torch.models.zoo`): the trees have one structure, dense
@@ -79,6 +82,23 @@ def inl_from_jax(params_np, state_np, cfg, device=None):
     params = INLParams(_encoder(params_np.encoders, cfg, device),
                        _decoder(params_np.decoder, device), priors)
     return params, {"encoders": _encoder_state(state_np["encoders"], device)}
+
+
+def inl_heterogeneous_from_jax(params_np, state_np, cfgs, device=None):
+    """The reference's heterogeneous INL (`init_heterogeneous`: params
+    {"encoders": [J], "decoder"}, state {"encoders": [J]}, each encoder at
+    its own cfgs[j]) -> the port's list-based trees, on `device` (None:
+    cuda)."""
+    device = resolve_device(device)
+    if len(params_np["encoders"]) != len(cfgs):
+        raise ValueError(f"{len(params_np['encoders'])} encoders in the "
+                         f"parameters, {len(cfgs)} configs")
+    params = {"encoders": [_encoder(e, c, device)
+                           for e, c in zip(params_np["encoders"], cfgs)],
+              "decoder": _decoder(params_np["decoder"], device)}
+    state = {"encoders": [_encoder_state(s, device)
+                          for s in state_np["encoders"]]}
+    return params, state
 
 
 def sl_from_jax(client_np, server_np, state_np, cfg, device=None):

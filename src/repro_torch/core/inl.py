@@ -2,12 +2,13 @@
 
 Reference: src/repro/core/inl.py (`INLParams`, `init`, `_encode_mu_logvar`,
 `encode_and_rate`, `encode`, `decode`, `loss_fn`, `make_train_step`,
-`predict` and `evaluate`, on the star).  J edge nodes encode their views
-into bottleneck latents u_j; node (J+1) concatenates them (eq. 5) and
-decodes.  Training optimises eq. (6) end to end: autograd through the
-concatenation hands node j only its chunk delta[j] of the decoder-input
-cotangent, and the cut layer's hand-written backward adds the gradient of
-its own rate term (eq. 10).
+`predict`, `evaluate`, and the heterogeneous-encoder variant
+`init_heterogeneous` and `loss_fn_heterogeneous`).  J edge nodes encode
+their views into bottleneck latents u_j; node (J+1) concatenates them
+(eq. 5) and decodes.  Training optimises eq. (6) end to end: autograd
+through the concatenation hands node j only its chunk delta[j] of the
+decoder-input cotangent, and the cut layer's hand-written backward adds
+the gradient of its own rate term (eq. 10).
 
 Encoder parameters are STACKED along a leading J axis, as in the reference,
 so converted JAX parameters keep their layout.  The J encoders run in a
@@ -23,8 +24,14 @@ reference's draws.
 The wire (`wire=`, core/wirefmt.py): "dense", or the packed wires, whose
 forward runs the pack-emitting cut kernel and the unpack ("packed" trains
 bit for bit as "dense"; "packed_duplex" also quantizes the error vectors
-on the way back).  Delivery masks, non-star topologies and the
-heterogeneous-encoder variant come with later slices of the port and raise
+on the way back).
+
+Topologies (`topology=`, core/topology.py): the default star runs the
+pre-topology path above; any other graph cuts each node at its first
+hop's width and routes the latents through the edges' re-encoding hops
+before the eq.-(5) concatenation (`topology.graph_cut_and_ship`), in
+training and in `predict`.  Delivery masks, link models and edge dropout
+come with the link-fault slice of the port (ROADMAP item 8) and raise
 NotImplementedError here.
 """
 from __future__ import annotations
@@ -138,9 +145,9 @@ def decode(params: INLParams, u, *, train: bool, u_joint=None,
     return joint, branch
 
 
-def _star_only(cfg, topology, delivery, *, train=None) -> None:
-    """Refuse what the clean star does not cover: delivery masks, non-star
-    graphs and, in a loss (train True or False, not None for predict), link
+def _reliable_links(cfg, topology, delivery, *, train=None) -> None:
+    """Refuse what needs the link-fault slice (ROADMAP item 8): delivery
+    masks and, in a loss (train True or False, not None for predict), link
     models and the training edge-dropout curriculum."""
     if delivery is not None:
         raise NotImplementedError("delivery masks (fuse-what-arrived) come "
@@ -153,16 +160,13 @@ def _star_only(cfg, topology, delivery, *, train=None) -> None:
             or (train and getattr(cfg, "edge_dropout", 0.0) > 0.0)):
         raise NotImplementedError("link models and edge dropout come with "
                                   "the link-fault slice of the port")
-    if not topo.is_default_star():
-        raise NotImplementedError("non-star topologies come with the "
-                                  "topology slice of the port")
 
 
 def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
             eps=None, drop_masks=None, train: bool = True,
             rate_estimator: str = "sample", wire: str = "dense",
             topology=None, delivery=None):
-    """Full eq.-(6) loss on the clean star.  Returns (loss, (metrics,
+    """Full eq.-(6) loss on reliable links.  Returns (loss, (metrics,
     new_state)); new_state's BatchNorm statistics are detached.
 
     The cut layer runs the fused kernel, which also emits the per-sample
@@ -174,8 +178,16 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
     Noise: eps (J, B, d) fp32, else drawn from `generator`; in training,
     drop_masks (one (B, units) bool tensor per hidden decoder layer), else
     drawn from `generator` after eps (paper_model.decoder_dropout_masks).
-    wire — the cut layer's wire format (core/wirefmt.cut_and_ship)."""
-    _star_only(cfg, topology, delivery, train=train)
+    wire — the cut layer's wire format (core/wirefmt.cut_and_ship).
+
+    topology — a core/topology.Topology (defaults to cfg.topology, then
+    the implicit star): a non-star graph cuts each node at its first hop's
+    width and routes the latents through the edges' re-encoding hops in
+    topological order before the eq.-(5) concatenation
+    (topology.graph_cut_and_ship), and `bits_sent` is its per-edge sum
+    (topology.round_bits); the default star keeps the path above."""
+    _reliable_links(cfg, topology, delivery, train=train)
+    topo = topology_lib.nontrivial(topology, cfg)
     dt = paper_model.compute_dtype(cfg)
     params_c = paper_model.cast_compute(params, dt)
     views = views.to(dt)
@@ -184,10 +196,17 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
                          "generator= or eps=")
     (mu, logvar), new_enc = _encode_mu_logvar(params_c, state, views,
                                               train=train)
-    u, rate, u_joint = wirefmt.cut_and_ship(
-        generator if eps is None else None, mu, logvar,
-        link_bits=cfg.link_bits, rate_estimator=rate_estimator, wire=wire,
-        prior=params_c.priors, eps=eps)
+    if topo is None:
+        u, rate, u_joint = wirefmt.cut_and_ship(
+            generator if eps is None else None, mu, logvar,
+            link_bits=cfg.link_bits, rate_estimator=rate_estimator,
+            wire=wire, prior=params_c.priors, eps=eps)
+    else:
+        eps = bottleneck.cut_noise(generator if eps is None else None, mu,
+                                   eps)
+        u, rate, u_joint = topology_lib.graph_cut_and_ship(
+            topo, cfg, mu, logvar, eps, rate_estimator=rate_estimator,
+            wire=wire, prior=params_c.priors)
     B = labels.shape[0]
     if train and drop_masks is None:
         if generator is None:
@@ -203,8 +222,12 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
         s=cfg.s, rate_estimator=rate_estimator, rates=list(rate))
     metrics["accuracy"] = losses.accuracy(joint, labels)
     # §III-C accounting: activations forward + error vectors backward
-    bits_sent = linkmodel.training_step_bits(B, J * cfg.d_bottleneck,
-                                             cfg.link_bits)
+    # (per-edge payloads summed when a topology re-routes them)
+    if topo is None:
+        bits_sent = linkmodel.training_step_bits(B, J * cfg.d_bottleneck,
+                                                 cfg.link_bits)
+    else:
+        bits_sent = topology_lib.round_bits(topo, cfg, B)
     metrics["bits_sent"] = torch.tensor(float(bits_sent),
                                         dtype=torch.float32)
     new_state = tree_map(torch.Tensor.detach, {"encoders": new_enc})
@@ -227,8 +250,14 @@ def make_train_step(cfg, optimizer, *, rate_estimator: str = "sample",
         raise NotImplementedError("the transport-mode step (explicit "
                                   "delivery masks) comes with the "
                                   "link-fault slice of the port")
-    _star_only(cfg, topology, None, train=True)
-    wirefmt.resolve_wire(wire, cfg.link_bits)
+    _reliable_links(cfg, topology, None, train=True)
+    topo = topology_lib.nontrivial(topology, cfg)
+    if topo is None:
+        wirefmt.resolve_wire(wire, cfg.link_bits)
+    else:                       # each edge's wire at its own width
+        for e in topo.edges:
+            wirefmt.resolve_wire(topology_lib.edge_wire(e, wire),
+                                 topology_lib.edge_bits(e, cfg))
 
     def step(params, state, opt_state, views, labels, generator, *,
              eps=None, drop_masks=None):
@@ -244,22 +273,38 @@ def make_train_step(cfg, optimizer, *, rate_estimator: str = "sample",
 
 def predict(params: INLParams, state, views, *, cfg=None, topology=None,
             delivery=None, wire: str = "dense", device=None):
-    """Inference phase (§III-B): deterministic latents (u = mu, shipped
-    unquantized on the star as in the reference, which ignores `wire`
-    there), soft output (B, C).
+    """Inference phase (§III-B): deterministic latents (u = mu), soft
+    output (B, C).
 
     views — a tensor or array (J, B, H, W, C), moved to `device` (None:
-    cuda), where the parameters must already lie."""
+    cuda), where the parameters must already lie.
+
+    The star ships UNQUANTIZED latents, as in the reference, and ignores
+    `wire`.  A non-star `topology` (it needs `cfg` for the edge widths)
+    routes the deterministic latents through the same multi-hop
+    re-encoding the training graph runs, on the edges' wires ("packed":
+    the pack and unpack kernels on every hop, a lossless re-encoding, so
+    the answers equal the dense wire's bit for bit) — what the fuse node
+    receives.  At full-precision links every hop is the identity and a
+    chain or tree predicts as the star does, bit for bit."""
     views = as_input(params, views, device)
-    _star_only(cfg, topology, delivery)
+    _reliable_links(cfg, topology, delivery)
+    topo = None if cfg is None else topology_lib.nontrivial(topology, cfg)
     with torch.no_grad():
-        u, _, _, _ = encode(params, state, views, train=False,
-                            sample_latent=False)
+        if topo is None:
+            u_fused, _, _, _ = encode(params, state, views, train=False,
+                                      sample_latent=False)
+        else:
+            (mu, logvar), _ = _encode_mu_logvar(params, state, views,
+                                                train=False)
+            _, _, u_fused = topology_lib.graph_cut_and_ship(
+                topo, cfg, mu, logvar,
+                torch.zeros(mu.shape, dtype=torch.float32, device=mu.device),
+                rate_estimator="none", wire=wire)
         # the branch heads of `decode` are dead code at inference (the
         # reference's jit drops them); eager PyTorch would run them
-        joint = paper_model.decoder_apply(params.decoder,
-                                          paper_model.concat_latents(u),
-                                          train=False)
+        joint = paper_model.decoder_apply(
+            params.decoder, paper_model.concat_latents(u_fused), train=False)
         return torch.softmax(joint, dim=-1)
 
 
@@ -267,3 +312,62 @@ def evaluate(params: INLParams, state, views, labels, *, device=None):
     probs = predict(params, state, views, device=device)
     labels = torch.as_tensor(labels, device=probs.device)
     return losses.accuracy(torch.log(probs + 1e-30), labels)
+
+
+# ---------------------------------------------------------------------------
+# Heterogeneous-encoder variant (the paper: the nodes' NNs "need not be
+# identical")
+# ---------------------------------------------------------------------------
+
+def init_heterogeneous(cfgs, generator, *, device=None):
+    """One (possibly different) PaperExperimentConfig per node, all with
+    one d_bottleneck; the decoder from cfgs[0].  Returns list-based
+    (params {"encoders": [J], "decoder"}, state {"encoders": [J]}) for
+    `loss_fn_heterogeneous`, on `device` (None: cuda), deterministic in
+    `generator` (a torch.Generator or an int seed).  For parity, convert
+    the reference's with repro_torch.convert.inl_heterogeneous_from_jax."""
+    device = resolve_device(device)
+    gen = as_generator(generator, device)
+    encs = [paper_model.encoder_init(gen, c, device=device) for c in cfgs]
+    dec = paper_model.decoder_init(gen, cfgs[0], device=device)
+    return ({"encoders": [p for p, _ in encs], "decoder": dec},
+            {"encoders": [st for _, st in encs]})
+
+
+def loss_fn_heterogeneous(params, state, views, labels, cfg, *,
+                          generator=None, eps=None, drop_masks=None,
+                          train: bool = True):
+    """The eq.-(6) loss with per-node encoder architectures.  Every node
+    emits the same d_bottleneck, so after the encoders (one after another)
+    the cut layer is still ONE fused launch over the stacked (J, B, d)
+    latents, in the sample mode at cfg.link_bits.  Noise as in `loss_fn`:
+    eps (J, B, d) fp32, else drawn from `generator`, then (in training)
+    drop_masks, else drawn from `generator` after eps.  Returns (loss,
+    (metrics, new_state)), new_state detached."""
+    if eps is None and generator is None:
+        raise ValueError("loss_fn_heterogeneous draws eps from `generator`; "
+                         "pass generator= or eps=")
+    mus, lvs, new_states = [], [], []
+    for j, (ep, es) in enumerate(zip(params["encoders"], state["encoders"])):
+        (mu, lv), ns = paper_model.encoder_apply(ep, es, views[j],
+                                                 train=train)
+        mus.append(mu)
+        lvs.append(lv)
+        new_states.append(ns)
+    u, rate = bottleneck.fused_sample_rate(
+        generator if eps is None else None, torch.stack(mus),
+        torch.stack(lvs), link_bits=cfg.link_bits, rate_estimator="sample",
+        eps=eps)
+    if train and drop_masks is None:
+        if generator is None:
+            raise ValueError("training draws dropout masks from "
+                             "`generator`; pass generator= or drop_masks=")
+        drop_masks = paper_model.decoder_dropout_masks(
+            generator, cfg.dense_units, labels.shape[0], device=u.device)
+    joint, branch = decode(INLParams(None, params["decoder"], {}), u,
+                           train=train, drop_masks=drop_masks)
+    loss, metrics = losses.inl_loss(joint, list(branch), labels, mus, lvs,
+                                    list(u), s=cfg.s, rates=list(rate))
+    metrics["accuracy"] = losses.accuracy(joint, labels)
+    new_state = tree_map(torch.Tensor.detach, {"encoders": new_states})
+    return loss, (metrics, new_state)

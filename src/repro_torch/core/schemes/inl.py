@@ -7,6 +7,12 @@ reference's b2=0.95 with global-norm clipping) on a (J, B) multi-view
 batch; the cut layer is the fused kernel pair.  Bandwidth per round is the
 paper's 2 b p s — activations forward, eq.-(10) error vectors back — through
 the Table-I closed form, and per edge through core/topology.
+
+INL is the scheme the network graph belongs to: `topology=` runs non-star
+graphs (chains, trees, per-edge widths) through the multi-hop execution
+(core/topology.graph_cut_and_ship) in `make_round`, `predict` and
+`predict_batched`, and both ledgers decompose per edge (`edge_ledger`),
+each edge charged for the payload it carries.
 """
 from __future__ import annotations
 

@@ -1,21 +1,49 @@
-"""Network topology: the inference graph, star only in this slice.
+"""Network topology: the inference graph as a declarative API.
 
-Reference: src/repro/core/topology.py (`Node`, `Edge`, `Topology`, `star`,
-`resolve`, `nontrivial`, `require_star`, `edge_bits`, `edge_wire`,
-`edge_dtype`, and the per-edge bandwidth `round_edge_bits`,
-`round_edge_wire_bytes`, `round_bits`, `round_wire_bytes`), copied (the
-data model is framework-free).  A Topology validates any single-sink DAG as the
-reference does, but the port executes only the default star, and the
-bandwidth functions take star graphs only: chains, trees and per-edge
-overrides run through `graph_cut_and_ship`, which comes with the topology
-slice of the port.
+Reference: src/repro/core/topology.py (`Node`, `Edge`, `Topology`, the
+constructors `star`, `chain`, `tree`, `from_name`, `named_topologies`, the
+resolution `resolve`, `nontrivial`, `require_star`, `edge_bits`,
+`edge_wire`, `edge_dtype`, the per-edge bandwidth `round_edge_bits`,
+`round_edge_wire_bytes`, `round_bits`, `round_wire_bytes`, and the graph's
+execution `first_hop_groups` and `graph_cut_and_ship`).  The data model is
+framework-free and copied; the execution runs on the port's kernels.
+
+A Topology is any validated single-sink DAG: J view-holding nodes
+("measure" leaves and "relay" forwarders, which observe a view AND forward
+what they receive) and one "fuse" node.  `graph_cut_and_ship` compiles it
+to a sequence of launches on one device:
+
+  1. every view node cuts its latent at its OUTGOING edge's width: one
+     `ops.cutlayer` launch per first-hop width group, on exactly its rows
+     (the star's single launch when the graph is edge-homogeneous);
+  2. the edges run in topological order: each re-encodes the payload it
+     carries for its own link (`wirefmt.relay_hop`: a straight-through
+     re-quantization at the edge's width, the edge's storage dtype on a
+     dense link, and the edge's wire: on a packed edge one `pack` and one
+     `unpack_dequant` launch).  On an edge-homogeneous graph the re-coding
+     is the identity, so a dense chain or tree delivers the star's latents
+     bit for bit;
+  3. the fuse node receives every view's latent as the hops re-coded it.
+     Backward, autograd routes each error chunk edge-reversed through the
+     same hops ("packed_duplex" quantizes it on every traversal).
+
+Bandwidth has a per-edge ledger: an edge's closed form is the §III-C
+two-direction count for the payload it carries, its measured bytes the
+`wirefmt.round_wire_bytes` of that payload, and for `star(J)` both sum to
+the Table-I totals.  The collective over a 'client' axis (`axis_name=`,
+`group_ids=`) comes with ROADMAP item 9 (`core/sharded`), link models on
+the edges with item 8 (`core/linkfault`); both raise NotImplementedError.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.core import paper_model, wirefmt
+from repro_torch.kernels import ops
 
 ROLES = ("measure", "relay", "fuse")
 FUSE = "fuse"                     # canonical name of the fusion-center node
@@ -247,6 +275,94 @@ def star(J: int, *, link_bits=None) -> Topology:
     return Topology(nodes, edges)
 
 
+def chain(J: int, *, link_bits=None) -> Topology:
+    """A line: m0 -> r1 -> ... -> r{J-1} -> fuse.  Every hop aggregates the
+    upstream latents with the local view, so the last link carries all J —
+    the bandwidth-extreme opposite of the star."""
+    if J < 1:
+        raise ValueError(f"chain needs J >= 1, got {J}")
+    bits = _per_edge_bits(link_bits, J)
+    nodes = (Node("m0", "measure"),) \
+        + tuple(Node(f"r{j}", "relay") for j in range(1, J)) \
+        + (Node(FUSE, "fuse"),)
+    names = [n.name for n in nodes[:-1]] + [FUSE]
+    edges = tuple(Edge(names[j], names[j + 1], link_bits=bits[j])
+                  for j in range(J))
+    return Topology(nodes, edges)
+
+
+def tree(branching: int, depth: int, *, link_bits=None) -> Topology:
+    """A complete `branching`-ary in-tree of view nodes under the fusion
+    center: `depth` levels, measure leaves at the bottom, relays above.
+    num_views == branching + branching^2 + ... + branching^depth
+    (e.g. tree(2, 2) -> 6 views).  `link_bits` — scalar applied to every
+    edge, or None to inherit."""
+    if branching < 1 or depth < 1:
+        raise ValueError(f"tree needs branching >= 1 and depth >= 1, got "
+                         f"({branching}, {depth})")
+    nodes, edges = [], []
+
+    def grow(parent: str, level: int):
+        for i in range(branching):
+            name = f"{parent}.{i}" if parent != FUSE else f"t{i}"
+            role = "measure" if level == depth else "relay"
+            nodes.append(Node(name, role))
+            edges.append(Edge(name, parent, link_bits=link_bits))
+            if level < depth:
+                grow(name, level + 1)
+
+    grow(FUSE, 1)
+    nodes.append(Node(FUSE, "fuse"))
+    return Topology(tuple(nodes), tuple(edges))
+
+
+# ---------------------------------------------------------------------------
+# Named constructor instances (the reference's search space)
+# ---------------------------------------------------------------------------
+
+_NAME_RE = re.compile(r"^(star|chain|tree)\((\d+)(?:,\s*(\d+))?\)$")
+
+
+def from_name(name: str) -> Topology:
+    """Parse a constructor spec — "star(5)", "chain(4)", "tree(2,2)" — into
+    the Topology it names; the inverse of the names `named_topologies`
+    emits."""
+    m = _NAME_RE.match(name.replace(" ", ""))
+    if not m:
+        raise ValueError(f"unparseable topology spec {name!r}; expected "
+                         f"star(J), chain(J) or tree(branching,depth)")
+    kind, a, b = m.group(1), int(m.group(2)), m.group(3)
+    if kind == "tree":
+        if b is None:
+            raise ValueError(f"tree spec needs two arguments, got {name!r}")
+        return tree(a, int(b))
+    if b is not None:
+        raise ValueError(f"{kind} spec takes one argument, got {name!r}")
+    return star(a) if kind == "star" else chain(a)
+
+
+def named_topologies(J: int, *, families=("star", "chain", "tree")):
+    """Every named constructor instance with exactly J view nodes, keyed by
+    its `from_name` spec: "star(J)", "chain(J)" (J >= 2 — chain(1) IS
+    star(1)), and every complete "tree(b,d)" whose level sum b + b^2 + ...
+    + b^d == J with d >= 2 (depth-1 trees are stars, branching-1 trees are
+    chains, so no graph appears twice)."""
+    out = {}
+    if "star" in families:
+        out[f"star({J})"] = star(J)
+    if "chain" in families and J >= 2:
+        out[f"chain({J})"] = chain(J)
+    if "tree" in families:
+        for b in range(2, J):
+            views, d = 0, 0
+            while views < J:
+                d += 1
+                views += b ** d
+            if views == J and d >= 2:
+                out[f"tree({b},{d})"] = tree(b, d)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Resolution against a config
 # ---------------------------------------------------------------------------
@@ -320,24 +436,14 @@ def edge_dtype(edge: Edge, cfg):
 
 
 # ---------------------------------------------------------------------------
-# Per-edge bandwidth of a star: closed forms and measured bytes
+# Per-edge bandwidth: closed forms and measured bytes
 # ---------------------------------------------------------------------------
-
-def _require_star(topo: Topology) -> None:
-    fuse = topo.fuse_node
-    if any(n.role == "relay" for n in topo.nodes) \
-            or any(e.dst != fuse for e in topo.edges):
-        raise NotImplementedError(
-            f"per-edge bandwidth of non-star graphs ({topo.describe()}) "
-            "comes with the topology slice of the port")
-
 
 def round_edge_bits(topo: Topology, cfg, batch_size: int) -> Dict[str, float]:
     """Closed-form §III-C charge of ONE training round, per edge: the
     forward activations and backward error vectors for every latent the
     edge carries — 2 * batch * |payload| * d_bottleneck * link_bits.  For
     `star(J)` the J edges sum to the Table-I total."""
-    _require_star(topo)
     return {e.key: float(2 * batch_size * len(topo.payload(e))
                          * cfg.d_bottleneck * edge_bits(e, cfg))
             for e in topo.topo_edges()}
@@ -348,7 +454,6 @@ def round_edge_wire_bytes(topo: Topology, cfg, batch_size: int, *,
     """MEASURED bytes of one round, per edge: what the edge's wire buffers
     occupy for its payload (core/wirefmt.round_wire_bytes), both
     directions."""
-    _require_star(topo)
     out = {}
     for e in topo.topo_edges():
         n_vec = batch_size * len(topo.payload(e))
@@ -366,3 +471,88 @@ def round_wire_bytes(topo: Topology, cfg, batch_size: int, *,
                      wire: str = "dense") -> float:
     return float(sum(round_edge_wire_bytes(topo, cfg, batch_size,
                                            wire=wire).values()))
+
+
+# ---------------------------------------------------------------------------
+# Graph execution: the sequence of cut and hop launches
+# ---------------------------------------------------------------------------
+
+def first_hop_groups(topo: Topology, cfg):
+    """View nodes grouped by their outgoing edge's link width — each group
+    is ONE fused `ops.cutlayer` launch.  Returns (groups, gid_of_view):
+    groups is a tuple of (gid, link_bits); gid_of_view a tuple assigning
+    every view index its group.  Edge-homogeneous graphs have a single
+    group — the star's one launch."""
+    by_bits: Dict[int, int] = {}
+    gid_of_view = []
+    for name in topo.view_nodes():
+        b = edge_bits(topo.out_edge(name), cfg)
+        gid_of_view.append(by_bits.setdefault(b, len(by_bits)))
+    groups = tuple((gid, b) for b, gid in sorted(by_bits.items(),
+                                                 key=lambda kv: kv[1]))
+    return groups, tuple(gid_of_view)
+
+
+def graph_cut_and_ship(topo: Topology, cfg, mu, logvar, eps, *,
+                       rate_estimator: str = "sample", wire: str = "dense",
+                       prior: dict = None, axis_name=None, group_ids=None):
+    """Run the inference graph on stacked latents, on one device.
+
+    mu/logvar: (J, B, d) per-view-node encoder outputs, eps (J, B, d) fp32.
+    Returns (u, rate, u_fused):
+
+      u        (J, B, d)  each node's OWN cut-layer output (first-hop
+                          width) — branch heads and the rate read this;
+      rate     (J, B)     the eq.-(6) rate term per node;
+      u_fused  (J, B, d)  the latents as the fuse node RECEIVES them after
+                          every hop's re-coding, in view-node order —
+                          eq. (5) concatenates them.
+
+    Stage 1 runs one fused cutlayer per first-hop width group, each on
+    exactly its group's rows (with the group's rows of a learned (J, d)
+    prior).  Stage 2 applies every edge in topological order through
+    `wirefmt.relay_hop`, to exactly the payload rows the edge carries:
+    (|payload| * B, d) rows a hop.  Backward, autograd reverses the edge
+    sequence — each node's error chunk traverses its route's hops
+    transposed."""
+    if axis_name is not None or group_ids is not None:
+        raise NotImplementedError(
+            "graph execution over a 'client' axis (axis_name=, group_ids=) "
+            "comes with the sharded slice of the port (ROADMAP item 9, "
+            "core/sharded)")
+    linked = [e.key for e in topo.edges if e.link is not None]
+    if linked:
+        raise NotImplementedError(
+            f"link models on the edges {linked} come with the link-fault "
+            "slice of the port (ROADMAP item 8, core/linkfault)")
+    prior = prior or {}
+    groups, gid_of_view = first_hop_groups(topo, cfg)
+    pmu, plv = prior.get("mu"), prior.get("logvar")
+    if len(groups) == 1:
+        u, rate = ops.cutlayer(mu, logvar, eps, link_bits=groups[0][1],
+                               rate_estimator=rate_estimator, prior_mu=pmu,
+                               prior_logvar=plv)
+    else:
+        # group membership is static: each launch takes exactly its rows
+        u_rows, r_rows = [None] * len(gid_of_view), [None] * len(gid_of_view)
+        for gid, bits in groups:
+            idx = [j for j, g in enumerate(gid_of_view) if g == gid]
+            ug, rg = ops.cutlayer(
+                mu[idx], logvar[idx], eps[idx], link_bits=bits,
+                rate_estimator=rate_estimator,
+                prior_mu=None if pmu is None else pmu[idx],
+                prior_logvar=None if plv is None else plv[idx])
+            for k, j in enumerate(idx):
+                u_rows[j], r_rows[j] = ug[k], rg[k]
+        u, rate = torch.stack(u_rows), torch.stack(r_rows)
+
+    fused = list(u.unbind(0))
+    for e in topo.topo_edges():
+        ids = topo.payload(e)
+        hopped = wirefmt.relay_hop(
+            torch.stack([fused[j] for j in ids]),
+            link_bits=edge_bits(e, cfg), wire=edge_wire(e, wire),
+            dtype=edge_dtype(e, cfg))
+        for k, j in enumerate(ids):
+            fused[j] = hopped[k]
+    return u, rate, torch.stack(fused)

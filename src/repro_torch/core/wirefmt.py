@@ -1,11 +1,11 @@
 """Packed wire format: quantized cut-layer latents travel bit-packed.
 
 Reference: src/repro/core/wirefmt.py (`resolve_wire`, `dyn_quantize`,
-`ship`, `cut_and_ship`, `shipped_nbytes`, `round_wire_bytes`).  A quantized
-latent is a `link_bits`-bit codeword index, and the packed wires carry those
-indices in uint32 lanes (`kernels/inl_bottleneck.pack_values` /
-`unpack_dequant`, plain versions in `kernels/ref.py`), 32 / link_bits
-fewer bytes than fp32.  Packing is a pure re-encoding: unpack(pack(u)) == u
+`ship`, `relay_hop`, `cut_and_ship`, `shipped_nbytes`,
+`round_wire_bytes`).  A quantized latent is a `link_bits`-bit codeword
+index, and the packed wires carry those indices in uint32 lanes
+(`kernels/inl_bottleneck.pack_values` / `unpack_dequant`, plain versions
+in `kernels/ref.py`), 32 / link_bits fewer bytes than fp32.  Packing is a pure re-encoding: unpack(pack(u)) == u
 bit for bit on the quantizer's grid, so the packed forward cannot change a
 trajectory.
 
@@ -32,10 +32,11 @@ third output of the one forward pass) and hands the cotangent sum to the
 fused eq.-(10) backward the dense path uses; `ship` packs an existing
 quantized latent (the learned-prior and split-learning paths).  On one
 device the pack -> unpack round trip simulates the link: the same values
-and the same measured bytes as a real transfer.  The collective over a
-'client' axis (`axis_name=`) comes with the sharded slice and multi-hop
-re-encoding (`relay_hop`) with the topology slice; both raise
-NotImplementedError.
+and the same measured bytes as a real transfer.  `relay_hop` is one edge of
+a multi-hop topology (core/topology.graph_cut_and_ship): it re-quantizes
+the payload it forwards at its edge's width and ships it over that edge's
+wire.  The collective over a 'client' axis (`axis_name=`) comes with the
+sharded slice and raises NotImplementedError.
 
 Measured bytes come from the sizes of the real buffers: the lanes of the
 plain pack on a meta tensor (shape and dtype, no allocation), and the dense
@@ -128,10 +129,27 @@ def ship(u, *, link_bits: int, wire: str = "dense", axis_name=None):
 
 
 def relay_hop(x, *, link_bits: int, wire: str = "dense", dtype=None):
-    """One edge traversal of a multi-hop topology (the reference's
-    re-encoding relay)."""
-    raise NotImplementedError("relay_hop (multi-hop re-encoding) comes with "
-                              "the topology slice of the port")
+    """One edge traversal of a multi-hop topology (core/topology.py): a
+    relay re-encodes the payload x (..., d) it forwards for ITS outgoing
+    link.
+
+    Forward: straight-through re-quantization of the (already quantized)
+    values at this edge's `link_bits` (`ref.quantize_value`, plain torch as
+    in the reference) — the identity when the payload is already on this
+    grid, a genuine re-coding when an upstream link was finer — then, for a
+    dense edge narrower than x's dtype, a straight-through round trip
+    through the edge's storage `dtype`, and finally the edge's wire
+    (`ship`: on a packed edge the pack and unpack kernels, a lossless
+    re-encoding; "packed_duplex" also quantizes the BACKWARD error chunk at
+    `link_bits` on every traversal, so a b-hop route's eq.-(10) error vector
+    is b-times link-quantized)."""
+    wire, _ = resolve_wire(wire, link_bits)
+    q = ref.quantize_value(x.to(torch.float32), link_bits).to(x.dtype)
+    x = x + (q - x).detach()
+    if wire == "dense" and dtype is not None and dtype != x.dtype:
+        rt = x.to(dtype).to(x.dtype)
+        x = x + (rt - x).detach()
+    return ship(x, link_bits=link_bits, wire=wire)
 
 
 # ---------------------------------------------------------------------------

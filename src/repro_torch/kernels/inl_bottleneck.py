@@ -12,8 +12,8 @@ their counterparts here, written for Hopper (`csrc/`):
     _unpack_dequant_kernel -> csrc/unpack_dequant.cu unpack
 
 No kernel pads ragged row counts to a block size: most take one warp per
-row; `unpack` takes one thread per lane word, and `cut_prior_bwd` spreads
-each node's rows over a fixed number of blocks.
+row; `pack` and `unpack` take one thread per lane word, and
+`cut_prior_bwd` spreads each node's rows over a fixed number of blocks.
 
     u    = Q_b(mu + exp(logvar/2) * eps)   (..., d) in mu.dtype
     rate = the per-row rate of the mode    (...,)   fp32

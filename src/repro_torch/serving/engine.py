@@ -1,4 +1,4 @@
-"""The INL serving plane: continuous batching on the star.
+"""The INL serving plane: continuous batching over a network topology.
 
 Reference: src/repro/serving/engine.py (`ServingEngine`, `ServeStats`,
 `ServedRequest`, `Rejected`, `EngineShutdown`).  The engine turns the
@@ -24,13 +24,16 @@ and batch composition cannot move any request's output — bit for bit.
 Across bucket sizes outputs agree to float tolerance (each batch shape may
 run another convolution or matrix-product algorithm).
 
-Not in this slice, and refused with NotImplementedError: `transport=` and
+Any topology (core/topology.py) serves: a chain or tree runs the
+scheme's `predict_batched(topology=...)` once per bucket, as the star
+does, its latents re-encoded on every hop over the edges' wires.  Not in
+this slice, and refused with NotImplementedError: `transport=` and
 `speculative=` (the transport slice), `deadline_ms=` and link models on the
-edges (the link-fault slice) and non-star topologies (the topology
-slice).  `wire` ("dense", "packed", "packed_duplex") leaves the answers as
-they are on the star, where the reference's predict ships unquantized
-latents and ignores it, and sets what the meter charges: a packed wire's
-codeword lanes (core/wirefmt.shipped_nbytes).  The reference's
+topology's edges (the link-fault slice).  `wire` ("dense", "packed",
+"packed_duplex") sets what the meter charges (a packed wire's codeword
+lanes, core/wirefmt.shipped_nbytes) and, on a non-star graph, each hop's
+encoding, which leaves the answers as they are; the star's predict ships
+unquantized latents and ignores it, as the reference's does.  The reference's
 `trace_counts` has no counterpart: eager PyTorch does not trace.  A CUDA
 graph captured per bucket, a later step, brings it back.
 """
@@ -133,12 +136,8 @@ class ServingEngine:
         self.topo = topology_lib.resolve(topology, cfg)
         if any(e.link is not None for e in self.topo.edges):
             raise NotImplementedError(
-                "link models on the edges come with the link-fault slice of "
-                "the port")
-        if not self.topo.is_default_star():
-            raise NotImplementedError(
-                "non-star topologies come with the topology slice of the "
-                "port")
+                "link models on the topology's edges come with the "
+                "link-fault slice of the port")
         self.device = resolve_device(device)
         self.scheme, self.state, self.cfg = scheme, state, cfg
         self.topology = topology

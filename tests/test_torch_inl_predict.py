@@ -114,9 +114,14 @@ def test_predict_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="link-fault"):
         tinl.predict(tp, ts, views, delivery=np.ones((5, 2), bool),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="topology"):
+    # a topology whose view count is not cfg's is refused; a per-edge-width
+    # star is a graph (tests/test_torch_topology.py) and predicts
+    with pytest.raises(ValueError, match="view nodes"):
         tinl.predict(tp, ts, views, cfg=cfg, device="cpu",
-                     topology=ttopo.star(cfg.num_clients, link_bits=4))
+                     topology=ttopo.star(cfg.num_clients + 1, link_bits=4))
+    probs = tinl.predict(tp, ts, views, cfg=cfg, device="cpu",
+                         topology=ttopo.star(cfg.num_clients, link_bits=4))
+    assert torch.allclose(probs.sum(-1), torch.ones(2))
     with pytest.raises(ValueError, match="lie on"):
         tinl.predict(tp, ts, views, device="meta")
 

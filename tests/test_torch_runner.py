@@ -73,8 +73,11 @@ def test_run_scheme_trains_and_meters_as_the_reference():
     ({"transport": object()}, NotImplementedError, "transport slice"),
     ({"ckpt_dir": "ckpt"}, NotImplementedError, "checkpoint slice"),
     ({"wire": "packed"}, ValueError, "packable"),
-    ({"topology": topology.star(CFG.num_clients, link_bits=4)},
-     NotImplementedError, "topology slice"),
+    # per-edge widths run; a packed wire refuses an unpackable edge
+    ({"topology": topology.star(CFG.num_clients,
+                                link_bits=(4,) * (CFG.num_clients - 1)
+                                + (32,)),
+      "wire": "packed"}, ValueError, "packable"),
 ], ids=["scan", "unknown", "mesh", "transport", "ckpt", "packed",
         "per-edge-widths"])
 def test_deferred_options_raise(kw, err, match):

@@ -249,13 +249,11 @@ def test_shutdown_with_budget_drains_then_stops():
 # ---------------------------------------------------------------------------
 
 def _relay_chain():
-    """m0 -> r1 -> ... -> fuse: a valid non-star topology."""
-    nodes = (ttopo.Node("m0", "measure"),) + tuple(
-        ttopo.Node(f"r{j}", "relay") for j in range(1, CFG.num_clients)) \
-        + (ttopo.Node(ttopo.FUSE, "fuse"),)
-    names = [n.name for n in nodes]
-    return ttopo.Topology(nodes, tuple(
-        ttopo.Edge(names[j], names[j + 1]) for j in range(CFG.num_clients)))
+    """m0 -> r1 -> ... -> fuse with a link model on its last edge: a chain
+    serves (tests/test_torch_topology.py), its link models do not yet."""
+    chain = ttopo.chain(CFG.num_clients)
+    return ttopo.Topology(chain.nodes, chain.edges[:-1] + (ttopo.Edge(
+        chain.edges[-1].src, chain.edges[-1].dst, link=object()),))
 
 
 @pytest.mark.parametrize("option, slice_name", [

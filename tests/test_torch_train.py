@@ -200,10 +200,13 @@ def test_deferred_training_options_raise():
     from repro_torch.core import topology
     with pytest.raises(NotImplementedError, match="link-fault"):
         inl.make_train_step(cfg, optim.adam(1e-3), explicit_delivery=True)
-    with pytest.raises(NotImplementedError, match="topology slice"):
+    with pytest.raises(NotImplementedError, match="link-fault"):
+        star = topology.star(cfg.num_clients, link_bits=4)
         inl.make_train_step(cfg, optim.adam(1e-3),
-                            topology=topology.star(cfg.num_clients,
-                                                   link_bits=4))
+                            topology=topology.Topology(star.nodes, tuple(
+                                topology.Edge(e.src, e.dst, e.link_bits,
+                                              link=object())
+                                for e in star.edges)))
     with pytest.raises(NotImplementedError, match="link-fault"):
         inl.make_train_step(_cfg(edge_dropout=0.2), optim.adam(1e-3))
     with pytest.raises(ValueError, match="packable"):     # link_bits 32

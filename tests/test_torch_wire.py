@@ -345,8 +345,13 @@ def test_paths_of_later_slices_raise():
                              axis_name="client")
     with pytest.raises(NotImplementedError, match="sharded slice"):
         wirefmt.ship(mu, link_bits=4, wire="packed", axis_name="client")
-    with pytest.raises(NotImplementedError, match="topology slice"):
-        wirefmt.relay_hop(mu, link_bits=4, wire="packed")
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import topology
+    with pytest.raises(NotImplementedError, match="sharded slice"):
+        topology.graph_cut_and_ship(
+            topology.chain(3), PaperExperimentConfig(num_clients=3),
+            mu[:, None], lv[:, None], torch.zeros_like(mu)[:, None],
+            axis_name="client")
 
 
 def test_pack_kernels_on_cuda_equal_their_plain_versions(cuda_device):
