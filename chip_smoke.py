@@ -124,13 +124,38 @@ Phases, each checked; any failed check exits non-zero before the last line:
               on the packed wire over buckets (1, 4, 16, 64): one cut_fwd and
               5 pack and unpack_dequant an engine launch, rows bit for bit
               equal to predict on the card in their bucket.
+  6c. linkfault unreliable links (core/linkfault) at full width, batch 64:
+              LinkModel() on every edge against no link model, 4 INL steps
+              on the star, one FL round and 4 steps on the packed chain(5),
+              deterministic algorithms on: losses and every state leaf bit
+              for bit.  Then through run_scheme, launch counts set to 0 just
+              before each run and read just after, at the reference's
+              headline settings (benchmarks/links_bench.py: erasure 0.3 an
+              edge, INL with edge_dropout 0.2): INL on the star (16 steps),
+              with learned priors (8), at link_bits=8 packed (16), the
+              packed chain(5) at erasure 0.1 an edge (16), FL (4 rounds) and
+              SL (16 rounds, the first seed with a skipped round): every
+              kernel launched as on the clean network (one cut_fwd and one
+              cut_bwd a lossy INL step, five pack and five unpack_dequant a
+              lossy packed chain(5) step), the meter's delivery ratio equal
+              to the ratio the replayed masks imply, SL's skipped rounds
+              leaving the state as it was and every other round moving it.
+              One lossy step (an explicit mask, two views lost) on the card
+              against the CPU port as in phase 6.  The star with
+              LinkModel(latency_ms=1, jitter_ms=1) and deadline_ms=2 served
+              over buckets (1, 4, 16, 64): one cut_fwd an engine launch,
+              about e^-1 of the views missed (5 sigma), each request's mask
+              the same in its bucket as alone, rows equal to predict_batched
+              under the id-keyed masks bit for bit in their bucket, the
+              meter's delivery ratio the masks' fraction.
   7. times    per-bucket predict latency, train-step latency (median of 20
               steps, with the device busy time and idle share from the
               profiler, and the device time by kernel) on the dense,
-              packed and duplex wires and on the packed chain(5), tree(2, 2)
-              and the mixed-width chain, and each kernel's device time beside
-              its bound and its plain version (cut_prior_bwd, unpack_dequant
-              and pack beside their first designs' times, with
+              packed and duplex wires, on the packed chain(5), tree(2, 2)
+              and the mixed-width chain, and on the lossy star beside the
+              clean one (`linkfault times:`), and each kernel's device time
+              beside its bound and its plain version (cut_prior_bwd,
+              unpack_dequant and pack beside their first designs' times, with
               cut_prior_bwd's first two launches apart), with the card's
               name and power limit on every line.
   8. llm      the LLM stack, Zamba2-2.7B:
@@ -1046,10 +1071,11 @@ def training_data(cfg, n=TRAIN_SAMPLES):
 
 
 def recorded_run(torch, name, cfg, views, labels, *, epochs, wire="dense",
-                 seed=0, topology=None):
+                 seed=0, topology=None, states=None):
     """run_scheme(name) on the card, with the launch counts set to 0 just
     before and read just after, and every round's loss recorded by a
-    wrapper around the registered scheme's make_round.  Returns (curve,
+    wrapper around the registered scheme's make_round (and, into `states`
+    when given, each round's (state in, state out)).  Returns (curve,
     losses, launches, meter, seconds, the rounds' mean rates (INL; empty
     for SL and FL))."""
     from repro_torch.core import bandwidth, schemes
@@ -1064,6 +1090,8 @@ def recorded_run(torch, name, cfg, views, labels, *, epochs, wire="dense",
 
         def rec(*ra, **rkw):
             st, m = round_fn(*ra, **rkw)
+            if states is not None:
+                states.append((ra[0], st))
             losses.append(m["loss"])
             if "rate_mean" in m:
                 rates.append(m["rate_mean"])
@@ -1634,6 +1662,372 @@ def graph_serving_phase(torch, card_line):
 
 
 # ---------------------------------------------------------------------------
+# 6c. unreliable links (core/linkfault) at full width
+# ---------------------------------------------------------------------------
+
+HEADLINE_ERASURE = 0.3          # benchmarks/links_bench.py's headline rate
+HEADLINE_DROPOUT = 0.2          # and its INL edge-dropout curriculum
+CHAIN_ERASURE = 0.1             # per edge: chain(5)'s head crosses five
+LOSSY_STEPS = 16
+PERFECT_STEPS = 4
+SERVE_LINK = dict(latency_ms=1.0, jitter_ms=1.0)
+SERVE_DEADLINE_MS = 2.0         # a view misses iff Exp(1) > 1: p = e^-1
+
+
+def _round_batches(torch, scheme, cfg, steps, seed=1):
+    """`steps` rounds of (bpr, J, B, ...) views and (bpr, B) labels on the
+    card, laid out as run_scheme gathers them."""
+    bpr = scheme.batches_per_round(cfg)
+    views, labels = training_data(cfg, steps * bpr * TRAIN_BATCH)
+    v = torch.from_numpy(views).to(DEV)
+    lab = torch.from_numpy(labels).to(DEV).long()
+    out = []
+    for k in range(steps):
+        idx = torch.arange(k * bpr * TRAIN_BATCH, (k + 1) * bpr * TRAIN_BATCH,
+                           device=DEV).reshape(bpr, TRAIN_BATCH)
+        out.append((v[:, idx].transpose(0, 1), lab[idx]))
+    return out
+
+
+def perfect_links_phase(torch, card_line):
+    """LinkModel() on every edge against no link model, from one state and
+    one generator, deterministic algorithms on: PERFECT_STEPS INL steps on
+    the star, one FL round, PERFECT_STEPS steps on the packed chain(5); the
+    losses and every state leaf (parameters, BatchNorm statistics,
+    optimizer state) bit for bit."""
+    from repro_torch import tree_leaves
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkfault, schemes
+    from repro_torch.core import topology as T
+
+    cfg, cfg8 = PaperExperimentConfig(), PaperExperimentConfig(
+        link_bits=WIRE_BITS)
+    runs = (("INL star", "inl", cfg, T.star(cfg.num_clients), "dense",
+             PERFECT_STEPS),
+            ("FL star", "fl", cfg, T.star(cfg.num_clients), "dense", 1),
+            ("INL chain(5) packed", "inl", cfg8, T.chain(5), "packed",
+             PERFECT_STEPS))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label, name, c, bare, wire, steps in runs:
+            scheme = schemes.get(name)
+            batches = _round_batches(torch, scheme, c, steps)
+            out = []
+            for topo in (bare, linkfault.with_links(bare,
+                                                    linkfault.LinkModel())):
+                st = scheme.init(c, torch.Generator(device=DEV)
+                                 .manual_seed(15), device=DEV)
+                round_fn = scheme.make_round(c, wire=wire, topology=topo)
+                gen = torch.Generator(device=DEV).manual_seed(16)
+                losses = []
+                for k, (rv, rl) in enumerate(batches):
+                    kw = ({} if topo is bare
+                          else {"round_key": linkfault.round_key(0, k)})
+                    st, m = round_fn(st, rv, rl, gen, **kw)
+                    losses.append(m["loss"])
+                torch.cuda.synchronize()
+                out.append((losses, tree_leaves(st)))
+            (la, sa), (lb, sb) = out
+            check(all(same_bits(a, b) for a, b in zip(la, lb)),
+                  f"{label}: perfect links moved the loss {la} -> {lb}")
+            check(len(sa) == len(sb) > 0
+                  and all(same_bits(a, b) for a, b in zip(sa, sb)),
+                  f"{label}: perfect links moved a state leaf")
+            print(f"linkfault: perfect links on {label} == no link model, "
+                  f"{steps} round(s) bit for bit (losses "
+                  f"{[float(x) for x in la]}, {len(sa)} state leaves) "
+                  f"[{card_line}]")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def lossy_runs():
+    """(label, scheme, config, topology, wire, samples) of the lossy
+    training runs: the reference's headline erasure on every edge of the
+    star (INL with its edge-dropout curriculum), CHAIN_ERASURE on every
+    edge of the packed chain(5)."""
+    import dataclasses
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import topology as T
+
+    star = LF.with_links(T.star(5), LF.LinkModel(erasure=HEADLINE_ERASURE))
+    chain = LF.with_links(T.chain(5), LF.LinkModel(erasure=CHAIN_ERASURE))
+    inl = PaperExperimentConfig(edge_dropout=HEADLINE_DROPOUT)
+    inl8 = dataclasses.replace(inl, link_bits=WIRE_BITS)
+    plain = PaperExperimentConfig()
+    n = LOSSY_STEPS * TRAIN_BATCH
+    return (("inl star", "inl", inl, star, "dense", n),
+            ("inl+learned_prior star", "inl",
+             dataclasses.replace(inl, learned_prior=True), star, "dense",
+             PRIOR_STEPS * TRAIN_BATCH),
+            ("inl star packed", "inl", inl8, star, "packed", n),
+            ("inl chain(5) packed", "inl", inl8, chain, "packed", n),
+            ("fl star", "fl", plain, star, "dense",
+             FL_ROUNDS * 5 * 2 * TRAIN_BATCH),
+            ("sl star", "sl", plain, star, "dense", n))
+
+
+def _expected_ratio(name, scheme, cfg, topo, seed, rounds, state):
+    """The delivery ratio the masks of the run's round keys imply,
+    replayed on the host with the masks' own arithmetic (not the meter's):
+    INL the per-edge payload fraction weighted by the edges' bits, FL the
+    broadcast plus the arrived uploads, SL the rounds that ran over the
+    attempts made (plus the hand-offs, delivered in full)."""
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import topology as T
+    keys = [LF.round_key(seed, r) for r in range(rounds)]
+    J = cfg.num_clients
+    if name == "inl":
+        bits = T.round_edge_bits(topo, cfg, TRAIN_BATCH)
+        got = 0.0
+        for k in keys:
+            mask = LF.round_delivery_mask(k, topo, cfg, TRAIN_BATCH,
+                                          train=True)
+            got += sum(bits[e.key] * float(np.mean(mask[list(
+                topo.payload(e))])) for e in topo.edges)
+        return got / (rounds * sum(bits.values()))
+    if name == "fl":
+        return float(np.mean([(J + LF.client_delivery_mask(
+            k, topo, cfg, train=True).sum()) / (2.0 * J) for k in keys]))
+    b = scheme.bits_per_round(cfg, state, TRAIN_BATCH)
+    over = scheme.epoch_overhead_bits(cfg, state)
+    ran = used = 0
+    for k in keys:
+        oks = LF.attempt_successes(k, topo, cfg, LF.retry_attempts())
+        ran += bool(oks.any())
+        used += int(oks.argmax()) + 1 if oks.any() else len(oks)
+    return (ran * b + over) / (used * b + over)
+
+
+def lossy_training_phase(torch, card_line):
+    """The lossy runs through run_scheme at full width, batch 64, launch
+    counts set to 0 just before each and read just after: every kernel
+    launched as on the clean network; the meter's delivery ratio equal to
+    the ratio the replayed masks imply; SL's skipped rounds counted from
+    the replay, each leaving the state as it was, each other round moving
+    it.  Returns {label: launches}."""
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import schemes
+    from repro_torch.core import topology as T
+
+    out = {}
+    for label, name, cfg, topo, wire, n in lossy_runs():
+        scheme = schemes.get(name)
+        views, labels = training_data(cfg, n)
+        rounds = n // TRAIN_BATCH // scheme.batches_per_round(cfg)
+        seed = 0
+        if name == "sl":
+            # the first seed whose rounds include a skipped one, so the
+            # skip path runs (P(skip) = 0.3^3 a round)
+            seed = next(s for s in range(1000) if any(
+                not LF.round_success(LF.round_key(s, r), topo, cfg,
+                                     LF.retry_attempts())
+                for r in range(rounds)))
+        states = []
+        curve, loss, launches, meter, wall, rates = recorded_run(
+            torch, name, cfg, views, labels, epochs=1, wire=wire, seed=seed,
+            topology=topo, states=states)
+        check(len(loss) == rounds, f"{label}: {len(loss)} rounds")
+        groups = len(T.first_hop_groups(topo, cfg)[0])
+        hops = 0 if wire == "dense" or T.nontrivial(topo, cfg) is None \
+            else len(topo.edges)
+        if name == "fl":
+            local = rounds * cfg.num_clients * 2
+            want = {"cut_fwd": local + 1, "cut_bwd": local}
+        elif name == "sl":
+            want = {"cut_fwd": rounds + 1, "cut_bwd": rounds}
+        elif cfg.learned_prior:
+            want = {"cut_prior_fwd": rounds, "cut_prior_bwd": rounds,
+                    "cut_fwd": 1}
+        elif wire == "packed" and hops == 0:
+            want = {"cut_fwd_pack": rounds, "unpack_dequant": rounds,
+                    "cut_bwd": rounds, "cut_fwd": 1}
+        else:
+            want = {"cut_fwd": groups * (rounds + 1),
+                    "cut_bwd": groups * rounds, "pack": hops * rounds,
+                    "unpack_dequant": hops * rounds}
+        expect_launches(launches, want, f"lossy {label}")
+        ratio = _expected_ratio(name, scheme, cfg, topo, seed, rounds,
+                                states[0][0])
+        check(np.isclose(meter.delivery_ratio, ratio, rtol=1e-12, atol=0)
+              and meter.delivery_ratio < 1.0,
+              f"lossy {label}: meter delivery ratio {meter.delivery_ratio} "
+              f"!= the masks' {ratio}")
+        skips = ""
+        if name == "sl":
+            skipped = [r for r in range(rounds) if not LF.round_success(
+                LF.round_key(seed, r), topo, cfg, LF.retry_attempts())]
+            from repro_torch import tree_leaves
+            for r, (before, after) in enumerate(states):
+                same = all(same_bits(a, b) for a, b in zip(
+                    tree_leaves(before), tree_leaves(after)))
+                what = "skipped" if r in skipped else "ran"
+                check(same == (r in skipped),
+                      f"lossy sl: round {r} {what} but its state "
+                      f"{'stayed' if same else 'moved'}")
+            check(len(skipped) >= 1, "lossy sl: no round was skipped")
+            skips = f"; seed {seed}: rounds {skipped} skipped, state unchanged"
+        out[label] = launches
+        print(f"linkfault: run_scheme('{name}') on {label} (erasure "
+              f"{topo.edges[0].link.erasure} an edge, edge_dropout "
+              f"{cfg.edge_dropout}, link_bits={cfg.link_bits}, {wire}), "
+              f"{rounds} rounds in {wall:.2f} s; loss {loss[0]:.4f} -> "
+              f"{loss[-1]:.4f}; accuracy {curve[-1].accuracy:.4f}; "
+              f"delivery ratio {meter.delivery_ratio!r} == the masks' "
+              f"{ratio!r} (gbits {curve[-1].gbits!r}, delivered "
+              f"{curve[-1].delivered_gbits!r}){skips}; launches {launches} "
+              f"[{card_line}]")
+    return out
+
+
+def lossy_card_vs_cpu(torch, card_line):
+    """One lossy step, card against the CPU port: one set of weights, eps,
+    dropout masks and one explicit delivery mask (two views lost), loss
+    and gradients at the phase-6 bar (grads_close)."""
+    from repro_torch import tree_map
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import paper_model, schemes
+
+    cfg = PaperExperimentConfig()
+    views, labels = training_data(cfg)
+    cpu = schemes.get("inl").init(cfg, torch.Generator().manual_seed(19),
+                                  device="cpu")
+    gpu = tree_map(lambda t: t.to(DEV), cpu)
+    v = torch.from_numpy(views[:, :TRAIN_BATCH])
+    lab = torch.from_numpy(labels[:TRAIN_BATCH]).long()
+    g = torch.Generator().manual_seed(20)
+    eps = torch.randn((cfg.num_clients, TRAIN_BATCH, cfg.d_bottleneck),
+                      generator=g)
+    masks = paper_model.decoder_dropout_masks(g, cfg.dense_units,
+                                              TRAIN_BATCH)
+    delivery = np.array([True, False, True, True, False])
+    l_cpu, g_cpu = _loss_and_grads(torch, cfg, cpu["params"], cpu["state"],
+                                   v, lab, eps, masks, delivery=delivery)
+    l_clean, _ = _loss_and_grads(torch, cfg, cpu["params"], cpu["state"],
+                                 v, lab, eps, masks)
+    check(l_cpu != l_clean, "the delivery mask did not change the loss")
+    l_gpu, g_gpu = _loss_and_grads(
+        torch, cfg, gpu["params"], gpu["state"], v.to(DEV), lab.to(DEV),
+        eps.to(DEV), [x.to(DEV) for x in masks], delivery=delivery)
+    max_leaf, max_abs, off = grads_close(l_gpu, l_cpu, g_gpu, g_cpu,
+                                         "lossy star")
+    print(f"linkfault: one lossy step (views 1 and 4 lost), card against "
+          f"the CPU port: loss {l_gpu:.7f} / {l_cpu:.7f} (clean {l_clean:.7f}"
+          f"); {len(g_gpu)} gradient leaves within rtol 1e-3 atol 1e-5 as "
+          f"tensors, largest |card - cpu| / |cpu| of a leaf {max_leaf:.3g}, "
+          f"largest entry difference {max_abs:.3g}, {off} entries outside "
+          f"the bar taken entry by entry [{card_line}]")
+
+
+def lossy_serving_phase(torch, card_line):
+    """The star with LinkModel(latency_ms=1, jitter_ms=1) on every edge and
+    deadline_ms=2 served over buckets (1, 4, 16, 64), launch counts set to
+    0 just before and read just after: one cut_fwd an engine launch; about
+    e^-1 of the views miss (a binomial bound); each request's mask the same
+    in its padded bucket as alone, and equal to views_fused; rows equal
+    predict_batched under the id-keyed masks bit for bit in their bucket;
+    the meter's delivery ratio the masks' fraction."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import schemes
+    from repro_torch.core import topology as T
+    from repro_torch.data import multiview
+    from repro_torch.serving import ServingEngine
+
+    cfg = PaperExperimentConfig()
+    topo = LF.with_links(T.star(cfg.num_clients), LF.LinkModel(**SERVE_LINK))
+    scheme = schemes.get("inl")
+    state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(17),
+                        device=DEV)
+    imgs, _ = multiview.make_base_dataset(N_REQUESTS, seed=cfg.seed)
+    views = multiview.make_views(imgs, cfg.noise_stds)
+    engine = ServingEngine(scheme, state, cfg, topology=topo,
+                           deadline_ms=SERVE_DEADLINE_MS, buckets=BUCKETS,
+                           seed=18, device=DEV)
+    engine.warmup()
+    torch.cuda.synchronize()
+    reset_launches()
+    futs, view_of = [], {}
+
+    def submit():
+        m = len(futs) % N_REQUESTS
+        rid, fut = engine.submit(views[:, m])
+        view_of[rid] = m
+        futs.append(fut)
+        return fut
+
+    with engine:
+        for k in (1, 2, 4, 7, 16, 33, 64) * 2:
+            burst = [submit() for _ in range(k)]
+            for f in burst:
+                f.result(timeout=60)
+        t0 = time.perf_counter()
+        flood = [submit() for _ in range(N_REQUESTS)]
+        for f in flood:
+            f.result(timeout=60)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    results = [f.result(timeout=60) for f in futs]
+    stats = engine.stats
+    expect_launches(launches, {"cut_fwd": stats.launches}, "lossy serving")
+    key = LF.key(18)
+    rids = np.array([r.rid for r in results])
+    alone = LF.request_delivery_mask(key, topo, cfg, rids,
+                                     deadline=SERVE_DEADLINE_MS)
+    check([r.views_fused for r in results] == alone.sum(0).tolist(),
+          "lossy serving: views_fused differs from the id-keyed masks")
+    miss = 1.0 - float(alone.mean())
+    n_views = alone.size
+    bound = 5.0 * np.sqrt(np.exp(-1.0) * (1 - np.exp(-1.0)) / n_views)
+    check(abs(miss - np.exp(-1.0)) <= bound,
+          f"lossy serving: {miss} of the views missed, expected e^-1 within "
+          f"{bound}")
+    check(np.isclose(engine.meter.delivery_ratio, float(alone.mean()),
+                     rtol=1e-12, atol=0),
+          f"lossy serving: meter delivery ratio {engine.meter.delivery_ratio}"
+          f" != the masks' {float(alone.mean())}")
+    checked = 0
+    for b in sorted({r.bucket for r in results}):
+        rows = [r for r in results if r.bucket == b]
+        for c in range(0, len(rows), b):
+            chunk = rows[c:c + b]
+            ids = [r.rid for r in chunk]
+            ids += [ids[-1]] * (b - len(ids))
+            mask = LF.request_delivery_mask(key, topo, cfg, ids,
+                                            deadline=SERVE_DEADLINE_MS)
+            pos = [int(np.flatnonzero(rids == r.rid)[0]) for r in chunk]
+            check(np.array_equal(mask[:, :len(chunk)], alone[:, pos]),
+                  f"lossy serving: a request's mask moved in bucket {b}")
+            idx = [view_of[r.rid] for r in chunk]
+            idx += [idx[-1]] * (b - len(idx))
+            ref = scheme.predict_batched(state, views[:, idx],
+                                         delivery=mask, cfg=cfg, device=DEV)
+            ref = ref.cpu().numpy()[:len(chunk)]
+            got = np.stack([r.probs for r in chunk])
+            check(np.array_equal(got, ref),
+                  f"lossy serving: rows differ from predict_batched in "
+                  f"bucket {b}: max {np.abs(got - ref).max()}")
+            checked += len(chunk)
+    probs = np.stack([r.probs for r in results])
+    check(np.isfinite(probs).all()
+          and np.abs(probs.sum(-1) - 1.0).max() <= 1e-5,
+          "lossy serving: rows not finite or not summing to 1")
+    print(f"linkfault: served the star with LinkModel({SERVE_LINK}) and "
+          f"deadline_ms={SERVE_DEADLINE_MS}: {len(results)} requests in "
+          f"{stats.launches} engine launches over buckets "
+          f"{sorted({r.bucket for r in results})}; {miss:.4f} of "
+          f"{n_views} views missed (e^-1 = {np.exp(-1.0):.4f}); {checked} "
+          f"rows == predict_batched(cuda) under the id-keyed masks bit for "
+          f"bit in their bucket, every mask the same as its request's "
+          f"alone; delivery ratio {engine.meter.delivery_ratio!r}; flood "
+          f"of {N_REQUESTS} at {N_REQUESTS / wall:.1f} requests/s, p50 "
+          f"latency {statistics.median(stats.latencies_ms[-N_REQUESTS:]):.3f}"
+          f" ms; launches {launches} [{card_line}]")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 7. times
 # ---------------------------------------------------------------------------
 
@@ -1760,9 +2154,11 @@ def train_step_timing(torch, card_line, *, wire="dense", link_bits=32,
     """Train-step latency at full width and batch 64 on `wire` (on the star,
     or on `topology` at `cfg`): the median of 20 steps on the host's clock,
     and the device's busy time per step from the profiler, with its
-    breakdown by kernel."""
+    breakdown by kernel.  Over unreliable links each step takes the next
+    round's fault key, as run_scheme hands them out."""
     from repro_torch.configs.paper_inl import PaperExperimentConfig
-    from repro_torch.core import schemes
+    from repro_torch.core import linkfault, schemes
+    from repro_torch.core import topology as T
 
     cfg = cfg or PaperExperimentConfig(link_bits=link_bits)
     label = label or wire
@@ -1775,9 +2171,15 @@ def train_step_timing(torch, card_line, *, wire="dense", link_bits=32,
     v = torch.from_numpy(views[:, :TRAIN_BATCH]).to(DEV)[None]
     lab = torch.from_numpy(labels[:TRAIN_BATCH]).to(DEV).long()[None]
     box = [state]
+    faulty = linkfault.active(T.resolve(topology, cfg), cfg, train=True)
+    count = [0]
 
     def step():
-        box[0], _ = round_fn(box[0], v, lab, gen)
+        kw = {}
+        if faulty:
+            kw["round_key"] = linkfault.round_key(0, count[0])
+            count[0] += 1
+        box[0], _ = round_fn(box[0], v, lab, gen, **kw)
     times = []
     for i in range(25):
         torch.cuda.synchronize()
@@ -2408,6 +2810,10 @@ def main() -> int:
     graph_launches = topology_phase(torch, card)
     graph_step_checks(torch, card)
     graph_serve_launches = graph_serving_phase(torch, card)
+    perfect_links_phase(torch, card)
+    lossy_launches = lossy_training_phase(torch, card)
+    lossy_card_vs_cpu(torch, card)
+    lossy_serve_launches = lossy_serving_phase(torch, card)
     torch.cuda.synchronize()
     rows = timing_phase(torch, scheme, state, views, card)
     steps = {wire: train_step_timing(torch, card, wire=wire,
@@ -2419,6 +2825,15 @@ def main() -> int:
             steps[label] = train_step_timing(torch, card, wire=wire,
                                              topology=topo, cfg=cfg,
                                              label=label)
+    _, _, lossy_cfg, lossy_star, _, _ = lossy_runs()[0]
+    steps["lossy star"] = train_step_timing(
+        torch, card, topology=lossy_star, cfg=lossy_cfg,
+        label="lossy star: erasure 0.3 an edge, edge_dropout 0.2")
+    (lw, lb), (cw, cb) = steps["lossy star"], steps["dense"]
+    print(f"linkfault times: lossy INL step {lw:.3f} ms (device busy "
+          f"{lb:.4f} ms) against the clean star's {cw:.3f} ms (busy "
+          f"{cb:.4f} ms) in this run: {lw - cw:+.3f} ms wall, "
+          f"{lb - cb:+.4f} ms busy [{card}]")
     rows.update(new_kernel_timing(torch, card))
     rows.update(pack_kernel_timing(torch, card))
     torch.cuda.synchronize()
@@ -2444,6 +2859,11 @@ def main() -> int:
                 "ssd_scan": llm_launches["ssd_scan"]}
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the path never launched: {launches}")
+    lossy = {k: {label: n[k] for label, n in lossy_launches.items() if n[k]}
+             for k in CUT_LAYER_SOURCES}
+    lossy["cut_fwd"]["served lossy star"] = lossy_serve_launches["cut_fwd"]
+    check(all(lossy[k] for k in CUT_LAYER_SOURCES),
+          f"a cut-layer kernel never launched on the lossy paths: {lossy}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s; final accuracy {accuracy}, "
           f"train step " + ", ".join(
@@ -2484,7 +2904,7 @@ def main() -> int:
             "max_abs_err": worst[kname], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
             "shape": shape, "launches_per_train_step": per_step,
-            "path": path}
+            "path": path, "launches_on_lossy_links": lossy[kname]}
         if kname in REDESIGNED:
             entry["redesigned"] = REDESIGNED[kname]
             entry["at_large_r"] = {

@@ -15,11 +15,17 @@ each client's local steps one after another.  Randomness — each client's
 per-local-step dropout masks — comes in as `drop_masks[client][step]`,
 which is how the parity tests feed the reference's `split` chain.
 
-The masked average of a faulty round (`faulty=True`, clients whose upload
-was dropped) comes with the link-fault slice of the port.
+A faulty round (`faulty=True`) averages only the client uploads that
+arrived (core/linkfault.client_delivery_mask); when every upload is lost
+the previous global model stays.  Its mask is a host array, so the round
+decides on the host which average to take: an all-ones mask takes the
+clean round's `torch.mean`, so a perfect network leaves the trajectory as
+it was bit for bit on the CPU and on the card (where a CUDA mean
+multiplies by 1/J but a division by a host scalar need not round alike).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import tree_map, tree_stack, value_and_grad
@@ -82,6 +88,28 @@ def make_one_client(optimizer, *, compute_dtype: str = "fp32"):
     return one_client
 
 
+def _masked_average(p, old, mask):
+    """The server's average over the uploads that arrived: p and old are
+    stacked (J, ...) trees, mask a (J,) host bool array.  All arrived: the
+    clean mean; none: replica 0 of the previous model; else
+    sum(x * w) / n, the reference's masked average."""
+    if mask is None:
+        raise ValueError("a faulty FedAvg round takes the (J,) client "
+                         "delivery mask as its last argument")
+    mask = np.array(mask, bool)
+    J, n = mask.shape[0], int(mask.sum())
+    if n == J:
+        return tree_map(lambda x: torch.mean(x, dim=0), p)
+    if n == 0:
+        return tree_map(lambda x, o: o[0].to(x.dtype), p, old)
+
+    def avg(x):
+        w = torch.as_tensor(mask, device=x.device).to(torch.float32)
+        w = w.reshape((J,) + (1,) * (x.dim() - 1))
+        return torch.sum(x * w, dim=0) / float(n)
+    return tree_map(avg, p)
+
+
 def make_round(cfg, optimizer, local_steps: int, *, faulty: bool = False):
     """One FedAvg round: round_fn(stacked_params, stacked_state,
     stacked_opt, views, labels, drop_masks) -> (params, state, opt_state,
@@ -89,24 +117,29 @@ def make_round(cfg, optimizer, local_steps: int, *, faulty: bool = False):
     local_steps, B) and drop_masks[j][s] the decoder's keep masks of client
     j's local step s.  Every client trains, then the server takes the plain
     parameter average and re-broadcasts it; each client keeps its own
-    BatchNorm statistics and optimizer state."""
-    if faulty:
-        raise NotImplementedError("the masked FedAvg of a faulty round "
-                                  "(dropped client uploads) comes with the "
-                                  "link-fault slice of the port")
+    BatchNorm statistics and optimizer state.
+
+    faulty=True returns a round_fn taking a trailing (J,) boolean `mask`
+    (core/linkfault.client_delivery_mask, a host array): clients whose
+    upload dropped are masked out of the average; when every upload is
+    lost the round keeps the previous global model.  Every client still
+    trains (the reference computes the round, then discards)."""
     one_client = make_one_client(
         optimizer, compute_dtype=getattr(cfg, "compute_dtype", "fp32"))
 
     def round_fn(stacked_params, stacked_state, stacked_opt, views, labels,
-                 drop_masks):
+                 drop_masks, mask=None):
         J = labels.shape[0]
         outs = [one_client(replica(stacked_params, j),
                            replica(stacked_state, j),
                            replica(stacked_opt, j), views[j], labels[j],
                            drop_masks[j]) for j in range(J)]
         p, s, o, m = (tree_stack([out[i] for out in outs]) for i in range(4))
-        # server aggregation: plain parameter average, re-broadcast
-        avg = tree_map(lambda x: torch.mean(x, dim=0), p)
+        # server aggregation: parameter average, re-broadcast
+        if faulty:
+            avg = _masked_average(p, stacked_params, mask)
+        else:
+            avg = tree_map(lambda x: torch.mean(x, dim=0), p)
         p_new = tree_stack([avg] * J)
         return p_new, s, o, {k: v.mean() for k, v in m.items()}
     return round_fn

@@ -30,9 +30,15 @@ Topologies (`topology=`, core/topology.py): the default star runs the
 pre-topology path above; any other graph cuts each node at its first
 hop's width and routes the latents through the edges' re-encoding hops
 before the eq.-(5) concatenation (`topology.graph_cut_and_ship`), in
-training and in `predict`.  Delivery masks, link models and edge dropout
-come with the link-fault slice of the port (ROADMAP item 8) and raise
-NotImplementedError here.
+training and in `predict`.
+
+Unreliable links (core/linkfault.py): when an edge carries a LinkModel or
+cfg.edge_dropout > 0, a training step draws the round's (J,) delivery mask
+on the host from its `round_key` (linkfault.round_key(seed, round)) and
+the fusion center fuses what arrived (`linkfault.partial_fuse`); an
+explicit `delivery=` mask (the transport-mode step, predict) overrides
+the draw.  The round's own randomness (eps, dropout masks) never reads the
+fault stream.
 """
 from __future__ import annotations
 
@@ -42,7 +48,8 @@ import torch
 
 from repro_torch import (as_generator, as_input, resolve_device, tree_map,
                          tree_stack, value_and_grad)
-from repro_torch.core import bottleneck, linkmodel, losses, paper_model
+from repro_torch.core import (bottleneck, linkfault, linkmodel, losses,
+                              paper_model)
 from repro_torch.core import topology as topology_lib
 from repro_torch.core import wirefmt
 
@@ -145,29 +152,12 @@ def decode(params: INLParams, u, *, train: bool, u_joint=None,
     return joint, branch
 
 
-def _reliable_links(cfg, topology, delivery, *, train=None) -> None:
-    """Refuse what needs the link-fault slice (ROADMAP item 8): delivery
-    masks and, in a loss (train True or False, not None for predict), link
-    models and the training edge-dropout curriculum."""
-    if delivery is not None:
-        raise NotImplementedError("delivery masks (fuse-what-arrived) come "
-                                  "with the link-fault slice of the port")
-    if cfg is None:
-        return
-    topo = topology_lib.resolve(topology, cfg)
-    if train is not None and (
-            any(e.link is not None for e in topo.edges)
-            or (train and getattr(cfg, "edge_dropout", 0.0) > 0.0)):
-        raise NotImplementedError("link models and edge dropout come with "
-                                  "the link-fault slice of the port")
-
-
 def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
             eps=None, drop_masks=None, train: bool = True,
             rate_estimator: str = "sample", wire: str = "dense",
-            topology=None, delivery=None):
-    """Full eq.-(6) loss on reliable links.  Returns (loss, (metrics,
-    new_state)); new_state's BatchNorm statistics are detached.
+            topology=None, delivery=None, round_key=None):
+    """Full eq.-(6) loss.  Returns (loss, (metrics, new_state));
+    new_state's BatchNorm statistics are detached.
 
     The cut layer runs the fused kernel, which also emits the per-sample
     rate; losses.inl_loss takes it instead of recomputing it.
@@ -185,8 +175,24 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
     width and routes the latents through the edges' re-encoding hops in
     topological order before the eq.-(5) concatenation
     (topology.graph_cut_and_ship), and `bits_sent` is its per-edge sum
-    (topology.round_bits); the default star keeps the path above."""
-    _reliable_links(cfg, topology, delivery, train=train)
+    (topology.round_bits); the default star keeps the path above.
+
+    Unreliable links (core/linkfault.py): when an edge carries a LinkModel
+    or (in training) cfg.edge_dropout > 0, the round's (J,) delivery mask
+    is drawn on the host from `round_key` (linkfault.round_key) and the
+    fusion center fuses what arrived (`linkfault.partial_fuse`: mask and
+    renormalise); eq.-(10) error chunks then flow back only over the
+    surviving routes.  Branch heads and rate terms stay local and
+    unmasked.  delivery — an explicit (J,) or (J, B) mask that replaces
+    the draw (the transport-mode step).  Neither leaves the fault-free
+    path bit for bit."""
+    topo_full = topology_lib.resolve(topology, cfg)
+    faulty = delivery is None and linkfault.active(topo_full, cfg,
+                                                   train=train)
+    if faulty and round_key is None:
+        raise ValueError("a round over unreliable links draws its delivery "
+                         "mask from round_key (linkfault.round_key(seed, "
+                         "round)); pass round_key= or delivery=")
     topo = topology_lib.nontrivial(topology, cfg)
     dt = paper_model.compute_dtype(cfg)
     params_c = paper_model.cast_compute(params, dt)
@@ -208,6 +214,11 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
             topo, cfg, mu, logvar, eps, rate_estimator=rate_estimator,
             wire=wire, prior=params_c.priors)
     B = labels.shape[0]
+    if faulty:
+        delivery = linkfault.round_delivery_mask(round_key, topo_full, cfg, B,
+                                                 train=train)
+    if delivery is not None:
+        u_joint = linkfault.partial_fuse(u_joint, delivery)
     if train and drop_masks is None:
         if generator is None:
             raise ValueError("training draws dropout masks from "
@@ -240,17 +251,19 @@ def make_train_step(cfg, optimizer, *, rate_estimator: str = "sample",
     """The train step closed over the experiment config and optimizer:
 
         step(params, state, opt_state, views, labels, generator, *,
-             eps=None, drop_masks=None)
+             eps=None, drop_masks=None, round_key=None)
             -> (new_params, new_state, new_opt_state, metrics)
 
     One eq.-(6) loss, its gradient with respect to the parameters only
     (the BatchNorm statistics come back as new, detached state) and one
-    optimizer update.  The metrics are detached tensors."""
-    if explicit_delivery:
-        raise NotImplementedError("the transport-mode step (explicit "
-                                  "delivery masks) comes with the "
-                                  "link-fault slice of the port")
-    _reliable_links(cfg, topology, None, train=True)
+    optimizer update.  The metrics are detached tensors.  round_key — the
+    round's fault key, needed where links are unreliable (`loss_fn`).
+
+    explicit_delivery=True returns the transport-mode step, which takes
+    the round's (J,) or (J, B) delivery mask as data in place of a draw:
+
+        step(params, state, opt_state, views, labels, generator, delivery,
+             *, eps=None, drop_masks=None)"""
     topo = topology_lib.nontrivial(topology, cfg)
     if topo is None:
         wirefmt.resolve_wire(wire, cfg.link_bits)
@@ -260,14 +273,22 @@ def make_train_step(cfg, optimizer, *, rate_estimator: str = "sample",
                                  topology_lib.edge_bits(e, cfg))
 
     def step(params, state, opt_state, views, labels, generator, *,
-             eps=None, drop_masks=None):
+             eps=None, drop_masks=None, round_key=None, delivery=None):
         _, (metrics, new_state), grads = value_and_grad(
             loss_fn, params, state, views, labels, cfg, generator=generator,
             eps=eps, drop_masks=drop_masks, train=True,
-            rate_estimator=rate_estimator, wire=wire, topology=topology)
+            rate_estimator=rate_estimator, wire=wire, topology=topology,
+            delivery=delivery, round_key=round_key)
         new_params, new_opt = optimizer.update(grads, opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return new_params, new_state, new_opt, metrics
+
+    if explicit_delivery:
+        def step_d(params, state, opt_state, views, labels, generator,
+                   delivery, *, eps=None, drop_masks=None):
+            return step(params, state, opt_state, views, labels, generator,
+                        eps=eps, drop_masks=drop_masks, delivery=delivery)
+        return step_d
     return step
 
 
@@ -279,6 +300,12 @@ def predict(params: INLParams, state, views, *, cfg=None, topology=None,
     views — a tensor or array (J, B, H, W, C), moved to `device` (None:
     cuda), where the parameters must already lie.
 
+    delivery — an optional (J,) or (J, B) boolean delivery mask
+    (core/linkfault.py): views whose route dropped or missed the fusion
+    deadline are masked out of the concatenation and the survivors
+    renormalised (fuse-what-arrived).  None is the perfect network, the
+    fault-free path bit for bit.
+
     The star ships UNQUANTIZED latents, as in the reference, and ignores
     `wire`.  A non-star `topology` (it needs `cfg` for the edge widths)
     routes the deterministic latents through the same multi-hop
@@ -288,7 +315,6 @@ def predict(params: INLParams, state, views, *, cfg=None, topology=None,
     receives.  At full-precision links every hop is the identity and a
     chain or tree predicts as the star does, bit for bit."""
     views = as_input(params, views, device)
-    _reliable_links(cfg, topology, delivery)
     topo = None if cfg is None else topology_lib.nontrivial(topology, cfg)
     with torch.no_grad():
         if topo is None:
@@ -301,6 +327,8 @@ def predict(params: INLParams, state, views, *, cfg=None, topology=None,
                 topo, cfg, mu, logvar,
                 torch.zeros(mu.shape, dtype=torch.float32, device=mu.device),
                 rate_estimator="none", wire=wire)
+        if delivery is not None:
+            u_fused = linkfault.partial_fuse(u_fused, delivery)
         # the branch heads of `decode` are dead code at inference (the
         # reference's jit drops them); eager PyTorch would run them
         joint = paper_model.decoder_apply(

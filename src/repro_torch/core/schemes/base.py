@@ -1,10 +1,11 @@
 """The `Scheme` interface registered schemes implement.
 
 Reference: src/repro/core/schemes/base.py (`Scheme.batches_per_round`,
-`init`, `make_round`, `make_epoch`, `predict`, `serve_buckets`,
-`predict_batched`, the bandwidth ledgers `bits_per_round`,
-`epoch_overhead_bits`, `wire_bytes_per_round`,
-`epoch_overhead_wire_bytes`, `edge_ledger`, and `evaluate_accuracy`).  A
+`init`, `make_round`, `make_transport_round`, `make_epoch`, `predict`,
+`serve_buckets`, `predict_batched`, `predict_under_faults`, the bandwidth
+ledgers `bits_per_round`, `epoch_overhead_bits`, `wire_bytes_per_round`,
+`epoch_overhead_wire_bytes`, `edge_ledger`, `evaluate_accuracy` and
+`evaluate_accuracy_under_faults`).  A
 scheme's `state` is an opaque dict of tensors bundling its parameters,
 model state and optimizer state; only the scheme looks inside.
 
@@ -12,18 +13,21 @@ Rounds vs batches: a "round" is the scheme's training transaction (one
 optimizer step for INL); `batches_per_round` tells the runner how many
 (views, labels) minibatches to stack into one round call, which receives
 them as (R, J, B, ...) / (R, B) tensors.  Randomness comes from a
-torch.Generator the runner owns and hands to every round.
+torch.Generator the runner owns and hands to every round; over unreliable
+links a round also takes its fault key (`round_key=`,
+core/linkfault.round_key), from which it draws its delivery masks.
 
-The transport round, the sharded round and the fault-aware predicts come
-with their slices of the port.
+The sharded round comes with its slice of the port.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree_leaves
+from repro_torch.core import linkfault
 from repro_torch.core import topology as topology_lib
 
 
@@ -46,11 +50,25 @@ class Scheme:
     def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
                    topology=None):
         """Return round_fn(state, views, labels, generator, *, eps=None,
-        drop_masks=None) -> (new_state, metrics) with views (R, J, B, H, W,
-        C), labels (R, B), R == batches_per_round(cfg).  The round draws its
-        randomness from `generator` unless it is given; metrics include
-        "loss"."""
+        drop_masks=None, round_key=None) -> (new_state, metrics) with
+        views (R, J, B, H, W, C), labels (R, B), R ==
+        batches_per_round(cfg).  The round draws its randomness from
+        `generator` unless it is given, and over unreliable links its fault
+        draws from `round_key`; metrics include "loss"."""
         raise NotImplementedError
+
+    def make_transport_round(self, cfg, *, lr: float = 2e-3,
+                             wire: str = "dense", topology=None):
+        """Return round_fn(state, views, labels, generator, delivery, *,
+        drop_masks=None) -> (new_state, metrics): `make_round` with the
+        fault outcome as an EXPLICIT (J,) boolean argument in place of a
+        draw.  Each scheme applies its own degradation to the same mask:
+        INL partial-fuses the surviving views (one vote lost per failed
+        route), FL drops the missing clients from the FedAvg average (their
+        whole round of local work lost), SL carries the state through
+        unchanged unless every link delivered (the whole round lost)."""
+        raise NotImplementedError(f"scheme {self.name!r} has no "
+                                  "transport round")
 
     def make_epoch(self, cfg, *, lr: float = 2e-3, mesh=None,
                    wire: str = "dense", topology=None):
@@ -88,15 +106,34 @@ class Scheme:
 
     def predict_batched(self, state, views, *, delivery=None, topology=None,
                         cfg=None, wire: str = "dense", device=None) -> Any:
-        """The serving plane's batched inference entry: `predict` plus the
-        per-request delivery mask (which comes with the link-fault slice)
-        and the serving wire format.  delivery=None MUST equal `predict` bit
-        for bit."""
-        if delivery is not None:
-            raise NotImplementedError("delivery masks come with the "
-                                      "link-fault slice of the port")
-        return self.predict(state, views, topology=topology, cfg=cfg,
-                            device=device)
+        """The serving plane's batched inference entry: `predict` plus an
+        optional (J,) or (J, B) per-request delivery mask and the serving
+        wire format.  delivery=None MUST equal `predict` bit for bit.
+
+        Default masked semantics (single-uplink schemes: FL's central
+        model, SL's one boundary): a request answers only if its whole
+        uplink payload arrived; any dropped view degrades it to the uniform
+        distribution.  INL overrides with per-request partial fusion."""
+        probs = self.predict(state, views, topology=topology, cfg=cfg,
+                             device=device)
+        if delivery is None:
+            return probs
+        ok = np.all(host_mask(delivery), axis=0)
+        return linkfault.degrade_probs(probs, ok)
+
+    def predict_under_faults(self, state, views, key, topology=None,
+                             cfg=None, *, device=None) -> Any:
+        """`predict` when the topology's links are unreliable: per-request
+        fault draws from `key` (a linkfault key) decide what the decoding
+        side receives.  Default (FL's central model, SL's client -> server
+        boundary): the answer rides ONE uplink, and a request whose
+        erasure or deadline draw fails gets the uniform distribution.  INL
+        overrides with per-sample partial fusion."""
+        probs = self.predict(state, views, topology=topology, cfg=cfg,
+                             device=device)
+        topo = topology_lib.resolve(topology, cfg)
+        ok = linkfault.request_survival(key, topo, cfg, views.shape[1])
+        return linkfault.degrade_probs(probs, ok)
 
     def bits_per_round(self, cfg, state, batch_size: int, *,
                        topology=None) -> float:
@@ -143,17 +180,12 @@ def tree_nbytes(tree) -> int:
     return sum(t.nbytes for t in tree_leaves(tree))
 
 
-def clean_star(cfg, topology, *, scheme: str) -> None:
-    """What FL and SL run in this slice: the star (`require_star`) on
-    reliable links.  Link models and the edge-dropout curriculum come with
-    the link-fault slice of the port."""
-    topology_lib.require_star(topology, cfg, scheme=scheme)
-    topo = topology_lib.resolve(topology, cfg)
-    if any(e.link is not None for e in topo.edges) \
-            or getattr(cfg, "edge_dropout", 0.0) > 0.0:
-        raise NotImplementedError(f"{scheme} over unreliable links (link "
-                                  "models, edge dropout) comes with the "
-                                  "link-fault slice of the port")
+def host_mask(mask) -> np.ndarray:
+    """A delivery mask (numpy, or a tensor on any device) as a host bool
+    array."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.cpu().numpy()
+    return np.asarray(mask, bool)
 
 
 def evaluate_accuracy(scheme: Scheme, state, views, labels, topology=None,
@@ -162,6 +194,21 @@ def evaluate_accuracy(scheme: Scheme, state, views, labels, topology=None,
     predict over all of `views`."""
     probs = scheme.predict(state, views, topology=topology, cfg=cfg,
                            device=device)
+    return _accuracy(probs, labels)
+
+
+def evaluate_accuracy_under_faults(scheme: Scheme, state, views, labels,
+                                   key, topology=None, cfg=None, *,
+                                   device=None) -> float:
+    """Top-1 accuracy through `predict_under_faults`: the per-request fault
+    draws come from `key` (vary it to average over network
+    realisations)."""
+    probs = scheme.predict_under_faults(state, views, key, topology=topology,
+                                        cfg=cfg, device=device)
+    return _accuracy(probs, labels)
+
+
+def _accuracy(probs, labels) -> float:
     labels = torch.as_tensor(labels, device=probs.device)
     return float((torch.argmax(probs, dim=-1) == labels)
                  .to(torch.float32).mean())

@@ -2,8 +2,9 @@
 core/fl.py).
 
 Reference: src/repro/core/schemes/fl.py (`_pack_exp2_views`, `FLScheme`:
-`batches_per_round`, `init`, `make_round`, `predict`, `bits_per_round`,
-`wire_bytes_per_round`).  One round == one FedAvg round: each of the J
+`batches_per_round`, `init`, `make_round`, `make_transport_round`,
+`predict`, `bits_per_round`, `wire_bytes_per_round`).  One round == one
+FedAvg round: each of the J
 clients takes `local_steps` optimizer steps on its own minibatches, then
 the server averages the weights and re-broadcasts them, so one round
 consumes J * local_steps minibatches and moves 2 N J s bits (full weights
@@ -13,9 +14,12 @@ J branch inputs of the full Fig.-4 model.  Inference is central: the
 aggregated model on the average-quality view.
 
 FL has no cut-layer exchange: its wire carries full fp32 weights, so
-`wire` is accepted for interface parity and ignored.  The masked FedAvg
-over lossy uplinks, and the transport and sharded rounds, come with their
-slices of the port.
+`wire` is accepted for interface parity and ignored.  A star whose edges
+carry LinkModels (or cfg.edge_dropout > 0) runs the masked FedAvg: the
+uploads the round's draw (`round_key=`, core/linkfault.client_delivery_mask)
+or the transport round's explicit mask drops are left out of the average,
+and an all-lost round keeps the previous global model.  The sharded round
+comes with its slice of the port.
 """
 from __future__ import annotations
 
@@ -23,8 +27,9 @@ import torch
 
 from repro_torch import (as_generator, as_input, optim, resolve_device,
                          tree_stack)
-from repro_torch.core import bandwidth, fl, paper_model
+from repro_torch.core import bandwidth, fl, linkfault, paper_model
 from repro_torch.core import schemes as _schemes
+from repro_torch.core import topology as topology_lib
 from repro_torch.core.schemes import base
 
 
@@ -58,14 +63,15 @@ class FLScheme(base.Scheme):
                                 for j in range(cfg.num_clients)])
         return {"params": params, "state": state, "opt": opt_state}
 
-    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
-                   topology=None):
-        # the weight exchange is a client <-> server star by definition
-        base.clean_star(cfg, topology, scheme=self.name)
-        round_impl = fl.make_round(cfg, optim.adam(lr), self.local_steps)
+    def _make_round(self, cfg, lr, *, faulty):
+        """round_fn(state, views, labels, generator, mask, *,
+        drop_masks=None); mask None on the clean round."""
+        round_impl = fl.make_round(cfg, optim.adam(lr), self.local_steps,
+                                   faulty=faulty)
         J, ls = cfg.num_clients, self.local_steps
 
-        def round_fn(state, views, labels, generator, *, drop_masks=None):
+        def round_fn(state, views, labels, generator, mask, *,
+                     drop_masks=None):
             """views (J * local_steps, J, B, ...), labels (J * local_steps,
             B); drop_masks[j][s] for client j's local step s, drawn from
             `generator` client after client unless given."""
@@ -77,9 +83,47 @@ class FLScheme(base.Scheme):
                     for _ in range(ls)] for _ in range(J)]
             params, st, opt_state, metrics = round_impl(
                 state["params"], state["state"], state["opt"], packed, lab,
-                drop_masks)
+                drop_masks, mask)
             return ({"params": params, "state": st, "opt": opt_state},
                     metrics)
+        return round_fn
+
+    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
+                   topology=None):
+        # the weight exchange is a client <-> server star by definition; a
+        # star whose edges carry LinkModels (or cfg.edge_dropout > 0) runs
+        # the masked FedAvg on the round's client delivery mask
+        topology_lib.require_star(topology, cfg, scheme=self.name)
+        topo_full = topology_lib.resolve(topology, cfg)
+        faulty = linkfault.active(topo_full, cfg, train=True)
+        inner = self._make_round(cfg, lr, faulty=faulty)
+
+        def round_fn(state, views, labels, generator, *, drop_masks=None,
+                     round_key=None):
+            mask = None
+            if faulty:
+                if round_key is None:
+                    raise ValueError("an FL round over unreliable links "
+                                     "draws its client delivery mask from "
+                                     "round_key; pass round_key=")
+                mask = linkfault.client_delivery_mask(round_key, topo_full,
+                                                      cfg, train=True)
+            return inner(state, views, labels, generator, mask,
+                         drop_masks=drop_masks)
+        return round_fn
+
+    def make_transport_round(self, cfg, *, lr: float = 2e-3,
+                             wire: str = "dense", topology=None):
+        # the (J,) verdict is the set of client uploads that ARRIVED:
+        # missing clients leave the average and their round of local work
+        # is lost (all lost keeps the previous global model)
+        topology_lib.require_star(topology, cfg, scheme=self.name)
+        inner = self._make_round(cfg, lr, faulty=True)
+
+        def round_fn(state, views, labels, generator, delivery, *,
+                     drop_masks=None):
+            return inner(state, views, labels, generator,
+                         base.host_mask(delivery), drop_masks=drop_masks)
         return round_fn
 
     def predict(self, state, views, topology=None, cfg=None, *,
@@ -92,7 +136,7 @@ class FLScheme(base.Scheme):
 
     def bits_per_round(self, cfg, state, batch_size: int, *,
                        topology=None) -> float:
-        base.clean_star(cfg, topology, scheme=self.name)
+        topology_lib.require_star(topology, cfg, scheme=self.name)
         N = paper_model.fl_param_count(cfg)
         return bandwidth.fl_round_bits(N, cfg.num_clients, cfg.link_bits)
 

@@ -1,7 +1,8 @@
 """In-network learning behind the unified Scheme API (wraps core/inl.py).
 
 Reference: src/repro/core/schemes/inl.py (`INLScheme.init`, `make_round`,
-`predict`, `predict_batched`, `bits_per_round`, `wire_bytes_per_round`,
+`make_transport_round`, `predict`, `predict_batched`,
+`predict_under_faults`, `bits_per_round`, `wire_bytes_per_round`,
 `edge_ledger`).  One round == one eq.-(6) optimizer step (Adam, the
 reference's b2=0.95 with global-norm clipping) on a (J, B) multi-view
 batch; the cut layer is the fused kernel pair.  Bandwidth per round is the
@@ -13,11 +14,17 @@ graphs (chains, trees, per-edge widths) through the multi-hop execution
 (core/topology.graph_cut_and_ship) in `make_round`, `predict` and
 `predict_batched`, and both ledgers decompose per edge (`edge_ledger`),
 each edge charged for the payload it carries.
+
+Over unreliable links (core/linkfault.py) INL degrades per VIEW: a round
+fuses the views whose routes survived its fault draw (`round_key=`), the
+transport round fuses the views its explicit (J,) mask says arrived, and
+`predict_under_faults` draws a (J,) route-survival mask per sample; a lost
+link costs one vote, not the round or the prediction.
 """
 from __future__ import annotations
 
 from repro_torch import optim
-from repro_torch.core import bandwidth, inl, paper_model, wirefmt
+from repro_torch.core import bandwidth, inl, linkfault, paper_model, wirefmt
 from repro_torch.core import schemes as _schemes
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.schemes import base
@@ -38,10 +45,28 @@ class INLScheme(base.Scheme):
                                    topology=topology)
 
         def round_fn(state, views, labels, generator, *, eps=None,
+                     drop_masks=None, round_key=None):
+            params, st, opt_state, metrics = step(
+                state["params"], state["state"], state["opt"], views[0],
+                labels[0], generator, eps=eps, drop_masks=drop_masks,
+                round_key=round_key)
+            return ({"params": params, "state": st, "opt": opt_state},
+                    metrics)
+        return round_fn
+
+    def make_transport_round(self, cfg, *, lr: float = 2e-3,
+                             wire: str = "dense", topology=None):
+        # the (J,) outcome IS the round's delivery mask: surviving views
+        # partial-fuse, lost ones cost exactly their own vote
+        step = inl.make_train_step(cfg, optim.adam(lr), wire=wire,
+                                   topology=topology, explicit_delivery=True)
+
+        def round_fn(state, views, labels, generator, delivery, *, eps=None,
                      drop_masks=None):
             params, st, opt_state, metrics = step(
                 state["params"], state["state"], state["opt"], views[0],
-                labels[0], generator, eps=eps, drop_masks=drop_masks)
+                labels[0], generator, delivery, eps=eps,
+                drop_masks=drop_masks)
             return ({"params": params, "state": st, "opt": opt_state},
                     metrics)
         return round_fn
@@ -57,6 +82,17 @@ class INLScheme(base.Scheme):
         # bucket-padding parity contract
         return inl.predict(state["params"], state["state"], views, cfg=cfg,
                            topology=topology, delivery=delivery, wire=wire,
+                           device=device)
+
+    def predict_under_faults(self, state, views, key, topology=None,
+                             cfg=None, *, device=None):
+        # per-sample partial fusion: each request draws its own (J,)
+        # route-survival mask and the fusion renormalises over the arrivals
+        topo_full = topology_lib.resolve(topology, cfg)
+        delivery = linkfault.sample_delivery_mask(key, topo_full, cfg,
+                                                  views.shape[1])
+        return inl.predict(state["params"], state["state"], views, cfg=cfg,
+                           topology=topology, delivery=delivery,
                            device=device)
 
     def bits_per_round(self, cfg, state, batch_size: int, *,

@@ -18,6 +18,14 @@ there from the reference's seeded batch indices (data/multiview), so the
 port sees the same batches in the same order.  A torch.Generator seeded
 with `seed + 1` supplies every round's eps and dropout masks, in that
 order; the initial state comes from one seeded with `seed`.
+
+Unreliable links (core/linkfault.py): when the topology carries link
+models or cfg.edge_dropout > 0, global round g (counted from 0 over the
+run) gets the fault key `linkfault.round_key(seed, g)`, a stream apart from
+the generator's.  The round draws its masks from it, and the meter
+replays the same draws on the host (`_meter_fault_rounds`), splitting the
+round's charges between the offered and the delivered ledgers, so
+`CurvePoint.delivered_gbits` counts what reached its consumer.
 """
 from __future__ import annotations
 
@@ -27,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import bandwidth, schemes
+from repro_torch.core import bandwidth, linkfault, schemes
+from repro_torch.core import topology as topology_lib
 from repro_torch.core.schemes import base
 from repro_torch.data import multiview
 
@@ -55,17 +64,31 @@ def _round_charges(scheme, cfg, state, batch_size, *, wire, topology):
                                                topology=topology))}
 
 
-def _meter_rounds(meter, charges) -> None:
-    """Charge one round as offered traffic and, on the clean network,
-    credit the same on the delivered ledger."""
+def _meter_rounds(meter, charges, delivered=None) -> None:
+    """Charge one round of `charges` as offered traffic, and `delivered`
+    (default the same charges: on the clean network everything offered
+    arrives) on the delivered ledger."""
     for edge, (bits, nbytes) in charges.items():
         if edge is None:
             meter.add(bits)
             meter.add_measured(nbytes)
         else:
             meter.add_edge(edge, bits=bits, nbytes=nbytes)
-    for edge, (bits, nbytes) in charges.items():
+    for edge, (bits, nbytes) in (charges if delivered is None
+                                 else delivered).items():
         meter.add_delivered(bits=bits, nbytes=nbytes, edge=edge)
+
+
+def _meter_fault_rounds(meter, scheme, topo_full, cfg, batch_size, charges,
+                        round_keys) -> None:
+    """Per-round fault metering: replay each round key's fault draws
+    (linkfault.round_fault_charges draws from the SAME keys the rounds'
+    masks came from) and split the round between the offered and delivered
+    ledgers."""
+    for rk in round_keys:
+        off, dlv = linkfault.round_fault_charges(
+            rk, scheme.name, topo_full, cfg, batch_size, charges)
+        _meter_rounds(meter, off, delivered=dlv)
 
 
 def _meter_overheads(meter, scheme, cfg, state) -> None:
@@ -118,7 +141,9 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     the wire buffers (`measured_gbits`), per edge where the scheme
     decomposes its exchange (pass `meter=` a BandwidthMeter to read the
     per-edge ledgers afterwards).  After each epoch, accuracy is one
-    predict over the first `eval_n` samples."""
+    predict over the first `eval_n` samples.  Over unreliable links the
+    delivered ledger (`delivered_gbits`) follows each round's fault draws
+    (module docstring)."""
     _refuse_deferred(dispatch, mesh, transport, ckpt_dir)
     device = resolve_device(device)
     scheme = schemes.get(name)
@@ -134,6 +159,8 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     charges = _round_charges(scheme, cfg, state, batch_size, wire=wire,
                              topology=topology)
     rounds = rounds_per_epoch(scheme, cfg, n, batch_size)
+    topo_full = topology_lib.resolve(topology, cfg)
+    faulty = linkfault.active(topo_full, cfg, train=True)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     n_eval = min(eval_n, n)
     ev, el = views[:, :n_eval], labels[:n_eval]
@@ -148,8 +175,14 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
         for r in range(rounds):
             # (bpr, J, B, ...) views and (bpr, B) labels, gathered on device
             v = views[:, idx[r]].transpose(0, 1)
-            state, _ = round_fn(state, v, labels[idx[r]], gen)
-            _meter_rounds(meter, charges)
+            if not faulty:
+                state, _ = round_fn(state, v, labels[idx[r]], gen)
+                _meter_rounds(meter, charges)
+                continue
+            rk = linkfault.round_key(seed, ep * rounds + r)
+            state, _ = round_fn(state, v, labels[idx[r]], gen, round_key=rk)
+            _meter_fault_rounds(meter, scheme, topo_full, cfg, batch_size,
+                                charges, [rk])
         _meter_overheads(meter, scheme, cfg, state)
         acc = base.evaluate_accuracy(scheme, state, ev, el,
                                      topology=topology, cfg=cfg,

@@ -1,8 +1,10 @@
 """Split learning behind the unified Scheme API (wraps core/sl.py).
 
-Reference: src/repro/core/schemes/sl.py (`SLScheme.init`, `make_round`,
-`predict`, `bits_per_round`, `epoch_overhead_bits`,
-`wire_bytes_per_round`, `epoch_overhead_wire_bytes`).  One round == one
+Reference: src/repro/core/schemes/sl.py (`SLScheme.max_link_retries`,
+`init`, `_skip_failed_round`, `_make_raw_round`, `make_round`,
+`make_transport_round`, `predict`, `bits_per_round`,
+`epoch_overhead_bits`, `wire_bytes_per_round`,
+`epoch_overhead_wire_bytes`).  One round == one
 client -> server -> client exchange on a minibatch: the client's conv
 branches emit deterministic cut-layer activations through the fused
 kernel's no-noise mode, they cross the wire (`wire=`: dense, or packed
@@ -12,24 +14,34 @@ the epoch costs (2 p q + eta N J) s: the activation/error traffic accrues
 per round, the J sequential client -> client weight hand-offs once per
 epoch.
 
-The reference's bounded retry over a lossy uplink (`_skip_failed_round`)
-is the identity on the clean star, the only network this slice runs; link
-models raise NotImplementedError naming the link-fault slice, as do the
-transport and sharded rounds their slices.
+Over unreliable links (core/linkfault.py) SL has no partial-fusion
+reading: its single client -> server uplink either works within
+1 + `max_link_retries` attempts (drawn from the round's `round_key`) or the
+round is SKIPPED.  A skipped round is still computed, so it draws from
+the run's generator as any round does, and its result is discarded: the
+state (parameters, BatchNorm statistics, both optimizer states) carries
+through unchanged.  The sharded round comes with its slice of the port.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import as_generator, as_input, optim, resolve_device
-from repro_torch.core import bandwidth, paper_model, sl, wirefmt
+from repro_torch.core import bandwidth, linkfault, paper_model, sl, wirefmt
 from repro_torch.core import schemes as _schemes
+from repro_torch.core import topology as topology_lib
 from repro_torch.core.schemes import base
 
 
 @_schemes.register
 class SLScheme(base.Scheme):
     name = "sl"
+    # bounded retry on the single client -> server uplink: a round runs iff
+    # one of (1 + max_link_retries) attempts survives the link's erasure
+    # draw, else it is skipped; every attempt is charged as offered
+    # bandwidth (linkfault.round_fault_charges)
+    max_link_retries = 2
 
     def init(self, cfg, generator, *, lr: float = 2e-3, device=None):
         device = resolve_device(device)
@@ -39,18 +51,40 @@ class SLScheme(base.Scheme):
                 "opt_c": optim.adam(lr).init(client),
                 "opt_s": optim.adam(lr).init(server)}
 
-    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
-                   topology=None):
-        # SL's cut is ONE client -> server boundary (all conv branches live
-        # on the active client), so only the star has a reading here
-        base.clean_star(cfg, topology, scheme=self.name)
+    def _skip_failed_round(self, cfg, topology, round_fn):
+        """Wrap a round: when the (star) topology models unreliable links,
+        draw the bounded-retry survival from the round's key and carry the
+        state through UNCHANGED on total failure.  A perfect link succeeds
+        with certainty, so the round returns the fault-free round's new
+        state."""
+        topo_full = topology_lib.resolve(topology, cfg)
+        if not linkfault.active(topo_full, cfg, train=True):
+            return round_fn
+        attempts = self.max_link_retries + 1
+
+        def faulty_round(state, views, labels, generator, *,
+                         drop_masks=None, round_key=None):
+            if round_key is None:
+                raise ValueError("an SL round over unreliable links draws "
+                                 "its retries from round_key; pass "
+                                 "round_key=")
+            new_state, metrics = round_fn(state, views, labels, generator,
+                                          drop_masks=drop_masks)
+            ok = linkfault.round_success(round_key, topo_full, cfg, attempts)
+            return (new_state if ok else state), metrics
+        return faulty_round
+
+    def _make_raw_round(self, cfg, *, lr: float, wire: str):
+        """The fault-free round body (no link-survival wrapper)."""
         step = sl.make_train_step(
             optim.adam(lr), optim.adam(lr), link_bits=cfg.link_bits,
             wire=wire, compute_dtype=getattr(cfg, "compute_dtype", "fp32"))
 
-        def round_fn(state, views, labels, generator, *, drop_masks=None):
+        def round_fn(state, views, labels, generator, *, drop_masks=None,
+                     round_key=None):
             """views (1, J, B, ...), labels (1, B); the server decoder's
-            dropout masks drawn from `generator` unless given."""
+            dropout masks drawn from `generator` unless given.  round_key
+            is read by the retry wrapper only."""
             B = labels.shape[1]
             if drop_masks is None:
                 drop_masks = paper_model.decoder_dropout_masks(
@@ -63,6 +97,30 @@ class SLScheme(base.Scheme):
                      "opt_c": opt_c, "opt_s": opt_s}, metrics)
         return round_fn
 
+    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
+                   topology=None):
+        # SL's cut is ONE client -> server boundary (all conv branches live
+        # on the active client), so only the star has a reading here
+        topology_lib.require_star(topology, cfg, scheme=self.name)
+        return self._skip_failed_round(
+            cfg, topology, self._make_raw_round(cfg, lr=lr, wire=wire))
+
+    def make_transport_round(self, cfg, *, lr: float = 2e-3,
+                             wire: str = "dense", topology=None):
+        # the round's exchange rides the single boundary, so it has no
+        # partial reading: it RUNS iff every link delivered, else the state
+        # carries through unchanged (the round is still computed)
+        topology_lib.require_star(topology, cfg, scheme=self.name)
+        raw = self._make_raw_round(cfg, lr=lr, wire=wire)
+
+        def round_fn(state, views, labels, generator, delivery, *,
+                     drop_masks=None):
+            new_state, metrics = raw(state, views, labels, generator,
+                                     drop_masks=drop_masks)
+            ok = bool(np.all(base.host_mask(delivery)))
+            return (new_state if ok else state), metrics
+        return round_fn
+
     def predict(self, state, views, topology=None, cfg=None, *,
                 device=None):
         views = as_input(state["client"], views, device)
@@ -72,7 +130,7 @@ class SLScheme(base.Scheme):
 
     def bits_per_round(self, cfg, state, batch_size: int, *,
                        topology=None) -> float:
-        base.clean_star(cfg, topology, scheme=self.name)
+        topology_lib.require_star(topology, cfg, scheme=self.name)
         # activation/error traffic only (eta = 0 cancels the hand-off term)
         p = cfg.num_clients * cfg.d_bottleneck
         N = paper_model.fl_param_count(cfg)

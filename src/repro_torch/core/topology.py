@@ -30,9 +30,12 @@ to a sequence of launches on one device:
 Bandwidth has a per-edge ledger: an edge's closed form is the §III-C
 two-direction count for the payload it carries, its measured bytes the
 `wirefmt.round_wire_bytes` of that payload, and for `star(J)` both sum to
-the Table-I totals.  The collective over a 'client' axis (`axis_name=`,
-`group_ids=`) comes with ROADMAP item 9 (`core/sharded`), link models on
-the edges with item 8 (`core/linkfault`); both raise NotImplementedError.
+the Table-I totals.  Link models on the edges (`Edge.link`, a
+core/linkfault.LinkModel) do not change the graph's execution: they only
+produce delivery masks, which the fuse node applies after the hops
+(`linkfault.partial_fuse`), as in the reference.  The collective over a
+'client' axis (`axis_name=`, `group_ids=`) comes with ROADMAP item 9
+(`core/sharded`) and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -62,9 +65,9 @@ class Edge:
     link_bits: Optional[int] = None     # None -> cfg.link_bits
     wire: Optional[str] = None          # None -> the round's wire=
     dtype: Optional[str] = None         # None -> cfg compute dtype
-    # unreliability model (the reference's core/linkfault.LinkModel); None
-    # is a PERFECT, unmodelled link.  Link models come with the link-fault
-    # slice of the port; until then the engine refuses an edge that has one.
+    # unreliability model (core/linkfault.LinkModel); None is a PERFECT,
+    # unmodelled link.  A model only produces delivery masks: the edge's
+    # hop runs as it would without one.
     link: Optional[object] = None
 
     @property
@@ -520,11 +523,6 @@ def graph_cut_and_ship(topo: Topology, cfg, mu, logvar, eps, *,
             "graph execution over a 'client' axis (axis_name=, group_ids=) "
             "comes with the sharded slice of the port (ROADMAP item 9, "
             "core/sharded)")
-    linked = [e.key for e in topo.edges if e.link is not None]
-    if linked:
-        raise NotImplementedError(
-            f"link models on the edges {linked} come with the link-fault "
-            "slice of the port (ROADMAP item 8, core/linkfault)")
     prior = prior or {}
     groups, gid_of_view = first_hop_groups(topo, cfg)
     pmu, plv = prior.get("mu"), prior.get("logvar")

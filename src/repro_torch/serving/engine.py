@@ -15,21 +15,31 @@ scheme's batched predict into a serving loop:
     pad-to-bucket             batches pad to the smallest bucket in
                               `Scheme.serve_buckets` ({1, 4, 16, 64}), so
                               predict runs at four batch shapes only.
+    fuse-what-arrived         per REQUEST: fault draws are keyed by request
+                              id (`linkfault.request_delivery_mask`, on the
+                              host), so a straggling view misses only its
+                              own fusion, and a request's mask is the same
+                              whether it rides a full bucket or is served
+                              alone.
     metering                  every completed request charges the offered /
                               delivered `BandwidthMeter` ledgers per edge
-                              (serving/metering.py).
+                              (serving/metering.py), delivered from its
+                              real mask.
 
 Numerics contract (tests/test_torch_serving.py): WITHIN a bucket, padding
-and batch composition cannot move any request's output — bit for bit.
-Across bucket sizes outputs agree to float tolerance (each batch shape may
-run another convolution or matrix-product algorithm).
+and batch composition cannot move any request's output — bit for bit,
+clean or faulty (padding is row-inert and fault draws are keyed by request
+id).  Across bucket sizes outputs agree to float tolerance (each batch
+shape may run another convolution or matrix-product algorithm); boolean
+delivery masks are exact everywhere.
 
 Any topology (core/topology.py) serves: a chain or tree runs the
 scheme's `predict_batched(topology=...)` once per bucket, as the star
-does, its latents re-encoded on every hop over the edges' wires.  Not in
-this slice, and refused with NotImplementedError: `transport=` and
-`speculative=` (the transport slice), `deadline_ms=` and link models on the
-topology's edges (the link-fault slice).  `wire` ("dense", "packed",
+does, its latents re-encoded on every hop over the edges' wires.  Link
+models on the topology's edges, or an explicit `deadline_ms=`, switch
+serving onto per-request delivery masks drawn from (`seed`, request id).
+Not in this slice, and refused with NotImplementedError: `transport=` and
+`speculative=` (the transport slice).  `wire` ("dense", "packed",
 "packed_duplex") sets what the meter charges (a packed wire's codeword
 lanes, core/wirefmt.shipped_nbytes) and, on a non-star graph, each hop's
 encoding, which leaves the answers as they are; the star's predict ships
@@ -50,7 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import bandwidth
+from repro_torch.core import bandwidth, linkfault
 from repro_torch.core import topology as topology_lib
 from repro_torch.serving import batching, metering
 
@@ -105,7 +115,10 @@ class ServingEngine:
 
     scheme/state/cfg — a registered Scheme, its state (tensors on
     `device`, which predict checks) and the experiment config.  `device`
-    None means "cuda".
+    None means "cuda".  topology (None: the implicit star) may carry
+    LinkModels; any link model, or an explicit `deadline_ms`, switches
+    serving onto per-request fuse-what-arrived masks, drawn from the key
+    of `seed` and each request's id.
     `buckets` overrides the scheme's grid (a serial baseline is
     `buckets=(1,)`).  `max_queue` sheds at admission once any node's queue
     reaches the bound, resolving the Future with a `Rejected`.
@@ -122,22 +135,21 @@ class ServingEngine:
 
     def __init__(self, scheme, state, cfg, *, topology=None,
                  wire: str = "dense", buckets: Sequence[int] = None,
-                 deadline_ms: Optional[float] = None, transport=None,
-                 speculative: bool = False, max_queue: Optional[int] = None,
-                 device=None):
+                 deadline_ms: Optional[float] = None, seed: int = 0,
+                 transport=None, speculative: bool = False,
+                 max_queue: Optional[int] = None, device=None):
         if transport is not None or speculative:
             raise NotImplementedError(
                 "transport= and speculative fusion come with the transport "
                 "slice of the port")
-        if deadline_ms is not None:
-            raise NotImplementedError(
-                "deadline_ms= (fuse-what-arrived) comes with the link-fault "
-                "slice of the port")
         self.topo = topology_lib.resolve(topology, cfg)
-        if any(e.link is not None for e in self.topo.edges):
-            raise NotImplementedError(
-                "link models on the topology's edges come with the "
-                "link-fault slice of the port")
+        self.deadline_ms = deadline_ms
+        # any link model (or an explicit deadline) switches serving onto
+        # per-request delivery masks; a bare topology stays on the plain
+        # predict, bit-identical to scheme.predict
+        self.faulty = (linkfault.has_link_models(self.topo)
+                       or deadline_ms is not None)
+        self._key = linkfault.key(seed)
         self.device = resolve_device(device)
         self.scheme, self.state, self.cfg = scheme, state, cfg
         self.topology = topology
@@ -163,11 +175,19 @@ class ServingEngine:
 
     # -- the bucketed predict ---------------------------------------------
 
-    def _predict(self, views: np.ndarray) -> torch.Tensor:
+    def _delivery(self, rids: np.ndarray) -> Optional[np.ndarray]:
+        """The (J, n) delivery masks of requests `rids` (None on the clean
+        network): a pure function of (seed, request id, edge)."""
+        if not self.faulty:
+            return None
+        return linkfault.request_delivery_mask(
+            self._key, self.topo, self.cfg, rids, deadline=self.deadline_ms)
+
+    def _predict(self, views: np.ndarray, delivery=None) -> torch.Tensor:
         return self.scheme.predict_batched(
             self.state, torch.from_numpy(views).to(self.device),
-            topology=self.topology, cfg=self.cfg, wire=self.wire,
-            device=self.device)
+            delivery=delivery, topology=self.topology, cfg=self.cfg,
+            wire=self.wire, device=self.device)
 
     def warmup(self) -> None:
         """Run every bucket once, so latency measurements never include a
@@ -175,7 +195,8 @@ class ServingEngine:
         J = self.topo.num_views()
         H, W, C = self.cfg.image_shape
         for b in self.buckets:
-            self._predict(np.zeros((J, b, H, W, C), np.float32)).cpu()
+            self._predict(np.zeros((J, b, H, W, C), np.float32),
+                          self._delivery(np.zeros((b,), np.int64))).cpu()
 
     # -- scheduler-failure propagation ------------------------------------
 
@@ -283,10 +304,12 @@ class ServingEngine:
     def _execute(self, rids: np.ndarray, views: np.ndarray) -> None:
         n = len(rids)
         bucket = batching.pick_bucket(n, self.buckets)
-        pviews, _ = batching.pad_to_bucket(views, rids, bucket)
-        probs_np = self._predict(pviews)[:n].cpu().numpy()   # waits
+        pviews, prids = batching.pad_to_bucket(views, rids, bucket)
+        delivery = self._delivery(prids)    # pad rows repeat the last id
+        probs_np = self._predict(pviews, delivery)[:n].cpu().numpy()  # waits
         t_done = time.perf_counter()
-        mask_np = np.ones((self.topo.num_views(), n), bool)
+        mask_np = (np.ones((self.topo.num_views(), n), bool)
+                   if delivery is None else delivery[:, :n])
         metering.meter_served_batch(self.meter, self.topo, self.cfg,
                                     mask_np, edge_bits=self._edge_bits,
                                     edge_nbytes=self._edge_nbytes)

@@ -14,8 +14,9 @@ the training meter cannot drift apart.
 
 The engine charges these static per-request figures on the OFFERED ledger
 for every completed request, and credits the DELIVERED ledger with each
-edge's surviving payload fraction from the request's delivery mask (all
-ones until link faults are ported, so delivered == offered).
+edge's surviving payload fraction from the request's fuse-what-arrived
+mask: the convention `linkfault.round_fault_charges` applies to training
+rounds, at request granularity here.
 """
 from __future__ import annotations
 

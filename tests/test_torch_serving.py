@@ -9,6 +9,9 @@ tests/test_serving.py and the engine units of tests/test_cluster.py.
   * across buckets, float tolerance and identical decisions;
   * FIFO drain, the wrong view count, scheduler-error propagation,
     max_queue shedding and graceful shutdown;
+  * a deadline and link models on the edges (a lossy star, a chain with a
+    lossy last hop) serve rows equal to `predict_batched` under the
+    request-id-keyed masks, and meter the masks' payload fraction;
   * each option not ported yet raises NotImplementedError naming its slice.
 """
 import time
@@ -24,7 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import inl as jinl  # noqa: E402
 from repro.serving import metering as jmetering  # noqa: E402
 from repro.core import topology as jtopo  # noqa: E402
-from repro_torch.core import schemes  # noqa: E402
+from repro_torch.core import linkfault, schemes  # noqa: E402
 from repro_torch.core import topology as ttopo  # noqa: E402
 from repro_torch.serving import (EngineShutdown, Rejected,  # noqa: E402
                                  ServingEngine, batching, metering)
@@ -245,31 +248,64 @@ def test_shutdown_with_budget_drains_then_stops():
 
 
 # ---------------------------------------------------------------------------
-# options of later slices
+# unreliable links: deadlines and link models on the edges
 # ---------------------------------------------------------------------------
 
-def _relay_chain():
-    """m0 -> r1 -> ... -> fuse with a link model on its last edge: a chain
-    serves (tests/test_torch_topology.py), its link models do not yet."""
-    chain = ttopo.chain(CFG.num_clients)
-    return ttopo.Topology(chain.nodes, chain.edges[:-1] + (ttopo.Edge(
-        chain.edges[-1].src, chain.edges[-1].dst, link=object()),))
+LOSSY = linkfault.LinkModel(erasure=0.3)
 
+
+def _relay_chain():
+    """m0 -> r1 -> ... -> fuse with a lossy last edge, which carries every
+    view's latent."""
+    chain = ttopo.chain(CFG.num_clients)
+    return linkfault.with_links(chain, {chain.edges[-1].key: LOSSY})
+
+
+@pytest.mark.parametrize("option", ["deadline", "lossy star", "lossy chain"])
+def test_faulty_serving_options(option):
+    """Each request's rows equal predict_batched under its request-id-keyed
+    mask, bit for bit in its bucket; views_fused and the delivered ledger
+    follow the same masks."""
+    scheme, state, views = _inl()
+    kw = {"deadline": dict(deadline_ms=10.0),
+          "lossy star": dict(topology=linkfault.with_links(
+              ttopo.star(CFG.num_clients), LOSSY), seed=3),
+          "lossy chain": dict(topology=_relay_chain(), seed=4)}[option]
+    engine = ServingEngine(scheme, state, CFG, device="cpu", **kw)
+    assert engine.faulty
+    with engine:
+        probs, results = engine.serve(views[:, :7])    # one bucket of 16
+    rids = np.array([r.rid for r in results])
+    mask = linkfault.request_delivery_mask(
+        linkfault.key(kw.get("seed", 0)), engine.topo, CFG, rids,
+        deadline=kw.get("deadline_ms"))
+    idx = list(range(7)) + [6] * 9
+    want = scheme.predict_batched(
+        state, views[:, idx], topology=kw.get("topology"), cfg=CFG,
+        delivery=mask[:, idx], device="cpu").numpy()[:7]
+    assert np.array_equal(probs, want)
+    assert [r.views_fused for r in results] == mask.sum(0).tolist()
+    if option == "deadline":          # no link model: every view arrives
+        assert mask.all() and engine.meter.delivery_ratio == 1.0
+    else:
+        assert not mask.all()
+    offered = engine.meter.edge_bits
+    frac = {e.key: mask[list(engine.topo.payload(e))].mean()
+            for e in engine.topo.edges}
+    for k, bits in offered.items():
+        assert np.isclose(engine.meter.edge_delivered_bits[k],
+                          bits * frac[k], rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# options of later slices
+# ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option, slice_name", [
     (dict(transport=object()), "transport"),
     (dict(speculative=True), "transport"),
-    (dict(deadline_ms=10.0), "link-fault"),
-    (dict(topology="lossy"), "link-fault"),
-    (dict(topology="chain"), "topology"),
 ])
 def test_unported_options_raise(option, slice_name):
     scheme, state, _ = _inl()
-    if option.get("topology") == "lossy":
-        star = ttopo.star(CFG.num_clients)
-        option = dict(topology=ttopo.Topology(star.nodes, tuple(
-            ttopo.Edge(e.src, e.dst, link=object()) for e in star.edges)))
-    elif option.get("topology") == "chain":
-        option = dict(topology=_relay_chain())
     with pytest.raises(NotImplementedError, match=slice_name):
         ServingEngine(scheme, state, CFG, device="cpu", **option)

@@ -47,7 +47,8 @@ from repro.core import schemes as jschemes  # noqa: E402
 from repro.core import sl as jsl  # noqa: E402
 from repro.core.schemes import fl as jfl_scheme  # noqa: E402
 from repro_torch import convert, optim, tree_leaves, tree_stack  # noqa: E402
-from repro_torch.core import fl, paper_model, schemes, sl  # noqa: E402
+from repro_torch.core import (fl, linkfault, paper_model,  # noqa: E402
+                              schemes, sl)
 from repro_torch.core import topology  # noqa: E402
 from repro_torch.core.schemes import base, runner  # noqa: E402
 from repro_torch.core.schemes import fl as tfl_scheme  # noqa: E402
@@ -301,19 +302,22 @@ def test_fl_views_packing_and_central_predict():
 
 def test_registry_and_the_options_of_later_slices():
     assert schemes.available() == ("inl", "sl", "fl")
-    lossy = topology.star(CFG.num_clients)
-    lossy = topology.Topology(lossy.nodes, tuple(
-        topology.Edge(e.src, e.dst, link=object()) for e in lossy.edges))
+    lossy = linkfault.with_links(topology.star(CFG.num_clients),
+                                 linkfault.LinkModel(erasure=0.3))
     for name in ("sl", "fl"):
         scheme = schemes.get(name)
-        with pytest.raises(NotImplementedError, match="link-fault"):
-            scheme.make_round(CFG, topology=lossy)
-        with pytest.raises(NotImplementedError, match="link-fault"):
-            scheme.make_round(dataclasses.replace(CFG, edge_dropout=0.2))
+        # unreliable links now build their rounds (tests/
+        # test_torch_linkfault.py runs them); such a round needs its fault
+        # key
+        for cfg, topo in ((CFG, lossy),
+                          (dataclasses.replace(CFG, edge_dropout=0.2), None)):
+            round_fn = scheme.make_round(cfg, topology=topo)
+            with pytest.raises(ValueError, match="round_key"):
+                round_fn(None, None, None, None)
         with pytest.raises(ValueError, match="star topology only"):
             scheme.make_round(CFG, topology=topology.star(CFG.num_clients,
                                                           link_bits=4))
     with pytest.raises(ValueError, match="packable"):
         schemes.get("sl").make_round(CFG, wire="packed")     # link_bits 32
-    with pytest.raises(NotImplementedError, match="link-fault"):
-        fl.make_round(CFG, optim.adam(LR), 2, faulty=True)
+    # the masked FedAvg: a faulty round takes the client delivery mask
+    assert callable(fl.make_round(CFG, optim.adam(LR), 2, faulty=True))

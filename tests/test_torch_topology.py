@@ -24,7 +24,8 @@ same draws.
     chain(5) equal to predict bit for bit, FL/SL refusing graphs with the
     reference's messages, and the heterogeneous-encoder loss and
     gradients;
-  * what stays for ROADMAP items 8 and 9 raises NotImplementedError.
+  * what stays for ROADMAP item 9 raises NotImplementedError, and link
+    models on a graph's edges (item 8) leave its hops as they are.
 """
 import dataclasses
 
@@ -47,7 +48,7 @@ from repro.core.schemes import runner as jrunner  # noqa: E402
 from repro.data import multiview  # noqa: E402
 from repro_torch import convert, optim, tree_leaves, value_and_grad  # noqa
 from repro_torch.core import bandwidth as tbw  # noqa: E402
-from repro_torch.core import inl, schemes, wirefmt  # noqa: E402
+from repro_torch.core import inl, linkfault, schemes, wirefmt  # noqa: E402
 from repro_torch.core import topology as TT  # noqa: E402
 from repro_torch.core.schemes import runner  # noqa: E402
 from repro_torch.serving import ServingEngine, batching  # noqa: E402
@@ -548,8 +549,11 @@ def test_graph_paths_of_later_items_raise():
     for kw in ({"axis_name": "client"}, {"group_ids": torch.zeros(5)}):
         with pytest.raises(NotImplementedError, match="item 9"):
             TT.graph_cut_and_ship(TT.chain(5), CFG, mu, lv, eps, **kw)
+    # link models (item 8, ported) only produce delivery masks: the graph
+    # runs its hops as it would without them, bit for bit
     chain = TT.chain(5)
-    lossy = TT.Topology(chain.nodes, chain.edges[:-1] + (TT.Edge(
-        chain.edges[-1].src, chain.edges[-1].dst, link=object()),))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TT.graph_cut_and_ship(lossy, CFG, mu, lv, eps)
+    lossy = linkfault.with_links(chain, {chain.edges[-1].key:
+                                         linkfault.LinkModel(erasure=0.3)})
+    for got, want in zip(TT.graph_cut_and_ship(lossy, CFG, mu, lv, eps),
+                         TT.graph_cut_and_ship(chain, CFG, mu, lv, eps)):
+        assert torch.equal(got, want)

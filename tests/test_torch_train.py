@@ -197,18 +197,21 @@ def test_train_step_bits_and_metrics():
 
 def test_deferred_training_options_raise():
     cfg = _cfg()
-    from repro_torch.core import topology
-    with pytest.raises(NotImplementedError, match="link-fault"):
-        inl.make_train_step(cfg, optim.adam(1e-3), explicit_delivery=True)
-    with pytest.raises(NotImplementedError, match="link-fault"):
-        star = topology.star(cfg.num_clients, link_bits=4)
-        inl.make_train_step(cfg, optim.adam(1e-3),
-                            topology=topology.Topology(star.nodes, tuple(
-                                topology.Edge(e.src, e.dst, e.link_bits,
-                                              link=object())
-                                for e in star.edges)))
-    with pytest.raises(NotImplementedError, match="link-fault"):
-        inl.make_train_step(_cfg(edge_dropout=0.2), optim.adam(1e-3))
+    from repro_torch.core import linkfault, topology
+    # the transport-mode step, link models and edge dropout are ported
+    # (tests/test_torch_linkfault.py); a step over unreliable links that
+    # is given neither its fault key nor a delivery mask says so
+    assert callable(inl.make_train_step(cfg, optim.adam(1e-3),
+                                        explicit_delivery=True))
+    lossy = linkfault.with_links(topology.star(cfg.num_clients, link_bits=4),
+                                 linkfault.LinkModel(erasure=0.3))
+    v, lab = _batch()
+    for c, topo in ((cfg, lossy), (_cfg(edge_dropout=0.2), None)):
+        params, state = inl.init(c, 0, device="cpu")
+        step = inl.make_train_step(c, optim.adam(1e-3), topology=topo)
+        with pytest.raises(ValueError, match="round_key"):
+            step(params, state, optim.adam(1e-3).init(params), v[0], lab[0],
+                 torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="packable"):     # link_bits 32
         inl.make_train_step(cfg, optim.adam(1e-3), wire="packed")
 
