@@ -148,16 +148,39 @@ Phases, each checked; any failed check exits non-zero before the last line:
               the same in its bucket as alone, rows equal to predict_batched
               under the id-keyed masks bit for bit in their bucket, the
               meter's delivery ratio the masks' fraction.
+  6d. hybrids the hybrid schemes at full width, batch 64
+              (`hybrids:` lines): run_scheme("splitfed") and
+              run_scheme("hybrid") (hybrid_fl_clients=(0,)) for 16 rounds
+              on the dense star, with cut_depth=1, at link_bits=4 on
+              "packed_duplex" and on the packed chain(5) at link_bits=8,
+              launch counts set to 0 just before each and read just after:
+              the loss falls, the launches as predicted (the dense star 17
+              cut_fwd and 16 cut_bwd, the duplex star 16 cut_fwd_pack,
+              unpack_dequant and cut_bwd, the chain 80 pack and
+              unpack_dequant), the meter's per-edge bits and bytes 16 x the
+              closed form from the shapes and, on the star, 16 x the
+              reference's ledgers.  LinkModel() on every edge == no link
+              model for 4 rounds of each, bit for bit; erasure 0.3 an edge
+              for 16 rounds: the launches as clean, the delivery ratio the
+              replayed masks' payload fraction, SplitFed's survivors one
+              average bit for bit and a dead client not that average, the
+              hybrid's weight client 0 keeping its rows bit for bit exactly
+              when its route died.  One round of each, card against the CPU
+              port at the phase-6 bar.  Each trained state served over
+              buckets (1, 4, 16, 64), clean and at erasure 0.3: one cut_fwd
+              an engine launch, rows == predict_batched bit for bit in
+              their bucket.
   7. times    per-bucket predict latency, train-step latency (median of 20
               steps, with the device busy time and idle share from the
               profiler, and the device time by kernel) on the dense,
               packed and duplex wires, on the packed chain(5), tree(2, 2)
               and the mixed-width chain, and on the lossy star beside the
-              clean one (`linkfault times:`), and each kernel's device time
-              beside its bound and its plain version (cut_prior_bwd,
-              unpack_dequant and pack beside their first designs' times, with
-              cut_prior_bwd's first two launches apart), with the card's
-              name and power limit on every line.
+              clean one (`linkfault times:`), one dense round of splitfed,
+              hybrid, SL and FL beside INL's (`hybrids times:`), and each
+              kernel's device time beside its bound and its plain version
+              (cut_prior_bwd, unpack_dequant and pack beside their first
+              designs' times, with cut_prior_bwd's first two launches
+              apart), with the card's name and power limit on every line.
   8. llm      the LLM stack, Zamba2-2.7B:
                 llm kernels  flash_attn_fwd against its plain version over
                              (B, S, H, KV, Dh) in {(1,128,4,4,32),
@@ -205,7 +228,9 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              profiler and, for attention,
                              scaled_dot_product_attention (timed only).
 
-The line before the last two is {"kernels": [...]}, the one before the last
+The line before the last two is {"kernels": [...]} (the cut-layer kernels
+of the hybrids' path with their counts per run, `launches_on_hybrids`),
+the one before the last
 nvidia-smi's name and power limit, and the last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -1695,9 +1720,7 @@ def perfect_links_phase(torch, card_line):
     the star, one FL round, PERFECT_STEPS steps on the packed chain(5); the
     losses and every state leaf (parameters, BatchNorm statistics,
     optimizer state) bit for bit."""
-    from repro_torch import tree_leaves
     from repro_torch.configs.paper_inl import PaperExperimentConfig
-    from repro_torch.core import linkfault, schemes
     from repro_torch.core import topology as T
 
     cfg, cfg8 = PaperExperimentConfig(), PaperExperimentConfig(
@@ -1707,6 +1730,17 @@ def perfect_links_phase(torch, card_line):
             ("FL star", "fl", cfg, T.star(cfg.num_clients), "dense", 1),
             ("INL chain(5) packed", "inl", cfg8, T.chain(5), "packed",
              PERFECT_STEPS))
+    perfect_equals_bare(torch, card_line, runs, "linkfault")
+
+
+def perfect_equals_bare(torch, card_line, runs, prefix):
+    """Each (label, scheme, config, topology, wire, steps) of `runs`: the
+    topology with LinkModel() on every edge against the bare one, from one
+    state and one generator, deterministic algorithms on; the losses and
+    every state leaf bit for bit."""
+    from repro_torch import tree_leaves
+    from repro_torch.core import linkfault, schemes
+
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for label, name, c, bare, wire, steps in runs:
@@ -1733,7 +1767,7 @@ def perfect_links_phase(torch, card_line):
             check(len(sa) == len(sb) > 0
                   and all(same_bits(a, b) for a, b in zip(sa, sb)),
                   f"{label}: perfect links moved a state leaf")
-            print(f"linkfault: perfect links on {label} == no link model, "
+            print(f"{prefix}: perfect links on {label} == no link model, "
                   f"{steps} round(s) bit for bit (losses "
                   f"{[float(x) for x in la]}, {len(sa)} state leaves) "
                   f"[{card_line}]")
@@ -2028,6 +2062,380 @@ def lossy_serving_phase(torch, card_line):
 
 
 # ---------------------------------------------------------------------------
+# 6d. the hybrid schemes (SplitFed, hybrid FL/SL) at full width
+# ---------------------------------------------------------------------------
+
+HYBRIDS = ("splitfed", "hybrid")
+HYBRID_SAMPLES = 1024               # 16 rounds of 64 in one epoch
+# the reference's ledgers (src/repro/core/schemes/{splitfed,hybrid}.py) at
+# PaperExperimentConfig(), batch 64, hybrid_fl_clients=(0,): (bits,
+# measured bytes) of one round, by run
+HYBRID_CLOSED = {
+    ("dense", "splitfed"): (115_220_480, 14_402_560),
+    ("dense", "hybrid"): (23_872_128, 2_984_016),
+    ("dense cut_depth=1", "splitfed"): (337_203_200, 42_150_400),
+    ("dense cut_depth=1", "hybrid"): (68_268_672, 8_533_584),
+    ("packed_duplex b=4", "splitfed"): (114_073_600, 14_259_200),
+    ("packed_duplex b=4", "hybrid"): (22_954_624, 2_869_328),
+}
+HYBRID_SEED_TRIES = 1000
+
+
+def hybrid_runs():
+    """(label, config, topology, wire) of the hybrids' training runs: the
+    dense star, the client trunk cut after its first block, the frontier
+    bench's width (benchmarks/frontier_bench.py: link_bits 4 on the duplex
+    wire) and the packed chain(5)."""
+    import dataclasses
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import topology as T
+
+    cfg = PaperExperimentConfig()
+    return (("dense", cfg, None, "dense"),
+            ("dense cut_depth=1", dataclasses.replace(cfg, cut_depth=1),
+             None, "dense"),
+            ("packed_duplex b=4", PaperExperimentConfig(link_bits=4), None,
+             "packed_duplex"),
+            ("chain(5) packed b=8", PaperExperimentConfig(link_bits=WIRE_BITS),
+             T.chain(5), "packed"))
+
+
+def hybrid_round_charges(name, cfg, topo, wire, state):
+    """{edge: (bits, bytes)} of one round at batch 64 from the shapes alone,
+    apart from the schemes' ledgers: an edge carrying n_cut cut latents and
+    n_w weight exchanges moves 2 * 64 * n_cut * d * b bits of activations
+    and error vectors (fp32 values, or lanes of 32 // b codewords on a
+    packed direction) plus 2 * n_w * 32 * N bits of fp32 weights, N the
+    client-side parameters counted in `state` (SplitFed: every payload
+    client's encoder; hybrid: the weight-mode clients' encoder and branch
+    head)."""
+    from repro_torch import tree_leaves
+    J, d, b = cfg.num_clients, cfg.d_bottleneck, cfg.link_bits
+    n = sum(t.numel() for t in tree_leaves(state["params"]["encoders"])) // J
+    weight = set()
+    if name == "hybrid":
+        weight = set(cfg.hybrid_fl_clients)
+        n += d * cfg.num_classes + cfg.num_classes
+    value = 4 * d
+    lanes = 4 * -(-d // (32 // b)) if b <= 16 else None
+    out = {}
+    for e in topo.topo_edges():
+        pay = topo.payload(e)
+        n_cut = len(pay) if name == "splitfed" \
+            else sum(j not in weight for j in pay)
+        n_w = len(pay) if name == "splitfed" else len(pay) - n_cut
+        rows = TRAIN_BATCH * n_cut
+        fwd = rows * (value if wire == "dense" else lanes)
+        bwd = rows * (lanes if wire == "packed_duplex" else value)
+        out[e.key] = (2 * rows * d * b + 2 * n_w * 32 * n,
+                      fwd + bwd + 2 * n_w * 4 * n)
+    return out
+
+
+def hybrid_launches(wire, topo, rounds):
+    """The cut-layer launches of `rounds` training rounds and one
+    evaluation: one cut per round (and one for the evaluation), the packed
+    star's pack-emitting cut and unpack, a packed graph's pack and unpack
+    on every hop."""
+    if topo is not None:
+        hops = len(topo.edges)
+        return {"cut_fwd": rounds + 1, "cut_bwd": rounds,
+                "pack": hops * rounds, "unpack_dequant": hops * rounds}
+    if wire == "dense":
+        return {"cut_fwd": rounds + 1, "cut_bwd": rounds}
+    return {"cut_fwd_pack": rounds, "unpack_dequant": rounds,
+            "cut_bwd": rounds, "cut_fwd": 1}
+
+
+def hybrids_training_phase(torch, card_line):
+    """run_scheme of both hybrids on each of `hybrid_runs`, 16 rounds,
+    launch counts set to 0 just before and read just after: the loss falls,
+    the launches as `hybrid_launches` predicts, the meter's per-edge bits
+    and bytes 16 x `hybrid_round_charges` and, on the star, 16 x the
+    reference's closed forms.  Returns ({"scheme run": launches}, {scheme:
+    (config, the dense run's trained state)})."""
+    from repro_torch.core import topology as T
+
+    out, trained = {}, {}
+    rounds = HYBRID_SAMPLES // TRAIN_BATCH
+    for label, cfg, topo, wire in hybrid_runs():
+        views, labels = training_data(cfg, HYBRID_SAMPLES)
+        graph = topo or T.star(cfg.num_clients)
+        for name in HYBRIDS:
+            states = []
+            curve, loss, launches, meter, wall, _ = recorded_run(
+                torch, name, cfg, views, labels, epochs=1, wire=wire,
+                topology=topo, states=states)
+            check(len(loss) == rounds, f"{name} {label}: {len(loss)} rounds")
+            first, last = falls(loss)
+            expect_launches(launches, hybrid_launches(wire, topo, rounds),
+                            f"{name} {label}")
+            charges = hybrid_round_charges(name, cfg, graph, wire,
+                                           states[-1][1])
+            check(meter.edge_bits == {k: rounds * b
+                                      for k, (b, _) in charges.items()}
+                  and meter.edge_measured_bytes == {
+                      k: rounds * n for k, (_, n) in charges.items()},
+                  f"{name} {label}: per-edge bits {meter.edge_bits}, bytes "
+                  f"{meter.edge_measured_bytes}, closed form {charges}")
+            bits = sum(b for b, _ in charges.values())
+            nbytes = sum(n for _, n in charges.values())
+            if (label, name) in HYBRID_CLOSED:
+                check((bits, nbytes) == HYBRID_CLOSED[label, name],
+                      f"{name} {label}: ({bits}, {nbytes}) a round, the "
+                      f"reference's {HYBRID_CLOSED[label, name]}")
+            check(meter.total_bits == rounds * bits
+                  and meter.measured_bytes == rounds * nbytes
+                  and meter.delivery_ratio == 1.0,
+                  f"{name} {label}: meter {meter.total_bits} bits, "
+                  f"{meter.measured_bytes} bytes")
+            out[f"{name} {label}"] = launches
+            if label == "dense":
+                trained[name] = (cfg, states[-1][1])
+            print(f"hybrids: run_scheme('{name}') {label} (link_bits="
+                  f"{cfg.link_bits}, cut_depth {cfg.cut_depth}, "
+                  f"{'star' if topo is None else 'chain(5)'}), {rounds} "
+                  f"rounds in {wall:.2f} s; loss {loss[0]:.4f} -> "
+                  f"{loss[-1]:.4f} (first 4 {first:.4f}, last 4 {last:.4f}); "
+                  f"accuracy {curve[-1].accuracy:.4f}; {bits} bits and "
+                  f"{nbytes} bytes a round (metered == closed form per "
+                  f"edge); launches {launches} [{card_line}]")
+    return out, trained
+
+
+def _hybrid_lossy_seed(topo, cfg, rounds):
+    """The first seed whose round masks include a round with some but not
+    all routes dead, one with route 0 (hybrid's weight client) dead and one
+    with it alive."""
+    from repro_torch.core import linkfault as LF
+    J = cfg.num_clients
+    for seed in range(HYBRID_SEED_TRIES):
+        masks = [LF.round_delivery_mask(LF.round_key(seed, r), topo, cfg,
+                                        TRAIN_BATCH, train=True)
+                 for r in range(rounds)]
+        if any(0 < m.sum() < J for m in masks) \
+                and any(not m[0] for m in masks) and any(m[0] for m in masks):
+            return seed, masks
+    raise CheckFailed("no seed gives the lossy rounds the checks need")
+
+
+def hybrids_faults_phase(torch, card_line):
+    """Perfect links (PERFECT_STEPS rounds of each scheme: LinkModel() on
+    every edge == no link model, bit for bit), then both schemes through
+    run_scheme at erasure HEADLINE_ERASURE an edge of the star for 16
+    rounds, launch counts set to 0 just before and read just after: the
+    launches of the clean network, the meter's delivery ratio the replayed
+    masks' payload fraction, and each round's state against its mask:
+    SplitFed's survivors hold one average bit for bit while a dead client
+    keeps its own update, not that average; the hybrid's weight client 0
+    keeps its previous encoder and branch-head rows bit for bit exactly
+    when its route died.  Returns {"scheme lossy star": launches}."""
+    from repro_torch import tree_leaves
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import topology as T
+
+    cfg = PaperExperimentConfig()
+    star = T.star(cfg.num_clients)
+    perfect_equals_bare(torch, card_line, [
+        (f"{name} star", name, cfg, star, "dense", PERFECT_STEPS)
+        for name in HYBRIDS], "hybrids")
+    lossy = LF.with_links(star, LF.LinkModel(erasure=HEADLINE_ERASURE))
+    rounds = LOSSY_STEPS
+    seed, masks = _hybrid_lossy_seed(lossy, cfg, rounds)
+    views, labels = training_data(cfg, rounds * TRAIN_BATCH)
+    out = {}
+    for name in HYBRIDS:
+        states = []
+        curve, loss, launches, meter, wall, _ = recorded_run(
+            torch, name, cfg, views, labels, epochs=1, seed=seed,
+            topology=lossy, states=states)
+        expect_launches(launches, hybrid_launches("dense", None, rounds),
+                        f"lossy {name}")
+        charges = hybrid_round_charges(name, cfg, lossy, "dense",
+                                       states[0][0])
+        delivered = sum(charges[e.key][0] * float(np.mean(m[list(
+            lossy.payload(e))])) for m in masks for e in lossy.edges)
+        ratio = delivered / (rounds * sum(b for b, _ in charges.values()))
+        check(np.isclose(meter.delivery_ratio, ratio, rtol=1e-12, atol=0)
+              and ratio < 1.0,
+              f"lossy {name}: meter delivery ratio {meter.delivery_ratio} "
+              f"!= the masks' {ratio}")
+        checked = []
+        for r, ((before, after), m) in enumerate(zip(states, masks)):
+            enc = tree_leaves(after["params"]["encoders"])
+            if name == "splitfed":
+                if not 0 < m.sum() < len(m):
+                    continue
+                alive = np.flatnonzero(m)
+                for x in enc:
+                    check(all(same_bits(x[alive[0]], x[j]) for j in alive),
+                          f"lossy splitfed round {r}: survivors differ")
+                for j in np.flatnonzero(~m):
+                    check(not same_bits(enc[0][j], enc[0][alive[0]]),
+                          f"lossy splitfed round {r}: dead client {j} holds "
+                          f"the survivors' average")
+            else:
+                enc += tree_leaves(after["params"]["decoder"]["branch_heads"])
+                prev = tree_leaves((before["params"]["encoders"],
+                                    before["params"]["decoder"]
+                                    ["branch_heads"]))
+                kept = all(same_bits(a[0], b[0]) for a, b in zip(enc, prev))
+                check(kept == (not m[0]),
+                      f"lossy hybrid round {r}: weight client 0's route "
+                      f"{'died' if not m[0] else 'held'} but its rows "
+                      f"{'moved' if not kept else 'stayed'}")
+                check(not same_bits(enc[0][1], prev[0][1]),
+                      f"lossy hybrid round {r}: cut client 1 did not move")
+            checked.append(r)
+        out[f"{name} lossy star"] = launches
+        print(f"hybrids: run_scheme('{name}') on the star at erasure "
+              f"{HEADLINE_ERASURE} an edge (seed {seed}), {rounds} rounds in "
+              f"{wall:.2f} s; loss {loss[0]:.4f} -> {loss[-1]:.4f}; accuracy "
+              f"{curve[-1].accuracy:.4f}; delivery ratio "
+              f"{meter.delivery_ratio!r} == the masks' {ratio!r}; rounds "
+              f"{checked} checked against their masks bit for bit; "
+              f"launches {launches} [{card_line}]")
+    return out
+
+
+def hybrids_card_vs_cpu(torch, card_line):
+    """One round of each scheme from one state and one set of dropout masks
+    drawn on the CPU and moved to the card: the loss and every gradient
+    leaf at the phase-6 bar (grads_close), and the round's loss on both
+    within rtol 1e-3."""
+    from repro_torch import tree_leaves, tree_map, value_and_grad
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import paper_model, schemes
+
+    cfg = PaperExperimentConfig()
+    views, labels = training_data(cfg)
+    v = torch.from_numpy(views[:, :TRAIN_BATCH])
+    lab = torch.from_numpy(labels[:TRAIN_BATCH]).long()
+    for k, name in enumerate(HYBRIDS):
+        scheme = schemes.get(name)
+        cpu = scheme.init(cfg, torch.Generator().manual_seed(21 + k),
+                          device="cpu")
+        gpu = tree_map(lambda t: t.to(DEV), cpu)
+        masks = paper_model.decoder_dropout_masks(
+            torch.Generator().manual_seed(23 + k), cfg.dense_units,
+            TRAIN_BATCH)
+        res = {}
+        for dev, st in (("cpu", cpu), (DEV, gpu)):
+            modes = (st["modes"],) if name == "hybrid" else ()
+            drop = [m.to(dev) for m in masks]
+            loss, _, grads = value_and_grad(
+                scheme._loss, st["params"], st["state"], *modes, v.to(dev),
+                lab.to(dev), cfg, wire="dense", topo=None, delivery=None,
+                drop_masks=drop)
+            _, m = scheme.make_round(cfg)(st, v[None].to(dev),
+                                          lab[None].to(dev), None,
+                                          drop_masks=drop)
+            res[dev] = (float(loss), tree_leaves(grads), float(m["loss"]))
+        (l_cpu, g_cpu, r_cpu), (l_gpu, g_gpu, r_gpu) = res["cpu"], res[DEV]
+        max_leaf, max_abs, off = grads_close(l_gpu, l_cpu, g_gpu, g_cpu,
+                                             name)
+        check(np.isclose(r_gpu, r_cpu, rtol=1e-3, atol=0),
+              f"{name}: the round's loss card {r_gpu} vs cpu {r_cpu}")
+        print(f"hybrids: one {name} round, card against the CPU port: loss "
+              f"{l_gpu:.7f} / {l_cpu:.7f}; {len(g_gpu)} gradient leaves "
+              f"within rtol 1e-3 atol 1e-5 as tensors, largest |card - cpu|"
+              f" / |cpu| of a leaf {max_leaf:.3g}, largest entry difference "
+              f"{max_abs:.3g}, {off} entries outside the bar taken entry by "
+              f"entry [{card_line}]")
+
+
+def hybrids_serving_phase(torch, card_line, trained):
+    """Each scheme's trained state served by a ServingEngine over buckets
+    (1, 4, 16, 64), on the clean star and with LinkModel(erasure=0.3) on
+    every edge, launch counts set to 0 just before and read just after:
+    one cut_fwd an engine launch; rows finite, summing to 1 and equal bit
+    for bit to predict_batched in their bucket (under the id-keyed masks on
+    the lossy star).  Returns {"scheme served ...": launches}."""
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import schemes
+    from repro_torch.core import topology as T
+    from repro_torch.data import multiview
+    from repro_torch.serving import ServingEngine
+
+    out = {}
+    for name, (cfg, state) in trained.items():
+        scheme = schemes.get(name)
+        imgs, _ = multiview.make_base_dataset(N_REQUESTS, seed=cfg.seed)
+        views = multiview.make_views(imgs, cfg.noise_stds)
+        lossy = LF.with_links(T.star(cfg.num_clients),
+                              LF.LinkModel(erasure=HEADLINE_ERASURE))
+        for label, topo in (("clean star", None), ("lossy star", lossy)):
+            engine = ServingEngine(scheme, state, cfg, topology=topo,
+                                   buckets=BUCKETS, seed=24, device=DEV)
+            engine.warmup()
+            torch.cuda.synchronize()
+            reset_launches()
+            futs, view_of = [], {}
+            with engine:
+                for k in (1, 2, 4, 7, 16, 33, 64) * 2:
+                    burst = []
+                    for _ in range(k):
+                        rid, fut = engine.submit(views[:, len(futs)
+                                                       % N_REQUESTS])
+                        view_of[rid] = len(futs) % N_REQUESTS
+                        futs.append(fut)
+                        burst.append(fut)
+                    for f in burst:
+                        f.result(timeout=60)
+            launches = read_launches()
+            results = [f.result(timeout=60) for f in futs]
+            stats = engine.stats
+            expect_launches(launches, {"cut_fwd": stats.launches},
+                            f"{name} served on the {label}")
+            checked = 0
+            for b in sorted({r.bucket for r in results}):
+                rows = [r for r in results if r.bucket == b]
+                for c in range(0, len(rows), b):
+                    chunk = rows[c:c + b]
+                    ids = [r.rid for r in chunk]
+                    ids += [ids[-1]] * (b - len(ids))
+                    mask = None if topo is None else \
+                        LF.request_delivery_mask(LF.key(24), topo, cfg, ids)
+                    idx = [view_of[i] for i in ids]
+                    ref = scheme.predict_batched(
+                        state, views[:, idx], delivery=mask, topology=topo,
+                        cfg=cfg, device=DEV).cpu().numpy()[:len(chunk)]
+                    got = np.stack([r.probs for r in chunk])
+                    check(np.array_equal(got, ref),
+                          f"{name} served on the {label}: rows differ from "
+                          f"predict_batched in bucket {b}: max "
+                          f"{np.abs(got - ref).max()}")
+                    checked += len(chunk)
+            probs = np.stack([r.probs for r in results])
+            check(np.isfinite(probs).all()
+                  and np.abs(probs.sum(-1) - 1.0).max() <= 1e-5,
+                  f"{name} served on the {label}: rows not finite or not "
+                  f"summing to 1")
+            ratio = engine.meter.delivery_ratio
+            check((ratio == 1.0) == (topo is None),
+                  f"{name} served on the {label}: delivery ratio {ratio}")
+            out[f"{name} served {label}"] = launches
+            print(f"hybrids: served {name} on the {label}: {len(results)} "
+                  f"requests in {stats.launches} engine launches over "
+                  f"buckets {sorted({r.bucket for r in results})}, {checked}"
+                  f" rows == predict_batched(cuda) bit for bit in their "
+                  f"bucket; delivery ratio {ratio!r}; launches {launches} "
+                  f"[{card_line}]")
+    return out
+
+
+def hybrids_phase(torch, card_line):
+    """The hybrid schemes on the card: training, faults, card against CPU,
+    serving.  Returns {run: launches} over all of them."""
+    launches, trained = hybrids_training_phase(torch, card_line)
+    launches.update(hybrids_faults_phase(torch, card_line))
+    hybrids_card_vs_cpu(torch, card_line)
+    launches.update(hybrids_serving_phase(torch, card_line, trained))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 7. times
 # ---------------------------------------------------------------------------
 
@@ -2150,12 +2558,13 @@ def timing_phase(torch, scheme, state, views, card_line):
 
 
 def train_step_timing(torch, card_line, *, wire="dense", link_bits=32,
-                      topology=None, cfg=None, label=None):
-    """Train-step latency at full width and batch 64 on `wire` (on the star,
-    or on `topology` at `cfg`): the median of 20 steps on the host's clock,
-    and the device's busy time per step from the profiler, with its
-    breakdown by kernel.  Over unreliable links each step takes the next
-    round's fault key, as run_scheme hands them out."""
+                      topology=None, cfg=None, label=None, name="inl"):
+    """Train-step latency of scheme `name` (one round: for FL, ten local
+    steps) at full width and batch 64 on `wire` (on the star, or on
+    `topology` at `cfg`): the median of 20 rounds on the host's clock, and
+    the device's busy time per round from the profiler, with its breakdown
+    by kernel.  Over unreliable links each step takes the next round's
+    fault key, as run_scheme hands them out."""
     from repro_torch.configs.paper_inl import PaperExperimentConfig
     from repro_torch.core import linkfault, schemes
     from repro_torch.core import topology as T
@@ -2163,13 +2572,18 @@ def train_step_timing(torch, card_line, *, wire="dense", link_bits=32,
     cfg = cfg or PaperExperimentConfig(link_bits=link_bits)
     label = label or wire
     views, labels = training_data(cfg)
-    scheme = schemes.get("inl")
+    scheme = schemes.get(name)
     state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(6),
                         device=DEV)
     round_fn = scheme.make_round(cfg, wire=wire, topology=topology)
     gen = torch.Generator(device=DEV).manual_seed(7)
-    v = torch.from_numpy(views[:, :TRAIN_BATCH]).to(DEV)[None]
-    lab = torch.from_numpy(labels[:TRAIN_BATCH]).to(DEV).long()[None]
+    # (R, J, B, ...) views and (R, B) labels, R the round's minibatches
+    R = scheme.batches_per_round(cfg)
+    v = torch.from_numpy(views[:, :R * TRAIN_BATCH]).to(DEV)
+    v = v.reshape((v.shape[0], R, TRAIN_BATCH) + v.shape[2:]).transpose(
+        0, 1).contiguous()
+    lab = torch.from_numpy(labels[:R * TRAIN_BATCH]).to(DEV).long().reshape(
+        R, TRAIN_BATCH)
     box = [state]
     faulty = linkfault.active(T.resolve(topology, cfg), cfg, train=True)
     count = [0]
@@ -2763,6 +3177,9 @@ def llm_kernel_timing(torch, card_line):
 
 CUT_LAYER_SOURCES = ("cut_fwd", "cut_bwd", "cut_prior_fwd", "cut_prior_bwd",
                      "cut_fwd_pack", "pack", "unpack_dequant")
+# the kernels the hybrid schemes' runs launch (the deterministic cut)
+HYBRID_PATH_KERNELS = ("cut_fwd", "cut_bwd", "cut_fwd_pack", "pack",
+                       "unpack_dequant")
 
 
 def main() -> int:
@@ -2814,6 +3231,7 @@ def main() -> int:
     lossy_launches = lossy_training_phase(torch, card)
     lossy_card_vs_cpu(torch, card)
     lossy_serve_launches = lossy_serving_phase(torch, card)
+    hybrid_launches_by_run = hybrids_phase(torch, card)
     torch.cuda.synchronize()
     rows = timing_phase(torch, scheme, state, views, card)
     steps = {wire: train_step_timing(torch, card, wire=wire,
@@ -2834,6 +3252,15 @@ def main() -> int:
           f"{lb:.4f} ms) against the clean star's {cw:.3f} ms (busy "
           f"{cb:.4f} ms) in this run: {lw - cw:+.3f} ms wall, "
           f"{lb - cb:+.4f} ms busy [{card}]")
+    for hname in HYBRIDS + ("sl", "fl"):
+        steps[f"{hname} dense"] = train_step_timing(
+            torch, card, name=hname, label=f"{hname} dense")
+    rounds = [("inl", steps["dense"])] + [
+        (h, steps[f"{h} dense"]) for h in HYBRIDS + ("sl", "fl")]
+    print("hybrids times: one dense round at PaperExperimentConfig(), batch "
+          "64 (FL: ten local steps), median wall and device busy: "
+          + ", ".join(f"{h} {w:.3f} ms (busy {b:.4f} ms)"
+                      for h, (w, b) in rounds) + f" [{card}]")
     rows.update(new_kernel_timing(torch, card))
     rows.update(pack_kernel_timing(torch, card))
     torch.cuda.synchronize()
@@ -2864,6 +3291,10 @@ def main() -> int:
     lossy["cut_fwd"]["served lossy star"] = lossy_serve_launches["cut_fwd"]
     check(all(lossy[k] for k in CUT_LAYER_SOURCES),
           f"a cut-layer kernel never launched on the lossy paths: {lossy}")
+    on_hybrids = {k: {run: n[k] for run, n in hybrid_launches_by_run.items()
+                      if n[k]} for k in HYBRID_PATH_KERNELS}
+    check(all(on_hybrids.values()),
+          f"a kernel of the hybrids' path never launched: {on_hybrids}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s; final accuracy {accuracy}, "
           f"train step " + ", ".join(
@@ -2905,6 +3336,8 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
             "shape": shape, "launches_per_train_step": per_step,
             "path": path, "launches_on_lossy_links": lossy[kname]}
+        if kname in on_hybrids:
+            entry["launches_on_hybrids"] = on_hybrids[kname]
         if kname in REDESIGNED:
             entry["redesigned"] = REDESIGNED[kname]
             entry["at_large_r"] = {

@@ -1,11 +1,11 @@
 """Parameters of the JAX package, in the port's layout.
 
-`inl_from_jax`, `inl_heterogeneous_from_jax`, `sl_from_jax` and
-`fl_from_jax` take the reference's
-parameters and state as numpy trees (for example `jax.tree.map(np.asarray,
-params)`) and return the port's, so both packages compute the same
-function.  They read plain attributes and dict keys only; the port imports
-nothing of JAX or `repro`.
+`inl_from_jax`, `inl_heterogeneous_from_jax`, `sl_from_jax`,
+`fl_from_jax`, `splitfed_from_jax` and `hybrid_from_jax` take the
+reference's parameters and state as numpy trees (for example
+`jax.tree.map(np.asarray, params)`) and return the port's, so both
+packages compute the same function.  They read plain attributes and dict
+keys only; the port imports nothing of JAX or `repro`.
 
     conv weights   HWIO (..., 3, 3, I, O) -> OIHW (..., O, I, 3, 3), any
                    leading axes (INL's stacked J nodes, FL's J clients)
@@ -15,11 +15,12 @@ nothing of JAX or `repro`.
     priors         the learned (J, d) prior mean/log-variance copied ({}
                    for the standard normal)
 
-INL stacks its J encoders along a leading axis (its heterogeneous-encoder
-variant keeps a list of J encoders of differing architectures,
-`inl_heterogeneous_from_jax`); SL and FL keep a list of J per-branch
-encoders, as the reference does, and FL stacks the J client copies of
-everything along a leading axis.
+INL, SplitFed and the hybrid stack their J encoders along a leading axis
+(the hybrids' at the client-side trunk, `client_cfg`; INL's
+heterogeneous-encoder variant keeps a list of J encoders of differing
+architectures, `inl_heterogeneous_from_jax`); SL and FL keep a list of J
+per-branch encoders, as the reference does, and FL stacks the J client
+copies of everything along a leading axis.
 
 `zoo_from_jax` maps the reference's `models.zoo.init_params` tree onto the
 port's (`repro_torch.models.zoo`): the trees have one structure, dense
@@ -124,6 +125,30 @@ def fl_from_jax(params_np, state_np, cfg, device=None):
     state = {"encoders": [_encoder_state(s, device)
                           for s in state_np["encoders"]]}
     return params, state
+
+
+def splitfed_from_jax(params_np, state_np, cfg, device=None):
+    """The reference SplitFed's (params {"encoders": stacked over J,
+    "decoder"}, state {"encoders": stacked}) -> the port's, on `device`
+    (None: cuda).  The encoders are converted at `client_cfg(cfg)`, the
+    trunk `cut_depth` keeps client-side."""
+    from repro_torch.core.schemes.splitfed import client_cfg
+    device = resolve_device(device)
+    params = {"encoders": _encoder(params_np["encoders"], client_cfg(cfg),
+                                   device),
+              "decoder": _decoder(params_np["decoder"], device)}
+    return params, {"encoders": _encoder_state(state_np["encoders"],
+                                               device)}
+
+
+def hybrid_from_jax(params_np, state_np, modes_np, cfg, device=None):
+    """The reference hybrid's params and state (SplitFed's layout) and its
+    (J,) `modes` -> the port's (params, state, modes), on `device` (None:
+    cuda)."""
+    params, state = splitfed_from_jax(params_np, state_np, cfg, device)
+    device = resolve_device(device)
+    return params, state, torch.tensor(np.asarray(modes_np, bool),
+                                       device=device)
 
 
 FP32_LEAVES = ("A_log", "D", "dt_bias")

@@ -85,16 +85,9 @@ def init(cfg, generator, *, device=None):
 def _encode_mu_logvar(params: INLParams, state, views, *, train: bool):
     """All J per-node encoders: views (J, B, H, W, C) ->
     ((mu, logvar) (J, B, d), new encoder state)."""
-    mus, lvs, new_states = [], [], []
-    for j in range(views.shape[0]):
-        node_p = tree_map(lambda t: t[j], params.encoders)
-        node_s = tree_map(lambda t: t[j], state["encoders"])
-        (mu, lv), ns = paper_model.encoder_apply(node_p, node_s, views[j],
-                                                 train=train)
-        mus.append(mu)
-        lvs.append(lv)
-        new_states.append(ns)
-    return (torch.stack(mus), torch.stack(lvs)), tree_stack(new_states)
+    return paper_model.stacked_encoder_apply(params.encoders,
+                                             state["encoders"], views,
+                                             train=train)
 
 
 def encode_and_rate(params: INLParams, state, views, *, train: bool,
@@ -264,13 +257,8 @@ def make_train_step(cfg, optimizer, *, rate_estimator: str = "sample",
 
         step(params, state, opt_state, views, labels, generator, delivery,
              *, eps=None, drop_masks=None)"""
-    topo = topology_lib.nontrivial(topology, cfg)
-    if topo is None:
-        wirefmt.resolve_wire(wire, cfg.link_bits)
-    else:                       # each edge's wire at its own width
-        for e in topo.edges:
-            wirefmt.resolve_wire(topology_lib.edge_wire(e, wire),
-                                 topology_lib.edge_bits(e, cfg))
+    topology_lib.check_wires(topology_lib.nontrivial(topology, cfg), cfg,
+                             wire)
 
     def step(params, state, opt_state, views, labels, generator, *,
              eps=None, drop_masks=None, round_key=None, delivery=None):

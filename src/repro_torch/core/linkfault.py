@@ -324,7 +324,7 @@ def request_delivery_mask(k, topo, cfg, request_ids, *,
 # Partial fusion: mask the missing chunks, renormalise the survivors
 # ---------------------------------------------------------------------------
 
-def _as_tensor(mask, device) -> torch.Tensor:
+def mask_tensor(mask, device) -> torch.Tensor:
     """A bool mask (an array or a tensor) as a bool tensor on `device`."""
     if not isinstance(mask, torch.Tensor):
         mask = torch.from_numpy(np.array(mask, bool))
@@ -343,7 +343,7 @@ def partial_fuse(u: torch.Tensor, mask) -> torch.Tensor:
     backward, the masked multiply zeroes the dropped chunks' cotangents.
     An all-dropped fusion yields the zero vector."""
     J = u.shape[0]
-    mask = _as_tensor(mask, u.device)
+    mask = mask_tensor(mask, u.device)
     m = mask.to(u.dtype)
     while m.dim() < u.dim():
         m = m[..., None]                        # (J,1,1) or (J,B,1)
@@ -418,7 +418,7 @@ def degrade_probs(probs: torch.Tensor, ok) -> torch.Tensor:
     """Replace failed requests' predictions with the uniform distribution
     (the server answers, but not from this request's data)."""
     C = probs.shape[-1]
-    ok = _as_tensor(ok, probs.device)
+    ok = mask_tensor(ok, probs.device)
     return torch.where(ok[:, None], probs, torch.full_like(probs, 1.0 / C))
 
 

@@ -10,6 +10,9 @@ apply unchanged.  Inside, the trunk runs NCHW for F.conv2d; `conv`,
 `bn_apply` and `maxpool2` take NCHW tensors.  Conv weights are stored
 OIHW.
 
+`stacked_encoder_apply` runs J encoders stacked along a leading axis (INL's
+nodes, the hybrids' clients) one after another.
+
 BatchNorm is written by hand, not nn.BatchNorm2d: training statistics use
 the two-pass biased variance, and BN_MOMENTUM = 0.9 weighs the OLD running
 statistic, as the reference does.
@@ -21,7 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch import tree_map
+from repro_torch import tree_map, tree_stack
 from repro_torch.core import bottleneck
 from repro_torch.models import layers
 
@@ -152,6 +155,21 @@ def encoder_apply(params, state, x, *, train: bool):
     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
     mu, logvar = bottleneck.head_apply(params["head"], h)
     return (mu, logvar), {"bns": new_bns}
+
+
+def stacked_encoder_apply(params, state, views, *, train: bool):
+    """J encoders whose parameter and state leaves stack along a leading J
+    axis, one after another: views (J, B, H, W, C) -> ((mu, logvar) (J, B,
+    d), new stacked state)."""
+    mus, lvs, new_states = [], [], []
+    for j in range(views.shape[0]):
+        (mu, lv), ns = encoder_apply(tree_map(lambda t: t[j], params),
+                                     tree_map(lambda t: t[j], state),
+                                     views[j], train=train)
+        mus.append(mu)
+        lvs.append(lv)
+        new_states.append(ns)
+    return (torch.stack(mus), torch.stack(lvs)), tree_stack(new_states)
 
 
 # ---------------------------------------------------------------------------

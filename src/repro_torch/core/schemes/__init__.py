@@ -1,8 +1,10 @@
 """Unified Scheme API: the registry.
 
 Reference: src/repro/core/schemes/__init__.py (`register`, `get`,
-`available`).  The port registers INL, SL and FL, the paper's three-way
-comparison; splitfed and hybrid come with their slice of the port.
+`available`).  The port registers the reference's five schemes: INL, SL
+and FL, the paper's three-way comparison, first; then the hybrids,
+splitfed (SL-style cut exchange plus a FedAvg of the client encoders) and
+hybrid (per-client cut- or weight-mode participation).
 """
 from __future__ import annotations
 
@@ -35,4 +37,5 @@ def available():
 
 
 # importing the built-in schemes self-registers them
-from repro_torch.core.schemes import fl, inl, sl  # noqa: E402,F401
+from repro_torch.core.schemes import fl, hybrid, inl, sl, \
+    splitfed  # noqa: E402,F401

@@ -7,6 +7,8 @@ resolution `resolve`, `nontrivial`, `require_star`, `edge_bits`,
 `round_edge_wire_bytes`, `round_bits`, `round_wire_bytes`, and the graph's
 execution `first_hop_groups` and `graph_cut_and_ship`).  The data model is
 framework-free and copied; the execution runs on the port's kernels.
+`check_wires`, the port's own, validates a round's wires when it is
+built.
 
 A Topology is any validated single-sink DAG: J view-holding nodes
 ("measure" leaves and "relay" forwarders, which observe a view AND forward
@@ -425,6 +427,17 @@ def edge_bits(edge: Edge, cfg) -> int:
 
 def edge_wire(edge: Edge, default: str) -> str:
     return default if edge.wire is None else edge.wire
+
+
+def check_wires(topo: Optional[Topology], cfg, wire: str) -> None:
+    """Validate `wire` against the star's width (topo None, the
+    `nontrivial` default star), else each edge's wire against its own
+    width (`wirefmt.resolve_wire`)."""
+    if topo is None:
+        wirefmt.resolve_wire(wire, cfg.link_bits)
+        return
+    for e in topo.edges:
+        wirefmt.resolve_wire(edge_wire(e, wire), edge_bits(e, cfg))
 
 
 def edge_dtype(edge: Edge, cfg):

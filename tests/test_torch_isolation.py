@@ -40,6 +40,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.core.schemes.runner", "repro_torch.core.wirefmt",
               "repro_torch.core.sl", "repro_torch.core.fl",
               "repro_torch.core.schemes.sl", "repro_torch.core.schemes.fl",
+              "repro_torch.core.schemes.splitfed",
+              "repro_torch.core.schemes.hybrid",
               "repro_torch.configs.base", "repro_torch.configs.zamba2_2_7b",
               "repro_torch.data.tokens", "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.ssm_scan", "repro_torch.models.attention",
@@ -89,6 +91,19 @@ def test_device_none_means_cuda_and_raises_without_a_card(monkeypatch):
         lambda: runner.run_scheme("inl", views, torch.zeros(1), SMOKE,
                                   epochs=1),
     ]
+    for name in ("splitfed", "hybrid"):
+        hyb = schemes.get(name)
+        hst = hyb.init(SMOKE, 0, device="cpu")
+        calls += [
+            lambda h=hyb: h.init(SMOKE, 0),
+            lambda h=hyb, s=hst: h.predict(s, views),
+            lambda h=hyb, s=hst: h.predict_batched(s, views),
+            lambda n=name: runner.run_scheme(n, views, torch.zeros(1), SMOKE,
+                                             epochs=1),
+        ]
+    calls.append(lambda: convert.splitfed_from_jax(
+        {"encoders": {"convs": [], "bns": []}}, {"encoders": {"bns": []}},
+        SMOKE))
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
