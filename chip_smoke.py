@@ -170,13 +170,35 @@ Phases, each checked; any failed check exits non-zero before the last line:
               buckets (1, 4, 16, 64), clean and at erasure 0.3: one cut_fwd
               an engine launch, rows == predict_batched bit for bit in
               their bucket.
+  6e. graphs  CUDA graphs (repro_torch/graphs.py), deterministic
+              algorithms on (`graphs:` lines): run_scheme under "scan"
+              (the default: one captured round replayed per round) and
+              under "per_round" from one seed (GRAPH_SEED), one epoch of
+              16 rounds at batch 64 each, for inl, inl with learned
+              priors, sl, fl, splitfed and hybrid on the dense star, INL at
+              link_bits=8 on "packed" and "packed_duplex" and on the packed
+              chain(5), and each of the six at erasure 0.3 an edge, launch
+              counts set to 0 just before each run and read just after:
+              every round's loss and every leaf of the final state bit for
+              bit, the same launches per kernel, the same curve and
+              offered and delivered ledgers, and exactly one capture per
+              host signature (SL's keep/skip, FL's all/none/partial n).
+              The trained INL state served over buckets (1, 4, 16, 64),
+              clean and at erasure 0.3, three batches a bucket after
+              warmup(): trace_counts == {b: 1}, rows == the eager
+              predict_batched bit for bit, one cut_fwd an engine launch.
+              Phases 4-6d hook rounds, so they run "per_round"; their
+              engines replay graphs too.
   7. times    per-bucket predict latency, train-step latency (median of 20
               steps, with the device busy time and idle share from the
               profiler, and the device time by kernel) on the dense,
               packed and duplex wires, on the packed chain(5), tree(2, 2)
               and the mixed-width chain, and on the lossy star beside the
               clean one (`linkfault times:`), one dense round of splitfed,
-              hybrid, SL and FL beside INL's (`hybrids times:`), and each
+              hybrid, SL and FL beside INL's (`hybrids times:`), each of
+              those five rounds and the predict per bucket graphed beside
+              eager (`graphs times:`: wall, device time from CUDA events
+              around back-to-back replays, idle share), and each
               kernel's device time beside its bound and its plain version
               (cut_prior_bwd, unpack_dequant and pack beside their first
               designs' times, with cut_prior_bwd's first two launches
@@ -207,6 +229,13 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              flash_attn_fwd and 54 ssd_scan (one prefill;
                              decode launches neither), tokens in the
                              vocabulary, peak memory;
+                llm graphs   B=4 after a prompt of 512, 32 tokens,
+                             deterministic algorithms on: the decode loop
+                             on the graphed step (steps.make_decode_step)
+                             == the loop on the eager step from one
+                             prefill, ids and every cache leaf bit for
+                             bit, one capture (trace_log); serve_batch
+                             gives the eager ids with one capture;
                 llm fp32     one period (num_layers=6) at full width in
                              fp32, the adapter drawn N(0, 1/d_model) in
                              place of init's 1e-4 scale so the shared
@@ -218,7 +247,8 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              256 against prefill of 255 + one decode step
                              within 1e-3;
                 times        prefill latency at (4, 512) and (4, 2048) and
-                             decode latency per token, with device busy time,
+                             decode latency per token (eager, and graphed
+                             beside it), with device busy time,
                              idle share and the prefill's time in the top
                              kernels and in the two hand-written ones (the
                              profiler); both kernels' device time at
@@ -229,7 +259,9 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              scaled_dot_product_attention (timed only).
 
 The line before the last two is {"kernels": [...]} (the cut-layer kernels
-of the hybrids' path with their counts per run, `launches_on_hybrids`),
+of the hybrids' path with their counts per run, `launches_on_hybrids`,
+and every cut-layer kernel's counts in the graphed runs,
+`launches_on_graphs`),
 the one before the last
 nvidia-smi's name and power limit, and the last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1096,33 +1128,41 @@ def training_data(cfg, n=TRAIN_SAMPLES):
 
 
 def recorded_run(torch, name, cfg, views, labels, *, epochs, wire="dense",
-                 seed=0, topology=None, states=None):
-    """run_scheme(name) on the card, with the launch counts set to 0 just
-    before and read just after, and every round's loss recorded by a
-    wrapper around the registered scheme's make_round (and, into `states`
-    when given, each round's (state in, state out)).  Returns (curve,
-    losses, launches, meter, seconds, the rounds' mean rates (INL; empty
-    for SL and FL))."""
+                 seed=0, topology=None, states=None, dispatch="per_round",
+                 captures=None):
+    """run_scheme(name, dispatch=dispatch) on the card, with the launch
+    counts set to 0 just before and read just after, and every round's
+    loss recorded by a wrapper around the registered scheme's make_round
+    ("per_round") or make_epoch's epoch_fn ("scan"; the graphs phase holds
+    the two against each other).  Into `states`, when given, each call's
+    (state in, state out): a round's, or under "scan" an epoch's; into
+    `captures`, when given, the epoch_fn's captures per host signature.
+    Returns (curve, losses, launches, meter, seconds, the rounds' mean
+    rates (INL; empty for SL and FL))."""
     from repro_torch.core import bandwidth, schemes
     from repro_torch.core.schemes import runner
 
     scheme = schemes.get(name)
-    losses, rates = [], []
-    make_round = scheme.make_round
+    losses, rates, made = [], [], []
+    attr = "make_epoch" if dispatch == "scan" else "make_round"
+    make = getattr(scheme, attr)
 
-    def recording_make_round(*a, **kw):
-        round_fn = make_round(*a, **kw)
+    def recording_make(*a, **kw):
+        fn = make(*a, **kw)
+        made.append(fn)
 
         def rec(*ra, **rkw):
-            st, m = round_fn(*ra, **rkw)
+            st, m = fn(*ra, **rkw)
             if states is not None:
                 states.append((ra[0], st))
-            losses.append(m["loss"])
+            per = (lambda t: list(t.unbind(0))) if dispatch == "scan" \
+                else (lambda t: [t])
+            losses.extend(per(m["loss"]))
             if "rate_mean" in m:
-                rates.append(m["rate_mean"])
+                rates.extend(per(m["rate_mean"]))
             return st, m
         return rec
-    scheme.make_round = recording_make_round
+    setattr(scheme, attr, recording_make)
     meter = bandwidth.BandwidthMeter()
     try:
         torch.cuda.synchronize()
@@ -1131,12 +1171,15 @@ def recorded_run(torch, name, cfg, views, labels, *, epochs, wire="dense",
         curve = runner.run_scheme(name, views, labels, cfg, epochs=epochs,
                                   batch_size=TRAIN_BATCH, eval_n=512,
                                   meter=meter, wire=wire, seed=seed,
-                                  topology=topology, device=DEV)
+                                  topology=topology, dispatch=dispatch,
+                                  device=DEV)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
     finally:
-        del scheme.make_round
+        delattr(scheme, attr)
+    if captures is not None and dispatch == "scan":
+        captures.update(made[0].captures)
     loss = [float(x) for x in losses]
     check(all(np.isfinite(loss)), f"{name} {wire}: non-finite loss {loss}")
     return curve, loss, launches, meter, wall, [float(x) for x in rates]
@@ -2436,6 +2479,353 @@ def hybrids_phase(torch, card_line):
 
 
 # ---------------------------------------------------------------------------
+# 6e. CUDA graphs: one dispatch per round, per bucket and per token
+# ---------------------------------------------------------------------------
+
+GRAPH_ROUNDS = 16                   # one epoch of 16 rounds a run
+GRAPH_SEED = 0     # at erasure 0.3: SL skips rounds 1 and 13, FL averages
+                   # over all, 4, 3 and 2 uploads (four signatures)
+GRAPH_ERASURE = 0.3                 # benchmarks/links_bench.py's headline
+GRAPH_SERVE_BATCHES = 3             # batches per bucket
+GRAPH_TIME_ROUNDS = {"fl": 4}       # rounds an epoch in the timing (else 16)
+
+
+def dispatch_runs():
+    """(label, scheme, cfg, wire, topology) of the graphs phase: the six
+    schemes on the dense star, INL on the packed and duplex wires and the
+    packed chain(5), then each scheme at erasure 0.3 an edge."""
+    import dataclasses
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import topology as T
+    cfg = PaperExperimentConfig()
+    wire_cfg = PaperExperimentConfig(link_bits=WIRE_BITS)
+    prior = dataclasses.replace(cfg, learned_prior=True)
+    six = (("inl", "inl", cfg), ("inl+learned_prior", "inl", prior),
+           ("sl", "sl", cfg), ("fl", "fl", cfg),
+           ("splitfed", "splitfed", cfg), ("hybrid", "hybrid", cfg))
+    lossy = LF.with_links(T.star(cfg.num_clients),
+                          LF.LinkModel(erasure=GRAPH_ERASURE))
+    runs = [(label, name, c, "dense", None) for label, name, c in six]
+    runs += [("inl packed", "inl", wire_cfg, "packed", None),
+             ("inl packed_duplex", "inl", wire_cfg, "packed_duplex", None),
+             ("inl chain(5) packed", "inl", wire_cfg, "packed",
+              T.chain(wire_cfg.num_clients))]
+    runs += [(f"{label} lossy", name, c, "dense", lossy)
+             for label, name, c in six]
+    return runs
+
+
+def expected_signatures(name, cfg, wire, topology, rounds):
+    """The host signatures of a run's rounds: each round's host part on
+    its fault key, as run_scheme hands them out."""
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import schemes
+    from repro_torch.core import topology as T
+    plan, _ = schemes.get(name).make_round_parts(cfg, wire=wire,
+                                                 topology=topology)
+    faulty = LF.active(T.resolve(topology, cfg), cfg, train=True)
+    return {plan(LF.round_key(GRAPH_SEED, g) if faulty else None,
+                 TRAIN_BATCH)[0] for g in range(rounds)}
+
+
+def ledgers(meter):
+    return (meter.total_bits, meter.measured_bytes, meter.delivered_bits,
+            meter.delivered_measured_bytes, dict(meter.edge_bits),
+            dict(meter.edge_measured_bytes), dict(meter.edge_delivered_bits))
+
+
+def graph_training_phase(torch, card_line):
+    """Each run of `dispatch_runs` for one epoch of 16 rounds under "scan"
+    and under "per_round" from one seed, deterministic algorithms on: the
+    per-round losses and every leaf of the final state bit for bit, the
+    same launches per kernel, the same offered and delivered ledgers and
+    curve, and exactly one capture per host signature.  Returns ({label:
+    scan launches}, the trained INL state)."""
+    from repro_torch import tree_leaves
+    from repro_torch.core import schemes
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out, trained = {}, None
+    data = {}
+    try:
+        for label, name, cfg, wire, topo in dispatch_runs():
+            bpr = schemes.get(name).batches_per_round(cfg)
+            n = GRAPH_ROUNDS * bpr * TRAIN_BATCH
+            if n not in data:
+                data[n] = training_data(cfg, n)
+            views, labels = data[n]
+            caps, runs = {}, {}
+            for dispatch in ("scan", "per_round"):
+                states = []
+                curve, loss, launches, meter, wall, _ = recorded_run(
+                    torch, name, cfg, views, labels, epochs=1, wire=wire,
+                    seed=GRAPH_SEED, topology=topo, states=states,
+                    dispatch=dispatch, captures=caps)
+                runs[dispatch] = (curve, loss, states[-1][1], launches,
+                                  meter, wall)
+            (c_s, l_s, s_s, n_s, m_s, w_s), (c_r, l_r, s_r, n_r, m_r, w_r) \
+                = runs["scan"], runs["per_round"]
+            check(len(l_s) == len(l_r) == GRAPH_ROUNDS,
+                  f"graphs {label}: {len(l_s)} / {len(l_r)} rounds")
+            # python floats of fp32 losses: equal iff the bits are
+            check(l_s == l_r, f"graphs {label}: scan losses {l_s} != "
+                              f"per_round {l_r}")
+            leaves_s, leaves_r = tree_leaves(s_s), tree_leaves(s_r)
+            check(len(leaves_s) == len(leaves_r) and all(
+                torch.equal(a, b) for a, b in zip(leaves_s, leaves_r)),
+                f"graphs {label}: the final states differ")
+            check(n_s == n_r, f"graphs {label}: launches scan {n_s} "
+                              f"per_round {n_r}")
+            check(ledgers(m_s) == ledgers(m_r) and c_s == c_r,
+                  f"graphs {label}: ledgers or curves differ")
+            want = expected_signatures(name, cfg, wire, topo, GRAPH_ROUNDS)
+            check(set(caps) == want and all(v == 1 for v in caps.values()),
+                  f"graphs {label}: captures {caps}, signatures {want}")
+            out[label] = {k: v for k, v in n_s.items() if v}
+            if label == "inl":
+                trained = s_s
+            print(f"graphs: run_scheme('{name}') {label} (wire={wire}, "
+                  f"link_bits={cfg.link_bits}), {GRAPH_ROUNDS} rounds: "
+                  f"scan == per_round bit for bit (losses, {len(leaves_s)} "
+                  f"state leaves), launches {out[label]} under both, "
+                  f"delivery ratio {m_s.delivery_ratio:.5f} under both, "
+                  f"captures {caps}; loss {l_s[0]:.4f} -> {l_s[-1]:.4f}; "
+                  f"wall scan {w_s:.2f} s, per_round {w_r:.2f} s "
+                  f"[{card_line}]")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out, trained
+
+
+def graph_serving_check(torch, card_line, state):
+    """The trained INL state served over buckets (1, 4, 16, 64), clean and
+    at erasure 0.3 an edge: after warmup() and GRAPH_SERVE_BATCHES batches
+    of b requests per bucket, trace_counts == {b: 1}, and every batch's
+    rows equal predict_batched (eager) bit for bit.  Returns the launches
+    of the clean engine's batches."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import schemes
+    from repro_torch.core import topology as T
+    from repro_torch.data import multiview
+    from repro_torch.serving import ServingEngine
+
+    cfg = PaperExperimentConfig()
+    scheme = schemes.get("inl")
+    n = GRAPH_SERVE_BATCHES * sum(BUCKETS)
+    imgs, _ = multiview.make_base_dataset(n, seed=cfg.seed + 3)
+    views = multiview.make_views(imgs, cfg.noise_stds)
+    lossy = LF.with_links(T.star(cfg.num_clients),
+                          LF.LinkModel(erasure=GRAPH_ERASURE))
+    launches = None
+    for label, topo in (("clean", None), ("lossy", lossy)):
+        engine = ServingEngine(scheme, state, cfg, topology=topo,
+                               buckets=BUCKETS, seed=19, device=DEV)
+        engine.warmup()
+        torch.cuda.synchronize()
+        reset_launches()
+        batches, at = [], 0
+        for b in BUCKETS:
+            for _ in range(GRAPH_SERVE_BATCHES):
+                block = views[:, at:at + b]
+                at += b
+                batches.append((b, block) + engine.serve(block))
+        torch.cuda.synchronize()
+        got = read_launches()
+        rows = 0
+        for b, block, probs, served in batches:
+            check({r.bucket for r in served} == {b},
+                  f"graphs serving: a block of {b} rode buckets "
+                  f"{ {r.bucket for r in served} }")
+            mask = None
+            if topo is not None:
+                mask = LF.request_delivery_mask(
+                    LF.key(19), topo, cfg, [r.rid for r in served])
+            want = scheme.predict_batched(state, block, delivery=mask,
+                                          cfg=cfg, device=DEV).cpu().numpy()
+            check(np.array_equal(probs, want),
+                  f"graphs serving {label}: bucket {b} rows differ from "
+                  f"the eager predict_batched: max "
+                  f"{np.abs(probs - want).max()}")
+            rows += b
+        check(engine.trace_counts == {b: 1 for b in BUCKETS},
+              f"graphs serving {label}: trace_counts {engine.trace_counts}")
+        check(got["cut_fwd"] == engine.stats.launches,
+              f"graphs serving {label}: cut_fwd {got['cut_fwd']} in "
+              f"{engine.stats.launches} engine launches")
+        if launches is None:
+            launches = {k: v for k, v in got.items() if v}
+        print(f"graphs: served the trained INL state {label} over buckets "
+              f"{BUCKETS}, {GRAPH_SERVE_BATCHES} batches each: trace_counts "
+              f"{engine.trace_counts}, {rows} rows == eager predict_batched "
+              f"bit for bit, cut_fwd {got['cut_fwd']} in "
+              f"{engine.stats.launches} engine launches [{card_line}]")
+    return launches
+
+
+def graphs_phase(torch, card_line):
+    """Training and serving under CUDA graphs.  Returns ({run: launches}
+    of the scan runs and the served batches, the trained INL state)."""
+    t0 = time.perf_counter()
+    launches, trained = graph_training_phase(torch, card_line)
+    launches["served (graphs)"] = graph_serving_check(torch, card_line,
+                                                      trained)
+    print(f"graphs: phase took {time.perf_counter() - t0:.1f} s")
+    return launches, trained
+
+
+def graphed_round_timing(torch, card_line, name, *, cfg=None,
+                         wire="dense", topology=None):
+    """One round of scheme `name` at full width, batch 64 (`cfg`, `wire`
+    and `topology` as run_scheme takes them), as the scan dispatch runs
+    it: make_epoch's epoch of K rounds on one fixed batch, captured by a
+    first call, then timed: wall per round on the host's clock around an
+    epoch ending in a synchronize (median of 5 epochs), device time per
+    round from CUDA events around 3 epochs (the replays run back to back,
+    so this is the device's time with the launch gaps the graph leaves).
+    Over unreliable links round k takes the fault key of round k of a run
+    seeded 0.  Returns (wall ms, device ms)."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import schemes
+    from repro_torch.core import topology as T
+
+    cfg = cfg or PaperExperimentConfig()
+    views, labels = training_data(cfg)
+    scheme = schemes.get(name)
+    state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(6),
+                        device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    R = scheme.batches_per_round(cfg)
+    K = GRAPH_TIME_ROUNDS.get(name, GRAPH_ROUNDS)
+    v = torch.from_numpy(views[:, :R * TRAIN_BATCH]).to(DEV)
+    v = v.reshape((v.shape[0], R, TRAIN_BATCH) + v.shape[2:]).transpose(
+        0, 1).contiguous()
+    lab = torch.from_numpy(labels[:R * TRAIN_BATCH]).to(DEV).long().reshape(
+        R, TRAIN_BATCH)
+    ev = v[None].expand((K,) + v.shape)
+    el = lab[None].expand((K,) + lab.shape)
+    epoch_fn = scheme.make_epoch(cfg, wire=wire, topology=topology)
+    faulty = LF.active(T.resolve(topology, cfg), cfg, train=True)
+    keys = [LF.round_key(0, g) for g in range(K)] if faulty else None
+    box = [state]
+
+    def epoch():
+        box[0], _ = epoch_fn(box[0], ev, el, gen, round_keys=keys)
+    wall = timed_host(torch, epoch, reps=5) / K
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        epoch()
+    end.record()
+    torch.cuda.synchronize()
+    dev = start.elapsed_time(end) / (3 * K)
+    plan, _ = scheme.make_round_parts(cfg, wire=wire, topology=topology)
+    want = {plan(None if keys is None else keys[k], TRAIN_BATCH)[0]
+            for k in range(K)}
+    check(epoch_fn.captures == {sig: 1 for sig in want},
+          f"{name}: captures {epoch_fn.captures}")
+    return wall, dev
+
+
+def graphed_predict_timing(torch, card_line, state):
+    """Per bucket: the engine's predict (views copied from the host, then
+    the bucket's graph) against the eager predict_batched on the same
+    views copied the same way, both ending in a synchronize: wall (median
+    of 25), and the device time of the predict without the copy (the
+    profiler's busy time for eager, CUDA events around 20 back-to-back
+    replays of the bucket's graph).  Returns {bucket: (eager wall, eager
+    busy, graph wall, graph device)}."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import schemes
+    from repro_torch.data import multiview
+    from repro_torch.serving import ServingEngine
+
+    cfg = PaperExperimentConfig()
+    scheme = schemes.get("inl")
+    imgs, _ = multiview.make_base_dataset(BUCKETS[-1], seed=cfg.seed + 4)
+    views = multiview.make_views(imgs, cfg.noise_stds)
+    engine = ServingEngine(scheme, state, cfg, buckets=BUCKETS, device=DEV)
+    engine.warmup()
+    out = {}
+    for b in BUCKETS:
+        pv = np.ascontiguousarray(views[:, :b])
+        v_dev = torch.from_numpy(pv).to(DEV)
+
+        def eager():
+            scheme.predict_batched(state, torch.from_numpy(pv).to(DEV),
+                                   cfg=cfg, device=DEV)
+
+        def graphed():
+            engine._predict(pv)            # the engine's bucketed predict
+        e_wall = timed_host(torch, eager, reps=25)
+        e_busy = device_ms(torch, lambda: scheme.predict_batched(
+            state, v_dev, cfg=cfg, device=DEV), reps=10, warmup=2)
+        g_wall = timed_host(torch, graphed, reps=25)
+        # the bucket's graph itself (the engine's), replayed back to back
+        g_dev = cuda_ms(torch, engine._graphs.get(b).replay, reps=20,
+                        warmup=2)
+        out[b] = (e_wall, e_busy, g_wall, g_dev)
+        print(f"graphs times: predict bucket {b} (views from the host): "
+              f"eager wall {e_wall:.3f} ms, busy {e_busy:.4f} ms, idle "
+              f"{1 - e_busy / e_wall:.3f}; graph wall {g_wall:.3f} ms, "
+              f"device {g_dev:.4f} ms, idle {1 - g_dev / g_wall:.3f} "
+              f"[{card_line}]")
+    check(engine.trace_counts == {b: 1 for b in BUCKETS},
+          f"predict timing: trace_counts {engine.trace_counts}")
+    return out
+
+
+def graphs_timing(torch, card_line, eager_steps, state):
+    """Graphed rounds of INL, SL, FL, SplitFed and hybrid beside the eager
+    rounds of the same run (`eager_steps`: {name: (wall, busy)} from
+    train_step_timing), then predict per bucket."""
+    rows = {}
+    for name in ("inl", "sl", "fl") + HYBRIDS:
+        e_wall, e_busy = eager_steps[name]
+        g_wall, g_dev = graphed_round_timing(torch, card_line, name)
+        rows[name] = (e_wall, e_busy, g_wall, g_dev)
+        print(f"graphs times: {name} round (PaperExperimentConfig, batch "
+              f"{TRAIN_BATCH}{', ten local steps' if name == 'fl' else ''}):"
+              f" eager wall {e_wall:.3f} ms, busy {e_busy:.4f} ms, idle "
+              f"{1 - e_busy / e_wall:.3f}; scan (CUDA graph) wall "
+              f"{g_wall:.3f} ms, device {g_dev:.4f} ms, idle "
+              f"{1 - g_dev / g_wall:.3f}; {e_wall / g_wall:.2f}x "
+              f"[{card_line}]")
+    # what a graph resolves that separate eager loops could not: the
+    # device time a variant adds to the same scheme's dense round
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import topology as T
+    cfg = PaperExperimentConfig()
+    wire_cfg = PaperExperimentConfig(link_bits=WIRE_BITS)
+    lossy = LF.with_links(T.star(cfg.num_clients),
+                          LF.LinkModel(erasure=GRAPH_ERASURE))
+    base = {name: rows[name][3] for name in ("inl",) + HYBRIDS}
+    base["inl packed"] = graphed_round_timing(torch, card_line, "inl",
+                                              cfg=wire_cfg,
+                                              wire="packed")[1]
+    for label, name, c, wire, topo, ref in (
+            ("inl chain(5) packed", "inl", wire_cfg, "packed",
+             T.chain(cfg.num_clients), "inl packed"),
+            ("inl lossy", "inl", cfg, "dense", lossy, "inl"),
+            ("splitfed lossy", "splitfed", cfg, "dense", lossy, "splitfed"),
+            ("hybrid lossy", "hybrid", cfg, "dense", lossy, "hybrid")):
+        _, dev = graphed_round_timing(torch, card_line, name, cfg=c,
+                                      wire=wire, topology=topo)
+        rows[label] = (dev, base[ref])
+        print(f"graphs times: {label} round device {dev:.4f} ms against "
+              f"{ref}'s {base[ref]:.4f} ms in this run: "
+              f"{dev - base[ref]:+.4f} ms (CUDA events, scan) "
+              f"[{card_line}]")
+    rows["predict"] = graphed_predict_timing(torch, card_line, state)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # 7. times
 # ---------------------------------------------------------------------------
 
@@ -3078,14 +3468,91 @@ def timed_host(torch, fn, reps):
     return statistics.median(times)
 
 
+def eager_decode(torch, cfg):
+    """The greedy decode step run eagerly, never captured: the body of
+    steps.make_decode_step(greedy=True), for holding the graphed step
+    against it."""
+    from repro_torch.models import zoo
+
+    @torch.no_grad()
+    def decode(params, batch, cache):
+        logits, cache = zoo.forward(params, cfg, batch, mode="decode",
+                                    cache=cache)
+        return torch.argmax(logits[:, -1], dim=-1), cache
+    return decode
+
+
+def llm_graph_phase(torch, cfg, params, card_line):
+    """Zamba2-2.7B at full width, B=4 after a prompt of 512, 32 tokens,
+    deterministic algorithms on: the greedy decode loop on the graphed step
+    (steps.make_decode_step) against the same loop on the eager step from
+    one prefill, the ids and every leaf of the final cache bit for bit and
+    one capture (trace_log); then serve_batch(trace_log=) gives the eager
+    ids with one capture.  Returns the graphed loop's launches."""
+    from repro_torch import tree_leaves, tree_map
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import zoo
+
+    prompts = serve.prompts_for(cfg, LLM_B, LLM_PROMPT, 5).to(DEV)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        logits, cache0 = steps.make_prefill_step(cfg)(params,
+                                                      {"tokens": prompts})
+        log = []
+        runs = {}
+        for label, decode in (("eager", eager_decode(torch, cfg)),
+                              ("graph", steps.make_decode_step(
+                                  cfg, greedy=True, trace_log=log))):
+            cache = zoo.pad_cache(tree_map(torch.clone, cache0), LLM_GEN)
+            tok = torch.argmax(logits, dim=-1)
+            ids = [tok]
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            for t in range(LLM_GEN - 1):
+                pos = torch.full((), LLM_PROMPT + t, dtype=torch.int64,
+                                 device=DEV)
+                tok, cache = decode(params, {"tokens": tok[:, None],
+                                             "cache_len": pos}, cache)
+                ids.append(tok)
+            torch.cuda.synchronize()
+            runs[label] = (torch.stack(ids, dim=1), cache,
+                           time.perf_counter() - t0, read_launches())
+        (ids_e, cache_e, t_e, _), (ids_g, cache_g, t_g, launches) = \
+            runs["eager"], runs["graph"]
+        check(torch.equal(ids_e, ids_g), "decode: graphed ids differ from "
+                                         "the eager ones")
+        le, lg = tree_leaves(cache_e), tree_leaves(cache_g)
+        check(len(le) == len(lg) and all(torch.equal(a, b)
+                                         for a, b in zip(le, lg)),
+              "decode: the graphed final cache differs from the eager one")
+        check(len(log) == 1, f"decode: {len(log)} captures, not 1")
+        log2 = []
+        gen = serve.serve_batch(cfg, params, prompts, LLM_GEN,
+                                trace_log=log2)
+        check(torch.equal(gen, ids_e) and len(log2) == 1,
+              f"serve_batch: ids == eager {torch.equal(gen, ids_e)}, "
+              f"{len(log2)} captures")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"llm graphs: Zamba2-2.7B (bf16, full width) B={LLM_B} after "
+          f"{LLM_PROMPT}, {LLM_GEN} tokens: the graphed decode loop == the "
+          f"eager one bit for bit (ids and {len(le)} cache leaves), "
+          f"trace_log {len(log)} entry; serve_batch == eager ids with one "
+          f"capture; loop wall eager {t_e:.3f} s, graphed {t_g:.3f} s "
+          f"[{card_line}]")
+    return launches
+
+
 def llm_timing(torch, cfg, params, card_line):
     """Zamba2-2.7B prefill latency at (B=4, P=512) and (B=4, P=2048) and
     the decode latency per token, each with the device's busy time and idle
-    share from the profiler."""
+    share from the profiler; the decode step eager and graphed (its device
+    time from CUDA events around back-to-back steps)."""
     from repro_torch.launch import serve, steps
     from repro_torch.models import zoo
     prefill = steps.make_prefill_step(cfg)
-    decode = steps.make_decode_step(cfg, greedy=True)
+    decode = eager_decode(torch, cfg)
     out = {}
     for P in (LLM_PROMPT, 2048):
         prompts = serve.prompts_for(cfg, LLM_B, P, 3).to(DEV)
@@ -3111,8 +3578,9 @@ def llm_timing(torch, cfg, params, card_line):
     box = [tok, cache, LLM_PROMPT]
 
     def one():
+        pos = torch.full((), box[2], dtype=torch.int64, device=DEV)
         box[0], box[1] = decode(params, {"tokens": box[0][:, None],
-                                         "cache_len": box[2]}, box[1])
+                                         "cache_len": pos}, box[1])
         box[2] += 1
     wall = timed_host(torch, one, reps=steps_n)
     busy, _ = device_profile(torch, one, reps=10, warmup=2)
@@ -3120,6 +3588,25 @@ def llm_timing(torch, cfg, params, card_line):
     print(f"llm decode latency per token (B={LLM_B}, cache {LLM_PROMPT}+): "
           f"median {wall:.3f} ms over {steps_n} steps; device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall:.3f} [{card_line}]")
+    # the graphed step on a fresh cache: one capture, then replays
+    graphed = steps.make_decode_step(cfg, greedy=True)
+    _, cache = prefill(params, {"tokens": prompts})
+    cache = zoo.pad_cache(cache, 2 + 2 * steps_n + 20)
+    box = [tok, cache, LLM_PROMPT]
+
+    def one_graphed():
+        pos = torch.full((), box[2], dtype=torch.int64, device=DEV)
+        box[0], box[1] = graphed(params, {"tokens": box[0][:, None],
+                                          "cache_len": pos}, box[1])
+        box[2] += 1
+    g_wall = timed_host(torch, one_graphed, reps=steps_n)
+    g_dev = cuda_ms(torch, one_graphed, reps=steps_n, warmup=2)
+    out["decode graphed"] = (g_wall, g_dev)
+    print(f"graphs times: llm decode per token (B={LLM_B}, cache "
+          f"{LLM_PROMPT}+): eager wall {wall:.3f} ms, busy {busy:.3f} ms, "
+          f"idle {1 - busy / wall:.3f}; graph wall {g_wall:.3f} ms, device "
+          f"{g_dev:.3f} ms (CUDA events around {steps_n} steps), idle "
+          f"{1 - g_dev / g_wall:.3f}; {wall / g_wall:.2f}x [{card_line}]")
     return out
 
 
@@ -3232,6 +3719,7 @@ def main() -> int:
     lossy_card_vs_cpu(torch, card)
     lossy_serve_launches = lossy_serving_phase(torch, card)
     hybrid_launches_by_run = hybrids_phase(torch, card)
+    graph_launches_by_run, graph_state = graphs_phase(torch, card)
     torch.cuda.synchronize()
     rows = timing_phase(torch, scheme, state, views, card)
     steps = {wire: train_step_timing(torch, card, wire=wire,
@@ -3261,6 +3749,7 @@ def main() -> int:
           "64 (FL: ten local steps), median wall and device busy: "
           + ", ".join(f"{h} {w:.3f} ms (busy {b:.4f} ms)"
                       for h, (w, b) in rounds) + f" [{card}]")
+    graph_times = graphs_timing(torch, card, dict(rounds), graph_state)
     rows.update(new_kernel_timing(torch, card))
     rows.update(pack_kernel_timing(torch, card))
     torch.cuda.synchronize()
@@ -3270,6 +3759,7 @@ def main() -> int:
     for kname, err in path_worst.items():
         worst[kname] = max(worst[kname], err)
     llm_fp32_phase(torch, card)
+    llm_graph_launches = llm_graph_phase(torch, llm_cfg, llm_params, card)
     llm_times = llm_timing(torch, llm_cfg, llm_params, card)
     del llm_params
     rows.update(llm_kernel_timing(torch, card))
@@ -3295,14 +3785,24 @@ def main() -> int:
                       if n[k]} for k in HYBRID_PATH_KERNELS}
     check(all(on_hybrids.values()),
           f"a kernel of the hybrids' path never launched: {on_hybrids}")
+    on_graphs = {k: {run: n[k] for run, n in graph_launches_by_run.items()
+                     if n.get(k)} for k in CUT_LAYER_SOURCES}
+    check(all(on_graphs.values()),
+          f"a cut-layer kernel never launched under graphs: {on_graphs}")
+    check(not any(llm_graph_launches.values()),
+          f"the graphed decode loop launched {llm_graph_launches}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s; final accuracy {accuracy}, "
           f"train step " + ", ".join(
               f"{w} {ms:.3f} ms (device busy {busy:.4f} ms)"
               for w, (ms, busy) in steps.items())
           + "; Zamba2-2.7B " + ", ".join(
-              f"{k} {ms:.3f} ms (device busy {busy:.3f} ms)"
-              for k, (ms, busy) in llm_times.items()))
+              f"{k} {ms:.3f} ms (device {busy:.3f} ms)"
+              for k, (ms, busy) in llm_times.items())
+          + "; graphed rounds " + ", ".join(
+              f"{k} {row[2]:.3f} ms (device {row[3]:.4f} ms, eager "
+              f"{row[0]:.3f} ms)" for k, row in graph_times.items()
+              if k != "predict" and len(row) == 4))
     src = "src/repro_torch/kernels/csrc/"
     replaces = "src/repro/kernels/inl_bottleneck.py:"
     kernels = []
@@ -3335,7 +3835,8 @@ def main() -> int:
             "max_abs_err": worst[kname], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
             "shape": shape, "launches_per_train_step": per_step,
-            "path": path, "launches_on_lossy_links": lossy[kname]}
+            "path": path, "launches_on_lossy_links": lossy[kname],
+            "launches_on_graphs": on_graphs[kname]}
         if kname in on_hybrids:
             entry["launches_on_hybrids"] = on_hybrids[kname]
         if kname in REDESIGNED:

@@ -7,7 +7,8 @@ the card).  Every registered scheme runs unless --schemes names some.
 The twin of examples/compare_schemes.py (the JAX package) on its reduced
 configuration: convs (8, 16), 16-d bottlenecks, dense (64,), 1024 images
 under the Exp-2 protocol (every client sees every image at its own noise
-level), batch 64.
+level), batch 64.  Each epoch runs on the runner's default dispatch,
+"scan": on the card one CUDA graph of the round, replayed once a round.
 
     PYTHONPATH=src python examples/compare_schemes_torch.py        # the card
     PYTHONPATH=src python examples/compare_schemes_torch.py --device cpu

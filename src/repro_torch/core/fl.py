@@ -18,17 +18,18 @@ which is how the parity tests feed the reference's `split` chain.
 A faulty round (`faulty=True`) averages only the client uploads that
 arrived (core/linkfault.client_delivery_mask); when every upload is lost
 the previous global model stays.  Its mask is a host array, so the round
-decides on the host which average to take: an all-ones mask takes the
-clean round's `torch.mean`, so a perfect network leaves the trajectory as
-it was bit for bit on the CPU and on the card (where a CUDA mean
-multiplies by 1/J but a division by a host scalar need not round alike).
+decides on the host which average to take (`average_plan`): an all-ones
+mask takes the clean round's `torch.mean`, so a perfect network leaves the
+trajectory as it was bit for bit on the CPU and on the card (where a CUDA
+mean multiplies by 1/J but a division by a host scalar need not round
+alike); a partial average divides by the host count n.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch import tree_map, tree_stack, value_and_grad
+from repro_torch import tree_leaves, tree_map, tree_stack, value_and_grad
 from repro_torch.core import losses, paper_model
 
 
@@ -88,26 +89,48 @@ def make_one_client(optimizer, *, compute_dtype: str = "fp32"):
     return one_client
 
 
-def _masked_average(p, old, mask):
+def average_plan(mask):
+    """The server's host decision for a (J,) host bool delivery mask:
+    "all" (every upload arrived), "none", or ("partial", n) with n the
+    number that arrived."""
+    mask = np.array(mask, bool)
+    n = int(mask.sum())
+    if n == mask.shape[0]:
+        return "all"
+    return "none" if n == 0 else ("partial", n)
+
+
+def masked_average(p, old, plan, w=None):
     """The server's average over the uploads that arrived: p and old are
-    stacked (J, ...) trees, mask a (J,) host bool array.  All arrived: the
-    clean mean; none: replica 0 of the previous model; else
-    sum(x * w) / n, the reference's masked average."""
+    stacked (J, ...) trees, plan `average_plan`'s decision and w, for a
+    partial plan, the (J,) bool mask as a tensor on p's device.  All
+    arrived: the clean mean; none: replica 0 of the previous model; else
+    sum(x * w) / n, the reference's masked average, n a Python number so
+    that the quotient is today's."""
+    if plan == "all":
+        return tree_map(lambda x: torch.mean(x, dim=0), p)
+    if plan == "none":
+        return tree_map(lambda x, o: o[0].to(x.dtype), p, old)
+    n = plan[1]
+    w = w.to(torch.float32)
+
+    def avg(x):
+        wx = w.reshape((w.shape[0],) + (1,) * (x.dim() - 1))
+        return torch.sum(x * wx, dim=0) / float(n)
+    return tree_map(avg, p)
+
+
+def _masked_average(p, old, mask):
+    """`masked_average` on a (J,) host bool mask."""
     if mask is None:
         raise ValueError("a faulty FedAvg round takes the (J,) client "
                          "delivery mask as its last argument")
-    mask = np.array(mask, bool)
-    J, n = mask.shape[0], int(mask.sum())
-    if n == J:
-        return tree_map(lambda x: torch.mean(x, dim=0), p)
-    if n == 0:
-        return tree_map(lambda x, o: o[0].to(x.dtype), p, old)
-
-    def avg(x):
-        w = torch.as_tensor(mask, device=x.device).to(torch.float32)
-        w = w.reshape((J,) + (1,) * (x.dim() - 1))
-        return torch.sum(x * w, dim=0) / float(n)
-    return tree_map(avg, p)
+    plan = average_plan(mask)
+    w = None
+    if plan not in ("all", "none"):
+        w = torch.as_tensor(np.array(mask, bool),
+                            device=tree_leaves(p)[0].device)
+    return masked_average(p, old, plan, w)
 
 
 def make_round(cfg, optimizer, local_steps: int, *, faulty: bool = False):
@@ -123,12 +146,14 @@ def make_round(cfg, optimizer, local_steps: int, *, faulty: bool = False):
     (core/linkfault.client_delivery_mask, a host array): clients whose
     upload dropped are masked out of the average; when every upload is
     lost the round keeps the previous global model.  Every client still
-    trains (the reference computes the round, then discards)."""
+    trains (the reference computes the round, then discards).  With
+    `plan=` (`average_plan` of the mask, taken on the host) `mask` is that
+    mask as a bool tensor on the device, as a captured round reads it."""
     one_client = make_one_client(
         optimizer, compute_dtype=getattr(cfg, "compute_dtype", "fp32"))
 
     def round_fn(stacked_params, stacked_state, stacked_opt, views, labels,
-                 drop_masks, mask=None):
+                 drop_masks, mask=None, *, plan=None):
         J = labels.shape[0]
         outs = [one_client(replica(stacked_params, j),
                            replica(stacked_state, j),
@@ -136,7 +161,9 @@ def make_round(cfg, optimizer, local_steps: int, *, faulty: bool = False):
                            drop_masks[j]) for j in range(J)]
         p, s, o, m = (tree_stack([out[i] for out in outs]) for i in range(4))
         # server aggregation: parameter average, re-broadcast
-        if faulty:
+        if faulty and plan is not None:
+            avg = masked_average(p, stacked_params, plan, mask)
+        elif faulty:
             avg = _masked_average(p, stacked_params, mask)
         else:
             avg = tree_map(lambda x: torch.mean(x, dim=0), p)

@@ -54,6 +54,11 @@ from repro_torch.core import topology as topology_lib
 from repro_torch.core import wirefmt
 
 
+ROUND_KEY_MESSAGE = ("a round over unreliable links draws its delivery mask "
+                     "from round_key (linkfault.round_key(seed, round)); "
+                     "pass round_key= or delivery=")
+
+
 class INLParams(NamedTuple):
     encoders: dict          # stacked: leading axis J
     decoder: dict
@@ -183,9 +188,7 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
     faulty = delivery is None and linkfault.active(topo_full, cfg,
                                                    train=train)
     if faulty and round_key is None:
-        raise ValueError("a round over unreliable links draws its delivery "
-                         "mask from round_key (linkfault.round_key(seed, "
-                         "round)); pass round_key= or delivery=")
+        raise ValueError(ROUND_KEY_MESSAGE)
     topo = topology_lib.nontrivial(topology, cfg)
     dt = paper_model.compute_dtype(cfg)
     params_c = paper_model.cast_compute(params, dt)

@@ -17,23 +17,66 @@ torch.Generator the runner owns and hands to every round; over unreliable
 links a round also takes its fault key (`round_key=`,
 core/linkfault.round_key), from which it draws its delivery masks.
 
+A round has two parts (`make_round_parts`): the HOST part draws the
+round's faults from its key and takes every decision the host takes (a
+FedAvg over all, none or n of the uploads, SL's keep or skip), returning
+the round's host signature and its delivery mask; the DEVICE part is the
+round's computation, with the mask as data.  `make_round` runs the two in
+turn; `make_epoch` runs K rounds and on the card replays one CUDA graph of
+the device part per host signature (repro_torch/graphs.py), the
+counterpart of the reference's `lax.scan` over the round.
+
 The sharded round comes with its slice of the port.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import tree_leaves
+from repro_torch import graphs, tree_leaves, tree_map
 from repro_torch.core import linkfault
 from repro_torch.core import topology as topology_lib
 
 
+class RoundParts(NamedTuple):
+    """A round split at the host/device boundary.
+
+    plan(round_key, batch_size) -> (signature, mask): the host part.  The
+    signature (hashable) names the round's variant, one CUDA graph each
+    ("clean", "masked"; SL's "keep"/"skip"; FL's "all"/"none"/("partial",
+    n)); mask is the round's (J,) host bool delivery mask, or None.
+
+    step(state, views, labels, generator, signature, mask, **kw) ->
+    (new_state, metrics): the device part, mask a bool tensor on the
+    device (or None), kw the round's `eps=` / `drop_masks=`."""
+    plan: Callable
+    step: Callable
+
+
+def fusion_plan(cfg, topology, missing_key: str):
+    """The host part of a round that fuses what arrived (INL, SplitFed,
+    hybrid): "clean" with no mask, or over unreliable links (link models
+    on the topology, or cfg.edge_dropout > 0) "masked" with the round's
+    (J,) delivery mask drawn from its `round_key`, as the meter replays
+    it; a lossy round without its key raises ValueError(missing_key)."""
+    topo_full = topology_lib.resolve(topology, cfg)
+    faulty = linkfault.active(topo_full, cfg, train=True)
+
+    def plan(round_key, batch_size):
+        if not faulty:
+            return "clean", None
+        if round_key is None:
+            raise ValueError(missing_key)
+        return "masked", linkfault.round_delivery_mask(
+            round_key, topo_full, cfg, batch_size, train=True)
+    return plan
+
+
 class Scheme:
-    """Base class: override `init`, `make_round`, `predict` and the
-    bandwidth ledgers."""
+    """Base class: override `init`, `make_round_parts` (or `make_round`),
+    `predict` and the bandwidth ledgers."""
 
     name: str = ""
 
@@ -47,6 +90,11 @@ class Scheme:
         `generator`; `lr` must match `make_round`'s."""
         raise NotImplementedError
 
+    def make_round_parts(self, cfg, *, lr: float = 2e-3,
+                         wire: str = "dense", topology=None) -> RoundParts:
+        """The round's host part and device part (`RoundParts`)."""
+        raise NotImplementedError
+
     def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
                    topology=None):
         """Return round_fn(state, views, labels, generator, *, eps=None,
@@ -54,8 +102,21 @@ class Scheme:
         views (R, J, B, H, W, C), labels (R, B), R ==
         batches_per_round(cfg).  The round draws its randomness from
         `generator` unless it is given, and over unreliable links its fault
-        draws from `round_key`; metrics include "loss"."""
-        raise NotImplementedError
+        draws from `round_key`; metrics include "loss".  Runs the host part
+        of `make_round_parts`, then its device part."""
+        plan, step = self.make_round_parts(cfg, lr=lr, wire=wire,
+                                           topology=topology)
+
+        def round_fn(state, views, labels, generator, *, round_key=None,
+                     **kw):
+            # the host part first: a lossy round without its key raises
+            # before any tensor is read
+            sig, mask = plan(round_key,
+                             None if labels is None else labels.shape[-1])
+            if mask is not None:
+                mask = linkfault.mask_tensor(mask, labels.device)
+            return step(state, views, labels, generator, sig, mask, **kw)
+        return round_fn
 
     def make_transport_round(self, cfg, *, lr: float = 2e-3,
                              wire: str = "dense", topology=None):
@@ -72,26 +133,50 @@ class Scheme:
 
     def make_epoch(self, cfg, *, lr: float = 2e-3, mesh=None,
                    wire: str = "dense", topology=None):
-        """K rounds in one call: epoch_fn(state, views, labels, generator)
-        -> (state, metrics) with views (K, R, J, B, ...), labels (K, R, B)
-        and metrics stacked (K,).  The reference runs them as one jitted
-        lax.scan; eager PyTorch has no scan, so this is a Python loop over
-        `make_round`, drawing from `generator` round after round exactly as
-        K separate rounds would."""
+        """K rounds in one call: epoch_fn(state, views, labels, generator,
+        round_keys=None) -> (state, metrics) with views (K, R, J, B, ...),
+        labels (K, R, B), round_keys the K rounds' fault keys (over
+        unreliable links) and metrics stacked (K,).
+
+        The reference runs the K rounds as one jitted lax.scan, which
+        traces the round once.  On the CPU this is a Python loop over
+        the round, drawing from `generator` round after round exactly as
+        K `make_round` calls would.  On the card the device part of the
+        round is a CUDA graph, one per host signature, replayed once a
+        round with no host synchronisation between replays: the epoch's
+        host parts (fault draws, decisions) run first, then each round
+        copies its minibatch and mask into the graph's static buffers and
+        replays.  The first round of a signature runs eagerly on a side
+        stream (the warm-up, and the round itself) and is then captured.
+        The state lives in static buffers that the graph updates in place
+        (the state returned is those buffers), so every replay reads the
+        previous round's result.  `epoch_fn.captures` counts the captures
+        per signature; each signature is captured once for the
+        epoch_fn's lifetime.  Either way the trajectory equals K
+        `make_round` calls bit for bit (where the card's algorithms are
+        deterministic)."""
         if mesh is not None:
             raise NotImplementedError("mesh execution comes with the "
                                       "sharded slice of the port")
-        round_fn = self.make_round(cfg, lr=lr, wire=wire, topology=topology)
+        plan, step = self.make_round_parts(cfg, lr=lr, wire=wire,
+                                           topology=topology)
+        graphed = _GraphedRounds(plan, step)
 
-        def epoch_fn(state, views, labels, generator):
+        def epoch_fn(state, views, labels, generator, round_keys=None):
+            if views.device.type == "cuda":
+                return graphed.epoch(state, views, labels, generator,
+                                     round_keys)
             per_round = []
             for k in range(views.shape[0]):
-                state, metrics = round_fn(state, views[k], labels[k],
-                                          generator)
+                sig, mask = plan(None if round_keys is None
+                                 else round_keys[k], labels.shape[-1])
+                if mask is not None:
+                    mask = linkfault.mask_tensor(mask, labels.device)
+                state, metrics = step(state, views[k], labels[k],
+                                      generator, sig, mask)
                 per_round.append(metrics)
-            stacked = {key: torch.stack([m[key] for m in per_round])
-                       for key in (per_round[0] if per_round else {})}
-            return state, stacked
+            return state, _stack_metrics(per_round)
+        epoch_fn.captures = graphed.graphs.captures
         return epoch_fn
 
     # serving bucket sizes (repro_torch/serving): in-flight requests are
@@ -118,7 +203,8 @@ class Scheme:
                              device=device)
         if delivery is None:
             return probs
-        ok = np.all(host_mask(delivery), axis=0)
+        # on the device: a captured predict reads its mask there
+        ok = torch.all(linkfault.mask_tensor(delivery, probs.device), dim=0)
         return linkfault.degrade_probs(probs, ok)
 
     def predict_under_faults(self, state, views, key, topology=None,
@@ -173,6 +259,106 @@ class Scheme:
 
     def __repr__(self):
         return f"<Scheme {self.name!r}>"
+
+
+def _stack_metrics(per_round) -> dict:
+    return {key: torch.stack([m[key] for m in per_round])
+            for key in (per_round[0] if per_round else {})}
+
+
+class _GraphedRounds:
+    """The card's epoch loop of `Scheme.make_epoch`: the device part of the
+    round captured once per host signature (repro_torch/graphs.py) and
+    replayed over the static state buffers, which persist from one epoch
+    to the next."""
+
+    def __init__(self, plan, step):
+        self.plan, self.step = plan, step
+        self.graphs = graphs.GraphCache()
+        self._state = None        # the static state buffers
+        self._views = self._labels = None
+        self._masks: Dict[Any, torch.Tensor] = {}
+        self._generator = None
+
+    def _bind(self, state) -> None:
+        """Make `state` the static buffers' content."""
+        if state is self._state:
+            return
+        if self._state is None:
+            self._state = tree_map(torch.clone, state)
+            return
+        src, dst = tree_leaves(state), tree_leaves(self._state)
+        if [(t.shape, t.dtype) for t in src] != \
+                [(t.shape, t.dtype) for t in dst]:
+            raise ValueError("epoch_fn's graphs were captured for another "
+                             "state structure; make a new epoch_fn")
+        torch._foreach_copy_(dst, src)
+
+    def epoch(self, state, views, labels, generator, round_keys):
+        if self._generator is None:
+            self._generator = generator
+        elif generator is not self._generator:
+            raise ValueError("epoch_fn's graphs draw from the generator "
+                             "they were captured with; pass that one")
+        K = views.shape[0]
+        self._bind(state)
+        plans = [self.plan(None if round_keys is None else round_keys[k],
+                           labels.shape[-1]) for k in range(K)]
+        # every mask of the epoch reaches the device in one copy
+        masked = [k for k, (_, m) in enumerate(plans) if m is not None]
+        dev_masks = {}
+        if masked:
+            stacked = linkfault.mask_tensor(
+                np.stack([plans[k][1] for k in masked]), views.device)
+            dev_masks = dict(zip(masked, stacked))
+        stacked_metrics = None
+        for k in range(K):
+            sig = plans[k][0]
+            graph = self.graphs.get(sig)
+            if graph is None:
+                metrics = self._first_round(sig, views[k], labels[k],
+                                            dev_masks.get(k))
+            else:
+                self._views.copy_(views[k])
+                self._labels.copy_(labels[k])
+                if k in dev_masks:
+                    self._masks[sig].copy_(dev_masks[k])
+                metrics = graph.replay()
+            if stacked_metrics is None:
+                stacked_metrics = {key: torch.empty((K,) + m.shape,
+                                                    dtype=m.dtype,
+                                                    device=m.device)
+                                   for key, m in metrics.items()}
+            torch._foreach_copy_([stacked_metrics[key][k] for key in metrics],
+                                 list(metrics.values()))
+        return self._state, (stacked_metrics or {})
+
+    def _first_round(self, sig, views, labels, mask):
+        """The round eagerly on a side stream (into the static state
+        buffers), then its device part captured for `sig`."""
+        new, metrics = graphs.warm_up(self.step, self._state, views, labels,
+                                      self._generator, sig, mask)
+        torch._foreach_copy_(tree_leaves(self._state), tree_leaves(new))
+        if self._views is None:
+            self._views = torch.empty_like(views)
+            self._labels = torch.empty_like(labels)
+        if mask is not None and sig not in self._masks:
+            self._masks[sig] = torch.empty_like(mask)
+        smask = None if mask is None else self._masks[sig]
+        buffers = (self._state, self._views, self._labels, smask)
+
+        def device_part():
+            out, m = self.step(self._state, self._views, self._labels,
+                               self._generator, sig, smask)
+            dst, src = tree_leaves(self._state), tree_leaves(out)
+            moved = [(d, s) for d, s in zip(dst, src) if d is not s]
+            if moved:
+                torch._foreach_copy_([d for d, _ in moved],
+                                     [s for _, s in moved])
+            return m
+        self.graphs.capture(sig, device_part, generators=(self._generator,),
+                            keep=buffers)
+        return metrics
 
 
 def tree_nbytes(tree) -> int:

@@ -65,13 +65,15 @@ class FLScheme(base.Scheme):
 
     def _make_round(self, cfg, lr, *, faulty):
         """round_fn(state, views, labels, generator, mask, *,
-        drop_masks=None); mask None on the clean round."""
+        drop_masks=None, plan=None); mask None on the clean round, else
+        the (J,) client delivery mask (a host array, or with `plan` a
+        device tensor)."""
         round_impl = fl.make_round(cfg, optim.adam(lr), self.local_steps,
                                    faulty=faulty)
         J, ls = cfg.num_clients, self.local_steps
 
         def round_fn(state, views, labels, generator, mask, *,
-                     drop_masks=None):
+                     drop_masks=None, plan=None):
             """views (J * local_steps, J, B, ...), labels (J * local_steps,
             B); drop_masks[j][s] for client j's local step s, drawn from
             `generator` client after client unless given."""
@@ -83,13 +85,13 @@ class FLScheme(base.Scheme):
                     for _ in range(ls)] for _ in range(J)]
             params, st, opt_state, metrics = round_impl(
                 state["params"], state["state"], state["opt"], packed, lab,
-                drop_masks, mask)
+                drop_masks, mask, plan=plan)
             return ({"params": params, "state": st, "opt": opt_state},
                     metrics)
         return round_fn
 
-    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
-                   topology=None):
+    def make_round_parts(self, cfg, *, lr: float = 2e-3,
+                         wire: str = "dense", topology=None):
         # the weight exchange is a client <-> server star by definition; a
         # star whose edges carry LinkModels (or cfg.edge_dropout > 0) runs
         # the masked FedAvg on the round's client delivery mask
@@ -98,19 +100,26 @@ class FLScheme(base.Scheme):
         faulty = linkfault.active(topo_full, cfg, train=True)
         inner = self._make_round(cfg, lr, faulty=faulty)
 
-        def round_fn(state, views, labels, generator, *, drop_masks=None,
-                     round_key=None):
-            mask = None
-            if faulty:
-                if round_key is None:
-                    raise ValueError("an FL round over unreliable links "
-                                     "draws its client delivery mask from "
-                                     "round_key; pass round_key=")
-                mask = linkfault.client_delivery_mask(round_key, topo_full,
-                                                      cfg, train=True)
+        def plan(round_key, batch_size):
+            # the server's average is decided on the host: over all, none
+            # or n of the uploads, one graph per decision
+            if not faulty:
+                return "all", None
+            if round_key is None:
+                raise ValueError("an FL round over unreliable links "
+                                 "draws its client delivery mask from "
+                                 "round_key; pass round_key=")
+            mask = linkfault.client_delivery_mask(round_key, topo_full, cfg,
+                                                  train=True)
+            sig = fl.average_plan(mask)
+            return sig, (mask if isinstance(sig, tuple) else None)
+
+        def device_step(state, views, labels, generator, sig, mask, *,
+                        drop_masks=None):
             return inner(state, views, labels, generator, mask,
-                         drop_masks=drop_masks)
-        return round_fn
+                         drop_masks=drop_masks,
+                         plan=sig if faulty else None)
+        return base.RoundParts(plan, device_step)
 
     def make_transport_round(self, cfg, *, lr: float = 2e-3,
                              wire: str = "dense", topology=None):

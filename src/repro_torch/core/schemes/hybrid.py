@@ -127,8 +127,8 @@ class HybridScheme(base.Scheme):
 
     def _make_step(self, cfg, *, lr, wire, topology):
         """step(state, views, labels, generator, delivery, drop_masks):
-        views (J, B, ...), labels (B,), delivery a (J,) host mask or None
-        (the clean round)."""
+        views (J, B, ...), labels (B,), delivery a (J,) bool mask (a host
+        array or a device tensor) or None (the clean round)."""
         fl_clients(cfg)                      # validate the mode split early
         opt = optim.adam(lr)
         topo = topology_lib.nontrivial(topology, cfg)
@@ -171,14 +171,13 @@ class HybridScheme(base.Scheme):
                      "modes": modes}, metrics)
         return step
 
-    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
-                   topology=None):
-        """round_fn(state, views, labels, generator, *, drop_masks=None,
-        round_key=None) with views (1, J, B, ...), labels (1, B).  Over
-        unreliable links the round draws its (J,) delivery mask from
+    def make_round_parts(self, cfg, *, lr: float = 2e-3,
+                         wire: str = "dense", topology=None):
+        """The round (views (1, J, B, ...), labels (1, B)): over unreliable
+        links its (J,) delivery mask is drawn on the host from
         `round_key`."""
         step = self._make_step(cfg, lr=lr, wire=wire, topology=topology)
-        return splitfed.fault_drawing_round(self.name, cfg, topology, step)
+        return splitfed.fault_drawing_parts(self.name, cfg, topology, step)
 
     def make_transport_round(self, cfg, *, lr: float = 2e-3,
                              wire: str = "dense", topology=None):

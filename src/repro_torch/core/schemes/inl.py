@@ -39,20 +39,22 @@ class INLScheme(base.Scheme):
         return {"params": params, "state": state,
                 "opt": optim.adam(lr).init(params)}
 
-    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
-                   topology=None):
+    def make_round_parts(self, cfg, *, lr: float = 2e-3,
+                         wire: str = "dense", topology=None):
         step = inl.make_train_step(cfg, optim.adam(lr), wire=wire,
                                    topology=topology)
 
-        def round_fn(state, views, labels, generator, *, eps=None,
-                     drop_masks=None, round_key=None):
+        def device_step(state, views, labels, generator, sig, mask, *,
+                        eps=None, drop_masks=None):
             params, st, opt_state, metrics = step(
                 state["params"], state["state"], state["opt"], views[0],
                 labels[0], generator, eps=eps, drop_masks=drop_masks,
-                round_key=round_key)
+                delivery=mask)
             return ({"params": params, "state": st, "opt": opt_state},
                     metrics)
-        return round_fn
+        return base.RoundParts(
+            base.fusion_plan(cfg, topology, inl.ROUND_KEY_MESSAGE),
+            device_step)
 
     def make_transport_round(self, cfg, *, lr: float = 2e-3,
                              wire: str = "dense", topology=None):

@@ -1,23 +1,29 @@
 """Registry-driven training runner — one loop for every scheme.
 
 Reference: src/repro/core/schemes/runner.py (`CurvePoint`,
-`rounds_per_epoch`, `run_scheme` on its per-round dispatch, `run_all`,
+`rounds_per_epoch`, `run_scheme`, `_run_per_round`, `run_all`,
 `efficiency`).  The scheme supplies init / round / predict / bandwidth
 through the Scheme interface; this module supplies the epoch loop,
 minibatch grouping, the BandwidthMeter and the accuracy-vs-Gbit curve.
 
-The port has one dispatch, "per_round": one round call per group of
-minibatches, the reference's `_run_per_round`.  The reference's default
-"scan" (a whole epoch as one jitted lax.scan) has no eager counterpart yet:
-a CUDA graph per epoch would be one, and it comes with a later slice, as do
-`mesh=` (the sharded slice), `transport=` (the transport slice) and
-`ckpt_dir=` (the checkpoint slice); each raises NotImplementedError.
+Two dispatches, as in the reference.  "scan" (the default) runs each
+epoch through `Scheme.make_epoch`: on the card one CUDA graph of the
+round's device part per host signature, replayed once a round (the
+counterpart of the reference's jitted lax.scan over the epoch), on the
+CPU the same rounds in a Python loop.  "per_round" calls the round once
+per group of minibatches, the reference's `_run_per_round`.  The two give
+the same trajectory bit for bit.  `mesh=` (the sharded slice),
+`transport=` (the transport slice) and `ckpt_dir=` (the checkpoint slice)
+raise NotImplementedError.  The reference's `prefetch_size=` overlaps the
+host-to-device copies of the next epoch's minibatches; the port has none
+to overlap, since the data set moves to the device once.
 
-The data set moves to the device once; each round gathers its minibatch
-there from the reference's seeded batch indices (data/multiview), so the
-port sees the same batches in the same order.  A torch.Generator seeded
-with `seed + 1` supplies every round's eps and dropout masks, in that
-order; the initial state comes from one seeded with `seed`.
+The data set moves to the device once; each epoch gathers its
+minibatches there in one go from the reference's seeded batch indices
+(data/multiview), so the port sees the same batches in the same order.  A
+torch.Generator seeded with `seed + 1` supplies every round's eps and
+dropout masks, in that order; the initial state comes from one seeded
+with `seed`.
 
 Unreliable links (core/linkfault.py): when the topology carries link
 models or cfg.edge_dropout > 0, global round g (counted from 0 over the
@@ -107,12 +113,7 @@ def rounds_per_epoch(scheme, cfg, n: int, batch_size: int) -> int:
 
 
 def _refuse_deferred(dispatch, mesh, transport, ckpt_dir) -> None:
-    if dispatch == "scan":
-        raise NotImplementedError(
-            "dispatch='scan' (a whole epoch per dispatch; a CUDA graph per "
-            "epoch in eager PyTorch) comes with a later slice of the port; "
-            "use dispatch='per_round'")
-    if dispatch != "per_round":
+    if dispatch not in ("scan", "per_round"):
         raise ValueError(f"unknown dispatch {dispatch!r}")
     if mesh is not None:
         raise NotImplementedError("mesh= comes with the sharded slice of "
@@ -127,7 +128,7 @@ def _refuse_deferred(dispatch, mesh, transport, ckpt_dir) -> None:
 
 def run_scheme(name: str, views, labels, cfg, *, epochs: int,
                batch_size: int = 64, lr: float = 2e-3, seed: int = 0,
-               eval_n: int = 512, dispatch: str = "per_round", mesh=None,
+               eval_n: int = 512, dispatch: str = "scan", mesh=None,
                wire: str = "dense", topology=None, meter=None,
                transport=None, ckpt_dir=None,
                device=None) -> List[CurvePoint]:
@@ -143,13 +144,20 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     per-edge ledgers afterwards).  After each epoch, accuracy is one
     predict over the first `eval_n` samples.  Over unreliable links the
     delivered ledger (`delivered_gbits`) follows each round's fault draws
-    (module docstring)."""
+    (module docstring).  dispatch "scan" runs each epoch as one
+    `Scheme.make_epoch` call (CUDA graphs on the card), "per_round" one
+    round call per group; the same trajectory either way."""
     _refuse_deferred(dispatch, mesh, transport, ckpt_dir)
     device = resolve_device(device)
     scheme = schemes.get(name)
     state = scheme.init(cfg, torch.Generator(device=device).manual_seed(seed),
                         lr=lr, device=device)
-    round_fn = scheme.make_round(cfg, lr=lr, wire=wire, topology=topology)
+    if dispatch == "scan":
+        epoch_fn = scheme.make_epoch(cfg, lr=lr, wire=wire,
+                                     topology=topology)
+    else:
+        round_fn = scheme.make_round(cfg, lr=lr, wire=wire,
+                                     topology=topology)
     bpr = scheme.batches_per_round(cfg)
     views = torch.as_tensor(np.asarray(views), dtype=torch.float32,
                             device=device)
@@ -167,22 +175,31 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
 
     curve: List[CurvePoint] = []
     for ep in range(epochs):
-        # the epoch's batch indices go to the device in one copy
+        # the epoch's minibatches, gathered on the device in one go:
+        # (K, bpr, J, B, ...) views and (K, bpr, B) labels
         batches = list(multiview.batch_indices(n, batch_size, seed=ep))
         idx = torch.as_tensor(
             np.array(batches[:rounds * bpr], dtype=np.int64).reshape(
                 rounds, bpr, batch_size), device=device)
-        for r in range(rounds):
-            # (bpr, J, B, ...) views and (bpr, B) labels, gathered on device
-            v = views[:, idx[r]].transpose(0, 1)
-            if not faulty:
-                state, _ = round_fn(state, v, labels[idx[r]], gen)
-                _meter_rounds(meter, charges)
-                continue
-            rk = linkfault.round_key(seed, ep * rounds + r)
-            state, _ = round_fn(state, v, labels[idx[r]], gen, round_key=rk)
+        ep_views = views[:, idx].permute(1, 2, 0, *range(3, views.dim() + 2))
+        ep_labels = labels[idx]
+        keys = ([linkfault.round_key(seed, ep * rounds + r)
+                 for r in range(rounds)] if faulty else None)
+        if dispatch == "scan":
+            if rounds:
+                state, _ = epoch_fn(state, ep_views, ep_labels, gen,
+                                    round_keys=keys)
+        else:
+            for r in range(rounds):
+                state, _ = round_fn(state, ep_views[r], ep_labels[r], gen,
+                                    round_key=None if keys is None
+                                    else keys[r])
+        if faulty:
             _meter_fault_rounds(meter, scheme, topo_full, cfg, batch_size,
-                                charges, [rk])
+                                charges, keys)
+        else:
+            for _ in range(rounds):
+                _meter_rounds(meter, charges)
         _meter_overheads(meter, scheme, cfg, state)
         acc = base.evaluate_accuracy(scheme, state, ev, el,
                                      topology=topology, cfg=cfg,

@@ -1,7 +1,8 @@
 """Split learning behind the unified Scheme API (wraps core/sl.py).
 
 Reference: src/repro/core/schemes/sl.py (`SLScheme.max_link_retries`,
-`init`, `_skip_failed_round`, `_make_raw_round`, `make_round`,
+`init`, `_skip_failed_round` — here the host part of
+`make_round_parts` —, `_make_raw_round`, `make_round`,
 `make_transport_round`, `predict`, `bits_per_round`,
 `epoch_overhead_bits`, `wire_bytes_per_round`,
 `epoch_overhead_wire_bytes`).  One round == one
@@ -51,40 +52,16 @@ class SLScheme(base.Scheme):
                 "opt_c": optim.adam(lr).init(client),
                 "opt_s": optim.adam(lr).init(server)}
 
-    def _skip_failed_round(self, cfg, topology, round_fn):
-        """Wrap a round: when the (star) topology models unreliable links,
-        draw the bounded-retry survival from the round's key and carry the
-        state through UNCHANGED on total failure.  A perfect link succeeds
-        with certainty, so the round returns the fault-free round's new
-        state."""
-        topo_full = topology_lib.resolve(topology, cfg)
-        if not linkfault.active(topo_full, cfg, train=True):
-            return round_fn
-        attempts = self.max_link_retries + 1
-
-        def faulty_round(state, views, labels, generator, *,
-                         drop_masks=None, round_key=None):
-            if round_key is None:
-                raise ValueError("an SL round over unreliable links draws "
-                                 "its retries from round_key; pass "
-                                 "round_key=")
-            new_state, metrics = round_fn(state, views, labels, generator,
-                                          drop_masks=drop_masks)
-            ok = linkfault.round_success(round_key, topo_full, cfg, attempts)
-            return (new_state if ok else state), metrics
-        return faulty_round
-
     def _make_raw_round(self, cfg, *, lr: float, wire: str):
-        """The fault-free round body (no link-survival wrapper)."""
+        """The round's computation: raw(state, views, labels, generator, *,
+        drop_masks=None) with views (1, J, B, ...), labels (1, B); the
+        server decoder's dropout masks drawn from `generator` unless
+        given."""
         step = sl.make_train_step(
             optim.adam(lr), optim.adam(lr), link_bits=cfg.link_bits,
             wire=wire, compute_dtype=getattr(cfg, "compute_dtype", "fp32"))
 
-        def round_fn(state, views, labels, generator, *, drop_masks=None,
-                     round_key=None):
-            """views (1, J, B, ...), labels (1, B); the server decoder's
-            dropout masks drawn from `generator` unless given.  round_key
-            is read by the retry wrapper only."""
+        def raw(state, views, labels, generator, *, drop_masks=None):
             B = labels.shape[1]
             if drop_masks is None:
                 drop_masks = paper_model.decoder_dropout_masks(
@@ -95,15 +72,38 @@ class SLScheme(base.Scheme):
                 drop_masks)
             return ({"client": client, "server": server, "state": st,
                      "opt_c": opt_c, "opt_s": opt_s}, metrics)
-        return round_fn
+        return raw
 
-    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
-                   topology=None):
+    def make_round_parts(self, cfg, *, lr: float = 2e-3,
+                         wire: str = "dense", topology=None):
         # SL's cut is ONE client -> server boundary (all conv branches live
         # on the active client), so only the star has a reading here
         topology_lib.require_star(topology, cfg, scheme=self.name)
-        return self._skip_failed_round(
-            cfg, topology, self._make_raw_round(cfg, lr=lr, wire=wire))
+        raw = self._make_raw_round(cfg, lr=lr, wire=wire)
+        topo_full = topology_lib.resolve(topology, cfg)
+        faulty = linkfault.active(topo_full, cfg, train=True)
+        attempts = self.max_link_retries + 1
+
+        def plan(round_key, batch_size):
+            # over unreliable links the bounded retry's survival is drawn
+            # from the round's key; a perfect link always keeps the round
+            if not faulty:
+                return "keep", None
+            if round_key is None:
+                raise ValueError("an SL round over unreliable links draws "
+                                 "its retries from round_key; pass "
+                                 "round_key=")
+            ok = linkfault.round_success(round_key, topo_full, cfg, attempts)
+            return ("keep" if ok else "skip"), None
+
+        def device_step(state, views, labels, generator, sig, mask, *,
+                        drop_masks=None):
+            # both variants compute the round, so the generator's later
+            # draws stay in place; "skip" carries the state through
+            new_state, metrics = raw(state, views, labels, generator,
+                                     drop_masks=drop_masks)
+            return (new_state if sig == "keep" else state), metrics
+        return base.RoundParts(plan, device_step)
 
     def make_transport_round(self, cfg, *, lr: float = 2e-3,
                              wire: str = "dense", topology=None):

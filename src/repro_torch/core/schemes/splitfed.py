@@ -42,7 +42,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch import (as_generator, as_input, optim, resolve_device,
@@ -71,16 +70,17 @@ def client_cfg(cfg):
 
 def fedavg(new, mask):
     """Masked FedAvg over the stacked leading-J axis of the tree `new`:
-    surviving clients (the (J,) host bool `mask`) receive sum(x * w) /
-    max(n, 1), the survivors' average, a division of two tensors; dead
-    routes keep their LOCAL update (they neither uploaded nor heard the
-    broadcast), so a round with no survivor leaves every client its own.
-    An all-ones mask is the clean round: every client gets sum / J."""
-    mask = np.asarray(mask, bool)
-    J = mask.shape[0]
+    surviving clients (the (J,) bool `mask`, a host array or a tensor)
+    receive sum(x * w) / max(n, 1), the survivors' average, a division of
+    two tensors; dead routes keep their LOCAL update (they neither
+    uploaded nor heard the broadcast), so a round with no survivor leaves
+    every client its own.  An all-ones mask is the clean round: every
+    client gets sum / J.  n is computed on the device (a sum of 0/1 fp32
+    values, exact), so a captured round reads no host value."""
     device = tree_leaves(new)[0].device
     w = linkfault.mask_tensor(mask, device).to(torch.float32)
-    n = torch.tensor(float(max(int(mask.sum()), 1)), device=device)
+    J = w.shape[0]
+    n = torch.clamp(torch.sum(w), min=1.0)
 
     def avg(x):
         wx = w.reshape((J,) + (1,) * (x.dim() - 1))
@@ -171,8 +171,8 @@ class SplitFedScheme(base.Scheme):
 
     def _make_step(self, cfg, *, lr, wire, topology):
         """step(state, views, labels, generator, delivery, drop_masks):
-        views (J, B, ...), labels (B,), delivery a (J,) host mask or None
-        (the clean round)."""
+        views (J, B, ...), labels (B,), delivery a (J,) bool mask (a host
+        array or a device tensor) or None (the clean round)."""
         opt = optim.adam(lr)
         topo = topology_lib.nontrivial(topology, cfg)
         topology_lib.check_wires(topo, cfg, wire)
@@ -191,22 +191,21 @@ class SplitFedScheme(base.Scheme):
                                            state["params"])
             # the clean round averages under an all-ones mask: the same
             # formula, so perfect links equal no links bit for bit
-            mask = np.ones((J,), bool) if delivery is None \
-                else base.host_mask(delivery)
+            mask = torch.ones((J,), dtype=torch.bool, device=labels.device) \
+                if delivery is None else delivery
             params = dict(params, encoders=fedavg(params["encoders"], mask))
             metrics = {k: v.detach() for k, v in metrics.items()}
             return ({"params": params, "state": new_enc, "opt": opt_state},
                     metrics)
         return step
 
-    def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
-                   topology=None):
-        """round_fn(state, views, labels, generator, *, drop_masks=None,
-        round_key=None) with views (1, J, B, ...), labels (1, B).  Over
-        unreliable links the round draws its (J,) delivery mask from
+    def make_round_parts(self, cfg, *, lr: float = 2e-3,
+                         wire: str = "dense", topology=None):
+        """The round (views (1, J, B, ...), labels (1, B)): over unreliable
+        links its (J,) delivery mask is drawn on the host from
         `round_key`."""
         step = self._make_step(cfg, lr=lr, wire=wire, topology=topology)
-        return fault_drawing_round(self.name, cfg, topology, step)
+        return fault_drawing_parts(self.name, cfg, topology, step)
 
     def make_transport_round(self, cfg, *, lr: float = 2e-3,
                              wire: str = "dense", topology=None):
@@ -298,25 +297,16 @@ class SplitFedScheme(base.Scheme):
             cfg, state, batch_size, wire=wire, topology=topology).values()))
 
 
-def fault_drawing_round(name: str, cfg, topology, step):
-    """The registered round of the hybrid schemes around
-    step(state, views, labels, generator, delivery, drop_masks): a clean
-    round passes delivery=None; over unreliable links (link models on the
-    topology, or cfg.edge_dropout > 0) the round's (J,) mask is drawn from
-    its `round_key` on the host, as the meter replays it."""
-    topo_full = topology_lib.resolve(topology, cfg)
-    faulty = linkfault.active(topo_full, cfg, train=True)
-
-    def round_fn(state, views, labels, generator, *, drop_masks=None,
-                 round_key=None):
-        delivery = None
-        if faulty:
-            if round_key is None:
-                raise ValueError(f"a {name} round over unreliable links "
-                                 "draws its delivery mask from round_key; "
-                                 "pass round_key=")
-            delivery = linkfault.round_delivery_mask(
-                round_key, topo_full, cfg, labels.shape[-1], train=True)
-        return step(state, views[0], labels[0], generator, delivery,
-                    drop_masks)
-    return round_fn
+def fault_drawing_parts(name: str, cfg, topology, step):
+    """The `RoundParts` of the hybrid schemes around step(state, views,
+    labels, generator, delivery, drop_masks): the host part is
+    `base.fusion_plan` ("clean", or "masked" with the round's (J,) mask);
+    the device part hands the mask to the step as `delivery`."""
+    def device_step(state, views, labels, generator, sig, mask, *,
+                    drop_masks=None):
+        return step(state, views[0], labels[0], generator, mask, drop_masks)
+    return base.RoundParts(
+        base.fusion_plan(cfg, topology,
+                         f"a {name} round over unreliable links draws its "
+                         "delivery mask from round_key; pass round_key="),
+        device_step)

@@ -544,15 +544,20 @@ def graph_cut_and_ship(topo: Topology, cfg, mu, logvar, eps, *,
                                rate_estimator=rate_estimator, prior_mu=pmu,
                                prior_logvar=plv)
     else:
-        # group membership is static: each launch takes exactly its rows
+        # group membership is static: each launch takes exactly its rows,
+        # gathered by stacking views of them (indexing with a host list
+        # would copy the index to the device, which a captured round
+        # cannot)
         u_rows, r_rows = [None] * len(gid_of_view), [None] * len(gid_of_view)
         for gid, bits in groups:
             idx = [j for j, g in enumerate(gid_of_view) if g == gid]
+
+            def rows(t):
+                return None if t is None else torch.stack([t[j] for j in idx])
             ug, rg = ops.cutlayer(
-                mu[idx], logvar[idx], eps[idx], link_bits=bits,
-                rate_estimator=rate_estimator,
-                prior_mu=None if pmu is None else pmu[idx],
-                prior_logvar=None if plv is None else plv[idx])
+                rows(mu), rows(logvar), rows(eps), link_bits=bits,
+                rate_estimator=rate_estimator, prior_mu=rows(pmu),
+                prior_logvar=rows(plv))
             for k, j in enumerate(idx):
                 u_rows[j], r_rows[j] = ug[k], rg[k]
         u, rate = torch.stack(u_rows), torch.stack(r_rows)

@@ -84,9 +84,12 @@ def dyn_quantize(g, bits: int):
     the result independent of batch or client sharding."""
     gf = g.to(torch.float32)
     m = torch.amax(torch.abs(gf), dim=-1, keepdim=True)
-    levels = torch.tensor(float((1 << bits) - 1), device=g.device)
     # a tensor divided by a tensor: torch computes float / tensor as a
-    # reciprocal times the float, which is not the reference's division
+    # reciprocal times the float, which is not the reference's division;
+    # the 0-dim numerator is a fill on the device (no host copy, so a
+    # captured round can run it)
+    levels = torch.full((), float((1 << bits) - 1), dtype=torch.float32,
+                        device=g.device)
     scale = levels / (2.0 * torch.clamp_min(m, 1e-12))
     q = torch.round((torch.clamp(gf, -m, m) + m) * scale) / scale - m
     return q.to(g.dtype)

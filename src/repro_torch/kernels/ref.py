@@ -50,7 +50,8 @@ def quantize_value(u, bits: int, *, u_range: float = QUANT_RANGE):
     scale = levels / (2.0 * u_range)
     clipped = torch.clamp(u, -u_range, u_range)
     idx = torch.round((clipped + u_range) * scale)
-    return idx / torch.tensor(scale, dtype=u.dtype, device=u.device) - u_range
+    return idx / torch.full((), scale, dtype=u.dtype, device=u.device) \
+        - u_range
 
 
 def _rate(u, muf, lv, mode: str):
@@ -109,8 +110,8 @@ def dequantize_index(idx, bits: int, *, dtype=torch.float32,
                      u_range: float = QUANT_RANGE):
     """Value of a codeword index: the fusion node's side of the link.  A
     true division by the fp32 scale, as the kernels divide."""
-    scale = torch.tensor(_index_scale(bits, u_range), dtype=torch.float32,
-                         device=idx.device)
+    scale = torch.full((), _index_scale(bits, u_range), dtype=torch.float32,
+                       device=idx.device)
     return (idx.to(torch.float32) / scale - u_range).to(dtype)
 
 

@@ -33,22 +33,33 @@ def greedy(logits):
     return torch.argmax(logits, dim=-1)
 
 
-def serve_batch(cfg, params, prompts, gen_len: int):
+def serve_batch(cfg, params, prompts, gen_len: int, *, trace_log=None):
     """prompts: (B, P) integer ids on the parameters' device.  Returns
     (B, gen_len) generated ids.  Prefill once, then greedy decode against
-    the cache, grown once by gen_len slots."""
+    the cache, grown once by gen_len slots.
+
+    The argmax lives inside the decode step (`make_decode_step(greedy=
+    True)`), the token and cache_len stay on the device between steps, and
+    on the card the step is one CUDA graph captured once and replayed once
+    per token, with no host synchronisation in the loop.  `trace_log` is
+    forwarded to the decode step: one entry per capture (none on the
+    CPU)."""
     B, P = prompts.shape
     prefill = steps_lib.make_prefill_step(cfg)
-    decode = steps_lib.make_decode_step(cfg, greedy=True)
+    decode = steps_lib.make_decode_step(cfg, greedy=True,
+                                        trace_log=trace_log)
     last_logits, cache = prefill(params, {"tokens": prompts})
     cache = zoo.pad_cache(cache, gen_len)
     tok = greedy(last_logits)
-    out = [tok]
+    out = torch.empty((B, gen_len), dtype=tok.dtype, device=tok.device)
+    out[:, 0] = tok
     for t in range(gen_len - 1):
+        cache_len = torch.full((), P + t, dtype=torch.int64,
+                               device=prompts.device)
         tok, cache = decode(params, {"tokens": tok[:, None],
-                                     "cache_len": P + t}, cache)
-        out.append(tok)
-    return torch.stack(out, dim=1)
+                                     "cache_len": cache_len}, cache)
+        out[:, t + 1] = tok
+    return out
 
 
 def prompts_for(cfg, requests: int, prompt_len: int, seed: int):

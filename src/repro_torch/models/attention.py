@@ -26,14 +26,16 @@ _MLA = ("MLA (DeepSeek-V2 multi-head latent attention) is not ported yet; "
         "it comes with the LLM stack's MLA slice (ROADMAP queue 1, item 6)")
 
 
-def decode_attention(q, k_cache, v_cache, cache_len: int, k_new, v_new, *,
+def decode_attention(q, k_cache, v_cache, cache_len, k_new, v_new, *,
                      exclude_slot=None):
     """Single-token attention against a cache.
 
     q: (B, 1, H, Dh); caches: (B, W, KV, Dh); cache_len: the count of valid
-    entries (for a ring buffer, W once wrapped); entries >= cache_len are
-    masked.  k_new/v_new (B, 1, KV, Dh): the current token's kv, attended
-    explicitly so the cache is read before it is written."""
+    entries (for a ring buffer, W once wrapped), an int or a 0-dim integer
+    tensor on q's device; entries >= cache_len are masked, and
+    `exclude_slot` (likewise) too.  k_new/v_new (B, 1, KV, Dh): the
+    current token's kv, attended explicitly so the cache is read before it
+    is written."""
     B, _, H, Dh = q.shape
     _, W, KV, _ = k_cache.shape
     g = H // KV
@@ -103,15 +105,24 @@ def gqa_apply(p, cfg, x, positions, *, mode: str, cache=None,
     if mode == "decode":
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a cache")
+        # cache_len is a 0-dim int64 tensor on the device (models/zoo):
+        # the slot and the valid count are device values too, and the
+        # cache writes index with a 1-element tensor, never through the
+        # host
+        if not isinstance(cache_len, torch.Tensor):
+            cache_len = torch.full((), int(cache_len), dtype=torch.int64,
+                                   device=x.device)
         W = cache["k"].shape[1]
-        slot = (cache_len % W) if cfg.sliding_window else cache_len
+        slot = torch.remainder(cache_len, W) if cfg.sliding_window \
+            else cache_len
         # attend over the old cache + the new token explicitly, then write
-        n_valid = min(cache_len, W)
+        n_valid = torch.clamp(cache_len, max=W)
         excl = slot if cfg.sliding_window else None
         out = decode_attention(q, cache["k"], cache["v"], n_valid, k, v,
                                exclude_slot=excl)
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        at = slot.reshape(1)
+        cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
         new_cache = cache
     elif mode == "prefill":
         out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)

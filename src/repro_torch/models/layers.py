@@ -92,11 +92,26 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+# the inverse frequencies by (head_dim, theta, device), moved to the device
+# once: a decode step then copies nothing from the host, so its CUDA graph
+# can be captured (the first call, eager, fills the entry)
+_INV_FREQ = {}
+
+
+def _inv_freq(d: int, theta: float, device) -> torch.Tensor:
+    key = (d, float(theta), torch.device(device))
+    t = _INV_FREQ.get(key)
+    if t is None:
+        t = torch.from_numpy(rope_frequencies(d, theta)).to(device)
+        _INV_FREQ[key] = t
+    return t
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: broadcastable to (..., S).  Rotates the
     split halves (x1, x2) of the head dim, in fp32."""
     d = x.shape[-1]
-    inv_freq = torch.from_numpy(rope_frequencies(d, theta)).to(x.device)
+    inv_freq = _inv_freq(d, theta, x.device)
     angles = positions[..., :, None].float() * inv_freq     # (..., S, D/2)
     angles = angles[..., None, :]                          # (..., S, 1, D/2)
     cos, sin = torch.cos(angles), torch.sin(angles)

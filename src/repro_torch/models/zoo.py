@@ -10,7 +10,10 @@ Reference: src/repro/models/zoo.py (`init_params`, `param_count`,
     param_count(cfg)                              -> analytic N
 
 Batch dict keys: `tokens` (B, S) integer ids; `cache_len` (decode) the
-count of valid cache entries, a Python int.  Text models only: the audio
+count of valid cache entries: a 0-dim int64 tensor on the device (a
+Python int is moved there), as the reference's is a traced value, so one
+decode step serves every position and a CUDA graph of it can be replayed
+with the position in a static buffer.  Text models only: the audio
 and VLM front ends come with a later slice of the LLM stack, as does
 training (the loss and its chunked cross entropy).
 """
@@ -80,9 +83,23 @@ def _embed_inputs(p, cfg, batch):
     tokens = batch["tokens"]
     h = layers.embed(p["embed"], tokens)
     B, S = tokens.shape
-    start = batch.get("cache_len", 0)
-    positions = torch.arange(start, start + S, device=h.device)
+    positions = torch.arange(S, device=h.device)
+    start = cache_len_tensor(batch, h.device)
+    if start is not None:
+        positions = start + positions
     return h, positions.expand(B, S)
+
+
+def cache_len_tensor(batch, device):
+    """The batch's `cache_len` as a 0-dim int64 tensor on `device` (None
+    when the batch has none)."""
+    start = batch.get("cache_len")
+    if start is None:
+        return None
+    if isinstance(start, torch.Tensor):
+        return start.to(device=device, dtype=torch.int64)
+    # a fill on the device, not a copy from the host (which would wait)
+    return torch.full((), int(start), dtype=torch.int64, device=device)
 
 
 def _project_out(p, cfg, h):
@@ -99,7 +116,7 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
     h, positions = _embed_inputs(params, cfg, batch)
     h, new_cache = transformer.stack_apply(
         params["stack"], cfg, h, positions, mode=mode, cache=cache,
-        cache_len=batch.get("cache_len"))
+        cache_len=cache_len_tensor(batch, h.device))
     h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if logits_positions == "last":
         h = h[:, -1:]

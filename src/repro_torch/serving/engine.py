@@ -43,9 +43,21 @@ Not in this slice, and refused with NotImplementedError: `transport=` and
 "packed_duplex") sets what the meter charges (a packed wire's codeword
 lanes, core/wirefmt.shipped_nbytes) and, on a non-star graph, each hop's
 encoding, which leaves the answers as they are; the star's predict ships
-unquantized latents and ignores it, as the reference's does.  The reference's
-`trace_counts` has no counterpart: eager PyTorch does not trace.  A CUDA
-graph captured per bucket, a later step, brings it back.
+unquantized latents and ignores it, as the reference's does.
+
+One compiled predict per bucket: the reference jits the bucket's predict
+once (`_make_bucket_predict`) and counts its traces in `trace_counts`.
+On the card the engine captures each bucket's predict once as a CUDA
+graph (repro_torch/graphs.py) over static views (and, with faults, a
+static (J, b) delivery mask) and replays it for every batch of that
+bucket; `trace_counts[b]` counts the captures, one per bucket for the
+engine's lifetime.  `warmup()` captures every bucket on the caller's
+thread; a bucket not warmed up is captured at its first batch.  The
+graphs read the state's tensors where they lie: replace `engine.state`
+(or any of its tensors) and the next batch captures its bucket again.
+On the CPU the engine runs the eager predict and `trace_counts` stays 0.
+A capture or replay that fails raises; the engine never falls back to
+the eager predict on the card.
 """
 from __future__ import annotations
 
@@ -59,7 +71,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import graphs, resolve_device
 from repro_torch.core import bandwidth, linkfault
 from repro_torch.core import topology as topology_lib
 from repro_torch.serving import batching, metering
@@ -167,6 +179,13 @@ class ServingEngine:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        # one graph per bucket on the card; the graphs may be captured on
+        # the scheduler thread while the caller's thread uses the card
+        self._graphs = graphs.GraphCache(self.buckets,
+                                         capture_error_mode="thread_local")
+        self.trace_counts: Dict[int, int] = self._graphs.captures
+        self._graph_state = None         # signature the graphs read
+        self._static: Dict[int, tuple] = {}
         self.meter = bandwidth.BandwidthMeter()
         self._edge_bits = metering.request_edge_bits(self.topo, cfg)
         self._edge_nbytes = metering.request_edge_wire_bytes(
@@ -184,14 +203,50 @@ class ServingEngine:
             self._key, self.topo, self.cfg, rids, deadline=self.deadline_ms)
 
     def _predict(self, views: np.ndarray, delivery=None) -> torch.Tensor:
-        return self.scheme.predict_batched(
-            self.state, torch.from_numpy(views).to(self.device),
-            delivery=delivery, topology=self.topology, cfg=self.cfg,
-            wire=self.wire, device=self.device)
+        """The bucket's predict on padded views (J, b, ...) and, with
+        faults, their (J, b) masks: eager on the CPU, the bucket's graph
+        on the card."""
+        if self.device.type != "cuda":
+            return self.scheme.predict_batched(
+                self.state, torch.from_numpy(views), delivery=delivery,
+                topology=self.topology, cfg=self.cfg, wire=self.wire,
+                device=self.device)
+        b = views.shape[1]
+        sig = graphs.signature(self.state)
+        if sig != self._graph_state:
+            self._graphs.clear()         # bound to the replaced tensors
+            self._static.clear()
+            self._graph_state = sig
+        graph = self._graphs.get(b)
+        if graph is None:
+            return self._capture(views, delivery)
+        sviews, smask = self._static[b]
+        sviews.copy_(torch.from_numpy(views))
+        if smask is not None:
+            smask.copy_(torch.from_numpy(delivery))
+        return graph.replay()
+
+    def _capture(self, views: np.ndarray, delivery) -> torch.Tensor:
+        """Bucket b's first batch: the eager predict on a side stream (its
+        answer), then the predict captured over static buffers."""
+        sviews = torch.from_numpy(views).to(self.device)
+        smask = None if delivery is None else linkfault.mask_tensor(
+            delivery, self.device)
+
+        def predict():
+            return self.scheme.predict_batched(
+                self.state, sviews, delivery=smask, topology=self.topology,
+                cfg=self.cfg, wire=self.wire, device=self.device)
+        probs = graphs.warm_up(predict)
+        b = views.shape[1]
+        self._static[b] = (sviews, smask)
+        self._graphs.capture(b, predict, keep=(self.state, sviews, smask))
+        return probs
 
     def warmup(self) -> None:
         """Run every bucket once, so latency measurements never include a
-        first call's library set-up (handles, algorithm choice)."""
+        first call's library set-up (handles, algorithm choice); on the
+        card this captures each bucket's graph."""
         J = self.topo.num_views()
         H, W, C = self.cfg.image_shape
         for b in self.buckets:

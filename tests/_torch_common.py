@@ -59,6 +59,51 @@ def jax_inl(cfg, seed: int = 0):
     return params, state
 
 
+# leaf name (and its parent's) -> (around, spread) of the seeded noise
+_ZOO_NOISE = {"A_log": (0.0, 0.5), "D": (1.0, 0.2), "dt_bias": (-2.0, 0.5),
+              "scale": (1.0, 0.2)}
+
+
+def flat(tree, prefix=""):
+    """{"/path/to/leaf": numpy array} of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k in tree
+                for k2, v2 in flat(tree[k], f"{prefix}/{k}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in flat(v, f"{prefix}/{i}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def zamba2_weights(jcfg, cfg):
+    """(numpy params of the reference's zoo at `jcfg`, the port's params at
+    `cfg` on the CPU).  The leaves init leaves constant (A_log, D, dt_bias,
+    the norm scales, the conv biases) get seeded numpy noise, and the
+    per-layer adapters are drawn N(0, 1/d_model) in place of init's 1e-4
+    scale, so the shared attention block moves the logits."""
+    from repro.models import zoo as jzoo
+    params = jax.jit(lambda k: jzoo.init_params(jcfg, k))(
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(100)
+
+    def noisy(path, x):
+        x = np.asarray(x, np.float32)
+        keys = [getattr(p, "key", None) for p in path]
+        name = keys[-1]
+        if name == "b" and keys[-2] == "conv":
+            return (0.1 * rng.normal(size=x.shape)).astype(np.float32)
+        if name == "w" and keys[-2] == "adapter":
+            return (rng.normal(size=x.shape) / np.sqrt(jcfg.d_model)) \
+                .astype(np.float32)
+        if name in _ZOO_NOISE:
+            around, spread = _ZOO_NOISE[name]
+            return (around + spread * rng.normal(size=x.shape)) \
+                .astype(np.float32)
+        return x
+    params = jax.tree_util.tree_map_with_path(noisy, params)
+    return params, convert.zoo_from_jax(params, cfg, device="cpu")
+
+
 def torch_inl(cfg, seed: int = 0, device="cpu"):
     """The port's (params, state) holding the same weights as jax_inl."""
     return convert.inl_from_jax(*jax_inl(cfg, seed), cfg, device=device)

@@ -8,7 +8,8 @@ JAX reference's.
     meters for the same settings: the closed forms do not depend on the
     weights or the random streams;
   * the options that come with later slices raise NotImplementedError, and
-    a packed wire at an unpackable width (CFG's 32 bits) a ValueError.
+    a packed wire at an unpackable width (CFG's 32 bits) a ValueError
+    (dispatch="scan", the default, runs: tests/test_torch_dispatch.py).
 """
 import pytest
 
@@ -67,7 +68,6 @@ def test_run_scheme_trains_and_meters_as_the_reference():
 
 
 @pytest.mark.parametrize("kw, err, match", [
-    ({"dispatch": "scan"}, NotImplementedError, "later slice"),
     ({"dispatch": "bogus"}, ValueError, "unknown dispatch"),
     ({"mesh": object()}, NotImplementedError, "sharded slice"),
     ({"transport": object()}, NotImplementedError, "transport slice"),
@@ -78,7 +78,7 @@ def test_run_scheme_trains_and_meters_as_the_reference():
                                 link_bits=(4,) * (CFG.num_clients - 1)
                                 + (32,)),
       "wire": "packed"}, ValueError, "packable"),
-], ids=["scan", "unknown", "mesh", "transport", "ckpt", "packed",
+], ids=["unknown", "mesh", "transport", "ckpt", "packed",
         "per-edge-widths"])
 def test_deferred_options_raise(kw, err, match):
     views, labels = _data()

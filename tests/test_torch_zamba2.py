@@ -29,6 +29,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_get_smoke  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
+from _torch_common import flat, zamba2_weights  # noqa: E402
 from repro.models import zoo as jzoo  # noqa: E402
 from repro_torch import convert, tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs.base import get_config, get_smoke_config  # noqa
@@ -48,45 +49,10 @@ def smoke(get):
 
 CFG, JCFG = smoke(get_smoke_config), smoke(jax_get_smoke)
 
-# leaf name (and its parent's) -> (around, spread) of the seeded noise
-_NOISE = {"A_log": (0.0, 0.5), "D": (1.0, 0.2), "dt_bias": (-2.0, 0.5),
-          "scale": (1.0, 0.2)}
-
-
-def flat(tree, prefix=""):
-    """{"/path/to/leaf": numpy array} of nested dicts and lists."""
-    if isinstance(tree, dict):
-        return {k2: v2 for k in tree
-                for k2, v2 in flat(tree[k], f"{prefix}/{k}").items()}
-    if isinstance(tree, (list, tuple)):
-        return {k2: v2 for i, v in enumerate(tree)
-                for k2, v2 in flat(v, f"{prefix}/{i}").items()}
-    return {prefix: np.asarray(tree)}
-
-
 @pytest.fixture(scope="module")
 def weights():
     """(numpy params of the reference, the port's params)."""
-    params = jax.jit(lambda k: jzoo.init_params(JCFG, k))(
-        jax.random.PRNGKey(0))
-    rng = np.random.default_rng(100)
-
-    def noisy(path, x):
-        x = np.asarray(x, np.float32)
-        keys = [getattr(p, "key", None) for p in path]
-        name = keys[-1]
-        if name == "b" and keys[-2] == "conv":
-            return (0.1 * rng.normal(size=x.shape)).astype(np.float32)
-        if name == "w" and keys[-2] == "adapter":
-            return (rng.normal(size=x.shape) / np.sqrt(JCFG.d_model)) \
-                .astype(np.float32)
-        if name in _NOISE:
-            around, spread = _NOISE[name]
-            return (around + spread * rng.normal(size=x.shape)) \
-                .astype(np.float32)
-        return x
-    params = jax.tree_util.tree_map_with_path(noisy, params)
-    return params, convert.zoo_from_jax(params, CFG, device="cpu")
+    return zamba2_weights(JCFG, CFG)
 
 
 def prompts(n, length, seed=0):
