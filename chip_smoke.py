@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times
+    python3 chip_smoke.py --decode-times
 
 Phases, each checked; any failed check exits non-zero before the last line:
 
@@ -270,9 +271,12 @@ non-zero and prints no result.
 
 With --kernel-times it runs phase 1, builds the cut-layer kernels and
 prints only their device times (phase 7's kernel lines, each kernel a call
-launches by name with its time), and no result line.  It times the
-checkout it sits in: to compare two checkouts on one card, copy it into
-both and run them in turns, one after another on the same card.
+launches by name with its time), and no result line; with --decode-times
+it builds the two LLM kernels and prints only Zamba2-2.7B's decode
+latency per token (phase 8's `llm decode latency` and graphed decode
+lines, seeded weights), and no result line.  Either times the checkout it
+sits in: to compare two checkouts on one card, copy it into both and run
+them in turns, one after another on the same card.
 """
 from __future__ import annotations
 
@@ -1129,16 +1133,17 @@ def training_data(cfg, n=TRAIN_SAMPLES):
 
 def recorded_run(torch, name, cfg, views, labels, *, epochs, wire="dense",
                  seed=0, topology=None, states=None, dispatch="per_round",
-                 captures=None):
+                 captures=None, **run_kw):
     """run_scheme(name, dispatch=dispatch) on the card, with the launch
     counts set to 0 just before and read just after, and every round's
     loss recorded by a wrapper around the registered scheme's make_round
     ("per_round") or make_epoch's epoch_fn ("scan"; the graphs phase holds
     the two against each other).  Into `states`, when given, each call's
     (state in, state out): a round's, or under "scan" an epoch's; into
-    `captures`, when given, the epoch_fn's captures per host signature.
-    Returns (curve, losses, launches, meter, seconds, the rounds' mean
-    rates (INL; empty for SL and FL))."""
+    `captures`, when given, the epoch_fn's captures per host signature;
+    `run_kw` (ckpt_dir=, resume=) go to run_scheme.  Returns (curve,
+    losses, launches, meter, seconds, the rounds' mean rates (INL; empty
+    for SL and FL))."""
     from repro_torch.core import bandwidth, schemes
     from repro_torch.core.schemes import runner
 
@@ -1172,13 +1177,13 @@ def recorded_run(torch, name, cfg, views, labels, *, epochs, wire="dense",
                                   batch_size=TRAIN_BATCH, eval_n=512,
                                   meter=meter, wire=wire, seed=seed,
                                   topology=topology, dispatch=dispatch,
-                                  device=DEV)
+                                  device=DEV, **run_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
     finally:
         delattr(scheme, attr)
-    if captures is not None and dispatch == "scan":
+    if captures is not None and dispatch == "scan" and made:
         captures.update(made[0].captures)
     loss = [float(x) for x in losses]
     check(all(np.isfinite(loss)), f"{name} {wire}: non-finite loss {loss}")
@@ -1958,43 +1963,74 @@ def lossy_training_phase(torch, card_line):
     return out
 
 
+LOSSY_CPU_SEEDS = 5
+
+
+def worst_leaf_shape(g_gpu, g_cpu):
+    """The shape of the gradient leaf with the largest |card - cpu| / |cpu|
+    among those above grads_close's atol floor."""
+    best, shape = -1.0, None
+    for a, b in zip(g_gpu, g_cpu):
+        a, b = a.cpu().double().numpy(), b.double().numpy()
+        size = np.linalg.norm(b)
+        floor = CARD_CPU_TOL["rtol"] * size \
+            + CARD_CPU_TOL["atol"] * np.sqrt(a.size)
+        if size > floor and np.linalg.norm(a - b) / size > best:
+            best, shape = np.linalg.norm(a - b) / size, tuple(a.shape)
+    return shape
+
+
 def lossy_card_vs_cpu(torch, card_line):
-    """One lossy step, card against the CPU port: one set of weights, eps,
-    dropout masks and one explicit delivery mask (two views lost), loss
-    and gradients at the phase-6 bar (grads_close)."""
+    """One lossy step, card against the CPU port, on LOSSY_CPU_SEEDS sets
+    of weights, eps and dropout masks and one explicit delivery mask (two
+    views lost): loss and gradients at the phase-6 bar (grads_close), and
+    beside each the clean step's on the same draws.  Prints each seed's
+    largest |card - cpu| / |cpu| of a leaf, lossy and clean, and whether it
+    stays under the bar's rtol term alone."""
     from repro_torch import tree_map
     from repro_torch.configs.paper_inl import PaperExperimentConfig
     from repro_torch.core import paper_model, schemes
 
     cfg = PaperExperimentConfig()
     views, labels = training_data(cfg)
-    cpu = schemes.get("inl").init(cfg, torch.Generator().manual_seed(19),
-                                  device="cpu")
-    gpu = tree_map(lambda t: t.to(DEV), cpu)
     v = torch.from_numpy(views[:, :TRAIN_BATCH])
     lab = torch.from_numpy(labels[:TRAIN_BATCH]).long()
-    g = torch.Generator().manual_seed(20)
-    eps = torch.randn((cfg.num_clients, TRAIN_BATCH, cfg.d_bottleneck),
-                      generator=g)
-    masks = paper_model.decoder_dropout_masks(g, cfg.dense_units,
-                                              TRAIN_BATCH)
     delivery = np.array([True, False, True, True, False])
-    l_cpu, g_cpu = _loss_and_grads(torch, cfg, cpu["params"], cpu["state"],
-                                   v, lab, eps, masks, delivery=delivery)
-    l_clean, _ = _loss_and_grads(torch, cfg, cpu["params"], cpu["state"],
-                                 v, lab, eps, masks)
-    check(l_cpu != l_clean, "the delivery mask did not change the loss")
-    l_gpu, g_gpu = _loss_and_grads(
-        torch, cfg, gpu["params"], gpu["state"], v.to(DEV), lab.to(DEV),
-        eps.to(DEV), [x.to(DEV) for x in masks], delivery=delivery)
-    max_leaf, max_abs, off = grads_close(l_gpu, l_cpu, g_gpu, g_cpu,
-                                         "lossy star")
-    print(f"linkfault: one lossy step (views 1 and 4 lost), card against "
-          f"the CPU port: loss {l_gpu:.7f} / {l_cpu:.7f} (clean {l_clean:.7f}"
-          f"); {len(g_gpu)} gradient leaves within rtol 1e-3 atol 1e-5 as "
-          f"tensors, largest |card - cpu| / |cpu| of a leaf {max_leaf:.3g}, "
-          f"largest entry difference {max_abs:.3g}, {off} entries outside "
-          f"the bar taken entry by entry [{card_line}]")
+    for i in range(LOSSY_CPU_SEEDS):
+        cpu = schemes.get("inl").init(
+            cfg, torch.Generator().manual_seed(19 + 2 * i), device="cpu")
+        gpu = tree_map(lambda t: t.to(DEV), cpu)
+        g = torch.Generator().manual_seed(20 + 2 * i)
+        eps = torch.randn((cfg.num_clients, TRAIN_BATCH, cfg.d_bottleneck),
+                          generator=g)
+        masks = paper_model.decoder_dropout_masks(g, cfg.dense_units,
+                                                  TRAIN_BATCH)
+        worst = {}
+        for label, kw in (("lossy", {"delivery": delivery}),
+                          ("clean", {})):
+            l_cpu, g_cpu = _loss_and_grads(torch, cfg, cpu["params"],
+                                           cpu["state"], v, lab, eps, masks,
+                                           **kw)
+            l_gpu, g_gpu = _loss_and_grads(
+                torch, cfg, gpu["params"], gpu["state"], v.to(DEV),
+                lab.to(DEV), eps.to(DEV), [x.to(DEV) for x in masks], **kw)
+            worst[label] = (l_gpu, l_cpu) + grads_close(
+                l_gpu, l_cpu, g_gpu, g_cpu, f"{label} star, seed {i}") \
+                + (worst_leaf_shape(g_gpu, g_cpu),)
+        check(worst["lossy"][1] != worst["clean"][1],
+              "the delivery mask did not change the loss")
+        (lg, lc, leaf, mx, off, shape), (_, cc, c_leaf, _, _, c_shape) = \
+            worst["lossy"], worst["clean"]
+        print(f"linkfault: one lossy step (views 1 and 4 lost), seed {i}, "
+              f"card against the CPU port: loss {lg:.7f} / {lc:.7f} (clean "
+              f"{cc:.7f}); {len(g_cpu)} gradient leaves within rtol 1e-3 "
+              f"atol 1e-5 as tensors, largest |card - cpu| / |cpu| of a "
+              f"leaf {leaf:.3g} lossy (a {shape} leaf), {c_leaf:.3g} clean "
+              f"(a {c_shape} leaf; under the rtol "
+              f"term alone: {leaf <= CARD_CPU_TOL['rtol']} / "
+              f"{c_leaf <= CARD_CPU_TOL['rtol']}), largest entry difference "
+              f"{mx:.3g}, {off} entries outside the bar taken entry by "
+              f"entry [{card_line}]")
 
 
 def lossy_serving_phase(torch, card_line):
@@ -2516,9 +2552,10 @@ def dispatch_runs():
     return runs
 
 
-def expected_signatures(name, cfg, wire, topology, rounds):
-    """The host signatures of a run's rounds: each round's host part on
-    its fault key, as run_scheme hands them out."""
+def expected_signatures(name, cfg, wire, topology, rounds, first=0):
+    """The host signatures of a run's rounds `first`..`first + rounds - 1`:
+    each round's host part on its fault key, as run_scheme hands them
+    out."""
     from repro_torch.core import linkfault as LF
     from repro_torch.core import schemes
     from repro_torch.core import topology as T
@@ -2526,7 +2563,7 @@ def expected_signatures(name, cfg, wire, topology, rounds):
                                                  topology=topology)
     faulty = LF.active(T.resolve(topology, cfg), cfg, train=True)
     return {plan(LF.round_key(GRAPH_SEED, g) if faulty else None,
-                 TRAIN_BATCH)[0] for g in range(rounds)}
+                 TRAIN_BATCH)[0] for g in range(first, first + rounds)}
 
 
 def ledgers(meter):
@@ -2673,6 +2710,265 @@ def graphs_phase(torch, card_line):
                                                       trained)
     print(f"graphs: phase took {time.perf_counter() - t0:.1f} s")
     return launches, trained
+
+
+# ---------------------------------------------------------------------------
+# 6f. checkpoints: resume bit for bit
+# ---------------------------------------------------------------------------
+
+CKPT_EPOCHS = 2                     # the uninterrupted run; resumed at 1
+CKPT_TIMING_REPS = 3
+
+
+def checkpoint_runs():
+    """(label, scheme, cfg, wire, topology, dispatch) of the checkpoint
+    phase: the six golden runs on the dense star under "scan", INL under
+    "per_round", INL on links_bench's lossy star (erasure 0.3 an edge,
+    edge dropout 0.2) and INL on the packed wire."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    runs = [(label, name, cfg, "dense", None, "scan")
+            for label, name, cfg, _, _ in dispatch_runs()[:6]]
+    _, _, lossy_cfg, lossy_star, _, _ = lossy_runs()[0]
+    runs += [("inl per_round", "inl", PaperExperimentConfig(), "dense",
+              None, "per_round"),
+             ("inl lossy star", "inl", lossy_cfg, "dense", lossy_star,
+              "scan"),
+             ("inl packed", "inl", PaperExperimentConfig(
+                 link_bits=WIRE_BITS), "packed", None, "scan")]
+    return runs
+
+
+def same_checkpoints(checkpoint, d1, d2, step):
+    """Checkpoint `step` of two directories: every array bit for bit and
+    the sidecars (curve, ledgers, generator state) equal.  Returns the
+    number of arrays."""
+    import os
+    p1, p2 = (os.path.join(d, f"ckpt_{step:08d}.npz") for d in (d1, d2))
+    with np.load(p1) as a, np.load(p2) as b:
+        check(sorted(a.files) == sorted(b.files) and len(a.files) > 0,
+              f"checkpoints {p1} and {p2} hold other leaves")
+        for key in a.files:
+            check(a[key].dtype == b[key].dtype
+                  and a[key].tobytes() == b[key].tobytes(),
+                  f"checkpoint leaf {key} differs between {p1} and {p2}")
+        n = len(a.files)
+    check(checkpoint.load_meta(d1, step) == checkpoint.load_meta(d2, step),
+          f"the sidecars of {p1} and {p2} differ")
+    return n
+
+
+def checkpoint_timing(torch, checkpoint, cfg, d, card_line):
+    """Save and restore ms of the trained INL state at full width (the
+    median of CKPT_TIMING_REPS, host clock, the restore ending in a
+    synchronize) and the npz's size."""
+    import os
+    from repro_torch import tree_leaves
+    from repro_torch.core import schemes
+    template = schemes.get("inl").init(cfg, 0, device=DEV)
+    torch.cuda.synchronize()
+    restore_ms, save_ms = [], []
+    for _ in range(CKPT_TIMING_REPS):
+        t0 = time.perf_counter()
+        state, step = checkpoint.restore(d, template)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    out = os.path.join(d, "timed")
+    for i in range(CKPT_TIMING_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save(out, i, state)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    mb = os.path.getsize(path) / 1e6
+    n = sum(t.numel() for t in tree_leaves(state))
+    print(f"checkpoint times: the INL state at PaperExperimentConfig() "
+          f"({n} values with the optimizer's) save "
+          f"{statistics.median(save_ms):.3f} ms, restore onto the card "
+          f"{statistics.median(restore_ms):.3f} ms (medians of "
+          f"{CKPT_TIMING_REPS}, host clock), npz {mb:.3f} MB [{card_line}]")
+    return statistics.median(save_ms), statistics.median(restore_ms), mb
+
+
+def checkpoint_phase(torch, card_line):
+    """Each run of `checkpoint_runs`, deterministic algorithms on: run_scheme
+    for CKPT_EPOCHS epochs with ckpt_dir against CKPT_EPOCHS // 2 epochs
+    with ckpt_dir and then resume=True to CKPT_EPOCHS: the curves equal,
+    the resumed rounds' losses the uninterrupted run's, both final
+    checkpoints' leaves and sidecars (ledgers, generator state) bit for
+    bit, the meters' ledgers equal, and under "scan" one capture per host
+    signature in the resumed run.  Then a directory whose newest npz lost
+    its sidecar resumes from the one before, and the save and restore
+    times.  Returns ({run: launches of the resumed run}, the timings)."""
+    import shutil
+    from repro_torch import checkpoint
+    from repro_torch.core import schemes
+    from repro_torch.core.schemes import runner
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    half = CKPT_EPOCHS // 2
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out, times = {}, None
+    try:
+        for label, name, cfg, wire, topo, dispatch in checkpoint_runs():
+            views, labels = training_data(cfg)
+            rounds = runner.rounds_per_epoch(schemes.get(name), cfg,
+                                             len(labels), TRAIN_BATCH)
+            full, part = (str(root / label.replace(" ", "_") / k)
+                          for k in ("full", "part"))
+            kw = dict(wire=wire, topology=topo, dispatch=dispatch)
+            c_g, l_g, _, m_g, w_g, _ = recorded_run(
+                torch, name, cfg, views, labels, epochs=CKPT_EPOCHS,
+                ckpt_dir=full, **kw)
+            c_h, _, _, _, _, _ = recorded_run(
+                torch, name, cfg, views, labels, epochs=half,
+                ckpt_dir=part, **kw)
+            caps = {}
+            c_r, l_r, n_r, m_r, w_r, _ = recorded_run(
+                torch, name, cfg, views, labels, epochs=CKPT_EPOCHS,
+                ckpt_dir=part, resume=True, captures=caps, **kw)
+            check(c_h == c_g[:half] and c_r == c_g,
+                  f"checkpoint {label}: resumed curve {c_r} != {c_g}")
+            check(l_r == l_g[half * rounds:],
+                  f"checkpoint {label}: the resumed rounds' losses differ")
+            leaves = same_checkpoints(checkpoint, full, part, CKPT_EPOCHS)
+            check(ledgers(m_r) == ledgers(m_g),
+                  f"checkpoint {label}: the ledgers differ")
+            if dispatch == "scan":
+                want = expected_signatures(name, cfg, wire, topo,
+                                           (CKPT_EPOCHS - half) * rounds,
+                                           first=half * rounds)
+                check(set(caps) == want
+                      and all(v == 1 for v in caps.values()),
+                      f"checkpoint {label}: captures {caps}, signatures "
+                      f"{want}")
+            out[label] = {k: v for k, v in n_r.items() if v}
+            print(f"checkpoint: run_scheme('{name}') {label} ({wire}, "
+                  f"{dispatch}), {CKPT_EPOCHS} epochs of {rounds} rounds == "
+                  f"{half} + resume=True bit for bit (curve, "
+                  f"{len(l_r)} resumed losses, {leaves} state leaves, "
+                  f"ledgers, generator state; delivery ratio "
+                  f"{m_r.delivery_ratio:.5f}), captures in the resumed run "
+                  f"{caps if dispatch == 'scan' else '(per_round)'}, "
+                  f"launches {out[label]}; wall {w_g:.2f} s uninterrupted, "
+                  f"{w_r:.2f} s resumed [{card_line}]")
+            if label == "inl":
+                # a save killed between the npz and its sidecar
+                import os
+                os.remove(os.path.join(part, f"ckpt_{CKPT_EPOCHS:08d}"
+                                             ".json"))
+                check(checkpoint.latest_step(part) == half,
+                      "checkpoint: a sidecarless npz counted")
+                c_t = recorded_run(torch, name, cfg, views, labels,
+                                   epochs=CKPT_EPOCHS, ckpt_dir=part,
+                                   resume=True, **kw)[0]
+                check(c_t == c_g, "checkpoint: the resume past a torn "
+                                  "checkpoint differs")
+                print(f"checkpoint: epoch {CKPT_EPOCHS}'s sidecar removed, "
+                      f"resume=True went on from epoch {half}: the curve "
+                      f"== the uninterrupted one [{card_line}]")
+                times = checkpoint_timing(torch, checkpoint, cfg, full,
+                                          card_line)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"checkpoint: phase took {time.perf_counter() - t_phase:.1f} s")
+    return out, times
+
+
+# ---------------------------------------------------------------------------
+# 6g. the placement search
+# ---------------------------------------------------------------------------
+
+SEARCH_EPOCHS = 2
+
+
+def search_grid():
+    """The spaces of benchmarks/frontier_bench.py's build_grid(smoke=True),
+    copied: INL on star(5) and chain(5) at 32 bits dense and at 4 bits on
+    packed_duplex, splitfed and hybrid on star(5) at cut depth None and 1
+    on both, fl and sl on star(5): 14 points."""
+    from repro_torch.search.space import SearchSpace, merge_points
+    topos, star, widths = ("star(5)", "chain(5)"), ("star(5)",), (4,)
+    return merge_points(
+        SearchSpace(schemes=("inl",), topologies=topos),
+        SearchSpace(schemes=("inl",), topologies=topos, link_bits=widths,
+                    wires=("packed_duplex",)),
+        SearchSpace(schemes=("splitfed", "hybrid"), topologies=star,
+                    cut_depths=(None, 1)),
+        SearchSpace(schemes=("splitfed", "hybrid"), topologies=star,
+                    link_bits=widths, wires=("packed_duplex",),
+                    cut_depths=(None, 1)),
+        SearchSpace(schemes=("fl", "sl"), topologies=star))
+
+
+def search_phase(torch, card_line):
+    """run_search over `search_grid` at PaperExperimentConfig()'s widths
+    with TRAIN_SAMPLES samples, batch 64, SEARCH_EPOCHS epochs,
+    train_pruned=True, deterministic algorithms on, launch counts set to 0
+    just before and read just after: every trained point priced == metered
+    == closed form (frontier_bench.assert_parity's bars, |d| x 1e9 < 1
+    bit), every pruned point's accuracy == its stand-in's exactly (a
+    star-dominated one costlier), a non-empty frontier of candidates.
+    Returns the launches."""
+    import dataclasses
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.search import driver
+    from repro_torch.search.pricing import CANDIDATE, PRUNED_STAR
+
+    base = dataclasses.replace(PaperExperimentConfig(),
+                               dataset_size=TRAIN_SAMPLES)
+    stamps = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = driver.run_search(
+            search_grid(), base, epochs=SEARCH_EPOCHS,
+            batch_size=TRAIN_BATCH, eval_n=256, train_pruned=True,
+            log=lambda msg: stamps.append((time.perf_counter(), msg)),
+            device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    priced = {pp.key: pp for pp in result.priced}
+    check(len(priced) == 14 and len(result.measured) == 14
+          and all(m.trained for m in result.measured.values()),
+          f"search: {len(priced)} priced, {len(result.measured)} measured")
+    for m in result.measured.values():
+        for a, b, what in ((m.gbits, m.priced_gbits, "priced"),
+                           (m.measured_gbits, m.priced_measured_gbits,
+                            "priced wire"),
+                           (m.gbits, m.measured_gbits, "closed-form")):
+            check(abs(a - b) * 1e9 < 1.0,
+                  f"search {m.key}: {what} {b} Gbit != metered {a} Gbit")
+        if m.status != CANDIDATE:
+            sib = result.measured[m.stand_in]
+            check(m.accuracy == sib.accuracy,
+                  f"search {m.key}: accuracy {m.accuracy} != its stand-in "
+                  f"{sib.key}'s {sib.accuracy}")
+            check(m.status != PRUNED_STAR or m.gbits > sib.gbits,
+                  f"search {m.key}: not costlier than its star sibling")
+    check(result.frontier and all(m.status == CANDIDATE and m.trained
+                                  for m in result.frontier),
+          f"search: frontier {[m.key for m in result.frontier]}")
+    walls = [b[0] - a[0] for a, b in zip(stamps, stamps[1:])]
+    for (key, m), w in zip(result.measured.items(), walls):
+        print(f"search: {key} ({m.status}"
+              f"{'' if m.stand_in is None else ', stands in: ' + m.stand_in}"
+              f") accuracy {m.accuracy:.4f}, {m.gbits:.6f} Gbit accounted "
+              f"== metered == priced, measured {m.measured_gbits:.6f} "
+              f"Gbit, wall {w:.2f} s [{card_line}]")
+    print(f"search: {len(priced)} points priced in "
+          f"{stamps[0][0] - t0:.2f} s, all trained ({SEARCH_EPOCHS} epochs "
+          f"each, {TRAIN_SAMPLES} samples, batch {TRAIN_BATCH}); frontier "
+          f"{[m.key for m in result.frontier]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; phase "
+          f"{wall:.1f} s [{card_line}]")
+    return launches
 
 
 def graphed_round_timing(torch, card_line, name, *, cfg=None,
@@ -3482,6 +3778,47 @@ def eager_decode(torch, cfg):
     return decode
 
 
+def decode_attention_check(torch, cfg, card_line):
+    """One bf16 decode_attention call at the serving decode's shapes (B=4,
+    a cache of 512 + 32 slots, 300 valid, Zamba2's heads): the device
+    memory it allocates beyond its inputs against the bytes an fp32 copy
+    of both caches would take, its device time (CUDA events), and the
+    entries that differ from the CPU port on the same inputs."""
+    from repro_torch.models import attention
+
+    g = torch.Generator(device=DEV).manual_seed(21)
+    W, KV, H, Dh = LLM_PROMPT + LLM_GEN, cfg.num_kv_heads, cfg.num_heads, \
+        cfg.head_dim
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+    q, kn, vn = draw(LLM_B, 1, H, Dh), draw(LLM_B, 1, KV, Dh), \
+        draw(LLM_B, 1, KV, Dh)
+    kc, vc = draw(LLM_B, W, KV, Dh), draw(LLM_B, W, KV, Dh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = attention.decode_attention(q, kc, vc, 300, kn, vn)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    copies = 2 * kc.numel() * 4
+    check(extra < copies / 4, f"decode_attention allocated {extra} bytes, "
+                              f"an fp32 copy of the caches is {copies}")
+    cpu = attention.decode_attention(*(t.cpu() for t in (q, kc, vc)), 300,
+                                     kn.cpu(), vn.cpu())
+    differ = int((out.cpu() != cpu).sum())
+    err = float((out.cpu().float() - cpu.float()).abs().max())
+    check(err <= 2e-2 * float(cpu.float().abs().max()),
+          f"decode_attention: card against the CPU port {err}")
+    ms = cuda_ms(torch, lambda: attention.decode_attention(
+        q, kc, vc, 300, kn, vn), reps=100, warmup=10)
+    print(f"llm decode attention: bf16 B={LLM_B} W={W} H={H} KV={KV} "
+          f"Dh={Dh}, 300 valid: {extra} bytes allocated beyond the inputs "
+          f"(an fp32 copy of both caches: {copies}), {ms:.4f} ms a call "
+          f"(CUDA events, eager), {differ} of {out.numel()} outputs differ "
+          f"from the CPU port's, by at most {err:.3g} [{card_line}]")
+
+
 def llm_graph_phase(torch, cfg, params, card_line):
     """Zamba2-2.7B at full width, B=4 after a prompt of 512, 32 tokens,
     deterministic algorithms on: the greedy decode loop on the graphed step
@@ -3550,9 +3887,7 @@ def llm_timing(torch, cfg, params, card_line):
     share from the profiler; the decode step eager and graphed (its device
     time from CUDA events around back-to-back steps)."""
     from repro_torch.launch import serve, steps
-    from repro_torch.models import zoo
     prefill = steps.make_prefill_step(cfg)
-    decode = eager_decode(torch, cfg)
     out = {}
     for P in (LLM_PROMPT, 2048):
         prompts = serve.prompts_for(cfg, LLM_B, P, 3).to(DEV)
@@ -3569,6 +3904,19 @@ def llm_timing(torch, cfg, params, card_line):
               f"{1 - busy / wall:.3f}; top kernels: {top}; the hand-written "
               f"kernels: flash_attn_fwd {own['flash_attn_fwd']:.3f} ms, "
               f"ssd_scan {own['ssd_scan']:.3f} ms [{card_line}]")
+    out.update(decode_timing(torch, cfg, params, card_line))
+    return out
+
+
+def decode_timing(torch, cfg, params, card_line):
+    """Zamba2-2.7B's decode latency per token after a prompt of 512, eager
+    (host clock, and the profiler's busy time) and graphed (host clock,
+    and the device time from CUDA events around back-to-back steps)."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import zoo
+    prefill = steps.make_prefill_step(cfg)
+    decode = eager_decode(torch, cfg)
+    out = {}
     prompts = serve.prompts_for(cfg, LLM_B, LLM_PROMPT, 4).to(DEV)
     _, cache = prefill(params, {"tokens": prompts})
     steps_n = 24
@@ -3667,6 +4015,12 @@ CUT_LAYER_SOURCES = ("cut_fwd", "cut_bwd", "cut_prior_fwd", "cut_prior_bwd",
 # the kernels the hybrid schemes' runs launch (the deterministic cut)
 HYBRID_PATH_KERNELS = ("cut_fwd", "cut_bwd", "cut_fwd_pack", "pack",
                        "unpack_dequant")
+# the kernels the resumed runs (learned priors among them) and the search
+# grid (packed_duplex on the star and on chain(5)) must launch
+RESUME_PATH_KERNELS = ("cut_fwd", "cut_bwd", "cut_prior_fwd",
+                       "cut_prior_bwd")
+SEARCH_PATH_KERNELS = ("cut_fwd", "cut_bwd", "cut_fwd_pack", "pack",
+                       "unpack_dequant")
 
 
 def main() -> int:
@@ -3675,6 +4029,10 @@ def main() -> int:
     parser.add_argument("--kernel-times", action="store_true",
                         help="build the cut-layer kernels and print only "
                              "their device times")
+    parser.add_argument("--decode-times", action="store_true",
+                        help="build the LLM kernels and print only "
+                             "Zamba2-2.7B's decode latency per token, "
+                             "eager and graphed")
     args = parser.parse_args()
     try:
         import torch
@@ -3699,6 +4057,14 @@ def main() -> int:
         new_kernel_timing(torch, card)
         pack_kernel_timing(torch, card)
         return 0
+    if args.decode_times:
+        from repro_torch.models import zoo
+        build_phase(TENSOR_CORE_KERNELS)
+        cfg = zamba2(torch)
+        params = zoo.init_params(
+            cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        decode_timing(torch, cfg, params, card)
+        return 0
     build_phase()
     worst = {"cut_fwd": kernel_phase(torch),
              "cut_bwd": bwd_kernel_phase(torch),
@@ -3720,6 +4086,8 @@ def main() -> int:
     lossy_serve_launches = lossy_serving_phase(torch, card)
     hybrid_launches_by_run = hybrids_phase(torch, card)
     graph_launches_by_run, graph_state = graphs_phase(torch, card)
+    resume_launches_by_run, _ = checkpoint_phase(torch, card)
+    search_launches = search_phase(torch, card)
     torch.cuda.synchronize()
     rows = timing_phase(torch, scheme, state, views, card)
     steps = {wire: train_step_timing(torch, card, wire=wire,
@@ -3760,6 +4128,7 @@ def main() -> int:
         worst[kname] = max(worst[kname], err)
     llm_fp32_phase(torch, card)
     llm_graph_launches = llm_graph_phase(torch, llm_cfg, llm_params, card)
+    decode_attention_check(torch, llm_cfg, card)
     llm_times = llm_timing(torch, llm_cfg, llm_params, card)
     del llm_params
     rows.update(llm_kernel_timing(torch, card))
@@ -3789,6 +4158,13 @@ def main() -> int:
                      if n.get(k)} for k in CUT_LAYER_SOURCES}
     check(all(on_graphs.values()),
           f"a cut-layer kernel never launched under graphs: {on_graphs}")
+    on_resume = {k: {run: n[k] for run, n in resume_launches_by_run.items()
+                     if n.get(k)} for k in CUT_LAYER_SOURCES}
+    check(all(on_resume[k] for k in RESUME_PATH_KERNELS),
+          f"a kernel of the resume path never launched: {on_resume}")
+    on_search = {k: search_launches.get(k, 0) for k in CUT_LAYER_SOURCES}
+    check(all(on_search[k] for k in SEARCH_PATH_KERNELS),
+          f"a kernel of the search grid never launched: {on_search}")
     check(not any(llm_graph_launches.values()),
           f"the graphed decode loop launched {llm_graph_launches}")
     print(f"chip_smoke: all phases passed in "
@@ -3836,7 +4212,9 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
             "shape": shape, "launches_per_train_step": per_step,
             "path": path, "launches_on_lossy_links": lossy[kname],
-            "launches_on_graphs": on_graphs[kname]}
+            "launches_on_graphs": on_graphs[kname],
+            "launches_on_resume": on_resume[kname],
+            "launches_on_search": on_search[kname]}
         if kname in on_hybrids:
             entry["launches_on_hybrids"] = on_hybrids[kname]
         if kname in REDESIGNED:

@@ -12,11 +12,11 @@ round's device part per host signature, replayed once a round (the
 counterpart of the reference's jitted lax.scan over the epoch), on the
 CPU the same rounds in a Python loop.  "per_round" calls the round once
 per group of minibatches, the reference's `_run_per_round`.  The two give
-the same trajectory bit for bit.  `mesh=` (the sharded slice),
-`transport=` (the transport slice) and `ckpt_dir=` (the checkpoint slice)
-raise NotImplementedError.  The reference's `prefetch_size=` overlaps the
-host-to-device copies of the next epoch's minibatches; the port has none
-to overlap, since the data set moves to the device once.
+the same trajectory bit for bit.  `mesh=` (the sharded slice) and
+`transport=` (the transport slice) raise NotImplementedError.  The
+reference's `prefetch_size=` overlaps the host-to-device copies of the
+next epoch's minibatches; the port has none to overlap, since the data
+set moves to the device once.
 
 The data set moves to the device once; each epoch gathers its
 minibatches there in one go from the reference's seeded batch indices
@@ -40,6 +40,7 @@ from typing import List, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as checkpoint_lib
 from repro_torch import resolve_device
 from repro_torch.core import bandwidth, linkfault, schemes
 from repro_torch.core import topology as topology_lib
@@ -106,13 +107,81 @@ def _meter_overheads(meter, scheme, cfg, state) -> None:
     meter.add_delivered(bits=bits, nbytes=nbytes)
 
 
+def _meter_dump(meter) -> dict:
+    """The meter's full ledger state, JSON-serialisable (resume context)."""
+    return {"total_bits": meter.total_bits,
+            "measured_bytes": meter.measured_bytes,
+            "delivered_bits": meter.delivered_bits,
+            "delivered_measured_bytes": meter.delivered_measured_bytes,
+            "edge_bits": dict(meter.edge_bits),
+            "edge_measured_bytes": dict(meter.edge_measured_bytes),
+            "edge_delivered_bits": dict(meter.edge_delivered_bits)}
+
+
+def _meter_load(meter, d: dict) -> None:
+    meter.total_bits = float(d["total_bits"])
+    meter.measured_bytes = float(d["measured_bytes"])
+    meter.delivered_bits = float(d["delivered_bits"])
+    meter.delivered_measured_bytes = float(d["delivered_measured_bytes"])
+    meter.edge_bits = {k: float(v) for k, v in d["edge_bits"].items()}
+    meter.edge_measured_bytes = {k: float(v) for k, v
+                                 in d["edge_measured_bytes"].items()}
+    meter.edge_delivered_bits = {k: float(v) for k, v
+                                 in d["edge_delivered_bits"].items()}
+
+
+def _save_epoch(ckpt_dir, name, ep, state, curve, meter, generator) -> None:
+    """One epoch-granular checkpoint: the whole training state, and in the
+    sidecar the curve, both meter ledgers and the round generator's state
+    (as hex), everything a bit-identical resume needs.  The state's leaves
+    are copied to the host here, before the next epoch can overwrite
+    them."""
+    extra = {"scheme": name, "epoch": ep,
+             "curve": [list(map(float, p)) for p in curve],
+             "meter": _meter_dump(meter),
+             "generator": {"device": generator.device.type,
+                           "state": generator.get_state().numpy()
+                           .tobytes().hex()}}
+    checkpoint_lib.save(ckpt_dir, ep, state, extra=extra)
+
+
+def _try_resume(ckpt_dir, state, meter, generator):
+    """Restore the latest complete epoch checkpoint when one exists:
+    returns (state, curve so far, epochs already done), with the meter's
+    ledgers and `generator`'s state set from the sidecar.  A directory
+    without one resumes from nothing: epoch 0 with the given state."""
+    step = checkpoint_lib.latest_step(ckpt_dir)
+    if step is None:
+        return state, [], 0
+    meta = checkpoint_lib.load_meta(ckpt_dir, step)
+    saved = meta["generator"]
+    if saved["device"] != generator.device.type:
+        raise ValueError(f"the checkpoint's round generator drew on "
+                         f"{saved['device']}, this run draws on "
+                         f"{generator.device.type}; resume on the device "
+                         f"type that wrote it")
+    restored, _ = checkpoint_lib.restore(ckpt_dir, state, step=step)
+    curve = [CurvePoint(int(p[0]), *map(float, p[1:]))
+             for p in meta["curve"]]
+    _meter_load(meter, meta["meter"])
+    generator.set_state(torch.frombuffer(
+        bytearray.fromhex(saved["state"]), dtype=torch.uint8))
+    return restored, curve, int(meta["epoch"])
+
+
+def _host(x):
+    """A tensor as it is, anything else (a jax or numpy array) as numpy."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def rounds_per_epoch(scheme, cfg, n: int, batch_size: int) -> int:
     """Rounds one epoch of an n-sample set runs: full minibatches grouped
-    by the scheme's batches_per_round."""
+    by the scheme's batches_per_round.  The search's closed-form pricing
+    (repro_torch/search/pricing.py) charges exactly these rounds."""
     return (n // batch_size) // scheme.batches_per_round(cfg)
 
 
-def _refuse_deferred(dispatch, mesh, transport, ckpt_dir) -> None:
+def _refuse_deferred(dispatch, mesh, transport) -> None:
     if dispatch not in ("scan", "per_round"):
         raise ValueError(f"unknown dispatch {dispatch!r}")
     if mesh is not None:
@@ -121,17 +190,14 @@ def _refuse_deferred(dispatch, mesh, transport, ckpt_dir) -> None:
     if transport is not None:
         raise NotImplementedError("transport= comes with the transport "
                                   "slice of the port")
-    if ckpt_dir is not None:
-        raise NotImplementedError("ckpt_dir= comes with the checkpoint "
-                                  "slice of the port")
 
 
 def run_scheme(name: str, views, labels, cfg, *, epochs: int,
                batch_size: int = 64, lr: float = 2e-3, seed: int = 0,
                eval_n: int = 512, dispatch: str = "scan", mesh=None,
                wire: str = "dense", topology=None, meter=None,
-               transport=None, ckpt_dir=None,
-               device=None) -> List[CurvePoint]:
+               transport=None, ckpt_dir=None, ckpt_every: int = 1,
+               resume: bool = False, device=None) -> List[CurvePoint]:
     """Train scheme `name` for `epochs` over the (J, n, ...) multi-view set
     (numpy or tensors) on `device` (None: cuda) and return its
     accuracy/bandwidth curve (paper Figs. 5/7 rows).
@@ -146,8 +212,11 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     delivered ledger (`delivered_gbits`) follows each round's fault draws
     (module docstring).  dispatch "scan" runs each epoch as one
     `Scheme.make_epoch` call (CUDA graphs on the card), "per_round" one
-    round call per group; the same trajectory either way."""
-    _refuse_deferred(dispatch, mesh, transport, ckpt_dir)
+    round call per group; the same trajectory either way.  `ckpt_dir`
+    saves a checkpoint every `ckpt_every` epochs and after the last;
+    `resume=True` trains on from the latest one there, bit-identical to
+    the uninterrupted run (module docstring)."""
+    _refuse_deferred(dispatch, mesh, transport)
     device = resolve_device(device)
     scheme = schemes.get(name)
     state = scheme.init(cfg, torch.Generator(device=device).manual_seed(seed),
@@ -159,9 +228,9 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
         round_fn = scheme.make_round(cfg, lr=lr, wire=wire,
                                      topology=topology)
     bpr = scheme.batches_per_round(cfg)
-    views = torch.as_tensor(np.asarray(views), dtype=torch.float32,
-                            device=device)
-    labels = torch.as_tensor(np.asarray(labels), device=device).long()
+    # tensors already on the device (the search's shared views) stay there
+    views = torch.as_tensor(_host(views), dtype=torch.float32, device=device)
+    labels = torch.as_tensor(_host(labels), device=device).long()
     n = labels.shape[0]
     meter = bandwidth.BandwidthMeter() if meter is None else meter
     charges = _round_charges(scheme, cfg, state, batch_size, wire=wire,
@@ -170,11 +239,13 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     topo_full = topology_lib.resolve(topology, cfg)
     faulty = linkfault.active(topo_full, cfg, train=True)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
+    start_ep, curve = 0, []
+    if resume and ckpt_dir:
+        state, curve, start_ep = _try_resume(ckpt_dir, state, meter, gen)
     n_eval = min(eval_n, n)
     ev, el = views[:, :n_eval], labels[:n_eval]
 
-    curve: List[CurvePoint] = []
-    for ep in range(epochs):
+    for ep in range(start_ep, epochs):
         # the epoch's minibatches, gathered on the device in one go:
         # (K, bpr, J, B, ...) views and (K, bpr, B) labels
         batches = list(multiview.batch_indices(n, batch_size, seed=ep))
@@ -206,6 +277,10 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
                                      device=device)
         curve.append(CurvePoint(ep + 1, acc, meter.gbits,
                                 meter.measured_gbits, meter.delivered_gbits))
+        if ckpt_dir and ((ep + 1) % max(ckpt_every, 1) == 0
+                         or ep + 1 == epochs):
+            _save_epoch(ckpt_dir, scheme.name, ep + 1, state, curve, meter,
+                        gen)
     return curve
 
 

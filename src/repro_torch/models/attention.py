@@ -5,8 +5,9 @@ Reference: src/repro/models/attention.py (`gqa_init`, `gqa_param_count`,
 fronts).  Prefill goes through `kernels/ops.attention`: the flash kernel
 on the card, its plain version on the CPU (the reference's model runs the
 same contract as a jnp blockwise scan).  Decode is one token against the
-cache in plain torch, softmax in fp32.  DeepSeek-V2's MLA comes with a
-later slice of the LLM stack and raises here.
+cache in plain torch, softmax in fp32, with the reference's bf16
+roundings of the scaled query and the softmax weights.  DeepSeek-V2's
+MLA comes with a later slice of the LLM stack and raises here.
 
 The decode step writes the new token's k/v into the cache in place (the
 reference donates the cache buffers to the same effect) and returns the
@@ -35,27 +36,60 @@ def decode_attention(q, k_cache, v_cache, cache_len, k_new, v_new, *,
     tensor on q's device; entries >= cache_len are masked, and
     `exclude_slot` (likewise) too.  k_new/v_new (B, 1, KV, Dh): the
     current token's kv, attended explicitly so the cache is read before it
-    is written."""
+    is written.
+
+    As in the reference, q * scale is rounded to the cache's dtype before
+    both score products and the softmax weights to v's before the PV
+    product; scores and the output accumulate in fp32 (the reference's
+    preferred_element_type).  On the card a low-precision cache enters
+    its products as it is (`torch.bmm(..., out_dtype=torch.float32)` on
+    strided views), so no fp32 copy of a cache is made; the CPU has no
+    such product and upcasts, which is exact."""
     B, _, H, Dh = q.shape
     _, W, KV, _ = k_cache.shape
     g = H // KV
-    qf = (q.float() * (1.0 / math.sqrt(Dh))).reshape(B, KV, g, Dh)
-    s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.float())
+    qc = (q.float() * (1.0 / math.sqrt(Dh))).to(k_cache.dtype) \
+        .reshape(B, KV, g, Dh)
+    # (B, KV, g, Dh) x (B, W, KV, Dh) -> (B, KV, g, W)
+    s = _cache_product(qc, k_cache.permute(0, 2, 3, 1))
     valid = torch.arange(W, device=q.device) < cache_len
     if exclude_slot is not None:
         # ring buffer wrapped: the stale entry that the current token is
         # about to overwrite must not be attended
         valid = valid & (torch.arange(W, device=q.device) != exclude_slot)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    s_new = torch.einsum("bkgd,bkd->bkg", qf, k_new[:, 0].float())
+    s_new = torch.einsum("bkgd,bkd->bkg", qc.float(), k_new[:, 0].float())
     m = torch.maximum(s.amax(dim=-1), s_new)
     p = torch.exp(s - m[..., None])
     p_new = torch.exp(s_new - m)
     denom = p.sum(dim=-1) + p_new
-    out = (torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    # (B, KV, g, W) x (B, W, KV, Dh) -> (B, KV, g, Dh)
+    out = (_cache_product(p.to(v_cache.dtype), v_cache.permute(0, 2, 1, 3))
            + p_new[..., None] * v_new[:, 0, :, None, :].float()
            ) / denom[..., None]
     return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def _cache_product(a, cache_view):
+    """a (B, KV, m, k) @ cache_view (B, KV, k, n), a cache's strided view,
+    as an fp32 result.  On the card a low-precision cache takes one
+    product with an fp32 output per batch row (each row's (KV, k, n) view
+    has a single batch stride, so cuBLAS reads the cache in place) and an
+    fp32 cache one fp32 matmul.  On the CPU the operands are upcast (exact
+    for bf16) and summed over k one term after another, the order of
+    XLA's CPU dot for one query per kv head, so that there the products
+    equal the reference's bit for bit."""
+    if cache_view.device.type == "cuda":
+        if cache_view.dtype == torch.float32:
+            return torch.matmul(a, cache_view)
+        return torch.stack([torch.bmm(a[b], cache_view[b],
+                                      out_dtype=torch.float32)
+                            for b in range(a.shape[0])])
+    a, cache_view = a.float(), cache_view.float()
+    out = a[..., 0, None] * cache_view[..., 0, None, :]
+    for i in range(1, a.shape[-1]):
+        out = out + a[..., i, None] * cache_view[..., i, None, :]
+    return out
 
 
 # ---------------------------------------------------------------------------

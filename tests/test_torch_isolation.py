@@ -4,7 +4,8 @@ entry points run on the card unless asked for the CPU.
   * importing every repro_torch module in a fresh process leaves no jax*
     and no repro / repro.* module in sys.modules;
   * no source file under src/repro_torch imports jax or repro;
-  * device=None means "cuda": without a card the entry points raise.
+  * device=None means "cuda": without a card the entry points raise
+    (the search's driver too).
 """
 import os
 import pkgutil
@@ -18,7 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, search  # noqa: E402
 from repro_torch.configs.paper_inl import SMOKE  # noqa: E402
 from repro_torch.core import inl, schemes  # noqa: E402
 from repro_torch.core.schemes import runner  # noqa: E402
@@ -47,7 +48,10 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.kernels.ssm_scan", "repro_torch.models.attention",
               "repro_torch.models.ssm", "repro_torch.models.transformer",
               "repro_torch.models.zoo", "repro_torch.launch.steps",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.checkpoint",
+              "repro_torch.search", "repro_torch.search.space",
+              "repro_torch.search.pricing", "repro_torch.search.pareto",
+              "repro_torch.search.driver"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -90,6 +94,9 @@ def test_device_none_means_cuda_and_raises_without_a_card(monkeypatch):
                                      SMOKE),
         lambda: runner.run_scheme("inl", views, torch.zeros(1), SMOKE,
                                   epochs=1),
+        lambda: search.run_search([search.ConfigPoint("inl", "star(5)")],
+                                  SMOKE, epochs=1, batch_size=1,
+                                  log=lambda *a: None),
     ]
     for name in ("splitfed", "hybrid"):
         hyb = schemes.get(name)

@@ -9,7 +9,9 @@ JAX reference's.
     weights or the random streams;
   * the options that come with later slices raise NotImplementedError, and
     a packed wire at an unpackable width (CFG's 32 bits) a ValueError
-    (dispatch="scan", the default, runs: tests/test_torch_dispatch.py).
+    (dispatch="scan", the default, runs: tests/test_torch_dispatch.py);
+    `ckpt_dir=` with `resume=True` on an empty directory trains from
+    scratch and leaves its checkpoint (resume: tests/test_torch_recovery.py).
 """
 import pytest
 
@@ -20,6 +22,7 @@ from _schemes_common import CFG  # noqa: E402
 from repro.core import bandwidth as jbw  # noqa: E402
 from repro.core.schemes import runner as jrunner  # noqa: E402
 from repro.data import multiview  # noqa: E402
+from repro_torch import checkpoint  # noqa: E402
 from repro_torch.core import bandwidth as tbw  # noqa: E402
 from repro_torch.core import schemes, topology  # noqa: E402
 from repro_torch.core.schemes import base, runner  # noqa: E402
@@ -71,7 +74,7 @@ def test_run_scheme_trains_and_meters_as_the_reference():
     ({"dispatch": "bogus"}, ValueError, "unknown dispatch"),
     ({"mesh": object()}, NotImplementedError, "sharded slice"),
     ({"transport": object()}, NotImplementedError, "transport slice"),
-    ({"ckpt_dir": "ckpt"}, NotImplementedError, "checkpoint slice"),
+    ({"ckpt_dir": None, "resume": True}, None, None),
     ({"wire": "packed"}, ValueError, "packable"),
     # per-edge widths run; a packed wire refuses an unpackable edge
     ({"topology": topology.star(CFG.num_clients,
@@ -80,8 +83,18 @@ def test_run_scheme_trains_and_meters_as_the_reference():
       "wire": "packed"}, ValueError, "packable"),
 ], ids=["unknown", "mesh", "transport", "ckpt", "packed",
         "per-edge-widths"])
-def test_deferred_options_raise(kw, err, match):
+def test_deferred_options_raise(kw, err, match, tmp_path):
     views, labels = _data()
+    if err is None:
+        # the checkpoint slice's options run: an empty directory resumes
+        # from nothing and holds the run's checkpoint afterwards
+        kw = dict(kw, ckpt_dir=str(tmp_path))
+        curve = runner.run_scheme("inl", views[:, :BATCH], labels[:BATCH],
+                                  CFG, epochs=1, batch_size=BATCH,
+                                  device="cpu", **kw)
+        assert [p.epoch for p in curve] == [1]
+        assert checkpoint.latest_step(str(tmp_path)) == 1
+        return
     with pytest.raises(err, match=match):
         runner.run_scheme("inl", views[:, :BATCH], labels[:BATCH], CFG,
                           epochs=1, batch_size=BATCH, device="cpu", **kw)
