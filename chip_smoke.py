@@ -190,6 +190,18 @@ Phases, each checked; any failed check exits non-zero before the last line:
               predict_batched bit for bit, one cut_fwd an engine launch.
               Phases 4-6d hook rounds, so they run "per_round"; their
               engines replay graphs too.
+  6h. sharded run_scheme(mesh=) (core/sharded.py) at full width, one epoch
+              of 16 rounds a run (`sharded:` lines, `sharded_phase`): one
+              NCCL rank in this process under "scan" (its collectives
+              captured with the round) bit for bit against the graphs
+              phase's single-device runs; 2 and 5 gloo ranks spawned on
+              the one card ((client=1, data=2), (client=5, data=1)),
+              eager: each round replayed on the mesh from the
+              single-device state within rtol 1e-4 (loss and state), the
+              free-running runs' accuracy beside theirs; packed == dense
+              bit for bit and the fan-in's bytes of one round at
+              client=5; INL's round time on each layout (`sharded
+              times:`).
   7. times    per-bucket predict latency, train-step latency (median of 20
               steps, with the device busy time and idle share from the
               profiler, and the device time by kernel) on the dense,
@@ -2578,12 +2590,15 @@ def graph_training_phase(torch, card_line):
     per-round losses and every leaf of the final state bit for bit, the
     same launches per kernel, the same offered and delivered ledgers and
     curve, and exactly one capture per host signature.  Returns ({label:
-    scan launches}, the trained INL state)."""
+    scan launches}, the trained INL state, {label: the scan run's (curve,
+    losses, final state (for SHARD_STATES' labels, else None), launches,
+    ledgers)}: the single-device runs the sharded phase holds its meshes
+    against)."""
     from repro_torch import tree_leaves
     from repro_torch.core import schemes
 
     torch.use_deterministic_algorithms(True, warn_only=True)
-    out, trained = {}, None
+    out, trained, refs = {}, None, {}
     data = {}
     try:
         for label, name, cfg, wire, topo in dispatch_runs():
@@ -2620,6 +2635,8 @@ def graph_training_phase(torch, card_line):
             check(set(caps) == want and all(v == 1 for v in caps.values()),
                   f"graphs {label}: captures {caps}, signatures {want}")
             out[label] = {k: v for k, v in n_s.items() if v}
+            refs[label] = (c_s, l_s, s_s if label in SHARD_STATES else None,
+                           n_s, ledgers(m_s))
             if label == "inl":
                 trained = s_s
             print(f"graphs: run_scheme('{name}') {label} (wire={wire}, "
@@ -2632,7 +2649,7 @@ def graph_training_phase(torch, card_line):
                   f"[{card_line}]")
     finally:
         torch.use_deterministic_algorithms(False)
-    return out, trained
+    return out, trained, refs
 
 
 def graph_serving_check(torch, card_line, state):
@@ -2703,13 +2720,14 @@ def graph_serving_check(torch, card_line, state):
 
 def graphs_phase(torch, card_line):
     """Training and serving under CUDA graphs.  Returns ({run: launches}
-    of the scan runs and the served batches, the trained INL state)."""
+    of the scan runs and the served batches, the trained INL state, the
+    single-device reference runs of `graph_training_phase`)."""
     t0 = time.perf_counter()
-    launches, trained = graph_training_phase(torch, card_line)
+    launches, trained, refs = graph_training_phase(torch, card_line)
     launches["served (graphs)"] = graph_serving_check(torch, card_line,
                                                       trained)
     print(f"graphs: phase took {time.perf_counter() - t0:.1f} s")
-    return launches, trained
+    return launches, trained, refs
 
 
 # ---------------------------------------------------------------------------
@@ -2968,6 +2986,604 @@ def search_phase(torch, card_line):
           f"{[m.key for m in result.frontier]}; launches "
           f"{ {k: v for k, v in launches.items() if v} }; phase "
           f"{wall:.1f} s [{card_line}]")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 6h. sharded: the rounds across a mesh of ranks
+# ---------------------------------------------------------------------------
+
+# the graphs phase's runs whose final state the one-rank NCCL mesh must
+# reproduce bit for bit
+SHARD_STATES = ("inl", "fl", "sl", "inl packed")
+SHARD_RTOL = 1e-4
+# the free-running trajectory's final accuracy (512 evaluation samples)
+# against the single-device run's: rounding differences grow along the
+# full-width trajectory (`split_conv_drift` measures how far)
+SHARD_ACC_ATOL = 0.05
+# a replayed round's optimizer moments and model state against the
+# single-device round's (relative 2-norm a leaf): the data-split sums
+# (BatchNorm's backward above all, whose cancelling terms a 1/sigma
+# scales up) part a round's gradient by up to 1.7e-3 of a leaf at full
+# width (my chip run, PR 22); a misplaced or mis-scaled gradient parts it
+# by O(1)
+SHARD_STATE_RTOL = 1e-2
+# rounds replayed a run (else all 16): FL's single-device round is ten
+# eager local steps on every rank of the world
+FORCED_ROUNDS = {"fl": 4}
+SHARD_TIME_ROUNDS = 8               # rounds an epoch in the round timing
+SHARD_TIMEOUT = 300.0               # seconds a spawned world may take
+# the fan-in of one INL round at (client=5), PaperExperimentConfig(
+# link_bits=8), batch 64, over the five ranks: (bytes all-gathered,
+# bytes reduce-scattered), and the bytes packed_duplex is charged
+FAN_IN_BYTES = {"dense": (81920, 81920), "packed": (20480, 81920),
+                "packed_duplex": (20480, 81920)}
+DUPLEX_CHARGED = 40960
+
+
+def shard_layouts():
+    """{layout: (ranks, backend, runs)}: each run (label, scheme, cfg,
+    wire, topology) one of the graphs phase's (`dispatch_runs`), whose
+    single-device scan run it is held against, except "inl dense b=8",
+    the dense twin of "inl packed" on the mesh."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    runs = {label: (label, name, cfg, wire, topo)
+            for label, name, cfg, wire, topo in dispatch_runs()}
+
+    def pick(*labels):
+        return [runs[label] for label in labels]
+    dense8 = ("inl dense b=8", "inl", PaperExperimentConfig(
+        link_bits=WIRE_BITS), "dense", None)
+    return {
+        "nccl 1x1": (1, "nccl", pick("inl", "fl", "sl", "inl packed")),
+        "gloo data=2": (2, "gloo", pick("inl", "fl", "sl", "inl lossy")),
+        "gloo client=5": (5, "gloo", pick(
+            "inl", "inl+learned_prior", "fl", "inl packed",
+            "inl packed_duplex", "inl chain(5) packed") + [dense8])}
+
+
+def _host_mesh(num_clients):
+    import warnings
+    from repro_torch.launch import mesh as mesh_lib
+    with warnings.catch_warnings():
+        # J=5 on one or two ranks: the replicated client axis, warned
+        warnings.simplefilter("ignore", UserWarning)
+        return mesh_lib.make_inl_host_mesh(num_clients, device=DEV)
+
+
+def mesh_runs(torch, runs, *, keep_states):
+    """This rank's side of a layout: each run through run_scheme(mesh=)
+    under "scan" (recorded_run), deterministic algorithms on; then the
+    fan-in's bytes of one round a wire (on a client axis of more than one
+    rank) and the INL round's times.  Returns {label: {curve, losses,
+    launches, ledgers, captures, wall, state (this rank's final slice,
+    where `keep_states`)}, "packed == dense": on this rank's slices (where
+    the layout has both), "bytes": ..., "times": ...}."""
+    from repro_torch import tree_leaves
+    from repro_torch.core import schemes
+
+    mesh = _host_mesh(runs[0][2].num_clients)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out, data, states = {"mesh": dict(mesh.shape)}, {}, {}
+    try:
+        for label, name, cfg, wire, topo in runs:
+            n = GRAPH_ROUNDS * schemes.get(name).batches_per_round(cfg) \
+                * TRAIN_BATCH
+            if n not in data:
+                data[n] = training_data(cfg, n)
+            views, labels = data[n]
+            trace, caps = [], {}
+            curve, loss, launches, meter, wall, _ = recorded_run(
+                torch, name, cfg, views, labels, epochs=1, wire=wire,
+                seed=GRAPH_SEED, topology=topo, states=trace,
+                dispatch="scan", captures=caps, mesh=mesh)
+            states[label] = trace[-1][1]
+            out[label] = {"curve": curve, "losses": loss,
+                          "launches": launches, "ledgers": ledgers(meter),
+                          "captures": caps, "wall": wall,
+                          "state": states[label] if keep_states else None}
+            if mesh.shape["client"] * mesh.shape["data"] > 1:
+                out[label]["forced"] = forced_rounds(
+                    torch, mesh, name, cfg, wire, topo, views, labels,
+                    min(FORCED_ROUNDS.get(name, GRAPH_ROUNDS), GRAPH_ROUNDS))
+        if "inl packed" in states and "inl dense b=8" in states:
+            out["packed == dense"] = (
+                out["inl packed"]["losses"] == out["inl dense b=8"]["losses"]
+                and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(states["inl packed"]),
+                    tree_leaves(states["inl dense b=8"]))))
+        del states
+        if mesh.shape["client"] > 1:
+            out["bytes"] = fan_in_bytes(torch, mesh)
+        out["times"] = mesh_round_times(torch, mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def leaf_paths(tree, prefix=""):
+    """[(path, tensor)] of a state tree's leaves, keys joined by "/"."""
+    if hasattr(tree, "dtype") and hasattr(tree, "shape"):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return []
+    return [pl for k, v in items for pl in leaf_paths(v, f"{prefix}/{k}")]
+
+
+# leaves whose gradient is rounding noise: a conv bias feeds BatchNorm,
+# which subtracts it again, so Adam turns the noise into steps of about lr
+# (its moments too), and the running means carry them (ROADMAP queue 3)
+NOISE_LEAF = re.compile(r"/convs/\d+/b$|/bns/\d+/mean$")
+# the parameter trees of the schemes' states
+PARAM_LEAF = re.compile(r"^/(params|client|server)/")
+
+
+def state_deviation(got, want):
+    """The largest relative 2-norm deviation |got - want| / |want| of a
+    leaf, the NOISE_LEAF leaves apart: ((deviation, path) over the
+    optimizer's moments and the model state, the record of the gradients
+    and batch statistics; (deviation, path) over the parameters, which
+    Adam's first steps move by about +-lr an entry whatever the gradient's
+    size, so a rounding difference in a near-zero entry moves its
+    parameter by up to 2 lr)."""
+    worst = {True: (0.0, None), False: (0.0, None)}
+    for (path, a), (_, b) in zip(leaf_paths(got), leaf_paths(want)):
+        if NOISE_LEAF.search(path):
+            continue
+        a, b = a.double(), b.double()
+        dev = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        param = bool(PARAM_LEAF.search(path))
+        if dev > worst[param][0]:
+            worst[param] = (dev, path)
+    return worst[False], worst[True]
+
+
+def forced_rounds(torch, mesh, name, cfg, wire, topo, views, labels,
+                  rounds):
+    """The single-device run's first `rounds` rounds (run_scheme's first
+    epoch at GRAPH_SEED: its batches, draws and fault keys), each replayed
+    on the
+    mesh from the state and generator state that entered it: a round's
+    sharded math checked at full width without the trajectory's
+    sensitivity to rounding (`split_conv_drift`).
+    Returns [(mesh loss, single-device loss, `state_deviation` of the
+    gathered mesh state against the single-device round's)] a round."""
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import schemes
+    from repro_torch.core import topology as T
+    from repro_torch.data import multiview
+    from repro_torch.launch import sharding
+
+    scheme = schemes.get(name)
+    bpr = scheme.batches_per_round(cfg)
+    n = len(labels)
+    v = torch.as_tensor(views, device=DEV)
+    lab = torch.as_tensor(labels, device=DEV).long()
+    idx = torch.as_tensor(np.array(list(multiview.batch_indices(
+        n, TRAIN_BATCH, seed=0))[:rounds * bpr]).reshape(
+            rounds, bpr, TRAIN_BATCH), device=DEV)   # epoch 0's first rounds
+    ep_views = v[:, idx].permute(1, 2, 0, *range(3, v.dim() + 2))
+    ep_labels = lab[idx]
+    faulty = LF.active(T.resolve(topo, cfg), cfg, train=True)
+    state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(
+        GRAPH_SEED), device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(GRAPH_SEED + 1)
+    gen_mesh = torch.Generator(device=DEV)
+    single = scheme.make_round(cfg, wire=wire, topology=topo)
+    sharded = scheme.make_sharded_round(cfg, mesh, wire=wire, topology=topo)
+    specs = scheme.state_shardings(cfg, state, mesh)
+    out = []
+    for k in range(rounds):
+        key = LF.round_key(GRAPH_SEED, k) if faulty else None
+        gen_mesh.set_state(gen.get_state())
+        st, m_mesh = sharded(sharding.shard_state(state, specs, mesh),
+                             ep_views[k], ep_labels[k], gen_mesh,
+                             round_key=key)
+        new, m = single(state, ep_views[k], ep_labels[k], gen, round_key=key)
+        out.append((float(m_mesh["loss"]), float(m["loss"]),
+                    state_deviation(sharding.gather_state(st, specs, mesh),
+                                    new)))
+        state = new
+    return out
+
+
+def _fixed_batch(torch, cfg, R=1):
+    """R minibatches of 64 from training_data as (R, J, 64, ...) and
+    (R, 64) on the card."""
+    views, labels = training_data(cfg, R * TRAIN_BATCH)
+    v = torch.from_numpy(views).to(DEV)
+    v = v.reshape((v.shape[0], R, TRAIN_BATCH) + v.shape[2:]).transpose(
+        0, 1).contiguous()
+    lab = torch.from_numpy(labels).to(DEV).long().reshape(R, TRAIN_BATCH)
+    return v, lab
+
+
+def fan_in_bytes(torch, mesh):
+    """One INL round a wire at PaperExperimentConfig(link_bits=8): this
+    rank's bytes on the 'client' axis' all_gather and reduce-scatter (the
+    fan-in and its transpose), read from the tensors the collectives
+    took."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import schemes
+    from repro_torch.launch import sharding
+    cfg = PaperExperimentConfig(link_bits=WIRE_BITS)
+    cax = mesh.axis("client")
+    v, lab = _fixed_batch(torch, cfg)
+    scheme = schemes.get("inl")
+    out = {}
+    for wire in FAN_IN_BYTES:
+        init = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(3),
+                           device=DEV)
+        st = sharding.shard_state(
+            init, scheme.state_shardings(cfg, init, mesh), mesh)
+        round_fn = scheme.make_sharded_round(cfg, mesh, wire=wire)
+        before = dict(cax.traffic)
+        round_fn(st, v, lab, torch.Generator(device=DEV).manual_seed(4))
+        torch.cuda.synchronize()
+        out[wire] = tuple(cax.traffic[k] - before[k]
+                          for k in ("all_gather", "reduce_scatter"))
+    return out
+
+
+def mesh_round_times(torch, mesh):
+    """INL's round at PaperExperimentConfig(), batch 64, as make_epoch on
+    `mesh` runs it (on NCCL one CUDA graph a round, on gloo eagerly) on
+    one fixed batch: (wall ms a round, median of 3 epochs of
+    SHARD_TIME_ROUNDS on the host's clock ending in a synchronize; ms a
+    round between CUDA events around one more epoch on this rank's
+    stream)."""
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import schemes
+    from repro_torch.launch import sharding
+    cfg = PaperExperimentConfig()
+    scheme = schemes.get("inl")
+    v, lab = _fixed_batch(torch, cfg)
+    K = SHARD_TIME_ROUNDS
+    ev, el = v[None].expand((K,) + v.shape), lab[None].expand((K,) + lab.shape)
+    init = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(6),
+                       device=DEV)
+    box = [sharding.shard_state(
+        init, scheme.state_shardings(cfg, init, mesh), mesh)]
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    epoch_fn = scheme.make_epoch(cfg, mesh=mesh)
+
+    def epoch():
+        box[0], _ = epoch_fn(box[0], ev, el, gen)
+    wall = timed_host(torch, epoch, reps=3) / K
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    epoch()
+    end.record()
+    torch.cuda.synchronize()
+    return wall, start.elapsed_time(end) / K, dict(epoch_fn.captures)
+
+
+def sharded_rank(rank, world, store, layout, queue):
+    """A spawned rank of a gloo layout: the process group over the
+    FileStore `store`, one intra-op thread, then `mesh_runs` into
+    `queue` as (rank, ok, results or traceback)."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    # fp32 convolutions and matmuls in fp32, as device_phase sets them in
+    # the script's process (cuDNN's default is TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # a rank left waiting in a collective fails within two minutes
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+        runs = shard_layouts()[layout][2]
+        queue.put((rank, True, mesh_runs(torch, runs, keep_states=False)))
+    except BaseException:                # reported to the parent, then raised
+        queue.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_world(layout, world):
+    """`world` spawned ranks of a gloo layout on the one card; their
+    results in rank order.  Every rank is joined (killed past
+    SHARD_TIMEOUT, or once a rank failed); a failed or silent rank fails
+    the phase."""
+    import multiprocessing
+    import queue as queue_lib
+    root = ROOT / "build" / "sharded"
+    root.mkdir(parents=True, exist_ok=True)
+    store = root / ("store_" + re.sub(r"\W", "_", layout))
+    store.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, str(store), layout, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    got, failed = {}, None
+    try:
+        # drain the queue before joining (a rank blocks on a full pipe)
+        while len(got) < world and failed is None:
+            try:
+                rank, ok, value = results.get(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+            except queue_lib.Empty:
+                failed = f"{world - len(got)} rank(s) gave no result in " \
+                         f"{SHARD_TIMEOUT:.0f} s"
+                break
+            if ok:
+                got[rank] = value
+            else:
+                failed = f"rank {rank} failed:\n{value}"
+    finally:
+        for p in procs:
+            if failed is None:
+                p.join(timeout=max(deadline - time.monotonic(), 5.0))
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+    check(failed is None, f"sharded {layout}: {failed}")
+    check(all(p.exitcode == 0 for p in procs),
+          f"sharded {layout}: rank exit codes {[p.exitcode for p in procs]}")
+    return [got[r] for r in range(world)]
+
+
+def nccl_world(torch):
+    """The one-rank NCCL layout in this process: a process group of one
+    rank on cuda:0 (address tcp://localhost, a free port)."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        return [mesh_runs(torch, shard_layouts()["nccl 1x1"][2],
+                          keep_states=True)]
+    finally:
+        dist.destroy_process_group()
+
+
+def split_conv_drift(torch, refs, card_line):
+    """The control of the free-running comparisons: the single-device INL
+    run of the graphs phase again, eagerly, with each encoder convolution
+    of a 64-row batch computed as two 32-row halves (the rows a data=2
+    rank convolves; the library's conv is swapped for the run), every
+    other op as it was, deterministic algorithms on.  Prints and returns
+    its largest relative loss drift from the unsplit run over the 16
+    rounds: how far rounding alone moves this trajectory."""
+    from repro_torch.core import paper_model
+    half = TRAIN_BATCH // 2
+    conv = paper_model.conv
+
+    def halves(p, x):
+        if x.shape[0] != TRAIN_BATCH:
+            return conv(p, x)
+        return torch.cat([conv(p, x[:half]), conv(p, x[half:])])
+    _, name, cfg, wire, topo = next(r for r in dispatch_runs()
+                                    if r[0] == "inl")
+    views, labels = training_data(cfg, GRAPH_ROUNDS * TRAIN_BATCH)
+    paper_model.conv = halves
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, loss, *_ = recorded_run(torch, name, cfg, views, labels, epochs=1,
+                                   wire=wire, seed=GRAPH_SEED, topology=topo)
+    finally:
+        paper_model.conv = conv
+        torch.use_deterministic_algorithms(False)
+    l_s = np.array(refs["inl"][1])
+    drift = np.abs(np.array(loss) - l_s) / np.abs(l_s)
+    print(f"sharded: control: INL's single-device run with each encoder "
+          f"convolution over the batch's two halves drifts from the "
+          f"unsplit run by {drift[1]:.2e} at round 2, {drift.max():.2e} at "
+          f"most (round {int(drift.argmax()) + 1} of {len(drift)}): "
+          f"rounding alone moves this trajectory so far (the unsplit "
+          f"run's losses {l_s[0]:.4f}, {l_s[1]:.4f}, {l_s[2]:.4f}, ..., "
+          f"{l_s[-1]:.4f}) [{card_line}]")
+    return float(drift.max())
+
+
+def _nonzero(launches):
+    return {k: n for k, n in launches.items() if n}
+
+
+def sharded_phase(torch, card_line, refs):
+    """The sharded rounds (core/sharded.py) through run_scheme(mesh=) at
+    PaperExperimentConfig(), batch 64, one epoch of 16 rounds a run, each
+    rank's launch counts set to 0 just before a run and read just after:
+
+      nccl 1x1      one NCCL rank in this process, INL, FL, SL and INL
+                    packed (link_bits=8) under "scan" (one CUDA graph a
+                    round, the collectives captured with it): losses,
+                    final state, launches, both ledgers and the curve
+                    equal to the graphs phase's single-device run bit for
+                    bit, one capture per host signature;
+      gloo data=2   two spawned ranks on the card (batch over 'data'):
+                    INL, FL, SL and INL at erasure 0.3 an edge;
+      gloo client=5 five spawned ranks (the J=5 nodes node-parallel):
+                    INL, INL with learned priors, FL, INL packed and
+                    packed_duplex (link_bits=8), the packed chain(5), and
+                    the dense twin of INL packed;
+
+    the gloo layouts eager (no capture, `captures` empty).  On every rank
+    of a gloo layout: each of the run's 16 rounds (FL's first
+    FORCED_ROUNDS["fl"]) replayed on the mesh
+    from the state and generator state the single-device round started
+    from (`forced_rounds`; the rank's own single-device rounds equal the
+    graphs phase's bit for bit): its loss within rtol 1e-4 and its new
+    optimizer moments and model state within SHARD_STATE_RTOL (relative
+    2-norm a leaf, the conv biases and running means apart) of the
+    single-device round's, the parameters' deviation printed; the
+    free-running run's
+    final accuracy within SHARD_ACC_ATOL of the single-device run's, its
+    losses' drift printed; every rank's curve the same, the ledgers the
+    single-device run's, each rank launching the kernels the single-device
+    run launched; at client=5 packed == dense bit for bit on every rank
+    and the fan-in's bytes of one round, summed over the ranks,
+    FAN_IN_BYTES.  Then INL's round time on each layout beside the
+    single-device graphed round.  Returns {kernel: {run: launches on rank
+    0}}."""
+    from repro_torch import tree_leaves
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import wirefmt
+
+    t0 = time.perf_counter()
+    layouts = shard_layouts()
+    cfg8 = PaperExperimentConfig(link_bits=WIRE_BITS)
+    split_conv_drift(torch, refs, card_line)
+    launches, times = {}, {}
+    for layout, (world, backend, runs) in layouts.items():
+        t_layout = time.perf_counter()
+        ranks = nccl_world(torch) if backend == "nccl" else \
+            spawn_world(layout, world)
+        for label, name, cfg, wire, topo in runs:
+            per_rank = [r[label] for r in ranks]
+            want = refs.get(label)
+            losses = [r["losses"] for r in per_rank]
+            if backend == "nccl":
+                c_s, l_s, s_s, n_s, g_s = want
+                got = per_rank[0]
+                check(got["losses"] == l_s, f"sharded {layout} {label}: "
+                      f"losses {got['losses']} != single-device {l_s}")
+                check(all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(got["state"]), tree_leaves(s_s))) and len(
+                    tree_leaves(got["state"])) == len(tree_leaves(s_s)),
+                    f"sharded {layout} {label}: final state differs")
+                check(got["launches"] == n_s and got["ledgers"] == g_s
+                      and got["curve"] == c_s,
+                      f"sharded {layout} {label}: launches {got['launches']}"
+                      f" / {n_s}, ledgers or curve differ")
+                want_sigs = expected_signatures(name, cfg, wire, topo,
+                                                GRAPH_ROUNDS)
+                check(set(got["captures"]) == want_sigs
+                      and all(v == 1 for v in got["captures"].values()),
+                      f"sharded {layout} {label}: captures "
+                      f"{got['captures']}")
+                verdict = "== single-device bit for bit (losses, " \
+                          f"{len(tree_leaves(s_s))} state leaves, launches, " \
+                          f"ledgers), captures {got['captures']}"
+            elif want is None:
+                verdict = "the dense twin of 'inl packed'"
+            else:
+                c_s, l_s, _, n_s, g_s = want
+                worst = {"forced": 0.0, "state": (0.0, None),
+                         "params": (0.0, None), "free": 0.0}
+                for k, r in enumerate(per_rank):
+                    where = f"sharded {layout} {label} rank {k}"
+                    lm, ls, devs = zip(*r["forced"])
+                    dev = max((d[0] for d in devs), key=lambda d: d[0])
+                    dev_p = max((d[1] for d in devs), key=lambda d: d[0])
+                    check(list(ls) == l_s[:len(ls)], f"{where}: the rank's "
+                          f"single-device rounds {ls} != the graphs "
+                          f"phase's {l_s}")
+                    check(np.allclose(lm, ls, rtol=SHARD_RTOL, atol=0),
+                          f"{where}: replayed rounds' losses {lm} vs "
+                          f"single-device {ls}")
+                    check(dev[0] <= SHARD_STATE_RTOL,
+                          f"{where}: a replayed round's state deviates "
+                          f"{dev[0]:.3e} at {dev[1]}")
+                    acc, want_acc = r["curve"][-1].accuracy, c_s[-1].accuracy
+                    check(abs(acc - want_acc) <= SHARD_ACC_ATOL,
+                          f"{where}: free-running accuracy {acc} vs "
+                          f"{want_acc}")
+                    check(r["curve"] == per_rank[0]["curve"],
+                          f"{where}: curve differs from rank 0's")
+                    check(r["ledgers"] == g_s, f"{where}: ledgers")
+                    check(r["captures"] == {},
+                          f"{where}: gloo captured {r['captures']}")
+                    check(set(_nonzero(r["launches"])) == set(_nonzero(n_s)),
+                          f"{where}: launched {_nonzero(r['launches'])}, "
+                          f"single-device {_nonzero(n_s)}")
+                    rel = np.abs(np.array(lm) - ls) / np.abs(ls)
+                    free = np.abs(np.array(r["losses"]) - l_s) / np.abs(l_s)
+                    replayed = len(ls)
+                    worst["forced"] = max(worst["forced"], float(rel.max()))
+                    worst["state"] = max(worst["state"], dev,
+                                         key=lambda d: d[0])
+                    worst["params"] = max(worst["params"], dev_p,
+                                          key=lambda d: d[0])
+                    worst["free"] = max(worst["free"], float(free.max()))
+                verdict = (
+                    f"each of {replayed} rounds replayed on the mesh "
+                    f"from the single-device state: losses within rtol "
+                    f"{worst['forced']:.2e}, moments and model state "
+                    f"within {worst['state'][0]:.2e} "
+                    f"({worst['state'][1]}), parameters within "
+                    f"{worst['params'][0]:.2e} ({worst['params'][1]}) on "
+                    f"every rank; free-running: losses within "
+                    f"{worst['free']:.2e} of the single-device run's, "
+                    f"accuracy {per_rank[0]['curve'][-1].accuracy:.4f} "
+                    f"against {c_s[-1].accuracy:.4f}, ledgers equal, eager "
+                    f"(captures {per_rank[0]['captures']})")
+            for k, r in enumerate(per_rank):
+                for kname, n in _nonzero(r["launches"]).items():
+                    if k == 0:
+                        launches.setdefault(kname, {})[
+                            f"{layout} {label}"] = n
+            print(f"sharded: {layout} ({world} rank(s), {backend}, mesh "
+                  f"{ranks[0]['mesh']}) run_scheme('{name}', mesh=) "
+                  f"{label} (wire={wire}, link_bits={cfg.link_bits}), "
+                  f"{GRAPH_ROUNDS} rounds: {verdict}; loss "
+                  f"{losses[0][0]:.4f} -> {losses[0][-1]:.4f}; launches by "
+                  f"rank {[_nonzero(r['launches']) for r in per_rank]}; "
+                  f"wall {max(r['wall'] for r in per_rank):.2f} s "
+                  f"[{card_line}]")
+        if "gloo client=5" == layout:
+            differ = [k for k, r in enumerate(ranks)
+                      if not r["packed == dense"]]
+            check(not differ,
+                  f"sharded {layout}: packed != dense on ranks {differ}")
+            total = {w: tuple(sum(r["bytes"][w][i] for r in ranks)
+                              for i in range(2)) for w in FAN_IN_BYTES}
+            closed = {w: wirefmt.round_wire_bytes(
+                cfg8.num_clients * TRAIN_BATCH, cfg8.d_bottleneck,
+                link_bits=WIRE_BITS, wire=w) for w in FAN_IN_BYTES}
+            charged = closed["packed_duplex"]["total"]
+            check(total == FAN_IN_BYTES and charged == DUPLEX_CHARGED
+                  and all(total[w] == (closed[w]["fwd"], closed[w]["bwd"])
+                          for w in ("dense", "packed")),
+                  f"sharded {layout}: fan-in bytes {total}, duplex charged "
+                  f"{charged}")
+            print(f"sharded: {layout}: INL packed == dense (link_bits="
+                  f"{WIRE_BITS}) bit for bit on every rank (losses and "
+                  f"the rank's state slice); the fan-in's bytes of one "
+                  f"round over the 5 ranks (gathered, reduce-scattered): "
+                  + ", ".join(f"{w} {g:,} + {s:,} = {g + s:,} B"
+                              for w, (g, s) in total.items())
+                  + f"; packed_duplex charged {charged:,} B, its dense "
+                  f"reduce-scatter executes [{card_line}]")
+        times[layout] = [r["times"] for r in ranks]
+        print(f"sharded: {layout} took {time.perf_counter() - t_layout:.1f} "
+              f"s")
+    single = graphed_round_timing(torch, card_line, "inl")
+    print("sharded times: INL round at PaperExperimentConfig(), batch 64, "
+          f"wall (host clock, median of 3 epochs of {SHARD_TIME_ROUNDS}) "
+          "and stream (CUDA events around one epoch) ms a round: single "
+          "device graphed "
+          f"{single[0]:.3f} / {single[1]:.4f}; " + "; ".join(
+              f"{layout} " + ", ".join(
+                  f"rank {k} {w:.3f} / {d:.4f} (captures {c})"
+                  for k, (w, d, c) in enumerate(rows))
+              for layout, rows in times.items()) + f" [{card_line}]")
+    print(f"sharded: phase took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4085,9 +4701,12 @@ def main() -> int:
     lossy_card_vs_cpu(torch, card)
     lossy_serve_launches = lossy_serving_phase(torch, card)
     hybrid_launches_by_run = hybrids_phase(torch, card)
-    graph_launches_by_run, graph_state = graphs_phase(torch, card)
+    graph_launches_by_run, graph_state, graph_refs = graphs_phase(torch,
+                                                                  card)
     resume_launches_by_run, _ = checkpoint_phase(torch, card)
     search_launches = search_phase(torch, card)
+    sharded_launches = sharded_phase(torch, card, graph_refs)
+    del graph_refs
     torch.cuda.synchronize()
     rows = timing_phase(torch, scheme, state, views, card)
     steps = {wire: train_step_timing(torch, card, wire=wire,
@@ -4165,6 +4784,9 @@ def main() -> int:
     on_search = {k: search_launches.get(k, 0) for k in CUT_LAYER_SOURCES}
     check(all(on_search[k] for k in SEARCH_PATH_KERNELS),
           f"a kernel of the search grid never launched: {on_search}")
+    on_sharded = {k: sharded_launches.get(k, {}) for k in CUT_LAYER_SOURCES}
+    check(all(on_sharded.values()),
+          f"a cut-layer kernel never launched on a mesh: {on_sharded}")
     check(not any(llm_graph_launches.values()),
           f"the graphed decode loop launched {llm_graph_launches}")
     print(f"chip_smoke: all phases passed in "
@@ -4214,7 +4836,8 @@ def main() -> int:
             "path": path, "launches_on_lossy_links": lossy[kname],
             "launches_on_graphs": on_graphs[kname],
             "launches_on_resume": on_resume[kname],
-            "launches_on_search": on_search[kname]}
+            "launches_on_search": on_search[kname],
+            "launches_on_sharded": on_sharded[kname]}
         if kname in on_hybrids:
             entry["launches_on_hybrids"] = on_hybrids[kname]
         if kname in REDESIGNED:

@@ -87,12 +87,14 @@ def init(cfg, generator, *, device=None):
     return INLParams(enc_params, dec, priors), {"encoders": enc_state}
 
 
-def _encode_mu_logvar(params: INLParams, state, views, *, train: bool):
+def _encode_mu_logvar(params: INLParams, state, views, *, train: bool,
+                      axis_name=None):
     """All J per-node encoders: views (J, B, H, W, C) ->
-    ((mu, logvar) (J, B, d), new encoder state)."""
+    ((mu, logvar) (J, B, d), new encoder state); axis_name the mesh Axis
+    the batch is sharded over (global BatchNorm statistics)."""
     return paper_model.stacked_encoder_apply(params.encoders,
                                              state["encoders"], views,
-                                             train=train)
+                                             train=train, axis_name=axis_name)
 
 
 def encode_and_rate(params: INLParams, state, views, *, train: bool,
@@ -153,7 +155,8 @@ def decode(params: INLParams, u, *, train: bool, u_joint=None,
 def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
             eps=None, drop_masks=None, train: bool = True,
             rate_estimator: str = "sample", wire: str = "dense",
-            topology=None, delivery=None, round_key=None):
+            topology=None, delivery=None, round_key=None, client_axis=None,
+            data_axis=None, group_ids=None):
     """Full eq.-(6) loss.  Returns (loss, (metrics, new_state));
     new_state's BatchNorm statistics are detached.
 
@@ -183,7 +186,16 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
     surviving routes.  Branch heads and rate terms stay local and
     unmasked.  delivery — an explicit (J,) or (J, B) mask that replaces
     the draw (the transport-mode step).  Neither leaves the fault-free
-    path bit for bit."""
+    path bit for bit.
+
+    On a mesh (core/sharded.py) the arguments are this rank's block:
+    params, state, views and eps hold its J_local nodes, views, labels,
+    eps and drop_masks its B_local rows; `client_axis` gathers the cut
+    latents to the fusion decoder (the fan-in, wirefmt.cut_and_ship /
+    topology.graph_cut_and_ship with the rank's `group_ids`), `data_axis`
+    makes the BatchNorm statistics global, and the joint term is divided
+    by the client axis' size (losses.inl_loss).  The loss and metrics are
+    then the rank's own; core/sharded reduces them."""
     topo_full = topology_lib.resolve(topology, cfg)
     faulty = delivery is None and linkfault.active(topo_full, cfg,
                                                    train=train)
@@ -197,18 +209,21 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
         raise ValueError("loss_fn draws eps from `generator`; pass "
                          "generator= or eps=")
     (mu, logvar), new_enc = _encode_mu_logvar(params_c, state, views,
-                                              train=train)
+                                              train=train,
+                                              axis_name=data_axis)
     if topo is None:
         u, rate, u_joint = wirefmt.cut_and_ship(
             generator if eps is None else None, mu, logvar,
             link_bits=cfg.link_bits, rate_estimator=rate_estimator,
-            wire=wire, prior=params_c.priors, eps=eps)
+            wire=wire, prior=params_c.priors, eps=eps,
+            axis_name=client_axis)
     else:
         eps = bottleneck.cut_noise(generator if eps is None else None, mu,
                                    eps)
         u, rate, u_joint = topology_lib.graph_cut_and_ship(
             topo, cfg, mu, logvar, eps, rate_estimator=rate_estimator,
-            wire=wire, prior=params_c.priors)
+            wire=wire, prior=params_c.priors, axis_name=client_axis,
+            group_ids=group_ids)
     B = labels.shape[0]
     if faulty:
         delivery = linkfault.round_delivery_mask(round_key, topo_full, cfg, B,
@@ -226,7 +241,8 @@ def loss_fn(params: INLParams, state, views, labels, cfg, *, generator=None,
     J = u.shape[0]
     loss, metrics = losses.inl_loss(
         joint, list(branch), labels, list(mu), list(logvar), list(u),
-        s=cfg.s, rate_estimator=rate_estimator, rates=list(rate))
+        s=cfg.s, rate_estimator=rate_estimator, rates=list(rate),
+        joint_replicas=1 if client_axis is None else client_axis.size)
     metrics["accuracy"] = losses.accuracy(joint, labels)
     # §III-C accounting: activations forward + error vectors backward
     # (per-edge payloads summed when a topology re-routes them)

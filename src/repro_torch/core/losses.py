@@ -33,7 +33,8 @@ def xent(logits, labels):
 def inl_loss(joint_logits, branch_logits: Sequence, labels,
              mus: Sequence, logvars: Sequence, us: Sequence,
              *, s: float, priors: Sequence = None,
-             rate_estimator: str = "sample", rates: Sequence = None):
+             rate_estimator: str = "sample", rates: Sequence = None,
+             joint_replicas: int = 1):
     """Eq. (6) as a minimisation objective.  Returns (loss, metrics).
 
     `rates` — optional precomputed per-row rate terms (one tensor per
@@ -41,7 +42,12 @@ def inl_loss(joint_logits, branch_logits: Sequence, labels,
     when given, the rate is NOT recomputed and `rate_estimator`/`priors`
     are ignored for it.  `priors` — per-node prior parameters for the
     recomputed rate: a sequence of {"mu", "logvar"} dicts, or ONE stacked
-    dict with (J, d) leaves."""
+    dict with (J, d) leaves.
+
+    `joint_replicas` — on a mesh, the number of 'client' ranks that compute
+    the same fusion term (core/sharded.py): the joint cross-entropy enters
+    the objective divided by it, so that summing the ranks' cotangents
+    restores its full weight; 1 leaves the objective as it is."""
     J = len(branch_logits)
     if isinstance(priors, dict):               # stacked (J, d) -> per node
         priors = [{k: v[j] for k, v in priors.items()} for j in range(J)] \
@@ -62,7 +68,8 @@ def inl_loss(joint_logits, branch_logits: Sequence, labels,
             rates.append(torch.mean(r))
     ce_b = torch.stack(ce_branches)
     rate_t = torch.stack(rates)
-    loss = ce_joint + s * (torch.sum(ce_b) + torch.sum(rate_t))
+    joint = ce_joint if joint_replicas == 1 else ce_joint / joint_replicas
+    loss = joint + s * (torch.sum(ce_b) + torch.sum(rate_t))
     metrics = {
         "loss": loss,
         "ce_joint": ce_joint,

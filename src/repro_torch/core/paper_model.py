@@ -80,14 +80,23 @@ def bn_init(c: int, *, device=None):
              "var": torch.ones((c,), device=device)})
 
 
-def bn_apply(p, st, x, *, train: bool):
+def bn_apply(p, st, x, *, train: bool, axis_name=None):
     """BatchNorm over NCHW x.  Statistics and arithmetic in fp32; the output
-    drops back to x.dtype."""
+    drops back to x.dtype.
+
+    axis_name — the mesh Axis (launch/mesh.py) the batch is sharded over:
+    the statistics become global, `pmean` of the per-shard mean, then
+    `pmean` of the mean of (x - mean)^2 around it (the two-pass form).  On
+    an axis of one rank the result is the unsharded one bit for bit."""
     xf = x.to(torch.float32)
     if train:
         mean = xf.mean(dim=(0, 2, 3))
+        if axis_name is not None:
+            mean = axis_name.pmean(mean)
         var = torch.square(xf - mean[None, :, None, None]).mean(
             dim=(0, 2, 3))
+        if axis_name is not None:
+            var = axis_name.pmean(var)
         new_st = {"mean": BN_MOMENTUM * st["mean"] + (1 - BN_MOMENTUM) * mean,
                   "var": BN_MOMENTUM * st["var"] + (1 - BN_MOMENTUM) * var}
     else:
@@ -141,13 +150,15 @@ def encoder_init(generator: torch.Generator, cfg, *, device=None):
     return params, state
 
 
-def encoder_apply(params, state, x, *, train: bool):
-    """x: (B, H, W, C) -> ((mu, logvar) (B, d), new_state)."""
+def encoder_apply(params, state, x, *, train: bool, axis_name=None):
+    """x: (B, H, W, C) -> ((mu, logvar) (B, d), new_state).  axis_name: the
+    mesh Axis the batch is sharded over (global BatchNorm statistics, see
+    `bn_apply`)."""
     new_bns = []
     h = x.permute(0, 3, 1, 2)                               # NHWC -> NCHW
     for cp, bp, bs in zip(params["convs"], params["bns"], state["bns"]):
         h = conv(cp, h)
-        h, nbs = bn_apply(bp, bs, h, train=train)
+        h, nbs = bn_apply(bp, bs, h, train=train, axis_name=axis_name)
         h = torch.relu(h)
         h = maxpool2(h)
         new_bns.append(nbs)
@@ -157,15 +168,17 @@ def encoder_apply(params, state, x, *, train: bool):
     return (mu, logvar), {"bns": new_bns}
 
 
-def stacked_encoder_apply(params, state, views, *, train: bool):
+def stacked_encoder_apply(params, state, views, *, train: bool,
+                          axis_name=None):
     """J encoders whose parameter and state leaves stack along a leading J
     axis, one after another: views (J, B, H, W, C) -> ((mu, logvar) (J, B,
-    d), new stacked state)."""
+    d), new stacked state).  axis_name as in `encoder_apply`."""
     mus, lvs, new_states = [], [], []
     for j in range(views.shape[0]):
         (mu, lv), ns = encoder_apply(tree_map(lambda t: t[j], params),
                                      tree_map(lambda t: t[j], state),
-                                     views[j], train=train)
+                                     views[j], train=train,
+                                     axis_name=axis_name)
         mus.append(mu)
         lvs.append(lv)
         new_states.append(ns)
@@ -246,15 +259,17 @@ def fl_model_init(generator: torch.Generator, cfg, *, device=None):
 
 
 def branch_latents(params, state, views, *, train: bool,
-                   link_bits: int = 32):
+                   link_bits: int = 32, axis_name=None):
     """The J branches of the full model: views (J, B, H, W, C) ->
     (u (J, B, d), new state).  The latents cross the in-model cut through
     the fused cut kernel in its deterministic mode (eps == 0, rate 0:
     u = quantize(mu), one launch for all J branches), the substrate the
-    three schemes share."""
+    three schemes share.  axis_name: the mesh Axis the batch is sharded
+    over (`bn_apply`)."""
     mus, lvs, new_states = [], [], []
     for ep, es, v in zip(params["encoders"], state["encoders"], views):
-        (mu, lv), ns = encoder_apply(ep, es, v, train=train)
+        (mu, lv), ns = encoder_apply(ep, es, v, train=train,
+                                     axis_name=axis_name)
         mus.append(mu)
         lvs.append(lv)
         new_states.append(ns)

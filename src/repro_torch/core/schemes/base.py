@@ -1,7 +1,8 @@
 """The `Scheme` interface registered schemes implement.
 
 Reference: src/repro/core/schemes/base.py (`Scheme.batches_per_round`,
-`init`, `make_round`, `make_transport_round`, `make_epoch`, `predict`,
+`init`, `make_round`, `make_transport_round`, `make_sharded_round`,
+`make_epoch`, `state_shardings`, `predict`,
 `serve_buckets`, `predict_batched`, `predict_under_faults`, the bandwidth
 ledgers `bits_per_round`, `epoch_overhead_bits`, `wire_bytes_per_round`,
 `epoch_overhead_wire_bytes`, `edge_ledger`, `evaluate_accuracy` and
@@ -26,7 +27,11 @@ turn; `make_epoch` runs K rounds and on the card replays one CUDA graph of
 the device part per host signature (repro_torch/graphs.py), the
 counterpart of the reference's `lax.scan` over the round.
 
-The sharded round comes with its slice of the port.
+On a mesh (launch/mesh.py, core/sharded.py) the device part is the
+scheme's sharded round (`make_sharded_round_parts`): each rank holds its
+slice of the state (`state_shardings`, launch/sharding.shard_state) and
+computes its block of the round, the host part runs on every rank alike.
+SplitFed and the hybrid have no sharded round, as in the reference.
 """
 from __future__ import annotations
 
@@ -95,6 +100,18 @@ class Scheme:
         """The round's host part and device part (`RoundParts`)."""
         raise NotImplementedError
 
+    def make_sharded_round_parts(self, cfg, mesh, *, lr: float = 2e-3,
+                                 wire: str = "dense",
+                                 topology=None) -> RoundParts:
+        """`make_round_parts` with the device part executed across a
+        ('client', 'data') mesh of ranks (core/sharded.py): the J client
+        branches on 'client', the batch on 'data'.  The state the device
+        part takes is this rank's slice (`state_shardings`); views and
+        labels are global.  Must match the single-device round's
+        trajectory at rtol 1e-4 (bit-exact for wire="packed" vs "dense")."""
+        raise NotImplementedError(f"scheme {self.name!r} has no sharded "
+                                  "round")
+
     def make_round(self, cfg, *, lr: float = 2e-3, wire: str = "dense",
                    topology=None):
         """Return round_fn(state, views, labels, generator, *, eps=None,
@@ -104,19 +121,16 @@ class Scheme:
         `generator` unless it is given, and over unreliable links its fault
         draws from `round_key`; metrics include "loss".  Runs the host part
         of `make_round_parts`, then its device part."""
-        plan, step = self.make_round_parts(cfg, lr=lr, wire=wire,
-                                           topology=topology)
+        return _round_fn(*self.make_round_parts(cfg, lr=lr, wire=wire,
+                                                topology=topology))
 
-        def round_fn(state, views, labels, generator, *, round_key=None,
-                     **kw):
-            # the host part first: a lossy round without its key raises
-            # before any tensor is read
-            sig, mask = plan(round_key,
-                             None if labels is None else labels.shape[-1])
-            if mask is not None:
-                mask = linkfault.mask_tensor(mask, labels.device)
-            return step(state, views, labels, generator, sig, mask, **kw)
-        return round_fn
+    def make_sharded_round(self, cfg, mesh, *, lr: float = 2e-3,
+                           wire: str = "dense", topology=None):
+        """`make_round`'s round_fn executed across `mesh`
+        (`make_sharded_round_parts`): it takes and returns this rank's
+        slice of the state; views, labels and the draws are global."""
+        return _round_fn(*self.make_sharded_round_parts(
+            cfg, mesh, lr=lr, wire=wire, topology=topology))
 
     def make_transport_round(self, cfg, *, lr: float = 2e-3,
                              wire: str = "dense", topology=None):
@@ -154,16 +168,24 @@ class Scheme:
         per signature; each signature is captured once for the
         epoch_fn's lifetime.  Either way the trajectory equals K
         `make_round` calls bit for bit (where the card's algorithms are
-        deterministic)."""
-        if mesh is not None:
-            raise NotImplementedError("mesh execution comes with the "
-                                      "sharded slice of the port")
-        plan, step = self.make_round_parts(cfg, lr=lr, wire=wire,
-                                           topology=topology)
+        deterministic).
+
+        mesh — run the sharded round (`make_sharded_round_parts`): the
+        state in and out is this rank's slice, views and labels global.
+        The collectives of an NCCL mesh are captured with the round; gloo
+        collectives cannot be, so on a gloo mesh the rounds run eagerly
+        and `captures` stays empty."""
+        if mesh is None:
+            plan, step = self.make_round_parts(cfg, lr=lr, wire=wire,
+                                               topology=topology)
+        else:
+            plan, step = self.make_sharded_round_parts(
+                cfg, mesh, lr=lr, wire=wire, topology=topology)
         graphed = _GraphedRounds(plan, step)
+        capture = mesh is None or mesh.backend == "nccl"
 
         def epoch_fn(state, views, labels, generator, round_keys=None):
-            if views.device.type == "cuda":
+            if views.device.type == "cuda" and capture:
                 return graphed.epoch(state, views, labels, generator,
                                      round_keys)
             per_round = []
@@ -178,6 +200,14 @@ class Scheme:
             return state, _stack_metrics(per_round)
         epoch_fn.captures = graphed.graphs.captures
         return epoch_fn
+
+    def state_shardings(self, cfg, state, mesh):
+        """Where each leaf of `state` lies on `mesh`: a tree of `state`'s
+        structure whose leaves name the mesh axis the leaf's leading dim is
+        sliced over, or None for a replicated leaf
+        (launch/sharding.shard_state / gather_state read it).  Default:
+        fully replicated."""
+        return tree_map(lambda _: None, state)
 
     # serving bucket sizes (repro_torch/serving): in-flight requests are
     # padded to the smallest bucket, so the engine runs at most one batch
@@ -259,6 +289,19 @@ class Scheme:
 
     def __repr__(self):
         return f"<Scheme {self.name!r}>"
+
+
+def _round_fn(plan, step):
+    """make_round's round_fn from a round's two parts."""
+    def round_fn(state, views, labels, generator, *, round_key=None, **kw):
+        # the host part first: a lossy round without its key raises before
+        # any tensor is read
+        sig, mask = plan(round_key,
+                         None if labels is None else labels.shape[-1])
+        if mask is not None:
+            mask = linkfault.mask_tensor(mask, labels.device)
+        return step(state, views, labels, generator, sig, mask, **kw)
+    return round_fn
 
 
 def _stack_metrics(per_round) -> dict:

@@ -3,7 +3,8 @@ core/fl.py).
 
 Reference: src/repro/core/schemes/fl.py (`_pack_exp2_views`, `FLScheme`:
 `batches_per_round`, `init`, `make_round`, `make_transport_round`,
-`predict`, `bits_per_round`, `wire_bytes_per_round`).  One round == one
+`make_sharded_round`, `state_shardings`, `predict`, `bits_per_round`,
+`wire_bytes_per_round`).  One round == one
 FedAvg round: each of the J
 clients takes `local_steps` optimizer steps on its own minibatches, then
 the server averages the weights and re-broadcasts them, so one round
@@ -18,8 +19,10 @@ FL has no cut-layer exchange: its wire carries full fp32 weights, so
 carry LinkModels (or cfg.edge_dropout > 0) runs the masked FedAvg: the
 uploads the round's draw (`round_key=`, core/linkfault.client_delivery_mask)
 or the transport round's explicit mask drops are left out of the average,
-and an all-lost round keeps the previous global model.  The sharded round
-comes with its slice of the port.
+and an all-lost round keeps the previous global model.  On a mesh
+(core/sharded.py) the J client replicas, their model states and optimizer
+states lie on 'client' (`state_shardings`): each rank trains its own
+clients and the server's average is one sum over 'client'.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 
 from repro_torch import (as_generator, as_input, optim, resolve_device,
                          tree_stack)
-from repro_torch.core import bandwidth, fl, linkfault, paper_model
+from repro_torch import tree_map
+from repro_torch.core import bandwidth, fl, linkfault, paper_model, sharded
 from repro_torch.core import schemes as _schemes
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.schemes import base
@@ -63,13 +67,17 @@ class FLScheme(base.Scheme):
                                 for j in range(cfg.num_clients)])
         return {"params": params, "state": state, "opt": opt_state}
 
-    def _make_round(self, cfg, lr, *, faulty):
+    def _make_round(self, cfg, lr, *, faulty, mesh=None):
         """round_fn(state, views, labels, generator, mask, *,
         drop_masks=None, plan=None); mask None on the clean round, else
         the (J,) client delivery mask (a host array, or with `plan` a
-        device tensor)."""
-        round_impl = fl.make_round(cfg, optim.adam(lr), self.local_steps,
-                                   faulty=faulty)
+        device tensor).  On `mesh` the state is this rank's slice."""
+        if mesh is None:
+            round_impl = fl.make_round(cfg, optim.adam(lr), self.local_steps,
+                                       faulty=faulty)
+        else:
+            round_impl = sharded.make_fl_sharded_round(
+                cfg, mesh, optim.adam(lr), self.local_steps, faulty=faulty)
         J, ls = cfg.num_clients, self.local_steps
 
         def round_fn(state, views, labels, generator, mask, *,
@@ -92,13 +100,25 @@ class FLScheme(base.Scheme):
 
     def make_round_parts(self, cfg, *, lr: float = 2e-3,
                          wire: str = "dense", topology=None):
+        return self._parts(cfg, lr, topology, None)
+
+    def make_sharded_round_parts(self, cfg, mesh, *, lr: float = 2e-3,
+                                 wire: str = "dense", topology=None):
+        return self._parts(cfg, lr, topology, mesh)
+
+    def state_shardings(self, cfg, state, mesh):
+        # every FL state leaf is a stacked per-client replica (leading J):
+        # params, model state and the per-client optimizer states
+        return tree_map(lambda _: "client", state)
+
+    def _parts(self, cfg, lr, topology, mesh):
         # the weight exchange is a client <-> server star by definition; a
         # star whose edges carry LinkModels (or cfg.edge_dropout > 0) runs
         # the masked FedAvg on the round's client delivery mask
         topology_lib.require_star(topology, cfg, scheme=self.name)
         topo_full = topology_lib.resolve(topology, cfg)
         faulty = linkfault.active(topo_full, cfg, train=True)
-        inner = self._make_round(cfg, lr, faulty=faulty)
+        inner = self._make_round(cfg, lr, faulty=faulty, mesh=mesh)
 
         def plan(round_key, batch_size):
             # the server's average is decided on the host: over all, none

@@ -1,7 +1,8 @@
 """In-network learning behind the unified Scheme API (wraps core/inl.py).
 
 Reference: src/repro/core/schemes/inl.py (`INLScheme.init`, `make_round`,
-`make_transport_round`, `predict`, `predict_batched`,
+`make_transport_round`, `make_sharded_round`, `state_shardings`,
+`predict`, `predict_batched`,
 `predict_under_faults`, `bits_per_round`, `wire_bytes_per_round`,
 `edge_ledger`).  One round == one eq.-(6) optimizer step (Adam, the
 reference's b2=0.95 with global-norm clipping) on a (J, B) multi-view
@@ -20,11 +21,17 @@ fuses the views whose routes survived its fault draw (`round_key=`), the
 transport round fuses the views its explicit (J,) mask says arrived, and
 `predict_under_faults` draws a (J,) route-survival mask per sample; a lost
 link costs one vote, not the round or the prediction.
+
+On a mesh (core/sharded.py) the encoders, branch heads, learned priors and
+their optimizer moments lie on 'client' (`state_shardings`), the decoder's
+dense layers are replicated and the batch is split over 'data'.
 """
 from __future__ import annotations
 
 from repro_torch import optim
-from repro_torch.core import bandwidth, inl, linkfault, paper_model, wirefmt
+from repro_torch import tree_map
+from repro_torch.core import (bandwidth, inl, linkfault, paper_model,
+                              sharded, wirefmt)
 from repro_torch.core import schemes as _schemes
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.schemes import base
@@ -41,9 +48,17 @@ class INLScheme(base.Scheme):
 
     def make_round_parts(self, cfg, *, lr: float = 2e-3,
                          wire: str = "dense", topology=None):
-        step = inl.make_train_step(cfg, optim.adam(lr), wire=wire,
-                                   topology=topology)
+        return self._parts(cfg, topology, inl.make_train_step(
+            cfg, optim.adam(lr), wire=wire, topology=topology))
 
+    def make_sharded_round_parts(self, cfg, mesh, *, lr: float = 2e-3,
+                                 wire: str = "dense", topology=None):
+        return self._parts(cfg, topology, sharded.make_inl_sharded_round(
+            cfg, mesh, optim.adam(lr), wire=wire, topology=topology))
+
+    def _parts(self, cfg, topology, step):
+        """The round's parts around a train step: the fusion plan's host
+        part, and a device part that hands the mask to the step."""
         def device_step(state, views, labels, generator, sig, mask, *,
                         eps=None, drop_masks=None):
             params, st, opt_state, metrics = step(
@@ -55,6 +70,20 @@ class INLScheme(base.Scheme):
         return base.RoundParts(
             base.fusion_plan(cfg, topology, inl.ROUND_KEY_MESSAGE),
             device_step)
+
+    def state_shardings(self, cfg, state, mesh):
+        def on(axis, tree):
+            return tree_map(lambda _: axis, tree)
+
+        params = state["params"]
+        p_specs = inl.INLParams(
+            on("client", params.encoders),
+            {"dense": on(None, params.decoder["dense"]),
+             "branch_heads": on("client", params.decoder["branch_heads"])},
+            on("client", params.priors))
+        return {"params": p_specs, "state": on("client", state["state"]),
+                "opt": {k: (None if k == "step" else p_specs)
+                        for k in state["opt"]}}
 
     def make_transport_round(self, cfg, *, lr: float = 2e-3,
                              wire: str = "dense", topology=None):

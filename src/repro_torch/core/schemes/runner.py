@@ -12,11 +12,21 @@ round's device part per host signature, replayed once a round (the
 counterpart of the reference's jitted lax.scan over the epoch), on the
 CPU the same rounds in a Python loop.  "per_round" calls the round once
 per group of minibatches, the reference's `_run_per_round`.  The two give
-the same trajectory bit for bit.  `mesh=` (the sharded slice) and
-`transport=` (the transport slice) raise NotImplementedError.  The
-reference's `prefetch_size=` overlaps the host-to-device copies of the
-next epoch's minibatches; the port has none to overlap, since the data
-set moves to the device once.
+the same trajectory bit for bit.  `transport=` (the transport slice)
+raises NotImplementedError.  The reference's `prefetch_size=` overlaps the
+host-to-device copies of the next epoch's minibatches; the port has none
+to overlap, since the data set moves to the device once.
+
+`mesh=` (launch/mesh.make_inl_host_mesh; every rank of the mesh calls
+run_scheme with the same arguments) trains across the mesh's ranks under
+"scan": each rank holds its slice of the state (`Scheme.state_shardings`)
+and its epoch_fn runs the sharded round (core/sharded.py), which reads its
+block of each epoch's minibatches.  After each epoch the state is
+gathered, so every rank evaluates the same model and its curve is the
+same; the ledgers are the unsharded run's.  Checkpoints hold the gathered
+state in the unsharded layout, written by rank 0 between two barriers; a
+resume restores on every rank and slices again, so a checkpoint written
+on a mesh resumes without one and the other way round.
 
 The data set moves to the device once; each epoch gathers its
 minibatches there in one go from the reference's seeded batch indices
@@ -46,6 +56,7 @@ from repro_torch.core import bandwidth, linkfault, schemes
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.schemes import base
 from repro_torch.data import multiview
+from repro_torch.launch import sharding
 
 
 class CurvePoint(NamedTuple):
@@ -181,15 +192,16 @@ def rounds_per_epoch(scheme, cfg, n: int, batch_size: int) -> int:
     return (n // batch_size) // scheme.batches_per_round(cfg)
 
 
-def _refuse_deferred(dispatch, mesh, transport) -> None:
-    if dispatch not in ("scan", "per_round"):
-        raise ValueError(f"unknown dispatch {dispatch!r}")
-    if mesh is not None:
-        raise NotImplementedError("mesh= comes with the sharded slice of "
-                                  "the port")
+def _check_options(dispatch, mesh, transport) -> None:
     if transport is not None:
+        if mesh is not None:
+            raise ValueError("transport execution is per-round; no mesh")
         raise NotImplementedError("transport= comes with the transport "
                                   "slice of the port")
+    if dispatch == "per_round" and mesh is not None:
+        raise ValueError("mesh execution needs dispatch='scan'")
+    if dispatch not in ("scan", "per_round"):
+        raise ValueError(f"unknown dispatch {dispatch!r}")
 
 
 def run_scheme(name: str, views, labels, cfg, *, epochs: int,
@@ -215,14 +227,16 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     round call per group; the same trajectory either way.  `ckpt_dir`
     saves a checkpoint every `ckpt_every` epochs and after the last;
     `resume=True` trains on from the latest one there, bit-identical to
-    the uninterrupted run (module docstring)."""
-    _refuse_deferred(dispatch, mesh, transport)
-    device = resolve_device(device)
+    the uninterrupted run (module docstring).  `mesh` trains across a
+    mesh of ranks (module docstring); `device` defaults to the mesh's."""
+    _check_options(dispatch, mesh, transport)
+    device = resolve_device(mesh.device if mesh is not None and device is None
+                            else device)
     scheme = schemes.get(name)
     state = scheme.init(cfg, torch.Generator(device=device).manual_seed(seed),
                         lr=lr, device=device)
     if dispatch == "scan":
-        epoch_fn = scheme.make_epoch(cfg, lr=lr, wire=wire,
+        epoch_fn = scheme.make_epoch(cfg, lr=lr, mesh=mesh, wire=wire,
                                      topology=topology)
     else:
         round_fn = scheme.make_round(cfg, lr=lr, wire=wire,
@@ -242,6 +256,9 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     start_ep, curve = 0, []
     if resume and ckpt_dir:
         state, curve, start_ep = _try_resume(ckpt_dir, state, meter, gen)
+    if mesh is not None:
+        specs = scheme.state_shardings(cfg, state, mesh)
+        state = sharding.shard_state(state, specs, mesh)
     n_eval = min(eval_n, n)
     ev, el = views[:, :n_eval], labels[:n_eval]
 
@@ -271,16 +288,27 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
         else:
             for _ in range(rounds):
                 _meter_rounds(meter, charges)
-        _meter_overheads(meter, scheme, cfg, state)
-        acc = base.evaluate_accuracy(scheme, state, ev, el,
+        full = state if mesh is None else \
+            sharding.gather_state(state, specs, mesh)
+        _meter_overheads(meter, scheme, cfg, full)
+        acc = base.evaluate_accuracy(scheme, full, ev, el,
                                      topology=topology, cfg=cfg,
                                      device=device)
         curve.append(CurvePoint(ep + 1, acc, meter.gbits,
                                 meter.measured_gbits, meter.delivered_gbits))
         if ckpt_dir and ((ep + 1) % max(ckpt_every, 1) == 0
                          or ep + 1 == epochs):
-            _save_epoch(ckpt_dir, scheme.name, ep + 1, state, curve, meter,
-                        gen)
+            if mesh is None:
+                _save_epoch(ckpt_dir, scheme.name, ep + 1, full, curve,
+                            meter, gen)
+            else:
+                # one writer: every rank holds the same gathered state,
+                # curve, ledgers and generator
+                mesh.barrier()
+                if mesh.rank == 0:
+                    _save_epoch(ckpt_dir, scheme.name, ep + 1, full, curve,
+                                meter, gen)
+                mesh.barrier()
     return curve
 
 

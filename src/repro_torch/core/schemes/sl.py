@@ -3,7 +3,7 @@
 Reference: src/repro/core/schemes/sl.py (`SLScheme.max_link_retries`,
 `init`, `_skip_failed_round` — here the host part of
 `make_round_parts` —, `_make_raw_round`, `make_round`,
-`make_transport_round`, `predict`, `bits_per_round`,
+`make_transport_round`, `make_sharded_round`, `predict`, `bits_per_round`,
 `epoch_overhead_bits`, `wire_bytes_per_round`,
 `epoch_overhead_wire_bytes`).  One round == one
 client -> server -> client exchange on a minibatch: the client's conv
@@ -21,7 +21,10 @@ reading: its single client -> server uplink either works within
 round is SKIPPED.  A skipped round is still computed, so it draws from
 the run's generator as any round does, and its result is discarded: the
 state (parameters, BatchNorm statistics, both optimizer states) carries
-through unchanged.  The sharded round comes with its slice of the port.
+through unchanged.  On a mesh (core/sharded.py) the batch is split over
+'data' and the client and server are replicated (the base
+`state_shardings`); the skip wraps the sharded round as it does the
+single-device one.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch import as_generator, as_input, optim, resolve_device
-from repro_torch.core import bandwidth, linkfault, paper_model, sl, wirefmt
+from repro_torch.core import (bandwidth, linkfault, paper_model, sharded,
+                              sl, wirefmt)
 from repro_torch.core import schemes as _schemes
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.schemes import base
@@ -52,14 +56,19 @@ class SLScheme(base.Scheme):
                 "opt_c": optim.adam(lr).init(client),
                 "opt_s": optim.adam(lr).init(server)}
 
-    def _make_raw_round(self, cfg, *, lr: float, wire: str):
+    def _make_raw_round(self, cfg, *, lr: float, wire: str, mesh=None):
         """The round's computation: raw(state, views, labels, generator, *,
         drop_masks=None) with views (1, J, B, ...), labels (1, B); the
         server decoder's dropout masks drawn from `generator` unless
-        given."""
-        step = sl.make_train_step(
-            optim.adam(lr), optim.adam(lr), link_bits=cfg.link_bits,
-            wire=wire, compute_dtype=getattr(cfg, "compute_dtype", "fp32"))
+        given.  On `mesh` the sharded step (the batch over 'data')."""
+        if mesh is None:
+            step = sl.make_train_step(
+                optim.adam(lr), optim.adam(lr), link_bits=cfg.link_bits,
+                wire=wire,
+                compute_dtype=getattr(cfg, "compute_dtype", "fp32"))
+        else:
+            step = sharded.make_sl_sharded_round(
+                cfg, mesh, optim.adam(lr), optim.adam(lr), wire=wire)
 
         def raw(state, views, labels, generator, *, drop_masks=None):
             B = labels.shape[1]
@@ -76,10 +85,17 @@ class SLScheme(base.Scheme):
 
     def make_round_parts(self, cfg, *, lr: float = 2e-3,
                          wire: str = "dense", topology=None):
+        return self._parts(cfg, lr, wire, topology, None)
+
+    def make_sharded_round_parts(self, cfg, mesh, *, lr: float = 2e-3,
+                                 wire: str = "dense", topology=None):
+        return self._parts(cfg, lr, wire, topology, mesh)
+
+    def _parts(self, cfg, lr, wire, topology, mesh):
         # SL's cut is ONE client -> server boundary (all conv branches live
         # on the active client), so only the star has a reading here
         topology_lib.require_star(topology, cfg, scheme=self.name)
-        raw = self._make_raw_round(cfg, lr=lr, wire=wire)
+        raw = self._make_raw_round(cfg, lr=lr, wire=wire, mesh=mesh)
         topo_full = topology_lib.resolve(topology, cfg)
         faulty = linkfault.active(topo_full, cfg, train=True)
         attempts = self.max_link_retries + 1

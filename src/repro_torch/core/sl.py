@@ -36,23 +36,29 @@ def init(cfg, generator, *, device=None):
 
 
 def forward_client(client, state, views, *, train: bool,
-                   link_bits: int = 32, compute_dtype: str = "fp32"):
+                   link_bits: int = 32, compute_dtype: str = "fp32",
+                   axis_name=None):
     """The client's cut-layer activations u (J, B, d) and its new state.
     compute_dtype "bf16" runs the conv trunks in half precision (the
-    gradients and parameters stay fp32 at the caller)."""
+    gradients and parameters stay fp32 at the caller); axis_name the mesh
+    Axis the batch is sharded over (global BatchNorm statistics)."""
     dt = paper_model.COMPUTE_DTYPES[compute_dtype]
     return paper_model.branch_latents(paper_model.cast_compute(client, dt),
                                       state, views.to(dt), train=train,
-                                      link_bits=link_bits)
+                                      link_bits=link_bits,
+                                      axis_name=axis_name)
 
 
 def loss_fn(client, server, state, views, labels, *, drop_masks=None,
             train: bool = True, link_bits: int = 32, wire: str = "dense",
-            compute_dtype: str = "fp32"):
-    """Returns (loss, (metrics, new_state)); new_state detached."""
+            compute_dtype: str = "fp32", axis_name=None):
+    """Returns (loss, (metrics, new_state)); new_state detached.  On a mesh
+    (core/sharded.py) the batch is this rank's block and axis_name the
+    'data' Axis it is sharded over; loss and metrics are the rank's own."""
     u, new_state = forward_client(client, state, views, train=train,
                                   link_bits=link_bits,
-                                  compute_dtype=compute_dtype)
+                                  compute_dtype=compute_dtype,
+                                  axis_name=axis_name)
     # the client -> server link: dense values or bit-packed codewords
     u_w = wirefmt.ship(u, link_bits=link_bits, wire=wire)
     server = paper_model.cast_compute(

@@ -35,9 +35,14 @@ two-direction count for the payload it carries, its measured bytes the
 the Table-I totals.  Link models on the edges (`Edge.link`, a
 core/linkfault.LinkModel) do not change the graph's execution: they only
 produce delivery masks, which the fuse node applies after the hops
-(`linkfault.partial_fuse`), as in the reference.  The collective over a
-'client' axis (`axis_name=`, `group_ids=`) comes with ROADMAP item 9
-(`core/sharded`) and raises NotImplementedError.
+(`linkfault.partial_fuse`), as in the reference.
+
+On a mesh (core/sharded.py) `axis_name=` is the 'client' Axis and
+`group_ids=` the first-hop group of each of this rank's nodes: each rank
+cuts its own nodes at their first-hop widths, the 'client' all_gather of
+the cut latents stays the one physical collective, and the hops run
+replicated on the gathered buffer (the values are the modelled multi-hop
+network's; the per-edge meter charges the modelled links).
 """
 from __future__ import annotations
 
@@ -512,9 +517,11 @@ def first_hop_groups(topo: Topology, cfg):
 def graph_cut_and_ship(topo: Topology, cfg, mu, logvar, eps, *,
                        rate_estimator: str = "sample", wire: str = "dense",
                        prior: dict = None, axis_name=None, group_ids=None):
-    """Run the inference graph on stacked latents, on one device.
+    """Run the inference graph on stacked latents.
 
-    mu/logvar: (J, B, d) per-view-node encoder outputs, eps (J, B, d) fp32.
+    mu/logvar: (J, B, d) per-view-node encoder outputs, eps (J, B, d) fp32
+    (on a mesh this rank's J_local nodes, `group_ids` their first-hop
+    groups, and `axis_name` the 'client' Axis that gathers them).
     Returns (u, rate, u_fused):
 
       u        (J, B, d)  each node's OWN cut-layer output (first-hop
@@ -522,22 +529,28 @@ def graph_cut_and_ship(topo: Topology, cfg, mu, logvar, eps, *,
       rate     (J, B)     the eq.-(6) rate term per node;
       u_fused  (J, B, d)  the latents as the fuse node RECEIVES them after
                           every hop's re-coding, in view-node order —
-                          eq. (5) concatenates them.
+                          eq. (5) concatenates them (all J rows on a
+                          mesh).
 
-    Stage 1 runs one fused cutlayer per first-hop width group, each on
-    exactly its group's rows (with the group's rows of a learned (J, d)
-    prior).  Stage 2 applies every edge in topological order through
+    Stage 1 runs one fused cutlayer per first-hop width group present, each
+    on exactly its group's rows (with the group's rows of a learned (J, d)
+    prior).  On a mesh the cut latents are then gathered over the axis.
+    Stage 2 applies every edge in topological order through
     `wirefmt.relay_hop`, to exactly the payload rows the edge carries:
     (|payload| * B, d) rows a hop.  Backward, autograd reverses the edge
     sequence — each node's error chunk traverses its route's hops
     transposed."""
-    if axis_name is not None or group_ids is not None:
-        raise NotImplementedError(
-            "graph execution over a 'client' axis (axis_name=, group_ids=) "
-            "comes with the sharded slice of the port (ROADMAP item 9, "
-            "core/sharded)")
+    axis = wirefmt.check_axis(axis_name)
     prior = prior or {}
     groups, gid_of_view = first_hop_groups(topo, cfg)
+    if group_ids is not None:
+        gid_of_view = tuple(int(g) for g in group_ids)
+    if len(gid_of_view) != mu.shape[0]:
+        raise ValueError(f"{mu.shape[0]} latent rows but {len(gid_of_view)} "
+                         f"first-hop group ids; on a mesh pass this rank's "
+                         f"group_ids")
+    groups = tuple((gid, bits) for gid, bits in groups
+                   if gid in gid_of_view)
     pmu, plv = prior.get("mu"), prior.get("logvar")
     if len(groups) == 1:
         u, rate = ops.cutlayer(mu, logvar, eps, link_bits=groups[0][1],
@@ -562,7 +575,7 @@ def graph_cut_and_ship(topo: Topology, cfg, mu, logvar, eps, *,
                 u_rows[j], r_rows[j] = ug[k], rg[k]
         u, rate = torch.stack(u_rows), torch.stack(r_rows)
 
-    fused = list(u.unbind(0))
+    fused = list((u if axis is None else axis.all_gather(u)).unbind(0))
     for e in topo.topo_edges():
         ids = topo.payload(e)
         hopped = wirefmt.relay_hop(

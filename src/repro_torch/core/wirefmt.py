@@ -35,8 +35,18 @@ device the pack -> unpack round trip simulates the link: the same values
 and the same measured bytes as a real transfer.  `relay_hop` is one edge of
 a multi-hop topology (core/topology.graph_cut_and_ship): it re-quantizes
 the payload it forwards at its edge's width and ships it over that edge's
-wire.  The collective over a 'client' axis (`axis_name=`) comes with the
-sharded slice and raises NotImplementedError.
+wire.
+
+On a mesh (core/sharded.py) `axis_name=` is the 'client' Axis
+(launch/mesh.Mesh.axis) and the wire is the fusion node's fan-in, one
+collective over it: "dense" all-gathers the quantized values, "packed"
+all-gathers the uint32 codeword lanes (as int32: the collectives have no
+uint32).  Backward, every wire sums the ranks' dense cotangents with a
+reduce-scatter and hands each node its own error chunk; "packed_duplex"
+quantizes that chunk after the reduce-scatter, as the reference does (the
+meter charges the quantized chunk, not the dense reduce-scatter that
+executes).  The keyword keeps the reference's name; a string there raises
+TypeError.
 
 Measured bytes come from the sizes of the real buffers: the lanes of the
 plain pack on a meta tensor (shape and dtype, no allocation), and the dense
@@ -70,11 +80,15 @@ def resolve_wire(wire: str, link_bits: int):
     return wire, (link_bits if wire == "packed_duplex" else None)
 
 
-def _no_collective(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError("the collective over a client axis "
-                                  "(axis_name=) comes with the sharded "
-                                  "slice of the port")
+def check_axis(axis_name):
+    """`axis_name` as given: None (one device) or a mesh Axis; the
+    reference's axis NAME is refused, since a collective here needs the
+    axis' process group."""
+    if isinstance(axis_name, str):
+        raise TypeError(f"axis_name= takes a mesh Axis "
+                        f"(launch.mesh.Mesh.axis({axis_name!r})), not the "
+                        f"axis name {axis_name!r}")
+    return axis_name
 
 
 def dyn_quantize(g, bits: int):
@@ -100,35 +114,42 @@ def dyn_quantize(g, bits: int):
 # ---------------------------------------------------------------------------
 
 class _Ship(torch.autograd.Function):
-    """pack -> unpack on the forward; the backward hands each node its
-    error chunk straight through (packed_duplex: quantized at bwd_bits)."""
+    """pack -> (gather the lanes over `axis`) -> unpack on the forward; the
+    backward hands each node its error chunk straight through (on a mesh
+    the reduce-scatter of the dense cotangent; packed_duplex: then
+    quantized at bwd_bits)."""
 
     @staticmethod
-    def forward(ctx, u, bits, bwd_bits):
-        ctx.bwd_bits = bwd_bits
+    def forward(ctx, u, bits, bwd_bits, axis):
+        ctx.bwd_bits, ctx.axis = bwd_bits, axis
         lanes = _bn.pack_values(u, link_bits=bits)
+        if axis is not None:
+            lanes = axis.gather(lanes)
         return _bn.unpack_dequant(lanes, u.shape[-1], link_bits=bits,
                                   dtype=u.dtype)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.axis is not None:
+            g = ctx.axis.reduce_scatter(g)
         if ctx.bwd_bits is not None:
             g = dyn_quantize(g, ctx.bwd_bits)
-        return g, None, None
+        return g, None, None, None
 
 
 def ship(u, *, link_bits: int, wire: str = "dense", axis_name=None):
     """Move a quantized latent u (..., d) across the client -> server wire.
 
-    dense: the identity on one device.  packed: the buffer on the wire is
-    uint32 codeword lanes; the values arrive unchanged.  The backward
-    returns each node its eq.-(10) error chunk (straight through;
-    packed_duplex also quantizes it at link_bits)."""
+    dense: the identity on one device, the tiled all_gather over the
+    'client' Axis `axis_name` on a mesh.  packed: the buffer on the wire is
+    uint32 codeword lanes (gathered over the axis); the values arrive
+    unchanged.  The backward returns each node its eq.-(10) error chunk
+    (straight through; packed_duplex also quantizes it at link_bits)."""
     wire, bwd_bits = resolve_wire(wire, link_bits)
-    _no_collective(axis_name)
+    axis = check_axis(axis_name)
     if wire == "dense":
-        return u
-    return _Ship.apply(u, link_bits, bwd_bits)
+        return u if axis is None else axis.all_gather(u)
+    return _Ship.apply(u, link_bits, bwd_bits, axis)
 
 
 def relay_hop(x, *, link_bits: int, wire: str = "dense", dtype=None):
@@ -161,16 +182,21 @@ def relay_hop(x, *, link_bits: int, wire: str = "dense", dtype=None):
 
 class _CutShip(torch.autograd.Function):
     """(mu, logvar, eps) -> (u, rate, u_shipped) through the pack-emitting
-    kernel and the unpack; the backward is the fused eq.-(10) split on the
-    sum of the node's own cotangent gu and its error chunk from the fusion
-    node (packed_duplex: that chunk quantized at bwd_bits)."""
+    kernel, (on a mesh) the gather of the lanes over `axis`, and the
+    unpack; the backward is the fused eq.-(10) split on the sum of the
+    node's own cotangent gu and its error chunk from the fusion node (on a
+    mesh the reduce-scatter of the dense cotangent; packed_duplex: that
+    chunk quantized at bwd_bits)."""
 
     @staticmethod
-    def forward(ctx, mu, logvar, eps, bits, mode, bwd_bits):
-        ctx.bits, ctx.mode, ctx.bwd_bits = bits, mode, bwd_bits
+    def forward(ctx, mu, logvar, eps, bits, mode, bwd_bits, axis):
+        ctx.bits, ctx.mode, ctx.bwd_bits, ctx.axis = bits, mode, bwd_bits, \
+            axis
         ctx.save_for_backward(mu, logvar, eps)
         u, lanes, rate = _bn.cutlayer_pack_forward(
             mu, logvar, eps, link_bits=bits, rate_estimator=mode)
+        if axis is not None:
+            lanes = axis.gather(lanes)
         u_shipped = _bn.unpack_dequant(lanes, mu.shape[-1], link_bits=bits,
                                        dtype=u.dtype)
         return u, rate, u_shipped
@@ -178,13 +204,15 @@ class _CutShip(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gu, grate, g_shipped):
         mu, logvar, eps = ctx.saved_tensors
+        if ctx.axis is not None:
+            g_shipped = ctx.axis.reduce_scatter(g_shipped)
         if ctx.bwd_bits is not None:
             g_shipped = dyn_quantize(g_shipped, ctx.bwd_bits)
         grads = _bn.cutlayer_backward(mu, logvar, eps,
                                       gu + g_shipped.to(gu.dtype), grate,
                                       link_bits=ctx.bits,
                                       rate_estimator=ctx.mode)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def cut_and_ship(generator, mu, logvar, *, link_bits: int,
@@ -194,7 +222,8 @@ def cut_and_ship(generator, mu, logvar, *, link_bits: int,
 
     Returns (u, rate, u_shipped): u (..., d) the node-local quantized latent
     (the branch heads read it), rate (...,) the eq.-(6) term and u_shipped
-    what the fusion node receives, equal in value.  wire="dense" runs
+    what the fusion node receives, equal in value (on a mesh, every node's
+    rows gathered over the 'client' Axis `axis_name`).  wire="dense" runs
     `bottleneck.fused_sample_rate` and hands the fusion node the same
     tensor, so autograd sums the branch heads' and the decoder's cotangents
     into one gu; "packed"/"packed_duplex" run the pack-emitting kernel and
@@ -206,15 +235,16 @@ def cut_and_ship(generator, mu, logvar, *, link_bits: int,
     The noise: `eps` (..., d) fp32, else drawn from `generator`;
     generator=None and eps=None is the deterministic cut (eps == 0)."""
     wire, bwd_bits = resolve_wire(wire, link_bits)
-    _no_collective(axis_name)
+    axis = check_axis(axis_name)
     if wire == "dense" or prior:
         u, rate = bottleneck.fused_sample_rate(
             generator, mu, logvar, link_bits=link_bits,
             rate_estimator=rate_estimator, prior=prior, eps=eps)
-        return u, rate, ship(u, link_bits=link_bits, wire=wire)
+        return u, rate, ship(u, link_bits=link_bits, wire=wire,
+                             axis_name=axis)
     eps = bottleneck.cut_noise(generator, mu, eps)
     return _CutShip.apply(mu, logvar, eps.to(torch.float32), link_bits,
-                          rate_estimator, bwd_bits)
+                          rate_estimator, bwd_bits, axis)
 
 
 # ---------------------------------------------------------------------------

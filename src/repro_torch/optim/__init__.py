@@ -12,8 +12,10 @@ b2, clipping and eps placement differ.
 `init(params) -> state` and `update(grads, state, params) -> (new_params,
 new_state)` build new tensors (no in-place update) under torch.no_grad();
 the state is a dict of tensors on the parameters' device, the step an int32
-0-dim tensor.  The ZeRO-1 sharding of the reference's optimizer state comes
-with the sharded slice of the port.
+0-dim tensor.  On a mesh (core/sharded.py) each rank updates its own shard
+of the parameters and moments, the global-norm clip reading the norm the
+round computed over every shard (`update(..., norm=)`); the ZeRO-1
+sharding of the LLM trainer's optimizer state waits for ROADMAP item 6.7.
 """
 from __future__ import annotations
 
@@ -49,10 +51,12 @@ def global_norm(tree):
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale `grads` by min(1, max_norm / global_norm); returns (clipped,
-    norm)."""
-    norm = global_norm(grads)
+    norm).  `norm` — the global norm when the caller computed it (a
+    gradient tree sharded over a mesh holds only part of it)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(torch.full_like(norm, max_norm)
                         / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
@@ -153,9 +157,12 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return state
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, *, norm=None):
+        """norm — the gradients' global norm where `grads` is this rank's
+        shard of a tree sharded over a mesh (core/sharded.py); the update
+        itself is elementwise."""
         if clip_norm:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, norm)
         step = state["step"] + 1
         lr_t = sched(step)
         # bias corrections in fp32 on the int32 step, as the reference

@@ -10,12 +10,17 @@ flatten order or a transposed kernel cannot pass.
 from __future__ import annotations
 
 import functools
+import multiprocessing
+import os
+import queue
+import time
 
 import numpy as np
 import pytest
 
 import jax
 
+import _torch_ranks
 from repro.core import inl as jinl
 from repro_torch import convert
 from repro_torch.kernels import ref
@@ -146,3 +151,64 @@ def near_midpoint(mu, lv, eps, bits, tol=1e-6):
     scale = ((1 << bits) - 1) / (2.0 * r)
     t = (np.clip(pre, -r, r) + r) * scale
     return np.abs(t - np.floor(t) - 0.5) / scale < tol
+
+
+class SpawnedRanks:
+    """`world` spawned processes, each a rank of a gloo process group over
+    a FileStore in `tmp_path` (no TCP port), running
+    fn(rank, world, *args) with one intra-op thread
+    (`_torch_ranks.rank_entry`).  fn must live in a module without JAX
+    (tests/_torch_ranks.py), so that a rank starts in seconds.  The ranks
+    start at once; `results()` waits for them (at most `timeout` seconds
+    from the start) and returns their results in rank order, or raises
+    with the traceback of a rank that failed.  Every process is joined,
+    and killed if it outlives the deadline or a rank failed."""
+
+    def __init__(self, fn, world: int, tmp_path, *args, timeout: float):
+        ctx = multiprocessing.get_context("spawn")
+        self._queue = ctx.Queue()
+        self._deadline = time.monotonic() + timeout
+        store = os.path.join(str(tmp_path), "store")
+        self._procs = [ctx.Process(target=_torch_ranks.rank_entry,
+                                   args=(fn, r, world, store, args,
+                                         self._queue))
+                       for r in range(world)]
+        for p in self._procs:
+            p.start()
+        self._results = None
+
+    def results(self) -> list:
+        if self._results is not None:
+            return self._results
+        got, failed = {}, None
+        try:
+            # drain the queue before joining (a rank blocks on a full pipe)
+            while len(got) < len(self._procs) and failed is None:
+                left = self._deadline - time.monotonic()
+                try:
+                    rank, ok, value = self._queue.get(timeout=max(left, 0.1))
+                except queue.Empty:
+                    failed = (f"{len(self._procs) - len(got)} rank(s) gave "
+                              f"no result within the deadline")
+                    break
+                if ok:
+                    got[rank] = value
+                else:
+                    failed = f"rank {rank} failed:\n{value}"
+        finally:
+            self._close(kill=failed is not None)
+        if failed is not None:
+            raise RuntimeError(failed)
+        self._results = [got[r] for r in range(len(self._procs))]
+        return self._results
+
+    def _close(self, *, kill: bool) -> None:
+        for p in self._procs:
+            if not kill:
+                p.join(timeout=max(self._deadline - time.monotonic(), 1.0))
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+        alive = [p.pid for p in self._procs if p.is_alive()]
+        if alive:
+            raise RuntimeError(f"ranks {alive} could not be stopped")

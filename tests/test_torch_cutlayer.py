@@ -145,7 +145,9 @@ def test_dispatch_is_by_device_without_fallback():
 
 def test_unported_paths_raise():
     """The learned prior, the backward and the packed wires are ported; the
-    wire's collective over a client axis (the sharded slice) is not yet."""
+    wire's collective over a client axis takes a mesh Axis, and the
+    reference's axis name there raises TypeError naming Mesh.axis (the
+    collective itself: tests/test_torch_sharded.py)."""
     mu, lv, eps = (torch.from_numpy(x) for x in _inputs((3, 8)))
     u, rate = ops.cutlayer(mu.requires_grad_(), lv, eps,
                            prior_mu=torch.zeros(8),
@@ -156,7 +158,7 @@ def test_unported_paths_raise():
         u, _, shipped = wirefmt.cut_and_ship(None, mu, lv, link_bits=4,
                                              wire=wire)
         assert torch.equal(shipped, u)
-        with pytest.raises(NotImplementedError, match="sharded slice"):
+        with pytest.raises(TypeError, match=r"Mesh\.axis\('client'\)"):
             wirefmt.cut_and_ship(None, mu, lv, link_bits=4, wire=wire,
                                  axis_name="client")
 

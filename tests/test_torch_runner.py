@@ -7,9 +7,13 @@ JAX reference's.
     per-edge ledgers) equal, exactly, what the reference's `run_scheme`
     meters for the same settings: the closed forms do not depend on the
     weights or the random streams;
-  * the options that come with later slices raise NotImplementedError, and
-    a packed wire at an unpackable width (CFG's 32 bits) a ValueError
-    (dispatch="scan", the default, runs: tests/test_torch_dispatch.py);
+  * the option that comes with a later slice (transport=) raises
+    NotImplementedError; a mesh that is not a ('client', 'data') mesh, a
+    mesh under dispatch="per_round" or beside transport=, and a packed wire
+    at an unpackable width (CFG's 32 bits) raise ValueError with the
+    reference's messages (dispatch="scan", the default, runs:
+    tests/test_torch_dispatch.py; run_scheme(mesh=) on a mesh:
+    tests/test_torch_sharded.py);
     `ckpt_dir=` with `resume=True` on an empty directory trains from
     scratch and leaves its checkpoint (resume: tests/test_torch_recovery.py).
 """
@@ -72,7 +76,8 @@ def test_run_scheme_trains_and_meters_as_the_reference():
 
 @pytest.mark.parametrize("kw, err, match", [
     ({"dispatch": "bogus"}, ValueError, "unknown dispatch"),
-    ({"mesh": object()}, NotImplementedError, "sharded slice"),
+    ({"mesh": object()}, ValueError,
+     "sharded schemes need a 'client' mesh axis; got ()"),
     ({"transport": object()}, NotImplementedError, "transport slice"),
     ({"ckpt_dir": None, "resume": True}, None, None),
     ({"wire": "packed"}, ValueError, "packable"),
@@ -81,8 +86,12 @@ def test_run_scheme_trains_and_meters_as_the_reference():
                                 link_bits=(4,) * (CFG.num_clients - 1)
                                 + (32,)),
       "wire": "packed"}, ValueError, "packable"),
+    ({"mesh": object(), "dispatch": "per_round"}, ValueError,
+     "mesh execution needs dispatch='scan'"),
+    ({"mesh": object(), "transport": object()}, ValueError,
+     "transport execution is per-round; no mesh"),
 ], ids=["unknown", "mesh", "transport", "ckpt", "packed",
-        "per-edge-widths"])
+        "per-edge-widths", "mesh-per-round", "mesh-transport"])
 def test_deferred_options_raise(kw, err, match, tmp_path):
     views, labels = _data()
     if err is None:
@@ -136,5 +145,7 @@ def test_epoch_fn_equals_per_round_calls():
     from repro_torch import tree_leaves
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(st_e),
                                                   tree_leaves(st_r)))
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # a mesh needs ('client', 'data') axes: the reference's check_mesh
+    with pytest.raises(ValueError, match="sharded schemes need a 'client' "
+                                         "mesh axis"):
         scheme.make_epoch(CFG, mesh=object())

@@ -24,8 +24,9 @@ same draws.
     chain(5) equal to predict bit for bit, FL/SL refusing graphs with the
     reference's messages, and the heterogeneous-encoder loss and
     gradients;
-  * what stays for ROADMAP item 9 raises NotImplementedError, and link
-    models on a graph's edges (item 8) leave its hops as they are.
+  * ROADMAP item 9's arguments (the mesh Axis, not its name; a rank's
+    group ids), and link models on a graph's edges (item 8) leave its hops
+    as they are.
 """
 import dataclasses
 
@@ -546,9 +547,20 @@ def test_heterogeneous_loss_matches_jax():
 
 def test_graph_paths_of_later_items_raise():
     mu, lv, eps = (torch.tensor(a) for a in cut_inputs((5, B, 8), seed=0))
-    for kw in ({"axis_name": "client"}, {"group_ids": torch.zeros(5)}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TT.graph_cut_and_ship(TT.chain(5), CFG, mu, lv, eps, **kw)
+    # item 9 (ported): the 'client' axis is a mesh Axis, not its name; the
+    # first-hop group ids of the rows given (a mesh rank's own) run as the
+    # graph's, and must cover the rows
+    with pytest.raises(TypeError, match=r"Mesh\.axis"):
+        TT.graph_cut_and_ship(TT.chain(5), CFG, mu, lv, eps,
+                              axis_name="client")
+    for got, want in zip(
+            TT.graph_cut_and_ship(TT.chain(5), CFG, mu, lv, eps,
+                                  group_ids=torch.zeros(5)),
+            TT.graph_cut_and_ship(TT.chain(5), CFG, mu, lv, eps)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="5 latent rows but 2 first-hop"):
+        TT.graph_cut_and_ship(TT.chain(5), CFG, mu, lv, eps,
+                              group_ids=(0, 0))
     # link models (item 8, ported) only produce delivery masks: the graph
     # runs its hops as it would without them, bit for bit
     chain = TT.chain(5)

@@ -339,15 +339,24 @@ def test_ship_is_a_lossless_re_encoding_with_straight_through_grads():
 
 
 def test_paths_of_later_slices_raise():
+    """The collective over a client axis takes a mesh Axis
+    (launch.mesh.Mesh.axis): the reference's axis name raises TypeError on
+    every wire, in ship, cut_and_ship and graph_cut_and_ship, and
+    axis_name=None stays the one-device wire (the mesh's own cases:
+    tests/test_torch_sharded.py)."""
     mu, lv, _ = (T(x) for x in cut_inputs((3, 8), seed=0))
-    with pytest.raises(NotImplementedError, match="sharded slice"):
-        wirefmt.cut_and_ship(None, mu, lv, link_bits=4, wire="packed",
-                             axis_name="client")
-    with pytest.raises(NotImplementedError, match="sharded slice"):
-        wirefmt.ship(mu, link_bits=4, wire="packed", axis_name="client")
+    for wire in wirefmt.WIRE_FORMATS:
+        with pytest.raises(TypeError, match=r"Mesh\.axis\('client'\)"):
+            wirefmt.cut_and_ship(None, mu, lv, link_bits=4, wire=wire,
+                                 axis_name="client")
+        with pytest.raises(TypeError, match="not the axis name 'client'"):
+            wirefmt.ship(mu, link_bits=4, wire=wire, axis_name="client")
+        assert torch.equal(wirefmt.ship(mu, link_bits=4, wire=wire,
+                                        axis_name=None),
+                           wirefmt.ship(mu, link_bits=4, wire=wire))
     from repro_torch.configs.paper_inl import PaperExperimentConfig
     from repro_torch.core import topology
-    with pytest.raises(NotImplementedError, match="sharded slice"):
+    with pytest.raises(TypeError, match=r"Mesh\.axis"):
         topology.graph_cut_and_ship(
             topology.chain(3), PaperExperimentConfig(num_clients=3),
             mu[:, None], lv[:, None], torch.zeros_like(mu)[:, None],
