@@ -3005,7 +3005,7 @@ SHARD_ACC_ATOL = 0.05
 # single-device round's (relative 2-norm a leaf): the data-split sums
 # (BatchNorm's backward above all, whose cancelling terms a 1/sigma
 # scales up) part a round's gradient by up to 1.7e-3 of a leaf at full
-# width (my chip run, PR 22); a misplaced or mis-scaled gradient parts it
+# width (measured on one H100); a misplaced or mis-scaled gradient parts it
 # by O(1)
 SHARD_STATE_RTOL = 1e-2
 # rounds replayed a run (else all 16): FL's single-device round is ten
