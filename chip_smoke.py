@@ -196,12 +196,13 @@ Phases, each checked; any failed check exits non-zero before the last line:
               captured with the round) bit for bit against the graphs
               phase's single-device runs; 2 and 5 gloo ranks spawned on
               the one card ((client=1, data=2), (client=5, data=1)),
-              eager: each round replayed on the mesh from the
-              single-device state within rtol 1e-4 (loss and state), the
-              free-running runs' accuracy beside theirs; packed == dense
-              bit for bit and the fan-in's bytes of one round at
-              client=5; INL's round time on each layout (`sharded
-              times:`).
+              eager: every round replayed on the mesh from the
+              single-device state (loss within rtol 1e-4; moments, model
+              state and parameters within 1e-2 a leaf), the free-running
+              losses within a drift limit bracketed by a one-ulp control
+              and a planted fault; packed == dense bit for bit and the
+              fan-in's bytes of one round at client=5; INL's round time
+              on each layout (`sharded times:`).
   7. times    per-bucket predict latency, train-step latency (median of 20
               steps, with the device busy time and idle share from the
               profiler, and the device time by kernel) on the dense,
@@ -2997,21 +2998,14 @@ def search_phase(torch, card_line):
 # reproduce bit for bit
 SHARD_STATES = ("inl", "fl", "sl", "inl packed")
 SHARD_RTOL = 1e-4
-# the free-running trajectory's final accuracy (512 evaluation samples)
-# against the single-device run's: rounding differences grow along the
-# full-width trajectory (`split_conv_drift` measures how far)
-SHARD_ACC_ATOL = 0.05
-# a replayed round's optimizer moments and model state against the
-# single-device round's (relative 2-norm a leaf): the data-split sums
-# (BatchNorm's backward above all, whose cancelling terms a 1/sigma
-# scales up) part a round's gradient by up to 1.7e-3 of a leaf at full
-# width (measured on one H100); a misplaced or mis-scaled gradient parts it
-# by O(1)
+# a replayed round's new state against the single-device round's, leaf by
+# leaf (relative 2-norm): the optimizer's moments, the model state and the
+# parameters (`state_deviation`).  On one H100 the data-split sums part a
+# round's moments by up to 2.53e-3 of a leaf at full width (PERF.md
+# section 6); the planted fault (`planted_fault`) parts them by 3.56
 SHARD_STATE_RTOL = 1e-2
-# rounds replayed a run (else all 16): FL's single-device round is ten
-# eager local steps on every rank of the world
-FORCED_ROUNDS = {"fl": 4}
-SHARD_TIME_ROUNDS = 8               # rounds an epoch in the round timing
+ADAM_B1 = 0.9                       # optim.adam's b1
+SHARD_TIME_ROUNDS = 4               # rounds an epoch in the round timing
 SHARD_TIMEOUT = 300.0               # seconds a spawned world may take
 # the fan-in of one INL round at (client=5), PaperExperimentConfig(
 # link_bits=8), batch 64, over the five ranks: (bytes all-gathered,
@@ -3019,20 +3013,38 @@ SHARD_TIMEOUT = 300.0               # seconds a spawned world may take
 FAN_IN_BYTES = {"dense": (81920, 81920), "packed": (20480, 81920),
                 "packed_duplex": (20480, 81920)}
 DUPLEX_CHARGED = 40960
+# the runs held by their free-running losses: those whose single-device
+# run trains.  The packed runs at link_bits=8 diverge on the single
+# device as well (PERF.md section 7); the replayed rounds and packed ==
+# dense hold them
+DRIFT_RUNS = ("inl", "inl+learned_prior", "fl", "sl", "inl lossy")
+# leaves whose gradient is zero: a conv bias feeds BatchNorm, which
+# subtracts it again, so its gradient is rounding, Adam turns it into
+# steps of about lr (its moments too), and the running means carry them
+NOISE_LEAF = re.compile(r"/convs/\d+/b$|/bns/\d+/mean$")
+# a parameter tree's path prefix -> its first moment's
+MOMENT_OF = (("/params/", "/opt/m/"), ("/client/", "/opt_c/m/"),
+             ("/server/", "/opt_s/m/"))
+DENSE_TWIN = "inl dense b=8"         # the dense twin of "inl packed"
+# the free-running loss drift's limit, in controls' drifts (`check_drifts`):
+# on one H100 the meshes drift up to 7.5x their own control (INL on
+# 'data') and 0.22x the limit, the planted fault 5.6x the limit (PERF.md
+# section 6)
+DRIFT_FACTOR = 10.0
 
 
 def shard_layouts():
     """{layout: (ranks, backend, runs)}: each run (label, scheme, cfg,
     wire, topology) one of the graphs phase's (`dispatch_runs`), whose
-    single-device scan run it is held against, except "inl dense b=8",
-    the dense twin of "inl packed" on the mesh."""
+    single-device scan run it is held against, except DENSE_TWIN, the
+    dense twin of "inl packed" on the mesh."""
     from repro_torch.configs.paper_inl import PaperExperimentConfig
     runs = {label: (label, name, cfg, wire, topo)
             for label, name, cfg, wire, topo in dispatch_runs()}
 
     def pick(*labels):
         return [runs[label] for label in labels]
-    dense8 = ("inl dense b=8", "inl", PaperExperimentConfig(
+    dense8 = (DENSE_TWIN, "inl", PaperExperimentConfig(
         link_bits=WIRE_BITS), "dense", None)
     return {
         "nccl 1x1": (1, "nccl", pick("inl", "fl", "sl", "inl packed")),
@@ -3040,6 +3052,13 @@ def shard_layouts():
         "gloo client=5": (5, "gloo", pick(
             "inl", "inl+learned_prior", "fl", "inl packed",
             "inl packed_duplex", "inl chain(5) packed") + [dense8])}
+
+
+def replicated_run(name, mesh_shape):
+    """FL on a data axis: 'data' only replicates FL (every data rank runs
+    the same clients on the whole batch), so its run is the single-device
+    run bit for bit and needs no replay."""
+    return name == "fl" and mesh_shape["client"] == 1
 
 
 def _host_mesh(num_clients):
@@ -3051,58 +3070,38 @@ def _host_mesh(num_clients):
         return mesh_lib.make_inl_host_mesh(num_clients, device=DEV)
 
 
-def mesh_runs(torch, runs, *, keep_states):
-    """This rank's side of a layout: each run through run_scheme(mesh=)
-    under "scan" (recorded_run), deterministic algorithms on; then the
-    fan-in's bytes of one round a wire (on a client axis of more than one
-    rank) and the INL round's times.  Returns {label: {curve, losses,
-    launches, ledgers, captures, wall, state (this rank's final slice,
-    where `keep_states`)}, "packed == dense": on this rank's slices (where
-    the layout has both), "bytes": ..., "times": ...}."""
-    from repro_torch import tree_leaves
+def run_data(name, cfg):
+    """The training set of a run of the phase: GRAPH_ROUNDS rounds'
+    minibatches."""
     from repro_torch.core import schemes
+    return training_data(cfg, GRAPH_ROUNDS * TRAIN_BATCH
+                         * schemes.get(name).batches_per_round(cfg))
 
-    mesh = _host_mesh(runs[0][2].num_clients)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    out, data, states = {"mesh": dict(mesh.shape)}, {}, {}
-    try:
-        for label, name, cfg, wire, topo in runs:
-            n = GRAPH_ROUNDS * schemes.get(name).batches_per_round(cfg) \
-                * TRAIN_BATCH
-            if n not in data:
-                data[n] = training_data(cfg, n)
-            views, labels = data[n]
-            trace, caps = [], {}
-            curve, loss, launches, meter, wall, _ = recorded_run(
-                torch, name, cfg, views, labels, epochs=1, wire=wire,
-                seed=GRAPH_SEED, topology=topo, states=trace,
-                dispatch="scan", captures=caps, mesh=mesh)
-            states[label] = trace[-1][1]
-            out[label] = {"curve": curve, "losses": loss,
-                          "launches": launches, "ledgers": ledgers(meter),
-                          "captures": caps, "wall": wall,
-                          "state": states[label] if keep_states else None}
-            if mesh.shape["client"] * mesh.shape["data"] > 1:
-                out[label]["forced"] = forced_rounds(
-                    torch, mesh, name, cfg, wire, topo, views, labels,
-                    min(FORCED_ROUNDS.get(name, GRAPH_ROUNDS), GRAPH_ROUNDS))
-        if "inl packed" in states and "inl dense b=8" in states:
-            out["packed == dense"] = (
-                out["inl packed"]["losses"] == out["inl dense b=8"]["losses"]
-                and all(torch.equal(a, b) for a, b in zip(
-                    tree_leaves(states["inl packed"]),
-                    tree_leaves(states["inl dense b=8"]))))
-        del states
-        if mesh.shape["client"] > 1:
-            out["bytes"] = fan_in_bytes(torch, mesh)
-        out["times"] = mesh_round_times(torch, mesh)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    return out
+
+def epoch_inputs(torch, name, cfg, topo, views, labels):
+    """run_scheme's first epoch at GRAPH_SEED on (views, labels) as its
+    rounds take it: the rounds' views (K, R, J, B, ...) and labels (K, R,
+    B) on the card and their fault keys (None on reliable links)."""
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import schemes
+    from repro_torch.core import topology as T
+    from repro_torch.data import multiview
+    bpr = schemes.get(name).batches_per_round(cfg)
+    v = torch.as_tensor(views, device=DEV)
+    lab = torch.as_tensor(labels, device=DEV).long()
+    idx = torch.as_tensor(np.array(list(multiview.batch_indices(
+        len(labels), TRAIN_BATCH, seed=0))).reshape(
+            GRAPH_ROUNDS, bpr, TRAIN_BATCH), device=DEV)
+    faulty = LF.active(T.resolve(topo, cfg), cfg, train=True)
+    keys = [LF.round_key(GRAPH_SEED, k) if faulty else None
+            for k in range(GRAPH_ROUNDS)]
+    return (v[:, idx].permute(1, 2, 0, *range(3, v.dim() + 2)), lab[idx],
+            keys)
 
 
 def leaf_paths(tree, prefix=""):
-    """[(path, tensor)] of a state tree's leaves, keys joined by "/"."""
+    """[(path, tensor)] of a state tree's leaves in tree_leaves order, keys
+    joined by "/"."""
     if hasattr(tree, "dtype") and hasattr(tree, "shape"):
         return [(prefix, tree)]
     if isinstance(tree, dict):
@@ -3116,80 +3115,228 @@ def leaf_paths(tree, prefix=""):
     return [pl for k, v in items for pl in leaf_paths(v, f"{prefix}/{k}")]
 
 
-# leaves whose gradient is rounding noise: a conv bias feeds BatchNorm,
-# which subtracts it again, so Adam turns the noise into steps of about lr
-# (its moments too), and the running means carry them (ROADMAP queue 3)
-NOISE_LEAF = re.compile(r"/convs/\d+/b$|/bns/\d+/mean$")
-# the parameter trees of the schemes' states
-PARAM_LEAF = re.compile(r"^/(params|client|server)/")
+def moment_path(path):
+    for params, moment in MOMENT_OF:
+        if path.startswith(params):
+            return moment + path[len(params):]
+    return None
 
 
-def state_deviation(got, want):
-    """The largest relative 2-norm deviation |got - want| / |want| of a
-    leaf, the NOISE_LEAF leaves apart: ((deviation, path) over the
-    optimizer's moments and the model state, the record of the gradients
-    and batch statistics; (deviation, path) over the parameters, which
-    Adam's first steps move by about +-lr an entry whatever the gradient's
-    size, so a rounding difference in a near-zero entry moves its
-    parameter by up to 2 lr)."""
-    worst = {True: (0.0, None), False: (0.0, None)}
-    for (path, a), (_, b) in zip(leaf_paths(got), leaf_paths(want)):
+def state_deviation(torch, got, want, before, *, one_step):
+    """A replayed round's state `got` (this rank's slice) against the
+    single-device round's `want`, both from `before`: the largest relative
+    2-norm deviation |got - want| / |want| of a leaf, NOISE_LEAF apart,
+    over the optimizer's moments and the model state, and over the
+    parameters.  Where the parameters are one Adam step of the round's
+    gradient (`one_step`: INL, SL), an entry whose gradient rounds to
+    nothing is left out of them: the round's gradient g of it, as the
+    single-device round computed it ((m_new - b1 m_old) / (1 - b1)), is no
+    larger than the mesh's nonzero difference from it, so its sign, and
+    Adam's step of about lr, is rounding.  The moments, held in full,
+    bound those differences.  Returns {"state": (dev, path), "params":
+    (dev, path), "left_out": entries left out, "entries": parameter entries,
+    "left_g": (largest |g| left out over the RMS of its leaf's g, path),
+    "left_share": the largest share of a leaf's gradient norm left out,
+    "bias_g": the conv biases' RMS gradient over their weights'}."""
+    G, W, B = (dict(leaf_paths(t)) for t in (got, want, before))
+    out = {"state": (0.0, None), "params": (0.0, None), "left_out": 0,
+           "entries": 0, "left_g": (0.0, None), "left_share": 0.0,
+           "bias_g": 0.0}
+
+    def worse(key, dev, path):
+        if dev > out[key][0]:
+            out[key] = (dev, path)
+
+    def grad(path):
+        mp = moment_path(path)
+        return W[mp].double() - ADAM_B1 * B[mp].double(), mp
+    for path, b in W.items():
+        a = G[path]
+        if not b.is_floating_point():
+            worse("state", 0.0 if torch.equal(a, b) else float("inf"), path)
+            continue
+        is_param = moment_path(path) is not None
         if NOISE_LEAF.search(path):
+            if is_param and one_step and path.endswith("/b"):
+                gb, _ = grad(path)
+                gw, _ = grad(path[:-1] + "w")
+                out["bias_g"] = max(out["bias_g"], float(
+                    gb.pow(2).mean().sqrt() / gw.pow(2).mean().sqrt()))
             continue
         a, b = a.double(), b.double()
+        if is_param and one_step:
+            g, mp = grad(path)
+            diff = (G[mp].double() - W[mp].double()).abs()
+            keep = (g.abs() > diff) | (diff == 0)
+            out["entries"] += keep.numel()
+            if not bool(keep.all()):
+                out["left_out"] += int((~keep).sum())
+                rms = float(g.pow(2).mean().sqrt())
+                if rms > 0:
+                    worse("left_g", float(g[~keep].abs().max()) / rms, path)
+                    out["left_share"] = max(out["left_share"], float(
+                        g[~keep].norm() / g.norm()))
+                a, b = a[keep], b[keep]
+        elif is_param:
+            out["entries"] += b.numel()
         dev = float((a - b).norm() / b.norm().clamp_min(1e-30))
-        param = bool(PARAM_LEAF.search(path))
-        if dev > worst[param][0]:
-            worst[param] = (dev, path)
-    return worst[False], worst[True]
+        worse("params" if is_param else "state", dev, path)
+    return out
 
 
-def forced_rounds(torch, mesh, name, cfg, wire, topo, views, labels,
-                  rounds):
-    """The single-device run's first `rounds` rounds (run_scheme's first
-    epoch at GRAPH_SEED: its batches, draws and fault keys), each replayed
-    on the
-    mesh from the state and generator state that entered it: a round's
-    sharded math checked at full width without the trajectory's
-    sensitivity to rounding (`split_conv_drift`).
-    Returns [(mesh loss, single-device loss, `state_deviation` of the
-    gathered mesh state against the single-device round's)] a round."""
-    from repro_torch.core import linkfault as LF
+def replay_rounds(torch, mesh, name, cfg, wire, topo, views, labels):
+    """The single-device run's 16 rounds (run_scheme's first epoch at
+    GRAPH_SEED: its batches, draws and fault keys), each replayed on the
+    mesh from the state and generator state that entered it.  Rank 0
+    alone runs the single-device rounds and broadcasts each round's state
+    (gloo, from the host) and generator state; every rank runs the
+    sharded round on its slice and holds the result against its slice of
+    the single-device round's (`state_deviation`).  Returns [(mesh loss,
+    single-device loss, state_deviation)] a round."""
+    import torch.distributed as dist
+    from repro_torch import tree_leaves, tree_unflatten
     from repro_torch.core import schemes
-    from repro_torch.core import topology as T
-    from repro_torch.data import multiview
     from repro_torch.launch import sharding
 
     scheme = schemes.get(name)
-    bpr = scheme.batches_per_round(cfg)
-    n = len(labels)
-    v = torch.as_tensor(views, device=DEV)
-    lab = torch.as_tensor(labels, device=DEV).long()
-    idx = torch.as_tensor(np.array(list(multiview.batch_indices(
-        n, TRAIN_BATCH, seed=0))[:rounds * bpr]).reshape(
-            rounds, bpr, TRAIN_BATCH), device=DEV)   # epoch 0's first rounds
-    ep_views = v[:, idx].permute(1, 2, 0, *range(3, v.dim() + 2))
-    ep_labels = lab[idx]
-    faulty = LF.active(T.resolve(topo, cfg), cfg, train=True)
+    ep_views, ep_labels, keys = epoch_inputs(torch, name, cfg, topo, views,
+                                             labels)
     state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(
         GRAPH_SEED), device=DEV)
-    gen = torch.Generator(device=DEV).manual_seed(GRAPH_SEED + 1)
-    gen_mesh = torch.Generator(device=DEV)
-    single = scheme.make_round(cfg, wire=wire, topology=topo)
-    sharded = scheme.make_sharded_round(cfg, mesh, wire=wire, topology=topo)
+    shapes = [(t.shape, t.dtype) for t in tree_leaves(state)]
+    floats = [i for i, (_, dt) in enumerate(shapes) if dt.is_floating_point]
+    ints = [i for i, (_, dt) in enumerate(shapes)
+            if not dt.is_floating_point]
+    flat = torch.empty(sum(shapes[i][0].numel() for i in floats),
+                       dtype=torch.float32)
     specs = scheme.state_shardings(cfg, state, mesh)
-    out = []
-    for k in range(rounds):
-        key = LF.round_key(GRAPH_SEED, k) if faulty else None
-        gen_mesh.set_state(gen.get_state())
-        st, m_mesh = sharded(sharding.shard_state(state, specs, mesh),
-                             ep_views[k], ep_labels[k], gen_mesh,
-                             round_key=key)
-        new, m = single(state, ep_views[k], ep_labels[k], gen, round_key=key)
-        out.append((float(m_mesh["loss"]), float(m["loss"]),
-                    state_deviation(sharding.gather_state(st, specs, mesh),
-                                    new)))
-        state = new
+    sharded = scheme.make_sharded_round(cfg, mesh, wire=wire, topology=topo)
+    root = dist.get_rank() == 0
+    if root:
+        single = scheme.make_round(cfg, wire=wire, topology=topo)
+        gen = torch.Generator(device=DEV).manual_seed(GRAPH_SEED + 1)
+    gen_mesh = torch.Generator(device=DEV)
+    out, prev, loss = [], None, None
+    for k in range(GRAPH_ROUNDS + 1):
+        if k:
+            # the state entering round k (the single-device round k - 1's)
+            leaves = tree_leaves(state) if root else None
+            if root:
+                flat.copy_(torch.cat([leaves[i].reshape(-1).float()
+                                      for i in floats]).cpu())
+            dist.broadcast(flat, src=0)
+            small = [[leaves[i].tolist() for i in ints] if root else None,
+                     loss]
+            dist.broadcast_object_list(small, src=0)
+            if not root:
+                parts = iter(flat.to(DEV).split(
+                    [shapes[i][0].numel() for i in floats]))
+                ivals = iter(small[0])
+                state = tree_unflatten(state, [
+                    next(parts).reshape(s) if dt.is_floating_point
+                    else torch.tensor(next(ivals), dtype=dt,
+                                      device=DEV).reshape(s)
+                    for s, dt in shapes])
+            want = sharding.shard_state(state, specs, mesh)
+            st_mesh, loss_mesh, st_in = prev
+            out.append((loss_mesh, small[1], state_deviation(
+                torch, st_mesh, want, st_in, one_step=name != "fl")))
+        if k == GRAPH_ROUNDS:
+            break
+        box = [gen.get_state() if root else None]
+        dist.broadcast_object_list(box, src=0)
+        gen_mesh.set_state(box[0])
+        st_in = sharding.shard_state(state, specs, mesh)
+        st_mesh, m_mesh = sharded(st_in, ep_views[k], ep_labels[k], gen_mesh,
+                                  round_key=keys[k])
+        prev = (st_mesh, float(m_mesh["loss"]), st_in)
+        if root:
+            state, m = single(state, ep_views[k], ep_labels[k], gen,
+                              round_key=keys[k])
+            loss = float(m["loss"])
+    return out
+
+
+def planted_fault(torch, mesh, name, cfg, wire, topo):
+    """The negative control on a data axis: the INL run with the
+    gradients' mean over 'data' taken out of the sharded round, so each
+    rank steps with its own half batch's gradient (a missing pmean).  Its
+    free-running losses and its 16 replayed rounds, read against the
+    limits the true runs are held to."""
+    from repro_torch.core import sharded
+    views, labels = run_data(name, cfg)
+    mean = sharded._pmean_tree
+    sharded._pmean_tree = lambda axis, tree: tree
+    try:
+        _, loss, *_ = recorded_run(
+            torch, name, cfg, views, labels, epochs=1, wire=wire,
+            seed=GRAPH_SEED, topology=topo, dispatch="scan", mesh=mesh)
+        replayed = replay_rounds(torch, mesh, name, cfg, wire, topo, views,
+                                 labels)
+    finally:
+        sharded._pmean_tree = mean
+    return {"losses": loss, "replayed": replayed}
+
+
+def mesh_runs(torch, mesh, runs, *, keep_states):
+    """This rank's side of a layout: each run through run_scheme(mesh=)
+    under "scan" (recorded_run), deterministic algorithms on; on a gloo
+    layout each run's 16 rounds replayed (`replay_rounds`; not the dense
+    twin, nor a `replicated_run`) and, on the data axis, the planted
+    fault; then the fan-in's bytes of one round a wire (on a client axis
+    of more than one rank).  Returns {label:
+    {curve, losses, launches, ledgers, captures, wall, replayed, state
+    (this rank's final slice, where `keep_states`)}, "packed == dense": on
+    this rank's slices (where the layout has both), "planted": ...,
+    "bytes": ..., "seconds": {step: seconds}}."""
+    from repro_torch import tree_leaves
+    from repro_torch.core import schemes
+
+    world = mesh.shape["client"] * mesh.shape["data"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out, data, states = {"mesh": dict(mesh.shape)}, {}, {}
+    seconds = out["seconds"] = {}
+    try:
+        for label, name, cfg, wire, topo in runs:
+            key = (schemes.get(name).batches_per_round(cfg), cfg.noise_stds)
+            if key not in data:
+                data[key] = run_data(name, cfg)
+            views, labels = data[key]
+            trace, caps = [], {}
+            t0 = time.perf_counter()
+            curve, loss, launches, meter, wall, _ = recorded_run(
+                torch, name, cfg, views, labels, epochs=1, wire=wire,
+                seed=GRAPH_SEED, topology=topo, states=trace,
+                dispatch="scan", captures=caps, mesh=mesh)
+            states[label] = trace[-1][1]
+            out[label] = {"curve": curve, "losses": loss,
+                          "launches": launches, "ledgers": ledgers(meter),
+                          "captures": caps, "wall": wall, "replayed": None,
+                          "state": states[label] if keep_states else None}
+            t1 = time.perf_counter()
+            if world > 1 and label != DENSE_TWIN \
+                    and not replicated_run(name, mesh.shape):
+                out[label]["replayed"] = replay_rounds(
+                    torch, mesh, name, cfg, wire, topo, views, labels)
+            seconds[label] = (t1 - t0, time.perf_counter() - t1)
+        if "inl packed" in states and DENSE_TWIN in states:
+            out["packed == dense"] = (
+                out["inl packed"]["losses"] == out[DENSE_TWIN]["losses"]
+                and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(states["inl packed"]),
+                    tree_leaves(states[DENSE_TWIN]))))
+        del states
+        t0 = time.perf_counter()
+        if mesh.shape["data"] > 1:
+            label, name, cfg, wire, topo = runs[0]
+            out["planted"] = planted_fault(torch, mesh, name, cfg, wire, topo)
+        t1 = time.perf_counter()
+        if mesh.shape["client"] > 1:
+            out["bytes"] = fan_in_bytes(torch, mesh)
+        seconds["planted fault, bytes"] = (t1 - t0,
+                                           time.perf_counter() - t1)
+    finally:
+        torch.use_deterministic_algorithms(False)
     return out
 
 
@@ -3266,10 +3413,11 @@ def mesh_round_times(torch, mesh):
     return wall, start.elapsed_time(end) / K, dict(epoch_fn.captures)
 
 
-def sharded_rank(rank, world, store, layout, queue):
+def sharded_rank(rank, world, store, layout, go, timed, queue):
     """A spawned rank of a gloo layout: the process group over the
-    FileStore `store`, one intra-op thread, then `mesh_runs` into
-    `queue` as (rank, ok, results or traceback)."""
+    FileStore `store`, one intra-op thread; once `go` is set, `mesh_runs`
+    into `queue`, then once `timed` is set, `mesh_round_times`, each as
+    (rank, ok, results or traceback)."""
     import datetime
     import traceback
 
@@ -3286,8 +3434,16 @@ def sharded_rank(rank, world, store, layout, queue):
         dist.init_process_group("gloo", store=dist.FileStore(store, world),
                                 rank=rank, world_size=world,
                                 timeout=datetime.timedelta(seconds=120))
+        torch.zeros(1, device=DEV)             # the card's context, now
+        if not go.wait(timeout=3 * SHARD_TIMEOUT):
+            raise TimeoutError(f"{layout}: never told to start")
         runs = shard_layouts()[layout][2]
-        queue.put((rank, True, mesh_runs(torch, runs, keep_states=False)))
+        mesh = _host_mesh(runs[0][2].num_clients)
+        queue.put((rank, True, mesh_runs(torch, mesh, runs,
+                                         keep_states=False)))
+        if not timed.wait(timeout=3 * SHARD_TIMEOUT):
+            raise TimeoutError(f"{layout}: never told to time")
+        queue.put((rank, True, mesh_round_times(torch, mesh)))
     except BaseException:                # reported to the parent, then raised
         queue.put((rank, False, traceback.format_exc()))
         raise
@@ -3296,56 +3452,82 @@ def sharded_rank(rank, world, store, layout, queue):
             dist.destroy_process_group()
 
 
-def spawn_world(layout, world):
-    """`world` spawned ranks of a gloo layout on the one card; their
-    results in rank order.  Every rank is joined (killed past
-    SHARD_TIMEOUT, or once a rank failed); a failed or silent rank fails
-    the phase."""
-    import multiprocessing
-    import queue as queue_lib
-    root = ROOT / "build" / "sharded"
-    root.mkdir(parents=True, exist_ok=True)
-    store = root / ("store_" + re.sub(r"\W", "_", layout))
-    store.unlink(missing_ok=True)
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=sharded_rank,
-                         args=(r, world, str(store), layout, results))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + SHARD_TIMEOUT
-    got, failed = {}, None
-    try:
+class World:
+    """The spawned ranks of a gloo layout on the one card.  They start at
+    once, join their process group and wait for `go()`, so that their
+    start-up overlaps the phase's earlier work.  `results()` returns their
+    `mesh_runs` in rank order, at most SHARD_TIMEOUT seconds after `go()`;
+    `timing()` then has them time the round and returns their times.
+    Every rank is joined (killed past a deadline, once a rank failed, or
+    by `close()`), and a failed or silent rank fails the phase."""
+
+    def __init__(self, layout, ranks):
+        import multiprocessing
+        root = ROOT / "build" / "sharded"
+        root.mkdir(parents=True, exist_ok=True)
+        store = root / ("store_" + re.sub(r"\W", "_", layout))
+        store.unlink(missing_ok=True)
+        ctx = multiprocessing.get_context("spawn")
+        self.layout, self.queue = layout, ctx.Queue()
+        self.started, self.timed = ctx.Event(), ctx.Event()
+        self.procs = [ctx.Process(target=sharded_rank, args=(
+            r, ranks, str(store), layout, self.started, self.timed,
+            self.queue)) for r in range(ranks)]
+        for p in self.procs:
+            p.start()
+        self.deadline = None
+
+    def go(self):
+        self.deadline = time.monotonic() + SHARD_TIMEOUT
+        self.started.set()
+
+    def results(self):
+        return self._collect()
+
+    def timing(self):
+        self.deadline = time.monotonic() + SHARD_TIMEOUT
+        self.timed.set()
+        times = self._collect()
+        self.close(kill=False)
+        check(all(p.exitcode == 0 for p in self.procs),
+              f"sharded {self.layout}: rank exit codes "
+              f"{[p.exitcode for p in self.procs]}")
+        return times
+
+    def _collect(self):
+        import queue as queue_lib
+        got, failed = {}, None
         # drain the queue before joining (a rank blocks on a full pipe)
-        while len(got) < world and failed is None:
+        while len(got) < len(self.procs) and failed is None:
             try:
-                rank, ok, value = results.get(
-                    timeout=max(deadline - time.monotonic(), 0.1))
+                rank, ok, value = self.queue.get(
+                    timeout=max(self.deadline - time.monotonic(), 0.1))
             except queue_lib.Empty:
-                failed = f"{world - len(got)} rank(s) gave no result in " \
-                         f"{SHARD_TIMEOUT:.0f} s"
+                failed = f"{len(self.procs) - len(got)} rank(s) gave no " \
+                         f"result in {SHARD_TIMEOUT:.0f} s"
                 break
             if ok:
                 got[rank] = value
             else:
                 failed = f"rank {rank} failed:\n{value}"
-    finally:
-        for p in procs:
-            if failed is None:
-                p.join(timeout=max(deadline - time.monotonic(), 5.0))
+        if failed is not None:
+            self.close()
+        check(failed is None, f"sharded {self.layout}: {failed}")
+        return [got[r] for r in range(len(self.procs))]
+
+    def close(self, kill=True):
+        for p in self.procs:
+            if not kill:
+                p.join(timeout=max(self.deadline - time.monotonic(), 5.0))
             if p.is_alive():
                 p.kill()
             p.join(timeout=10)
-    check(failed is None, f"sharded {layout}: {failed}")
-    check(all(p.exitcode == 0 for p in procs),
-          f"sharded {layout}: rank exit codes {[p.exitcode for p in procs]}")
-    return [got[r] for r in range(world)]
 
 
-def nccl_world(torch):
+def nccl_world(torch, runs):
     """The one-rank NCCL layout in this process: a process group of one
-    rank on cuda:0 (address tcp://localhost, a free port)."""
+    rank on cuda:0 (address tcp://localhost, a free port), `mesh_runs` of
+    `runs` and the round's times."""
     import socket
 
     import torch.distributed as dist
@@ -3356,53 +3538,102 @@ def nccl_world(torch):
                             world_size=1, rank=0,
                             device_id=torch.device("cuda", 0))
     try:
-        return [mesh_runs(torch, shard_layouts()["nccl 1x1"][2],
-                          keep_states=True)]
+        mesh = _host_mesh(runs[0][2].num_clients)
+        return [mesh_runs(torch, mesh, runs, keep_states=True)], \
+            [mesh_round_times(torch, mesh)]
     finally:
         dist.destroy_process_group()
 
 
-def split_conv_drift(torch, refs, card_line):
-    """The control of the free-running comparisons: the single-device INL
-    run of the graphs phase again, eagerly, with each encoder convolution
-    of a 64-row batch computed as two 32-row halves (the rows a data=2
-    rank convolves; the library's conv is swapped for the run), every
-    other op as it was, deterministic algorithms on.  Prints and returns
-    its largest relative loss drift from the unsplit run over the 16
-    rounds: how far rounding alone moves this trajectory."""
-    from repro_torch.core import paper_model
-    half = TRAIN_BATCH // 2
-    conv = paper_model.conv
-
-    def halves(p, x):
-        if x.shape[0] != TRAIN_BATCH:
-            return conv(p, x)
-        return torch.cat([conv(p, x[:half]), conv(p, x[half:])])
-    _, name, cfg, wire, topo = next(r for r in dispatch_runs()
-                                    if r[0] == "inl")
-    views, labels = training_data(cfg, GRAPH_ROUNDS * TRAIN_BATCH)
-    paper_model.conv = halves
+def nudged_run(torch, name, cfg, wire, topo):
+    """The control of the free-running comparisons: the single-device run
+    (run_scheme's first epoch at GRAPH_SEED, its rounds one by one) from
+    the initial state with every fp32 entry moved one ulp up, deterministic
+    algorithms on: how far a rounding-sized difference carries along this
+    trajectory.  Returns its losses."""
+    from repro_torch import tree_map
+    from repro_torch.core import schemes
+    scheme = schemes.get(name)
+    ep_views, ep_labels, keys = epoch_inputs(torch, name, cfg, topo,
+                                             *run_data(name, cfg))
+    state = tree_map(lambda x: torch.nextafter(
+        x, torch.full_like(x, float("inf"))) if x.is_floating_point()
+        else x, scheme.init(cfg, torch.Generator(device=DEV).manual_seed(
+            GRAPH_SEED), device=DEV))
+    gen = torch.Generator(device=DEV).manual_seed(GRAPH_SEED + 1)
+    round_fn = scheme.make_round(cfg, wire=wire, topology=topo)
     torch.use_deterministic_algorithms(True, warn_only=True)
+    losses = []
     try:
-        _, loss, *_ = recorded_run(torch, name, cfg, views, labels, epochs=1,
-                                   wire=wire, seed=GRAPH_SEED, topology=topo)
+        for k in range(GRAPH_ROUNDS):
+            state, m = round_fn(state, ep_views[k], ep_labels[k], gen,
+                                round_key=keys[k])
+            losses.append(float(m["loss"]))
     finally:
-        paper_model.conv = conv
         torch.use_deterministic_algorithms(False)
-    l_s = np.array(refs["inl"][1])
-    drift = np.abs(np.array(loss) - l_s) / np.abs(l_s)
-    print(f"sharded: control: INL's single-device run with each encoder "
-          f"convolution over the batch's two halves drifts from the "
-          f"unsplit run by {drift[1]:.2e} at round 2, {drift.max():.2e} at "
-          f"most (round {int(drift.argmax()) + 1} of {len(drift)}): "
-          f"rounding alone moves this trajectory so far (the unsplit "
-          f"run's losses {l_s[0]:.4f}, {l_s[1]:.4f}, {l_s[2]:.4f}, ..., "
-          f"{l_s[-1]:.4f}) [{card_line}]")
-    return float(drift.max())
+    return losses
+
+
+def drift(losses, ref):
+    """A free-running run's largest loss difference from the single-device
+    run's over its rounds, in units of the first round's loss (a share of
+    the loss at round k would read the late, near-zero losses of FL as
+    large)."""
+    return float(np.max(np.abs(np.array(losses) - np.array(ref)))
+                 / abs(ref[0]))
 
 
 def _nonzero(launches):
     return {k: n for k, n in launches.items() if n}
+
+
+def replay_summary(per_rank, l_s, where):
+    """Every rank's replayed rounds checked: the single-device rounds the
+    graphs phase's bit for bit, the mesh's losses within SHARD_RTOL, the
+    moments and model state and the parameters (the entries whose gradient
+    rounds to nothing apart) within SHARD_STATE_RTOL.  Returns the worst
+    readings over the ranks."""
+    worst = {"loss": 0.0, "state": (0.0, None), "params": (0.0, None),
+             "left_out": 0, "entries": 0, "left_g": (0.0, None),
+             "left_share": 0.0, "bias_g": 0.0}
+    for k, r in enumerate(per_rank):
+        lm, ls, devs = zip(*r["replayed"])
+        check(list(ls) == l_s, f"{where} rank {k}: the single-device "
+                               f"rounds {ls} != the graphs phase's {l_s}")
+        check(np.allclose(lm, ls, rtol=SHARD_RTOL, atol=0),
+              f"{where} rank {k}: replayed rounds' losses {lm} vs "
+              f"single-device {ls}")
+        worst["loss"] = max(worst["loss"], float(np.max(
+            np.abs(np.array(lm) - ls) / np.abs(ls))))
+        for d in devs:
+            for key in ("state", "params", "left_g"):
+                worst[key] = max(worst[key], d[key], key=lambda x: x[0])
+            for key in ("left_share", "bias_g"):
+                worst[key] = max(worst[key], d[key])
+            if k == 0:
+                worst["left_out"] += d["left_out"]
+                worst["entries"] += d["entries"]
+    for key in ("state", "params"):
+        check(worst[key][0] <= SHARD_STATE_RTOL,
+              f"{where}: a replayed round's {key} deviates "
+              f"{worst[key][0]:.3e} at {worst[key][1]}")
+    return worst
+
+
+def replay_text(w, rounds):
+    left = "" if not w["entries"] else (
+        f", {w['left_out']} of {w['entries']} parameter entry-rounds left "
+        f"out"
+        + (f" (their gradient at most {w['left_g'][0]:.2e} of its leaf's "
+           f"RMS, {w['left_g'][1]}; at most {w['left_share']:.2e} of a "
+           f"leaf's gradient norm)" if w["left_out"] else "")
+        + f", the conv biases' gradient {w['bias_g']:.2e} of their "
+        f"weights' (RMS)")
+    return (f"each of {rounds} rounds replayed from the single-device "
+            f"state on every rank: losses within rtol {w['loss']:.2e}, "
+            f"moments and model state within {w['state'][0]:.2e} "
+            f"({w['state'][1]}), parameters within {w['params'][0]:.2e} "
+            f"({w['params'][1]}){left}")
 
 
 def sharded_phase(torch, card_line, refs):
@@ -3423,24 +3654,22 @@ def sharded_phase(torch, card_line, refs):
                     packed_duplex (link_bits=8), the packed chain(5), and
                     the dense twin of INL packed;
 
-    the gloo layouts eager (no capture, `captures` empty).  On every rank
-    of a gloo layout: each of the run's 16 rounds (FL's first
-    FORCED_ROUNDS["fl"]) replayed on the mesh
-    from the state and generator state the single-device round started
-    from (`forced_rounds`; the rank's own single-device rounds equal the
-    graphs phase's bit for bit): its loss within rtol 1e-4 and its new
-    optimizer moments and model state within SHARD_STATE_RTOL (relative
-    2-norm a leaf, the conv biases and running means apart) of the
-    single-device round's, the parameters' deviation printed; the
-    free-running run's
-    final accuracy within SHARD_ACC_ATOL of the single-device run's, its
-    losses' drift printed; every rank's curve the same, the ledgers the
-    single-device run's, each rank launching the kernels the single-device
-    run launched; at client=5 packed == dense bit for bit on every rank
-    and the fan-in's bytes of one round, summed over the ranks,
-    FAN_IN_BYTES.  Then INL's round time on each layout beside the
-    single-device graphed round.  Returns {kernel: {run: launches on rank
-    0}}."""
+    the gloo layouts eager (no capture, `captures` empty), their ranks
+    started with the phase, the two worlds running together once the NCCL
+    rank is done, then timing their round one after the other.  On a gloo
+    layout each run's 16 rounds are
+    replayed on the mesh from the state and generator state each
+    single-device round started from (`replay_rounds`, `replay_summary`;
+    FL on 'data' equals the single-device run bit for bit instead); the
+    free-running losses of the runs that train (DRIFT_RUNS) stay within
+    the drift limit (`drift`) that the control (`nudged_run`) and the
+    planted fault (`planted_fault`, data=2) bracket; every rank's curve is
+    the same, the ledgers the single-device run's, each rank launching the
+    kernels the single-device run launched; at client=5 packed == dense
+    bit for bit on every rank and the fan-in's bytes of one round, summed
+    over the ranks, FAN_IN_BYTES.  Then INL's round time on each layout
+    beside the single-device graphed round.  Returns {kernel: {run:
+    launches on rank 0}}."""
     from repro_torch import tree_leaves
     from repro_torch.configs.paper_inl import PaperExperimentConfig
     from repro_torch.core import wirefmt
@@ -3448,105 +3677,136 @@ def sharded_phase(torch, card_line, refs):
     t0 = time.perf_counter()
     layouts = shard_layouts()
     cfg8 = PaperExperimentConfig(link_bits=WIRE_BITS)
-    split_conv_drift(torch, refs, card_line)
-    launches, times = {}, {}
+    worlds = {layout: World(layout, ranks)
+              for layout, (ranks, backend, _) in layouts.items()
+              if backend == "gloo"}
+    results, times, took, controls = {}, {}, {}, {}
+    try:
+        # the NCCL rank here while the gloo ranks start up; then the gloo
+        # worlds together and the controls here; then each world's round
+        # timing alone on the card
+        for layout, (_, backend, runs) in layouts.items():
+            if backend == "nccl":
+                results[layout], times[layout] = nccl_world(torch, runs)
+                took[layout] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for w in worlds.values():
+            w.go()
+        for label, name, cfg, wire, topo in (
+                run for _, _, runs in layouts.values() for run in runs):
+            if label in DRIFT_RUNS and label not in controls:
+                controls[label] = nudged_run(torch, name, cfg, wire, topo)
+        took["controls"] = time.perf_counter() - t1
+        for layout, w in worlds.items():
+            results[layout] = w.results()
+            took[layout] = time.perf_counter() - t1
+        for layout, w in worlds.items():
+            times[layout] = w.timing()
+        took["timing"] = time.perf_counter() - t1 - max(
+            took[layout] for layout in worlds)
+    finally:
+        for w in worlds.values():
+            w.close()
+    print("sharded: seconds from the phase's start: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in took.items()) + " (the gloo worlds and "
+        "the controls from the NCCL rank's end, together)")
+    launches, drifts = {}, {}
     for layout, (world, backend, runs) in layouts.items():
-        t_layout = time.perf_counter()
-        ranks = nccl_world(torch) if backend == "nccl" else \
-            spawn_world(layout, world)
+        ranks = results[layout]
         for label, name, cfg, wire, topo in runs:
             per_rank = [r[label] for r in ranks]
-            want = refs.get(label)
             losses = [r["losses"] for r in per_rank]
-            if backend == "nccl":
-                c_s, l_s, s_s, n_s, g_s = want
+            where = f"sharded {layout} {label}"
+            if label == DENSE_TWIN:
+                verdict = "the dense twin of 'inl packed'"
+            elif backend == "nccl":
+                c_s, l_s, s_s, n_s, g_s = refs[label]
                 got = per_rank[0]
-                check(got["losses"] == l_s, f"sharded {layout} {label}: "
-                      f"losses {got['losses']} != single-device {l_s}")
+                check(got["losses"] == l_s, f"{where}: losses "
+                      f"{got['losses']} != single-device {l_s}")
                 check(all(torch.equal(a, b) for a, b in zip(
-                    tree_leaves(got["state"]), tree_leaves(s_s))) and len(
-                    tree_leaves(got["state"])) == len(tree_leaves(s_s)),
-                    f"sharded {layout} {label}: final state differs")
+                    tree_leaves(got["state"]), tree_leaves(s_s)))
+                    and len(tree_leaves(got["state"]))
+                    == len(tree_leaves(s_s)),
+                    f"{where}: final state differs")
                 check(got["launches"] == n_s and got["ledgers"] == g_s
                       and got["curve"] == c_s,
-                      f"sharded {layout} {label}: launches {got['launches']}"
-                      f" / {n_s}, ledgers or curve differ")
+                      f"{where}: launches {got['launches']} / {n_s}, "
+                      f"ledgers or curve differ")
                 want_sigs = expected_signatures(name, cfg, wire, topo,
                                                 GRAPH_ROUNDS)
                 check(set(got["captures"]) == want_sigs
                       and all(v == 1 for v in got["captures"].values()),
-                      f"sharded {layout} {label}: captures "
-                      f"{got['captures']}")
+                      f"{where}: captures {got['captures']}")
                 verdict = "== single-device bit for bit (losses, " \
-                          f"{len(tree_leaves(s_s))} state leaves, launches, " \
-                          f"ledgers), captures {got['captures']}"
-            elif want is None:
-                verdict = "the dense twin of 'inl packed'"
+                          f"{len(tree_leaves(s_s))} state leaves, " \
+                          f"launches, ledgers), captures " \
+                          f"{got['captures']}"
             else:
-                c_s, l_s, _, n_s, g_s = want
-                worst = {"forced": 0.0, "state": (0.0, None),
-                         "params": (0.0, None), "free": 0.0}
+                c_s, l_s, _, n_s, g_s = refs[label]
                 for k, r in enumerate(per_rank):
-                    where = f"sharded {layout} {label} rank {k}"
-                    lm, ls, devs = zip(*r["forced"])
-                    dev = max((d[0] for d in devs), key=lambda d: d[0])
-                    dev_p = max((d[1] for d in devs), key=lambda d: d[0])
-                    check(list(ls) == l_s[:len(ls)], f"{where}: the rank's "
-                          f"single-device rounds {ls} != the graphs "
-                          f"phase's {l_s}")
-                    check(np.allclose(lm, ls, rtol=SHARD_RTOL, atol=0),
-                          f"{where}: replayed rounds' losses {lm} vs "
-                          f"single-device {ls}")
-                    check(dev[0] <= SHARD_STATE_RTOL,
-                          f"{where}: a replayed round's state deviates "
-                          f"{dev[0]:.3e} at {dev[1]}")
-                    acc, want_acc = r["curve"][-1].accuracy, c_s[-1].accuracy
-                    check(abs(acc - want_acc) <= SHARD_ACC_ATOL,
-                          f"{where}: free-running accuracy {acc} vs "
-                          f"{want_acc}")
                     check(r["curve"] == per_rank[0]["curve"],
-                          f"{where}: curve differs from rank 0's")
-                    check(r["ledgers"] == g_s, f"{where}: ledgers")
+                          f"{where} rank {k}: curve differs from rank "
+                          f"0's")
+                    check(r["ledgers"] == g_s, f"{where} rank {k}: "
+                                               f"ledgers")
                     check(r["captures"] == {},
-                          f"{where}: gloo captured {r['captures']}")
-                    check(set(_nonzero(r["launches"])) == set(_nonzero(n_s)),
-                          f"{where}: launched {_nonzero(r['launches'])}, "
-                          f"single-device {_nonzero(n_s)}")
-                    rel = np.abs(np.array(lm) - ls) / np.abs(ls)
-                    free = np.abs(np.array(r["losses"]) - l_s) / np.abs(l_s)
-                    replayed = len(ls)
-                    worst["forced"] = max(worst["forced"], float(rel.max()))
-                    worst["state"] = max(worst["state"], dev,
-                                         key=lambda d: d[0])
-                    worst["params"] = max(worst["params"], dev_p,
-                                          key=lambda d: d[0])
-                    worst["free"] = max(worst["free"], float(free.max()))
-                verdict = (
-                    f"each of {replayed} rounds replayed on the mesh "
-                    f"from the single-device state: losses within rtol "
-                    f"{worst['forced']:.2e}, moments and model state "
-                    f"within {worst['state'][0]:.2e} "
-                    f"({worst['state'][1]}), parameters within "
-                    f"{worst['params'][0]:.2e} ({worst['params'][1]}) on "
-                    f"every rank; free-running: losses within "
-                    f"{worst['free']:.2e} of the single-device run's, "
-                    f"accuracy {per_rank[0]['curve'][-1].accuracy:.4f} "
-                    f"against {c_s[-1].accuracy:.4f}, ledgers equal, eager "
-                    f"(captures {per_rank[0]['captures']})")
-            for k, r in enumerate(per_rank):
-                for kname, n in _nonzero(r["launches"]).items():
-                    if k == 0:
-                        launches.setdefault(kname, {})[
-                            f"{layout} {label}"] = n
+                          f"{where} rank {k}: gloo captured "
+                          f"{r['captures']}")
+                    check(set(_nonzero(r["launches"]))
+                          == set(_nonzero(n_s)),
+                          f"{where} rank {k}: launched "
+                          f"{_nonzero(r['launches'])}, single-device "
+                          f"{_nonzero(n_s)}")
+                if replicated_run(name, ranks[0]["mesh"]):
+                    check(all(x == l_s for x in losses),
+                          f"{where}: losses {losses} != single-device "
+                          f"{l_s}")
+                    verdict = "== single-device losses bit for bit " \
+                              "('data' replicates FL)"
+                else:
+                    verdict = replay_text(replay_summary(
+                        per_rank, l_s, where), len(l_s))
+                if label in DRIFT_RUNS:
+                    drifts[(layout, label)] = (
+                        drift(losses[0], l_s),
+                        drift(controls[label], l_s))
+                    verdict += (
+                        f"; free-running: loss drift "
+                        f"{drifts[(layout, label)][0]:.2e} of the first "
+                        f"loss (control {drifts[(layout, label)][1]:.2e})"
+                        f", accuracy {per_rank[0]['curve'][-1].accuracy:.4f}"
+                        f" against {c_s[-1].accuracy:.4f}")
+                verdict += ", ledgers equal, eager"
+            for kname, n in _nonzero(per_rank[0]["launches"]).items():
+                launches.setdefault(kname, {})[f"{layout} {label}"] = n
             print(f"sharded: {layout} ({world} rank(s), {backend}, mesh "
                   f"{ranks[0]['mesh']}) run_scheme('{name}', mesh=) "
                   f"{label} (wire={wire}, link_bits={cfg.link_bits}), "
                   f"{GRAPH_ROUNDS} rounds: {verdict}; loss "
-                  f"{losses[0][0]:.4f} -> {losses[0][-1]:.4f}; launches by "
-                  f"rank {[_nonzero(r['launches']) for r in per_rank]}; "
-                  f"wall {max(r['wall'] for r in per_rank):.2f} s "
+                  f"{losses[0][0]:.4f} -> {losses[0][-1]:.4f}; launches "
+                  f"by rank {[_nonzero(r['launches']) for r in per_rank]}"
+                  f"; wall {max(r['wall'] for r in per_rank):.2f} s "
                   f"[{card_line}]")
-        if "gloo client=5" == layout:
+        if "planted" in ranks[0]:
+            planted = [r["planted"] for r in ranks]
+            worst = max((d["state"] for p in planted
+                         for _, _, d in p["replayed"]), key=lambda x: x[0])
+            lm, ls, _ = zip(*planted[0]["replayed"])
+            rel = np.abs(np.array(lm) - ls) / np.abs(ls)
+            drifts[(layout, "planted")] = (
+                drift(planted[0]["losses"], refs["inl"][1]), None)
+            check(worst[0] > SHARD_STATE_RTOL,
+                  f"sharded {layout}: the planted fault passes the "
+                  f"replay check ({worst})")
+            print(f"sharded: {layout}: planted fault (INL without the "
+                  f"gradients' mean over 'data'): replayed rounds' "
+                  f"losses within rtol {float(rel.max()):.2e}, moments "
+                  f"and model state {worst[0]:.2e} ({worst[1]}); "
+                  f"free-running loss drift "
+                  f"{drifts[(layout, 'planted')][0]:.2e} of the first "
+                  f"loss [{card_line}]")
+        if layout == "gloo client=5":
             differ = [k for k, r in enumerate(ranks)
                       if not r["packed == dense"]]
             check(not differ,
@@ -3560,19 +3820,20 @@ def sharded_phase(torch, card_line, refs):
             check(total == FAN_IN_BYTES and charged == DUPLEX_CHARGED
                   and all(total[w] == (closed[w]["fwd"], closed[w]["bwd"])
                           for w in ("dense", "packed")),
-                  f"sharded {layout}: fan-in bytes {total}, duplex charged "
-                  f"{charged}")
+                  f"sharded {layout}: fan-in bytes {total}, duplex "
+                  f"charged {charged}")
             print(f"sharded: {layout}: INL packed == dense (link_bits="
                   f"{WIRE_BITS}) bit for bit on every rank (losses and "
                   f"the rank's state slice); the fan-in's bytes of one "
-                  f"round over the 5 ranks (gathered, reduce-scattered): "
-                  + ", ".join(f"{w} {g:,} + {s:,} = {g + s:,} B"
-                              for w, (g, s) in total.items())
+                  f"round over the 5 ranks (gathered, reduce-scattered):"
+                  f" " + ", ".join(f"{w} {g:,} + {s:,} = {g + s:,} B"
+                                   for w, (g, s) in total.items())
                   + f"; packed_duplex charged {charged:,} B, its dense "
                   f"reduce-scatter executes [{card_line}]")
-        times[layout] = [r["times"] for r in ranks]
-        print(f"sharded: {layout} took {time.perf_counter() - t_layout:.1f} "
-              f"s")
+        print(f"sharded: {layout}: rank 0's seconds (run, replay): "
+              + ", ".join(f"{k} " + " / ".join(f"{x:.1f}" for x in v)
+                          for k, v in ranks[0]["seconds"].items()))
+    check_drifts(drifts)
     single = graphed_round_timing(torch, card_line, "inl")
     print("sharded times: INL round at PaperExperimentConfig(), batch 64, "
           f"wall (host clock, median of 3 epochs of {SHARD_TIME_ROUNDS}) "
@@ -3585,6 +3846,28 @@ def sharded_phase(torch, card_line, refs):
               for layout, rows in times.items()) + f" [{card_line}]")
     print(f"sharded: phase took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def check_drifts(drifts):
+    """The free-running runs' loss drifts against the limit: DRIFT_FACTOR
+    times the largest drift of the controls, which must stay below the
+    planted fault's."""
+    controls = [c for _, c in drifts.values() if c is not None]
+    limit = DRIFT_FACTOR * max(controls)
+    fault = [d for (_, label), (d, c) in drifts.items() if c is None]
+    worst = max(((d, key) for key, (d, c) in drifts.items()
+                 if c is not None), key=lambda x: x[0])
+    print(f"sharded: free-running loss drifts (of the first loss): "
+          + ", ".join(f"{layout} {label} {d:.2e} (control {c:.2e})"
+                      for (layout, label), (d, c) in drifts.items()
+                      if c is not None)
+          + f"; limit {DRIFT_FACTOR:g} x the largest control = {limit:.2e}"
+          + f"; planted fault {', '.join(f'{d:.2e}' for d in fault)}")
+    check(all(d > limit for d in fault),
+          f"the drift limit {limit:.2e} does not catch the planted fault "
+          f"{fault}")
+    check(worst[0] <= limit, f"sharded {worst[1]}: free-running loss drift "
+                             f"{worst[0]:.2e} > limit {limit:.2e}")
 
 
 def graphed_round_timing(torch, card_line, name, *, cfg=None,

@@ -202,6 +202,12 @@ class SpawnedRanks:
         self._results = [got[r] for r in range(len(self._procs))]
         return self._results
 
+    def close(self) -> None:
+        """Stop the ranks whose results were never read (a run of a
+        subset of the tests): they would block on the queue, and the
+        interpreter would wait for them at exit."""
+        self._close(kill=True)
+
     def _close(self, *, kill: bool) -> None:
         for p in self._procs:
             if not kill:

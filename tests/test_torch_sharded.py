@@ -31,6 +31,11 @@ thread a rank), run every case of their mesh (tests/_torch_ranks.py):
     bit; a mesh checkpoint resumed without the mesh and the other way
     round.
 
+A float64 copy of the port (tests/_torch_f64_witness.py, two more worlds
+of two ranks in a subprocess): three sharded rounds of each scheme equal
+the single-device rounds to 1e-12, so the float32 differences are
+rounding.
+
 In this process: `_client_axis_size` against the reference's over a grid,
 its warning, and `check_mesh` / `_check_batch`'s errors word for word.  In
 a subprocess with two forced host devices
@@ -192,18 +197,22 @@ def _jax_trajectory(key, base_cfg):
 @pytest.fixture(scope="module")
 def data_world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("data_world")
-    return SpawnedRanks(_torch_ranks.data_world, 2, tmp,
-                        _world_inputs(("inl", "fl", "sl"), CFG, tmp),
-                        timeout=WORLD_TIMEOUT)
+    ranks = SpawnedRanks(_torch_ranks.data_world, 2, tmp,
+                         _world_inputs(("inl", "fl", "sl"), CFG, tmp),
+                         timeout=WORLD_TIMEOUT)
+    yield ranks
+    ranks.close()
 
 
 @pytest.fixture(scope="module")
 def client_world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("client_world")
-    return SpawnedRanks(_torch_ranks.client_world, 2, tmp,
-                        _world_inputs(("inl", "fl", "inl+learned_prior"),
-                                      CFG_J2, tmp),
-                        timeout=WORLD_TIMEOUT)
+    ranks = SpawnedRanks(_torch_ranks.client_world, 2, tmp,
+                         _world_inputs(("inl", "fl", "inl+learned_prior"),
+                                       CFG_J2, tmp),
+                         timeout=WORLD_TIMEOUT)
+    yield ranks
+    ranks.close()
 
 
 # the reference's sharded INL rounds on (client=2) of two forced host
@@ -453,6 +462,44 @@ def test_reference_sharded_rounds_match_port_mesh(jax_sharded_run,
     for res in client_world.results():
         np.testing.assert_allclose(res["inl"]["losses"], ref["losses"],
                                    rtol=RTOL)
+
+
+@pytest.fixture(scope="module")
+def float64_witness(tmp_path_factory):
+    """tests/_torch_f64_witness.py in a subprocess, on a float64 copy of
+    the port: {world: {case: (deviation, path)}}."""
+    import _torch_f64_witness
+    root = pathlib.Path(__file__).resolve().parents[1]
+    tmp = tmp_path_factory.mktemp("float64")
+    pkg = _torch_f64_witness.float64_copy(str(root / "src" / "repro_torch"),
+                                          str(tmp / "src"))
+    out = tmp / "witness.json"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [pkg, str(root / "tests")]))
+    subprocess.run([sys.executable, str(root / "tests"
+                                        / "_torch_f64_witness.py"),
+                    str(out)], env=env, cwd=root, check=True,
+                   timeout=WORLD_TIMEOUT)
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("which, key", [
+    ("data", "inl"), ("data", "sl"), ("data", "fl"),
+    ("client", "inl"), ("client", "inl+learned_prior"), ("client", "fl")])
+def test_sharded_round_is_the_single_device_round_in_float64(
+        float64_witness, which, key):
+    """The sharded rounds differ from the single-device rounds by rounding
+    alone: on a float64 copy of the port, three rounds on (client=1,
+    data=2) and (client=2, data=1), each from the single-device round's
+    state, equal the single-device rounds to 1e-12 on every leaf (the conv
+    biases and running means apart, whose exact gradient is zero).  A
+    missing mean over 'data' parts INL's by 2.7."""
+    res = float64_witness[which]
+    assert res["dtype"] == "torch.float64"
+    assert res["shape"] == {"data": {"client": 1, "data": 2},
+                            "client": {"client": 2, "data": 1}}[which]
+    dev, path = res[key]
+    assert dev < 1e-12, (dev, path)
 
 
 # ---------------------------------------------------------------------------
