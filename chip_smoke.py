@@ -203,6 +203,33 @@ Phases, each checked; any failed check exits non-zero before the last line:
               and a planted fault; packed == dense bit for bit and the
               fan-in's bytes of one round at client=5; INL's round time
               on each layout (`sharded times:`).
+  6i. transport the fault-tolerant transport (repro_torch/transport,
+              chaos, cluster; `transport:` lines), at full width, batch
+              64, deterministic algorithms on: run_scheme(transport=)
+              for 16 rounds over a lossy star (erasure 0.1, latency
+              5 + Exp(10) ms, a 40 ms deadline, DEFAULT_RETRY, the default
+              breakers, m0's edge down and m2's flapping) for INL dense
+              and packed, INL with learned priors packed (link_bits=8),
+              FL and SL, launch counts set to 0 just before each and read
+              just after: each == the eager make_transport_round replay
+              of its own masks bit for bit (losses, every state leaf),
+              the masks a second transport's of the same seed, one
+              capture per host signature, offered and delivered bits per
+              edge == attempts x charge and surviving fraction x charge;
+              INL with an adaptive controller, 2 epochs == 1 + resume bit
+              for bit (curve, checkpoints, snapshots: breakers, opens,
+              short-circuits, adaptive state); the trained state served
+              over socket channels, speculative, a 20 ms deadline, three
+              batches a bucket: each launch == predict_batched under its
+              masks bit for bit, patched > 0, views_recovered == the
+              reports' stragglers, the credited ledger == the consumed
+              masks, one capture per bucket; run_poisson at 0.5x and 2x
+              the serial capacity; a Cluster of five worker processes,
+              m1 SIGKILLed and m3 SIGSTOPped on a schedule, under 16 INL
+              rounds: masks == the scheduled windows, one respawn;
+              chaos.cluster_drill; `transport times:` (a transport round
+              against the graphed lossy round, round_outcome alone, the
+              served p50 and p99 at each load).
   7. times    per-bucket predict latency, train-step latency (median of 20
               steps, with the device busy time and idle share from the
               profiler, and the device time by kernel) on the dense,
@@ -274,8 +301,9 @@ Phases, each checked; any failed check exits non-zero before the last line:
 
 The line before the last two is {"kernels": [...]} (the cut-layer kernels
 of the hybrids' path with their counts per run, `launches_on_hybrids`,
-and every cut-layer kernel's counts in the graphed runs,
-`launches_on_graphs`),
+every cut-layer kernel's counts in the graphed runs,
+`launches_on_graphs`, and in the transport phase's runs,
+`launches_on_transport`),
 the one before the last
 nvidia-smi's name and power limit, and the last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -4021,6 +4049,635 @@ def graphs_timing(torch, card_line, eager_steps, state):
 
 
 # ---------------------------------------------------------------------------
+# 6i. transport: the fault-tolerant transport, its serving front end, the
+# worker cluster and the chaos drill
+# ---------------------------------------------------------------------------
+
+TRANSPORT_ROUNDS = 16               # one epoch of 16 rounds a run
+TRANSPORT_SEED = 5
+TRANSPORT_LINK = dict(erasure=0.1, latency_ms=5.0, jitter_ms=10.0)
+TRANSPORT_DEADLINE_MS = 40.0        # the rounds' fusion deadline
+SERVE_TRANSPORT_DEADLINE_MS = 20.0  # the engine's: about a third straggle
+TRANSPORT_SERVE_BATCHES = 3         # batches per bucket
+POISSON_REQUESTS = 128
+POISSON_LOADS = (0.5, 2.0)          # x the serial capacity
+CLUSTER_KILL = ("m1", 4, 3)         # node, tick, ticks: SIGKILL
+CLUSTER_FREEZE = ("m3", 9, 3)       # SIGSTOP
+CLUSTER_IO_TIMEOUT = 0.2            # seconds, the reference tests' value
+
+
+def transport_cfg(**kw):
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    return PaperExperimentConfig(fusion_deadline_ms=TRANSPORT_DEADLINE_MS,
+                                 **kw)
+
+
+def transport_topology(cfg):
+    """The lossy star every transport run rides: erasure 0.1, latency
+    5 + Exp(10) ms an edge."""
+    from repro_torch.core import linkfault as LF
+    from repro_torch.core import topology as T
+    return LF.with_links(T.star(cfg.num_clients),
+                         LF.LinkModel(**TRANSPORT_LINK))
+
+
+def transport_chaos():
+    """m0's edge down for ticks 3-6, m2's flapping over ticks 6-13."""
+    from repro_torch.chaos import ChaosSchedule
+    return (ChaosSchedule().down_edge("m0->fuse", 3, 4)
+            .flap_edge("m2->fuse", start=6, stop=14, period=2))
+
+
+def make_transport(cfg, *, adaptive=False, channels="loopback", chaos=True,
+                   seed=TRANSPORT_SEED):
+    """A NetworkTransport over `transport_topology` with DEFAULT_RETRY and
+    the default breakers (on the host: the fault draws are numpy)."""
+    from repro_torch.transport import (DEFAULT_RETRY, AdaptivePolicy,
+                                       NetworkTransport)
+    return NetworkTransport(
+        transport_topology(cfg), cfg, seed=seed, policy=DEFAULT_RETRY,
+        chaos=transport_chaos() if chaos else None, channels=channels,
+        adaptive=AdaptivePolicy() if adaptive else None)
+
+
+def transport_runs():
+    """(label, scheme, cfg, wire) of the transport phase's training runs:
+    INL dense and packed, INL with learned priors on the packed wire,
+    FL and SL, all at link_bits=8 where packed."""
+    cfg = transport_cfg()
+    return (("inl", "inl", cfg, "dense"),
+            ("inl packed", "inl", transport_cfg(link_bits=WIRE_BITS),
+             "packed"),
+            ("inl+learned_prior packed", "inl",
+             transport_cfg(link_bits=WIRE_BITS, learned_prior=True),
+             "packed"),
+            ("fl", "fl", cfg, "dense"), ("sl", "sl", cfg, "dense"))
+
+
+def record_rounds(transport):
+    """The charged `round_outcome` reports of `transport`, in tick order
+    (a wrapper on the instance; uncharged replays are left out)."""
+    reports = []
+    outcome = transport.round_outcome
+
+    def rec(*a, **kw):
+        rep = outcome(*a, **kw)
+        if kw.get("charge", True):
+            reports.append(rep)
+        return rep
+    transport.round_outcome = rec
+    return reports
+
+
+def transport_run(torch, name, cfg, views, labels, *, wire, transport,
+                  epochs=1, **run_kw):
+    """run_scheme(name, transport=) under "scan" on the card, launch counts
+    set to 0 just before and read just after, the epoch_fns' per-round
+    losses and final state recorded by a wrapper around the scheme's
+    make_transport_epoch.  Returns (curve, losses, final state, launches,
+    captures, wall seconds)."""
+    from repro_torch.core import schemes
+    from repro_torch.core.schemes import runner
+
+    scheme = schemes.get(name)
+    made, losses, finals = [], [], []
+    make = scheme.make_transport_epoch
+
+    def recording(*a, **kw):
+        fn = make(*a, **kw)
+        made.append(fn)
+
+        def rec(*ra, **rkw):
+            st, m = fn(*ra, **rkw)
+            losses.extend(m["loss"].unbind(0))
+            finals.append(st)
+            return st, m
+        return rec
+    scheme.make_transport_epoch = recording
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        curve = runner.run_scheme(
+            name, views, labels, cfg, epochs=epochs, batch_size=TRAIN_BATCH,
+            eval_n=512, wire=wire, seed=TRANSPORT_SEED, transport=transport,
+            device=DEV, **run_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        del scheme.make_transport_epoch
+    loss = [float(x) for x in losses]
+    check(all(np.isfinite(loss)), f"transport {name}: non-finite loss")
+    return (curve, loss, finals[-1] if finals else None, launches,
+            dict(made[0].captures) if made else {}, wall)
+
+
+def transport_replay(torch, name, cfg, views, labels, wire, masks):
+    """The run's rounds replayed eagerly: make_transport_round once a round
+    on `masks`, from run_scheme's seeds and minibatches.  Returns (final
+    state, losses)."""
+    from repro_torch.core import schemes
+    from repro_torch.core.schemes import runner
+
+    scheme = schemes.get(name)
+    round_fn = scheme.make_transport_round(cfg, wire=wire)
+    state = scheme.init(
+        cfg, torch.Generator(device=DEV).manual_seed(TRANSPORT_SEED),
+        device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(TRANSPORT_SEED + 1)
+    tv = torch.as_tensor(views, dtype=torch.float32, device=DEV)
+    tl = torch.as_tensor(labels, device=DEV).long()
+    bpr = scheme.batches_per_round(cfg)
+    ev, el = runner.epoch_batches(tv, tl, 0, len(masks), bpr, TRAIN_BATCH)
+    losses = []
+    for r, mask in enumerate(masks):
+        state, m = round_fn(state, ev[r], el[r], gen, mask)
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def round_charges(name, cfg, wire, edges):
+    """One round's {edge: (bits, bytes)} as run_scheme(transport=) charges
+    them: INL's per-edge ledger, FL's and SL's totals split equally."""
+    from repro_torch.core import schemes
+    from repro_torch.core.schemes import runner
+    scheme = schemes.get(name)
+    state = scheme.init(cfg, 0, device=DEV)
+    charges = runner._round_charges(scheme, cfg, state, TRAIN_BATCH,
+                                    wire=wire, topology=None)
+    if set(charges) == {None}:
+        b, nb = charges[None]
+        charges = {e.key: (b / len(edges), nb / len(edges)) for e in edges}
+    return charges
+
+
+def expected_round_ledgers(topo, charges, reports):
+    """Offered bits per edge = attempts x the edge's charge, delivered =
+    the surviving payload fraction x the charge, summed in the meter's
+    order."""
+    offered, delivered = {}, {}
+    for rep in reports:
+        for e in topo.edges:
+            bits = charges[e.key][0]
+            offered[e.key] = offered.get(e.key, 0.0) + float(
+                rep.attempts[e.key] * bits)
+            pay = list(topo.payload(e))
+            frac = float(rep.mask[pay].sum()) / len(pay)
+            if frac:
+                delivered[e.key] = delivered.get(e.key, 0.0) + float(
+                    bits * frac)
+    return offered, delivered
+
+
+def transport_training_phase(torch, card_line):
+    """Each run of `transport_runs` for one epoch of 16 rounds through
+    run_scheme(transport=) on the lossy star with DEFAULT_RETRY, the
+    default breakers and `transport_chaos`, deterministic algorithms on:
+    the per-round losses and every state leaf bit for bit against the
+    eager make_transport_round replay of the run's own masks, the masks
+    those of a second transport built from the same seed, one capture
+    per host signature, and the offered and delivered bits per edge equal
+    to attempts x charge and surviving fraction x charge.  Returns
+    ({label: launches}, the trained INL state)."""
+    from repro_torch import tree_leaves
+    from repro_torch.core import schemes
+
+    out, trained, data = {}, None, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label, name, cfg, wire in transport_runs():
+            scheme = schemes.get(name)
+            n = TRANSPORT_ROUNDS * scheme.batches_per_round(cfg) * TRAIN_BATCH
+            if n not in data:
+                data[n] = training_data(cfg, n)
+            views, labels = data[n]
+            tr = make_transport(cfg)
+            reports = record_rounds(tr)
+            curve, losses, state, launches, caps, wall = transport_run(
+                torch, name, cfg, views, labels, wire=wire, transport=tr)
+            snap = tr.snapshot()
+            meter = tr.meter
+            tr.close()
+            check(len(reports) == len(losses) == TRANSPORT_ROUNDS,
+                  f"transport {label}: {len(reports)} reports, "
+                  f"{len(losses)} rounds")
+            masks = [rep.mask for rep in reports]
+            twin = make_transport(cfg)
+            charges = round_charges(name, cfg, wire, twin.topo.edges)
+            twin_masks = [twin.round_outcome(t, TRAIN_BATCH,
+                                             charges=charges,
+                                             charge=False).mask
+                          for t in range(TRANSPORT_ROUNDS)]
+            twin.close()
+            check(all(np.array_equal(a, b) for a, b in zip(masks,
+                                                           twin_masks)),
+                  f"transport {label}: the run's masks differ from a "
+                  f"second transport's of the same seed")
+            stacked = np.stack(masks)
+            check(stacked.any() and not stacked.all(),
+                  f"transport {label}: the masks {stacked.astype(int)} "
+                  f"lost nothing or everything")
+            r_state, r_losses = transport_replay(torch, name, cfg, views,
+                                                 labels, wire, masks)
+            check(losses == r_losses,
+                  f"transport {label}: graphed losses {losses} != eager "
+                  f"replay {r_losses}")
+            leaves, r_leaves = tree_leaves(state), tree_leaves(r_state)
+            check(len(leaves) == len(r_leaves) and all(
+                torch.equal(a, b) for a, b in zip(leaves, r_leaves)),
+                f"transport {label}: the final state differs from the "
+                f"eager replay's")
+            plan, _ = scheme.make_transport_round_parts(cfg, wire=wire)
+            want = {plan(m, TRAIN_BATCH)[0] for m in masks}
+            check(caps == {sig: 1 for sig in want},
+                  f"transport {label}: captures {caps}, signatures {want}")
+            off, dlv = expected_round_ledgers(tr.topo, charges, reports)
+            check(meter.edge_bits == off,
+                  f"transport {label}: offered per edge {meter.edge_bits} "
+                  f"!= attempts x charge {off}")
+            check(meter.edge_delivered_bits == dlv,
+                  f"transport {label}: delivered per edge "
+                  f"{meter.edge_delivered_bits} != surviving x charge {dlv}")
+            check(curve[-1].gbits == meter.gbits
+                  and curve[-1].delivered_gbits == meter.delivered_gbits,
+                  f"transport {label}: the curve does not read the "
+                  f"transport's meter")
+            out[label] = {k: v for k, v in launches.items() if v}
+            if label == "inl":
+                trained = state
+            attempts = sum(sum(r.attempts.values()) for r in reports)
+            opens = {k: b["opens"] for k, b in snap["breaker"].items()
+                     if b["opens"]}
+            print(f"transport: run_scheme('{name}', transport=) {label} "
+                  f"(wire={wire}, link_bits={cfg.link_bits}), "
+                  f"{TRANSPORT_ROUNDS} rounds on the lossy star: == the "
+                  f"eager make_transport_round replay bit for bit (losses, "
+                  f"{len(leaves)} state leaves), masks == a second "
+                  f"transport's ({int(stacked.sum())} of {stacked.size} "
+                  f"votes fused), captures {caps}, per-edge offered == "
+                  f"attempts x charge ({attempts} attempts) and delivered "
+                  f"== surviving x charge (delivery ratio "
+                  f"{meter.delivery_ratio:.5f}), breaker opens {opens}, "
+                  f"launches {out[label]}; loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}, accuracy {curve[-1].accuracy:.4f}; "
+                  f"wall {wall:.2f} s [{card_line}]")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out, trained
+
+
+def transport_resume_check(torch, card_line):
+    """INL over the lossy star with an adaptive controller: 2 epochs with
+    ckpt_dir against 1 epoch with ckpt_dir and then resume=True: the
+    curves, both final checkpoints (leaves and sidecars, the transport's
+    snapshot in them) and the transports' snapshots (ledgers, breaker
+    states, opens, short-circuits, the adaptive state) equal.  Returns
+    the resumed run's launches."""
+    import shutil
+    from repro_torch import checkpoint
+
+    cfg = transport_cfg()
+    views, labels = training_data(cfg, TRANSPORT_ROUNDS * TRAIN_BATCH)
+    root = ROOT / "build" / "transport_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    full, part = str(root / "full"), str(root / "part")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for epochs, d, resume in ((2, full, False), (1, part, False),
+                                  (2, part, True)):
+            tr = make_transport(cfg, adaptive=True)
+            curve, _, _, launches, _, wall = transport_run(
+                torch, "inl", cfg, views, labels, wire="dense",
+                transport=tr, epochs=epochs, ckpt_dir=d, resume=resume)
+            runs.append((curve, tr.snapshot(), launches, wall))
+            tr.close()
+        (c_g, s_g, _, w_g), (c_h, _, _, _), (c_r, s_r, n_r, w_r) = runs
+        check(c_h == c_g[:1] and c_r == c_g,
+              f"transport resume: resumed curve {c_r} != {c_g}")
+        leaves = same_checkpoints(checkpoint, full, part, 2)
+        check(s_r == s_g, f"transport resume: snapshot {s_r} != {s_g}")
+        check(checkpoint.load_meta(part, 2)["transport"] == s_g,
+              "transport resume: the sidecar's snapshot differs")
+        check(s_g["adaptive"]["retunes"] > 0
+              and any(b["opens"] for b in s_g["breaker"].values()),
+              f"transport resume: no retune or breaker trip to replay: "
+              f"{s_g}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    states = {k: (b["state"], b["opens"], b["short_circuits"])
+              for k, b in s_g["breaker"].items()}
+    print(f"transport: resume, INL with an adaptive controller, 2 epochs of "
+          f"{TRANSPORT_ROUNDS} rounds == 1 + resume=True bit for bit (curve, "
+          f"{leaves} checkpoint leaves and sidecars), snapshots equal "
+          f"(breakers (state, opens, short-circuits) {states}, "
+          f"{s_g['adaptive']['retunes']} retunes); wall {w_g:.2f} s "
+          f"uninterrupted, {w_r:.2f} s resumed [{card_line}]")
+    return {k: v for k, v in n_r.items() if v}
+
+
+def serving_views(cfg, n, seed):
+    from repro_torch.data import multiview
+    imgs, _ = multiview.make_base_dataset(n, seed=seed)
+    return multiview.make_views(imgs, cfg.noise_stds)
+
+
+def transport_engine(scheme, state, cfg, *, buckets=BUCKETS, seed):
+    """A ServingEngine at full width over socket channels (DEFAULT_RETRY,
+    the default breakers, no chaos), speculative, with the engine's
+    deadline.  Returns (engine, transport)."""
+    from repro_torch.serving import ServingEngine
+    tr = make_transport(cfg, channels="socket", chaos=False, seed=seed)
+    engine = ServingEngine(scheme, state, cfg, topology=tr.topo,
+                           transport=tr, speculative=True,
+                           deadline_ms=SERVE_TRANSPORT_DEADLINE_MS,
+                           buckets=buckets, seed=seed, device=DEV)
+    return engine, tr
+
+
+def transport_serving_check(torch, card_line, state):
+    """The trained INL state served over socket channels, speculative, a
+    20 ms deadline, buckets (1, 4, 16, 64), three batches a bucket after
+    warmup(): each launch's rows == predict_batched under the launch's
+    masks bit for bit, patched > 0, views_recovered == the reports'
+    straggler count, the credited ledger == the consumed masks x the unit
+    charges, one capture per bucket, one cut_fwd per engine launch.  Then
+    run_poisson at 0.5x and 2x of measure_serial_capacity.  Returns (the
+    launches, {load: summary}, the serial capacity)."""
+    from repro_torch.core import schemes
+    from repro_torch.serving import measure_serial_capacity, run_poisson
+
+    cfg = transport_cfg()
+    scheme = schemes.get("inl")
+    n = TRANSPORT_SERVE_BATCHES * sum(BUCKETS)
+    views = serving_views(cfg, n, cfg.seed + 4)
+    engine, tr = transport_engine(scheme, state, cfg, seed=23)
+    try:
+        engine.warmup()
+        sent, consumed, launched = [], [], []
+        send, credit, predict = (tr.send_request, tr.credit_delivered,
+                                 engine._predict)
+
+        def rec_send(*a, **kw):
+            rep = send(*a, **kw)
+            sent.append(rep)
+            return rep
+
+        def rec_credit(mask):
+            consumed.append(np.array(mask, bool))
+            return credit(mask)
+
+        def rec_predict(v, d):
+            probs = predict(v, d)
+            launched.append((v, np.array(d, bool), probs.cpu().numpy()))
+            return probs
+        tr.send_request, tr.credit_delivered = rec_send, rec_credit
+        engine._predict = rec_predict
+        torch.cuda.synchronize()
+        reset_launches()
+        at = 0
+        for b in BUCKETS:
+            for _ in range(TRANSPORT_SERVE_BATCHES):
+                probs, served = engine.serve(views[:, at:at + b])
+                check(probs.shape == (b, cfg.num_classes)
+                      and np.all(np.isfinite(probs)),
+                      f"transport serving: bad rows for a block of {b}")
+                at += b
+        torch.cuda.synchronize()
+        got = read_launches()
+        for v, d, probs in launched:
+            want = scheme.predict_batched(state, v, delivery=d, cfg=cfg,
+                                          device=DEV).cpu().numpy()
+            check(np.array_equal(probs, want),
+                  f"transport serving: a bucket of {v.shape[1]} differs "
+                  f"from predict_batched under its masks: max "
+                  f"{np.abs(probs - want).max()}")
+        st = engine.stats
+        stragglers = int(sum(int(r.stragglers.sum()) for r in sent))
+        check(st.patched > 0 and st.views_recovered == stragglers,
+              f"transport serving: patched {st.patched}, views_recovered "
+              f"{st.views_recovered}, the reports' stragglers {stragglers}")
+        unit = {e.key: float(cfg.d_bottleneck * cfg.link_bits)
+                for e in tr.topo.edges}
+        want_dlv = {}
+        for m in consumed:
+            for e in tr.topo.edges:
+                k = int(m[list(tr.topo.payload(e))].sum())
+                if k:
+                    want_dlv[e.key] = want_dlv.get(e.key, 0.0) + float(
+                        k * unit[e.key])
+        check(tr.meter.edge_delivered_bits == want_dlv
+              and len(consumed) == n,
+              f"transport serving: credited {tr.meter.edge_delivered_bits}"
+              f" != the consumed masks' {want_dlv}")
+        check(engine.trace_counts == {b: 1 for b in BUCKETS},
+              f"transport serving: trace_counts {engine.trace_counts}")
+        check(got["cut_fwd"] == st.launches,
+              f"transport serving: cut_fwd {got['cut_fwd']} in "
+              f"{st.launches} engine launches")
+        launches = {k: v for k, v in got.items() if v}
+        print(f"transport: served the trained INL state over socket "
+              f"channels, speculative, deadline "
+              f"{SERVE_TRANSPORT_DEADLINE_MS:g} ms, buckets {BUCKETS} x "
+              f"{TRANSPORT_SERVE_BATCHES}: {n} requests in {st.launches} "
+              f"launches, each launch == predict_batched under its masks "
+              f"bit for bit, patched {st.patched}, views_recovered "
+              f"{st.views_recovered} == the reports' stragglers, credited "
+              f"ledger == the consumed masks (delivery ratio "
+              f"{tr.meter.delivery_ratio:.5f}), trace_counts "
+              f"{engine.trace_counts}, cut_fwd {got['cut_fwd']} "
+              f"[{card_line}]")
+    finally:
+        tr.close()
+
+    pool = serving_views(cfg, POISSON_REQUESTS, cfg.seed + 5)
+    serial, s_tr = transport_engine(scheme, state, cfg, buckets=(1,),
+                                    seed=29)
+    try:
+        serial.warmup()
+        with serial:
+            cap = measure_serial_capacity(serial, pool, num_requests=32)
+    finally:
+        s_tr.close()
+    sweep = {}
+    loaded, l_tr = transport_engine(scheme, state, cfg, seed=31)
+    try:
+        loaded.warmup()
+        with loaded:
+            for mult in POISSON_LOADS:
+                s = run_poisson(loaded, pool, rate_rps=cap * mult,
+                                num_requests=POISSON_REQUESTS,
+                                seed=int(mult * 10))
+                check(s["served"] == POISSON_REQUESTS
+                      and np.isfinite(s["p99_ms"]) and s["p99_ms"] > 0,
+                      f"transport serving: run_poisson at {mult}x: {s}")
+                sweep[mult] = s
+        check(loaded.trace_counts == {b: 1 for b in BUCKETS},
+              f"transport serving: loaded trace_counts "
+              f"{loaded.trace_counts}")
+    finally:
+        l_tr.close()
+    print("transport: run_poisson over socket channels, speculative: "
+          f"serial capacity {cap:.1f} req/s; " + "; ".join(
+              f"{m}x offered {s['offered_rps']:.1f} req/s goodput "
+              f"{s['goodput_rps']:.1f}, p50 {s['p50_ms']:.3f} ms, p99 "
+              f"{s['p99_ms']:.3f} ms, patched views fused "
+              f"{s['mean_views_fused']:.2f}" for m, s in sweep.items())
+          + f" [{card_line}]")
+    return launches, sweep, cap
+
+
+def cluster_check(torch, card_line):
+    """A Cluster of real worker processes over PaperExperimentConfig()'s
+    five measure nodes (NO_RETRY, no breaker), m1 SIGKILLed and m3
+    SIGSTOPped on a schedule, under 16 INL rounds of
+    run_scheme(transport=cluster.transport) on the card: the masks are
+    exactly the scheduled windows, one respawn (m1's incarnation 2, m3's
+    1), and every worker stopped afterwards.  Then chaos.cluster_drill at
+    its own config: its assertions hold and it replays identically.
+    Returns the run's launches."""
+    import argparse
+    from repro_torch import chaos
+    from repro_torch.cluster import Cluster
+    from repro_torch.transport import NO_RETRY
+
+    cfg = transport_cfg()
+    views, labels = training_data(cfg, TRANSPORT_ROUNDS * TRAIN_BATCH)
+    sched = (chaos.ChaosSchedule()
+             .kill_node(CLUSTER_KILL[0], at=CLUSTER_KILL[1],
+                        duration=CLUSTER_KILL[2])
+             .freeze_node(CLUSTER_FREEZE[0], at=CLUSTER_FREEZE[1],
+                          duration=CLUSTER_FREEZE[2]))
+    cl = Cluster(cfg, seed=TRANSPORT_SEED, chaos=sched, policy=NO_RETRY,
+                 breaker=None, io_timeout=CLUSTER_IO_TIMEOUT)
+    with cl:
+        pids = {n: h.proc.pid for n, h in cl.supervisor.handles.items()}
+        reports = record_rounds(cl.transport)
+        curve, losses, _, launches, caps, wall = transport_run(
+            torch, "inl", cfg, views, labels, wire="dense",
+            transport=cl.transport)
+        names = cl.topo.view_nodes()
+        respawns = cl.supervisor.respawns
+        incarnations = dict(cl.supervisor.membership().incarnations)
+        events = cl.supervisor.events()
+        handles = list(cl.supervisor.handles.values())
+    check(all(h.proc is None for h in handles),
+          "cluster: a worker process outlived the Cluster")
+    check(len(set(pids.values())) == len(names),
+          f"cluster: worker pids {pids}")
+    for t, rep in enumerate(reports):
+        want = [not any(n == node and at <= t < at + dur
+                        for node, at, dur in (CLUSTER_KILL, CLUSTER_FREEZE))
+                for n in names]
+        check(rep.mask.tolist() == want,
+              f"cluster: tick {t} mask {rep.mask.tolist()}, scheduled "
+              f"{want}")
+    check(len(reports) == TRANSPORT_ROUNDS,
+          f"cluster: {len(reports)} rounds")
+    check(respawns == 1 and incarnations[CLUSTER_KILL[0]] == 2
+          and incarnations[CLUSTER_FREEZE[0]] == 1,
+          f"cluster: respawns {respawns}, incarnations {incarnations}")
+    frozen = [e[2] for e in events if e[1] == CLUSTER_FREEZE[0]]
+    check("suspect->down" in frozen and frozen[-1] == "down->up",
+          f"cluster: {CLUSTER_FREEZE[0]}'s transitions {frozen}")
+    launches = {k: v for k, v in launches.items() if v}
+    check(launches.get("cut_bwd") == TRANSPORT_ROUNDS,
+          f"cluster: launches {launches}")
+    print(f"transport: Cluster of {len(names)} worker processes, "
+          f"{CLUSTER_KILL[0]} SIGKILLed at tick {CLUSTER_KILL[1]} for "
+          f"{CLUSTER_KILL[2]}, {CLUSTER_FREEZE[0]} SIGSTOPped at tick "
+          f"{CLUSTER_FREEZE[1]} for {CLUSTER_FREEZE[2]}: "
+          f"{TRANSPORT_ROUNDS} INL rounds of run_scheme(transport="
+          f"cluster.transport) on the card, masks == the scheduled windows, "
+          f"respawns {respawns}, incarnations {incarnations}, "
+          f"{CLUSTER_FREEZE[0]} {' '.join(frozen)}, captures {caps}, "
+          f"launches {launches}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"wall {wall:.2f} s [{card_line}]")
+    t0 = time.perf_counter()
+    record = chaos.cluster_drill(argparse.Namespace(seed=0))
+    check(record["replay_identical"] and record["respawns"] == 1,
+          f"cluster drill: {record}")
+    print(f"transport: chaos.cluster_drill ({len(record['nodes'])} "
+          f"processes, {record['ticks']} ticks, kill {record['kill']}, "
+          f"freeze {record['freeze']}): assertions hold, replayed "
+          f"identically, incarnations {record['incarnations']} "
+          f"({time.perf_counter() - t0:.1f} s) [{card_line}]")
+    return launches
+
+
+def transport_timing(torch, card_line, serve_sweep, capacity):
+    """A transport round's wall time at full width, batch 64 (each round's
+    round_outcome on the host, then the graphed round on its mask; median
+    of 5 epochs of 16 rounds, host clock ending in a synchronize) against
+    the graphed lossy round's (the same link models as linkfault draws on
+    the same cfg), round_outcome alone (median of 200 calls), and the
+    served p50 and p99 at each offered load.  Returns the wall ms."""
+    from repro_torch.core import schemes
+
+    cfg = transport_cfg()
+    scheme = schemes.get("inl")
+    views, labels = training_data(cfg, TRAIN_BATCH)
+    state = scheme.init(cfg, torch.Generator(device=DEV).manual_seed(6),
+                        device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    v = torch.from_numpy(views).to(DEV)[None, None]   # (1, 1, J, B, ...)
+    lab = torch.from_numpy(labels).to(DEV).long()[None, None]
+    K = TRANSPORT_ROUNDS
+    ev = v.expand((K,) + v.shape[1:])
+    el = lab.expand((K,) + lab.shape[1:])
+    epoch_fn = scheme.make_transport_epoch(cfg)
+    tr = make_transport(cfg)
+    box, tick = [state], [0]
+
+    def epoch():
+        masks = [tr.round_outcome(tick[0] + k, TRAIN_BATCH).mask
+                 for k in range(K)]
+        tick[0] += K
+        box[0], _ = epoch_fn(box[0], ev, el, gen, masks)
+    wall = timed_host(torch, epoch, reps=5) / K
+    host = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        tr.round_outcome(tick[0], TRAIN_BATCH)
+        host.append((time.perf_counter() - t0) * 1e3)
+        tick[0] += 1
+    tr.close()
+    outcome_ms = statistics.median(host)
+    lossy_wall, lossy_dev = graphed_round_timing(
+        torch, card_line, "inl", cfg=cfg, topology=transport_topology(cfg))
+    print(f"transport times: INL round at PaperExperimentConfig(), batch "
+          f"{TRAIN_BATCH}, over the transport (round_outcome on the host "
+          f"for a star of 5 edges, then the graphed round on its mask) "
+          f"{wall:.3f} ms wall against the graphed lossy round's "
+          f"{lossy_wall:.3f} ms (device {lossy_dev:.4f} ms; the same links "
+          f"as in-graph draws): {wall - lossy_wall:+.3f} ms; round_outcome "
+          f"alone {outcome_ms:.4f} ms (median of 200); served over socket "
+          f"channels, speculative, serial capacity {capacity:.1f} req/s: "
+          + ", ".join(f"{m}x p50 {s['p50_ms']:.3f} ms p99 "
+                      f"{s['p99_ms']:.3f} ms" for m, s in serve_sweep.items())
+          + f" [{card_line}]")
+    return wall, lossy_wall, outcome_ms
+
+
+def transport_phase(torch, card_line):
+    """The transport slice on the card (`transport:` lines).  Returns
+    ({kernel: {run: launches}} over the phase's runs, the times)."""
+    t0 = time.perf_counter()
+    runs, trained = transport_training_phase(torch, card_line)
+    runs["resume"] = transport_resume_check(torch, card_line)
+    served, sweep, cap = transport_serving_check(torch, card_line, trained)
+    runs["served (socket, speculative)"] = served
+    runs["cluster"] = cluster_check(torch, card_line)
+    times = transport_timing(torch, card_line, sweep, cap)
+    on_transport = {k: {run: n[k] for run, n in runs.items() if n.get(k)}
+                    for k in CUT_LAYER_SOURCES}
+    print(f"transport: phase took {time.perf_counter() - t0:.1f} s")
+    return on_transport, times
+
+
+# ---------------------------------------------------------------------------
 # 7. times
 # ---------------------------------------------------------------------------
 
@@ -4990,6 +5647,7 @@ def main() -> int:
     search_launches = search_phase(torch, card)
     sharded_launches = sharded_phase(torch, card, graph_refs)
     del graph_refs
+    on_transport, transport_times = transport_phase(torch, card)
     torch.cuda.synchronize()
     rows = timing_phase(torch, scheme, state, views, card)
     steps = {wire: train_step_timing(torch, card, wire=wire,
@@ -5070,6 +5728,9 @@ def main() -> int:
     on_sharded = {k: sharded_launches.get(k, {}) for k in CUT_LAYER_SOURCES}
     check(all(on_sharded.values()),
           f"a cut-layer kernel never launched on a mesh: {on_sharded}")
+    check(all(on_transport.values()),
+          f"a cut-layer kernel never launched on the transport paths: "
+          f"{on_transport}")
     check(not any(llm_graph_launches.values()),
           f"the graphed decode loop launched {llm_graph_launches}")
     print(f"chip_smoke: all phases passed in "
@@ -5083,7 +5744,9 @@ def main() -> int:
           + "; graphed rounds " + ", ".join(
               f"{k} {row[2]:.3f} ms (device {row[3]:.4f} ms, eager "
               f"{row[0]:.3f} ms)" for k, row in graph_times.items()
-              if k != "predict" and len(row) == 4))
+              if k != "predict" and len(row) == 4)
+          + f"; transport round {transport_times[0]:.3f} ms (the graphed "
+            f"lossy round {transport_times[1]:.3f} ms)")
     src = "src/repro_torch/kernels/csrc/"
     replaces = "src/repro/kernels/inl_bottleneck.py:"
     kernels = []
@@ -5120,7 +5783,8 @@ def main() -> int:
             "launches_on_graphs": on_graphs[kname],
             "launches_on_resume": on_resume[kname],
             "launches_on_search": on_search[kname],
-            "launches_on_sharded": on_sharded[kname]}
+            "launches_on_sharded": on_sharded[kname],
+            "launches_on_transport": on_transport[kname]}
         if kname in on_hybrids:
             entry["launches_on_hybrids"] = on_hybrids[kname]
         if kname in REDESIGNED:

@@ -25,7 +25,11 @@ the round's host signature and its delivery mask; the DEVICE part is the
 round's computation, with the mask as data.  `make_round` runs the two in
 turn; `make_epoch` runs K rounds and on the card replays one CUDA graph of
 the device part per host signature (repro_torch/graphs.py), the
-counterpart of the reference's `lax.scan` over the round.
+counterpart of the reference's `lax.scan` over the round.  A transport
+round (`make_transport_round_parts`) has the same two parts, its host
+part taking a transport's explicit (J,) delivery mask in place of the
+fault key; `make_transport_round` and `make_transport_epoch` are
+`make_round` and `make_epoch` over them.
 
 On a mesh (launch/mesh.py, core/sharded.py) the device part is the
 scheme's sharded round (`make_sharded_round_parts`): each rank holds its
@@ -77,6 +81,12 @@ def fusion_plan(cfg, topology, missing_key: str):
         return "masked", linkfault.round_delivery_mask(
             round_key, topo_full, cfg, batch_size, train=True)
     return plan
+
+
+def transport_plan(delivery, batch_size):
+    """The host part of a transport round that fuses what arrived (INL,
+    SplitFed, hybrid): "masked" with the transport's (J,) mask."""
+    return "masked", np.asarray(delivery, bool)
 
 
 class Scheme:
@@ -132,18 +142,51 @@ class Scheme:
         return _round_fn(*self.make_sharded_round_parts(
             cfg, mesh, lr=lr, wire=wire, topology=topology))
 
+    def make_transport_round_parts(self, cfg, *, lr: float = 2e-3,
+                                   wire: str = "dense",
+                                   topology=None) -> RoundParts:
+        """The transport round's `RoundParts`: its host part takes the
+        round's EXPLICIT (J,) host bool delivery mask (a transport's
+        verdict, `transport.NetworkTransport.round_outcome`) where
+        `make_round_parts`' takes the round's fault key, plan(delivery,
+        batch_size) -> (signature, mask); the device part is the round
+        with that mask as data.  Each scheme applies its own degradation
+        to the mask: INL partial-fuses the surviving views (one vote lost
+        per failed route), FL drops the missing clients from the FedAvg
+        average (their whole round of local work lost), SL carries the
+        state through unchanged unless every link delivered (the whole
+        round lost)."""
+        raise NotImplementedError(f"scheme {self.name!r} has no "
+                                  "transport round")
+
     def make_transport_round(self, cfg, *, lr: float = 2e-3,
                              wire: str = "dense", topology=None):
         """Return round_fn(state, views, labels, generator, delivery, *,
         drop_masks=None) -> (new_state, metrics): `make_round` with the
-        fault outcome as an EXPLICIT (J,) boolean argument in place of a
-        draw.  Each scheme applies its own degradation to the same mask:
-        INL partial-fuses the surviving views (one vote lost per failed
-        route), FL drops the missing clients from the FedAvg average (their
-        whole round of local work lost), SL carries the state through
-        unchanged unless every link delivered (the whole round lost)."""
-        raise NotImplementedError(f"scheme {self.name!r} has no "
-                                  "transport round")
+        fault outcome as an EXPLICIT (J,) boolean argument (an array, or a
+        tensor on any device) in place of a draw; the two parts of
+        `make_transport_round_parts` in turn."""
+        plan, step = self.make_transport_round_parts(
+            cfg, lr=lr, wire=wire, topology=topology)
+
+        def round_fn(state, views, labels, generator, delivery, **kw):
+            sig, mask = plan(host_mask(delivery), labels.shape[-1])
+            if mask is not None:
+                mask = linkfault.mask_tensor(mask, labels.device)
+            return step(state, views, labels, generator, sig, mask, **kw)
+        return round_fn
+
+    def make_transport_epoch(self, cfg, *, lr: float = 2e-3,
+                             wire: str = "dense", topology=None):
+        """K transport rounds in one call: epoch_fn(state, views, labels,
+        generator, deliveries) -> (state, metrics), `make_epoch`'s
+        epoch_fn with the K rounds' explicit (J,) host delivery masks in
+        place of their fault keys: K `make_transport_round` calls bit for
+        bit, and on the card one CUDA graph of the device part per host
+        signature, each round's mask copied into the graph's static mask
+        buffer.  `epoch_fn.captures` counts the captures per signature."""
+        return _epoch_fn(*self.make_transport_round_parts(
+            cfg, lr=lr, wire=wire, topology=topology), capture=True)
 
     def make_epoch(self, cfg, *, lr: float = 2e-3, mesh=None,
                    wire: str = "dense", topology=None):
@@ -176,30 +219,13 @@ class Scheme:
         collectives cannot be, so on a gloo mesh the rounds run eagerly
         and `captures` stays empty."""
         if mesh is None:
-            plan, step = self.make_round_parts(cfg, lr=lr, wire=wire,
-                                               topology=topology)
+            parts = self.make_round_parts(cfg, lr=lr, wire=wire,
+                                          topology=topology)
         else:
-            plan, step = self.make_sharded_round_parts(
+            parts = self.make_sharded_round_parts(
                 cfg, mesh, lr=lr, wire=wire, topology=topology)
-        graphed = _GraphedRounds(plan, step)
-        capture = mesh is None or mesh.backend == "nccl"
-
-        def epoch_fn(state, views, labels, generator, round_keys=None):
-            if views.device.type == "cuda" and capture:
-                return graphed.epoch(state, views, labels, generator,
-                                     round_keys)
-            per_round = []
-            for k in range(views.shape[0]):
-                sig, mask = plan(None if round_keys is None
-                                 else round_keys[k], labels.shape[-1])
-                if mask is not None:
-                    mask = linkfault.mask_tensor(mask, labels.device)
-                state, metrics = step(state, views[k], labels[k],
-                                      generator, sig, mask)
-                per_round.append(metrics)
-            return state, _stack_metrics(per_round)
-        epoch_fn.captures = graphed.graphs.captures
-        return epoch_fn
+        return _epoch_fn(*parts,
+                         capture=mesh is None or mesh.backend == "nccl")
 
     def state_shardings(self, cfg, state, mesh):
         """Where each leaf of `state` lies on `mesh`: a tree of `state`'s
@@ -302,6 +328,31 @@ def _round_fn(plan, step):
             mask = linkfault.mask_tensor(mask, labels.device)
         return step(state, views, labels, generator, sig, mask, **kw)
     return round_fn
+
+
+def _epoch_fn(plan, step, *, capture: bool):
+    """`make_epoch`'s epoch_fn over a round's two parts: on the card (and
+    `capture`) the graphed rounds, else a loop of the rounds.  The K
+    rounds' host parts take `round_keys[k]`: a fault key, or a transport
+    round's delivery mask."""
+    graphed = _GraphedRounds(plan, step)
+
+    def epoch_fn(state, views, labels, generator, round_keys=None):
+        if views.device.type == "cuda" and capture:
+            return graphed.epoch(state, views, labels, generator,
+                                 round_keys)
+        per_round = []
+        for k in range(views.shape[0]):
+            sig, mask = plan(None if round_keys is None else round_keys[k],
+                             labels.shape[-1])
+            if mask is not None:
+                mask = linkfault.mask_tensor(mask, labels.device)
+            state, metrics = step(state, views[k], labels[k], generator,
+                                  sig, mask)
+            per_round.append(metrics)
+        return state, _stack_metrics(per_round)
+    epoch_fn.captures = graphed.graphs.captures
+    return epoch_fn
 
 
 def _stack_metrics(per_round) -> dict:

@@ -141,19 +141,24 @@ class FLScheme(base.Scheme):
                          plan=sig if faulty else None)
         return base.RoundParts(plan, device_step)
 
-    def make_transport_round(self, cfg, *, lr: float = 2e-3,
-                             wire: str = "dense", topology=None):
+    def make_transport_round_parts(self, cfg, *, lr: float = 2e-3,
+                                   wire: str = "dense", topology=None):
         # the (J,) verdict is the set of client uploads that ARRIVED:
         # missing clients leave the average and their round of local work
-        # is lost (all lost keeps the previous global model)
+        # is lost (all lost keeps the previous global model); the average
+        # over all, none or n of them is the host's decision
         topology_lib.require_star(topology, cfg, scheme=self.name)
         inner = self._make_round(cfg, lr, faulty=True)
 
-        def round_fn(state, views, labels, generator, delivery, *,
-                     drop_masks=None):
-            return inner(state, views, labels, generator,
-                         base.host_mask(delivery), drop_masks=drop_masks)
-        return round_fn
+        def plan(delivery, batch_size):
+            sig = fl.average_plan(delivery)
+            return sig, (delivery if isinstance(sig, tuple) else None)
+
+        def device_step(state, views, labels, generator, sig, mask, *,
+                        drop_masks=None):
+            return inner(state, views, labels, generator, mask,
+                         drop_masks=drop_masks, plan=sig)
+        return base.RoundParts(plan, device_step)
 
     def predict(self, state, views, topology=None, cfg=None, *,
                 device=None):

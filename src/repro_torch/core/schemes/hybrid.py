@@ -179,15 +179,11 @@ class HybridScheme(base.Scheme):
         step = self._make_step(cfg, lr=lr, wire=wire, topology=topology)
         return splitfed.fault_drawing_parts(self.name, cfg, topology, step)
 
-    def make_transport_round(self, cfg, *, lr: float = 2e-3,
-                             wire: str = "dense", topology=None):
-        step = self._make_step(cfg, lr=lr, wire=wire, topology=topology)
-
-        def round_fn(state, views, labels, generator, delivery, *,
-                     drop_masks=None):
-            return step(state, views[0], labels[0], generator,
-                        base.host_mask(delivery), drop_masks)
-        return round_fn
+    def make_transport_round_parts(self, cfg, *, lr: float = 2e-3,
+                                   wire: str = "dense", topology=None):
+        _, step = self.make_round_parts(cfg, lr=lr, wire=wire,
+                                        topology=topology)
+        return base.RoundParts(base.transport_plan, step)
 
     # ------------------------------------------------------------------
     # inference: joint decoder over fused cut latents, ensembled with the

@@ -85,22 +85,13 @@ class INLScheme(base.Scheme):
                 "opt": {k: (None if k == "step" else p_specs)
                         for k in state["opt"]}}
 
-    def make_transport_round(self, cfg, *, lr: float = 2e-3,
-                             wire: str = "dense", topology=None):
+    def make_transport_round_parts(self, cfg, *, lr: float = 2e-3,
+                                   wire: str = "dense", topology=None):
         # the (J,) outcome IS the round's delivery mask: surviving views
         # partial-fuse, lost ones cost exactly their own vote
-        step = inl.make_train_step(cfg, optim.adam(lr), wire=wire,
-                                   topology=topology, explicit_delivery=True)
-
-        def round_fn(state, views, labels, generator, delivery, *, eps=None,
-                     drop_masks=None):
-            params, st, opt_state, metrics = step(
-                state["params"], state["state"], state["opt"], views[0],
-                labels[0], generator, delivery, eps=eps,
-                drop_masks=drop_masks)
-            return ({"params": params, "state": st, "opt": opt_state},
-                    metrics)
-        return round_fn
+        _, step = self.make_round_parts(cfg, lr=lr, wire=wire,
+                                        topology=topology)
+        return base.RoundParts(base.transport_plan, step)
 
     def predict(self, state, views, topology=None, cfg=None, *,
                 device=None):

@@ -12,10 +12,9 @@ round's device part per host signature, replayed once a round (the
 counterpart of the reference's jitted lax.scan over the epoch), on the
 CPU the same rounds in a Python loop.  "per_round" calls the round once
 per group of minibatches, the reference's `_run_per_round`.  The two give
-the same trajectory bit for bit.  `transport=` (the transport slice)
-raises NotImplementedError.  The reference's `prefetch_size=` overlaps the
-host-to-device copies of the next epoch's minibatches; the port has none
-to overlap, since the data set moves to the device once.
+the same trajectory bit for bit.  The reference's `prefetch_size=`
+overlaps the host-to-device copies of the next epoch's minibatches; the
+port has none to overlap, since the data set moves to the device once.
 
 `mesh=` (launch/mesh.make_inl_host_mesh; every rank of the mesh calls
 run_scheme with the same arguments) trains across the mesh's ranks under
@@ -42,6 +41,23 @@ the generator's.  The round draws its masks from it, and the meter
 replays the same draws on the host (`_meter_fault_rounds`), splitting the
 round's charges between the offered and the delivered ledgers, so
 `CurvePoint.delivered_gbits` counts what reached its consumer.
+
+`transport=` (repro_torch/transport.NetworkTransport, the reference's
+`_run_transport`): fault outcomes come from the transport's retrying
+channels, circuit breakers and chaos schedule, one `round_outcome` a
+round at tick = the global round index, and reach the scheme's
+transport round (`Scheme.make_transport_round_parts`) as its explicit
+(J,) mask.  The transport owns the run's meter: offered accrues per
+attempt, delivered per surviving payload fraction, with FL's and SL's
+scalar round charges split equally across the star's edges.  Outcomes
+depend on ticks only, never on device results, so under "scan" each
+epoch first takes its rounds' outcomes in tick order (a cluster's
+`on_tick` hook realises its kills and freezes there) and then runs
+`Scheme.make_transport_epoch`: on the card one CUDA graph per host
+signature, each round's mask copied into its static buffer.  A resume
+replays the completed ticks with `charge=False` (breakers and the
+adaptive controller rebuilt, the restored ledgers left alone), then loads
+the sidecar's `transport.snapshot()`.
 """
 from __future__ import annotations
 
@@ -141,29 +157,35 @@ def _meter_load(meter, d: dict) -> None:
                                  in d["edge_delivered_bits"].items()}
 
 
-def _save_epoch(ckpt_dir, name, ep, state, curve, meter, generator) -> None:
+def _save_epoch(ckpt_dir, name, ep, state, curve, meter, generator,
+                transport=None) -> None:
     """One epoch-granular checkpoint: the whole training state, and in the
     sidecar the curve, both meter ledgers and the round generator's state
     (as hex), everything a bit-identical resume needs.  The state's leaves
     are copied to the host here, before the next epoch can overwrite
-    them."""
+    them.  A transport run also records `transport.snapshot()`: breaker
+    counters for the record, the adaptive controller's state for the
+    resume."""
     extra = {"scheme": name, "epoch": ep,
              "curve": [list(map(float, p)) for p in curve],
              "meter": _meter_dump(meter),
              "generator": {"device": generator.device.type,
                            "state": generator.get_state().numpy()
                            .tobytes().hex()}}
+    if transport is not None:
+        extra["transport"] = transport.snapshot()
     checkpoint_lib.save(ckpt_dir, ep, state, extra=extra)
 
 
 def _try_resume(ckpt_dir, state, meter, generator):
     """Restore the latest complete epoch checkpoint when one exists:
-    returns (state, curve so far, epochs already done), with the meter's
-    ledgers and `generator`'s state set from the sidecar.  A directory
-    without one resumes from nothing: epoch 0 with the given state."""
+    returns (state, curve so far, epochs already done, the transport
+    snapshot or None), with the meter's ledgers and `generator`'s state
+    set from the sidecar.  A directory without one resumes from nothing:
+    epoch 0 with the given state."""
     step = checkpoint_lib.latest_step(ckpt_dir)
     if step is None:
-        return state, [], 0
+        return state, [], 0, None
     meta = checkpoint_lib.load_meta(ckpt_dir, step)
     saved = meta["generator"]
     if saved["device"] != generator.device.type:
@@ -177,7 +199,7 @@ def _try_resume(ckpt_dir, state, meter, generator):
     _meter_load(meter, meta["meter"])
     generator.set_state(torch.frombuffer(
         bytearray.fromhex(saved["state"]), dtype=torch.uint8))
-    return restored, curve, int(meta["epoch"])
+    return restored, curve, int(meta["epoch"]), meta.get("transport")
 
 
 def _host(x):
@@ -192,12 +214,13 @@ def rounds_per_epoch(scheme, cfg, n: int, batch_size: int) -> int:
     return (n // batch_size) // scheme.batches_per_round(cfg)
 
 
-def _check_options(dispatch, mesh, transport) -> None:
+def _check_options(dispatch, mesh, transport, meter) -> None:
     if transport is not None:
         if mesh is not None:
             raise ValueError("transport execution is per-round; no mesh")
-        raise NotImplementedError("transport= comes with the transport "
-                                  "slice of the port")
+        if meter is not None and meter is not transport.meter:
+            raise ValueError("pass either meter= or transport= (the "
+                             "transport owns the run's meter)")
     if dispatch == "per_round" and mesh is not None:
         raise ValueError("mesh execution needs dispatch='scan'")
     if dispatch not in ("scan", "per_round"):
@@ -228,11 +251,21 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     saves a checkpoint every `ckpt_every` epochs and after the last;
     `resume=True` trains on from the latest one there, bit-identical to
     the uninterrupted run (module docstring).  `mesh` trains across a
-    mesh of ranks (module docstring); `device` defaults to the mesh's."""
-    _check_options(dispatch, mesh, transport)
+    mesh of ranks (module docstring); `device` defaults to the mesh's.
+    `transport` (a NetworkTransport over the resolved topology) decides
+    each round's delivery from its channels, breakers and chaos schedule
+    and meters on its own meter (module docstring)."""
+    _check_options(dispatch, mesh, transport, meter)
     device = resolve_device(mesh.device if mesh is not None and device is None
                             else device)
     scheme = schemes.get(name)
+    if transport is not None:
+        return _run_transport(
+            scheme, views, labels, cfg, epochs=epochs,
+            batch_size=batch_size, lr=lr, seed=seed, eval_n=eval_n,
+            dispatch=dispatch, wire=wire, topology=topology,
+            transport=transport, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+            resume=resume, device=device)
     state = scheme.init(cfg, torch.Generator(device=device).manual_seed(seed),
                         lr=lr, device=device)
     if dispatch == "scan":
@@ -255,7 +288,7 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     start_ep, curve = 0, []
     if resume and ckpt_dir:
-        state, curve, start_ep = _try_resume(ckpt_dir, state, meter, gen)
+        state, curve, start_ep, _ = _try_resume(ckpt_dir, state, meter, gen)
     if mesh is not None:
         specs = scheme.state_shardings(cfg, state, mesh)
         state = sharding.shard_state(state, specs, mesh)
@@ -263,14 +296,8 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
     ev, el = views[:, :n_eval], labels[:n_eval]
 
     for ep in range(start_ep, epochs):
-        # the epoch's minibatches, gathered on the device in one go:
-        # (K, bpr, J, B, ...) views and (K, bpr, B) labels
-        batches = list(multiview.batch_indices(n, batch_size, seed=ep))
-        idx = torch.as_tensor(
-            np.array(batches[:rounds * bpr], dtype=np.int64).reshape(
-                rounds, bpr, batch_size), device=device)
-        ep_views = views[:, idx].permute(1, 2, 0, *range(3, views.dim() + 2))
-        ep_labels = labels[idx]
+        ep_views, ep_labels = epoch_batches(views, labels, ep, rounds, bpr,
+                                             batch_size)
         keys = ([linkfault.round_key(seed, ep * rounds + r)
                  for r in range(rounds)] if faulty else None)
         if dispatch == "scan":
@@ -309,6 +336,92 @@ def run_scheme(name: str, views, labels, cfg, *, epochs: int,
                     _save_epoch(ckpt_dir, scheme.name, ep + 1, full, curve,
                                 meter, gen)
                 mesh.barrier()
+    return curve
+
+
+def epoch_batches(views, labels, ep, rounds, bpr, batch_size):
+    """Epoch `ep`'s minibatches of the (J, n, ...) views and (n,) labels
+    (tensors), gathered on their device in one go from the seeded batch
+    indices: (K, bpr, J, B, ...) views and (K, bpr, B) labels, K =
+    `rounds`."""
+    batches = list(multiview.batch_indices(labels.shape[0], batch_size,
+                                           seed=ep))
+    idx = torch.as_tensor(
+        np.array(batches[:rounds * bpr], dtype=np.int64).reshape(
+            rounds, bpr, batch_size), device=views.device)
+    return (views[:, idx].permute(1, 2, 0, *range(3, views.dim() + 2)),
+            labels[idx])
+
+
+def _run_transport(scheme, views, labels, cfg, *, epochs, batch_size, lr,
+                   seed, eval_n, dispatch, wire, topology, transport,
+                   ckpt_dir, ckpt_every, resume, device):
+    """`run_scheme(transport=)`: each round's delivery is
+    `transport.round_outcome(tick)`, handed to the scheme's transport round
+    as its explicit (J,) mask (module docstring)."""
+    state = scheme.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                        lr=lr, device=device)
+    if dispatch == "scan":
+        epoch_fn = scheme.make_transport_epoch(cfg, lr=lr, wire=wire,
+                                               topology=topology)
+    else:
+        round_fn = scheme.make_transport_round(cfg, lr=lr, wire=wire,
+                                               topology=topology)
+    bpr = scheme.batches_per_round(cfg)
+    views = torch.as_tensor(_host(views), dtype=torch.float32, device=device)
+    labels = torch.as_tensor(_host(labels), device=device).long()
+    n = labels.shape[0]
+    meter = transport.meter
+    charges = _round_charges(scheme, cfg, state, batch_size, wire=wire,
+                             topology=topology)
+    edges = transport.topo.edges
+    if set(charges) == {None}:
+        # scalar totals (FL/SL): split the round's charge equally across
+        # the (star) edges so per-edge attempts re-offer their own share
+        b, nb = charges[None]
+        charges = {e.key: (b / len(edges), nb / len(edges)) for e in edges}
+    rounds = rounds_per_epoch(scheme, cfg, n, batch_size)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    start_ep, curve, tsnap = 0, [], None
+    if resume and ckpt_dir:
+        state, curve, start_ep, tsnap = _try_resume(ckpt_dir, state, meter,
+                                                    gen)
+    tick = start_ep * rounds
+    for t in range(tick):                 # breaker replay, ledger-free
+        transport.round_outcome(t, batch_size, charges=charges, charge=False)
+    if tsnap is not None:
+        # the replay already rebuilt the adaptive knobs (observe runs on
+        # uncharged rounds too); the sidecar's copy is authoritative
+        transport.load_snapshot(tsnap)
+    n_eval = min(eval_n, n)
+    ev, el = views[:, :n_eval], labels[:n_eval]
+
+    for ep in range(start_ep, epochs):
+        ep_views, ep_labels = epoch_batches(views, labels, ep, rounds, bpr,
+                                             batch_size)
+        if dispatch == "scan":
+            masks = [transport.round_outcome(tick + r, batch_size,
+                                             charges=charges).mask
+                     for r in range(rounds)]
+            if rounds:
+                state, _ = epoch_fn(state, ep_views, ep_labels, gen, masks)
+        else:
+            for r in range(rounds):
+                rep = transport.round_outcome(tick + r, batch_size,
+                                              charges=charges)
+                state, _ = round_fn(state, ep_views[r], ep_labels[r], gen,
+                                    rep.mask)
+        tick += rounds
+        _meter_overheads(meter, scheme, cfg, state)
+        acc = base.evaluate_accuracy(scheme, state, ev, el,
+                                     topology=topology, cfg=cfg,
+                                     device=device)
+        curve.append(CurvePoint(ep + 1, acc, meter.gbits,
+                                meter.measured_gbits, meter.delivered_gbits))
+        if ckpt_dir and ((ep + 1) % max(ckpt_every, 1) == 0
+                         or ep + 1 == epochs):
+            _save_epoch(ckpt_dir, scheme.name, ep + 1, state, curve, meter,
+                        gen, transport=transport)
     return curve
 
 

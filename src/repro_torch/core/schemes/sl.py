@@ -121,21 +121,16 @@ class SLScheme(base.Scheme):
             return (new_state if sig == "keep" else state), metrics
         return base.RoundParts(plan, device_step)
 
-    def make_transport_round(self, cfg, *, lr: float = 2e-3,
-                             wire: str = "dense", topology=None):
+    def make_transport_round_parts(self, cfg, *, lr: float = 2e-3,
+                                   wire: str = "dense", topology=None):
         # the round's exchange rides the single boundary, so it has no
         # partial reading: it RUNS iff every link delivered, else the state
         # carries through unchanged (the round is still computed)
-        topology_lib.require_star(topology, cfg, scheme=self.name)
-        raw = self._make_raw_round(cfg, lr=lr, wire=wire)
+        _, step = self._parts(cfg, lr, wire, topology, None)
 
-        def round_fn(state, views, labels, generator, delivery, *,
-                     drop_masks=None):
-            new_state, metrics = raw(state, views, labels, generator,
-                                     drop_masks=drop_masks)
-            ok = bool(np.all(base.host_mask(delivery)))
-            return (new_state if ok else state), metrics
-        return round_fn
+        def plan(delivery, batch_size):
+            return ("keep" if bool(np.all(delivery)) else "skip"), None
+        return base.RoundParts(plan, step)
 
     def predict(self, state, views, topology=None, cfg=None, *,
                 device=None):

@@ -207,17 +207,13 @@ class SplitFedScheme(base.Scheme):
         step = self._make_step(cfg, lr=lr, wire=wire, topology=topology)
         return fault_drawing_parts(self.name, cfg, topology, step)
 
-    def make_transport_round(self, cfg, *, lr: float = 2e-3,
-                             wire: str = "dense", topology=None):
+    def make_transport_round_parts(self, cfg, *, lr: float = 2e-3,
+                                   wire: str = "dense", topology=None):
         # the (J,) outcome masks BOTH of the round's exchanges: a dead
         # route's activations leave the fusion AND its weights the average
-        step = self._make_step(cfg, lr=lr, wire=wire, topology=topology)
-
-        def round_fn(state, views, labels, generator, delivery, *,
-                     drop_masks=None):
-            return step(state, views[0], labels[0], generator,
-                        base.host_mask(delivery), drop_masks)
-        return round_fn
+        _, step = self.make_round_parts(cfg, lr=lr, wire=wire,
+                                        topology=topology)
+        return base.RoundParts(base.transport_plan, step)
 
     # ------------------------------------------------------------------
     # inference

@@ -38,8 +38,15 @@ scheme's `predict_batched(topology=...)` once per bucket, as the star
 does, its latents re-encoded on every hop over the edges' wires.  Link
 models on the topology's edges, or an explicit `deadline_ms=`, switch
 serving onto per-request delivery masks drawn from (`seed`, request id).
-Not in this slice, and refused with NotImplementedError: `transport=` and
-`speculative=` (the transport slice).  `wire` ("dense", "packed",
+`transport=` (repro_torch/transport.NetworkTransport over the same
+topology) moves the faults onto a transport: each request's fragments
+ride its retrying channels at tick = the request id, and the report's
+on-time views are the row's explicit fusion mask; the engine then meters
+on the transport's ledgers (offered per attempt, delivered per consumed
+view, `credit_delivered`).  `speculative=True` adds speculative fusion:
+a request whose views straggled past the deadline is answered by a LATER
+bucket's fusion that patches them in (`ServedRequest.served_by ==
+"patched"`).  `wire` ("dense", "packed",
 "packed_duplex") sets what the meter charges (a packed wire's codeword
 lanes, core/wirefmt.shipped_nbytes) and, on a non-star graph, each hop's
 encoding, which leaves the answers as they are; the star's predict ships
@@ -52,9 +59,11 @@ graph (repro_torch/graphs.py) over static views (and, with faults, a
 static (J, b) delivery mask) and replays it for every batch of that
 bucket; `trace_counts[b]` counts the captures, one per bucket for the
 engine's lifetime.  `warmup()` captures every bucket on the caller's
-thread; a bucket not warmed up is captured at its first batch.  The
-graphs read the state's tensors where they lie: replace `engine.state`
-(or any of its tensors) and the next batch captures its bucket again.
+thread; a bucket not warmed up is captured at its first batch.  In
+transport mode every bucket's graph holds a static (J, b) mask, all-True
+rows padding the bucket.  The graphs read the state's tensors where they
+lie: replace `engine.state` (or any of its tensors) and the next batch
+captures its bucket again.
 On the CPU the engine runs the eager predict and `trace_counts` stays 0.
 A capture or replay that fails raises; the engine never falls back to
 the eager predict on the card.
@@ -101,6 +110,11 @@ class ServedRequest:
     latency_ms: float            # submit -> completion (queue + batch + run)
     t_done: float                # perf_counter stamp at completion
     bucket: int                  # the padded batch size it was served in
+    # which fusion answered (speculative-fusion accounting): "first" — the
+    # at-deadline fusion; "patched" — a later bucket after the request's
+    # stragglers arrived and were patched in
+    served_by: str = "first"
+    views_recovered: int = 0     # late views the patched fusion added
 
 
 @dataclass
@@ -111,6 +125,8 @@ class ServeStats:
     views_fused: List[int] = field(default_factory=list)
     launches: int = 0
     launched_rows: int = 0       # bucket rows launched (padding included)
+    patched: int = 0             # requests answered by a patched fusion
+    views_recovered: int = 0     # straggler views patched fusions added
     shed: int = 0                # requests refused at admission (Rejected)
 
     @property
@@ -133,7 +149,10 @@ class ServingEngine:
     of `seed` and each request's id.
     `buckets` overrides the scheme's grid (a serial baseline is
     `buckets=(1,)`).  `max_queue` sheds at admission once any node's queue
-    reaches the bound, resolving the Future with a `Rejected`.
+    (plus the transport submissions still in flight) reaches the bound,
+    resolving the Future with a `Rejected`.  `transport` and
+    `speculative` as the module docstring says; in transport mode
+    `meter` is the transport's.
 
     Thread model: `submit` is called from any thread; one scheduler thread
     (started by `start()` / the context manager) runs the collect -> pad ->
@@ -150,10 +169,12 @@ class ServingEngine:
                  deadline_ms: Optional[float] = None, seed: int = 0,
                  transport=None, speculative: bool = False,
                  max_queue: Optional[int] = None, device=None):
-        if transport is not None or speculative:
-            raise NotImplementedError(
-                "transport= and speculative fusion come with the transport "
-                "slice of the port")
+        if speculative and transport is None:
+            raise ValueError("speculative fusion needs a transport= — only "
+                             "a transport distinguishes LATE views (worth "
+                             "patching) from LOST ones")
+        self.transport = transport
+        self.speculative = bool(speculative)
         self.topo = topology_lib.resolve(topology, cfg)
         self.deadline_ms = deadline_ms
         # any link model (or an explicit deadline) switches serving onto
@@ -169,11 +190,15 @@ class ServingEngine:
         self.buckets = batching.validate_buckets(
             buckets if buckets is not None else scheme.serve_buckets)
         self.max_queue = max_queue
+        self._reserved = 0           # admitted, riding the transport,
+                                     # not yet enqueued
         self._draining = False
         self._queues: Dict[str, collections.deque] = {
             name: collections.deque() for name in self.topo.view_nodes()}
         self._futures: Dict[int, Future] = {}
         self._submit_t: Dict[int, float] = {}
+        self._reports: Dict[int, object] = {}    # rid -> RequestReport
+        self._patches: collections.deque = collections.deque()
         self._next_rid = 0
         self._work = threading.Condition()
         self._stop = threading.Event()
@@ -186,7 +211,11 @@ class ServingEngine:
         self.trace_counts: Dict[int, int] = self._graphs.captures
         self._graph_state = None         # signature the graphs read
         self._static: Dict[int, tuple] = {}
-        self.meter = bandwidth.BandwidthMeter()
+        # in transport mode the transport's meter IS the serving ledger
+        # (offered accrues per attempt at transmit time, delivered per
+        # consumed fusion via credit_delivered)
+        self.meter = bandwidth.BandwidthMeter() if transport is None \
+            else transport.meter
         self._edge_bits = metering.request_edge_bits(self.topo, cfg)
         self._edge_nbytes = metering.request_edge_wire_bytes(
             self.topo, cfg, wire=wire)
@@ -196,7 +225,10 @@ class ServingEngine:
 
     def _delivery(self, rids: np.ndarray) -> Optional[np.ndarray]:
         """The (J, n) delivery masks of requests `rids` (None on the clean
-        network): a pure function of (seed, request id, edge)."""
+        network): a pure function of (seed, request id, edge).  In
+        transport mode all-True (warmup's rows)."""
+        if self.transport is not None:
+            return np.ones((self.topo.num_views(), len(rids)), bool)
         if not self.faulty:
             return None
         return linkfault.request_delivery_mask(
@@ -275,6 +307,8 @@ class ServingEngine:
     def _clear_locked(self) -> None:
         self._futures.clear()
         self._submit_t.clear()
+        self._reports.clear()
+        self._patches.clear()
         for q in self._queues.values():
             q.clear()
         self._work.notify_all()
@@ -286,9 +320,14 @@ class ServingEngine:
         node queue, atomically, so the per-node queues always pop aligned.
         Returns (request id, Future resolving to a ServedRequest).
 
+        With a transport, the fragments first RIDE it: the request's id is
+        the transport tick, its delivery report (per-view on-time / late /
+        lost after retries, breakers and chaos) is recorded for the
+        scheduler, and the channels carry the fragment bytes.
+
         With `max_queue=`, a request that would push any per-node queue
         past the bound is SHED: its Future resolves at once to a
-        `Rejected` and it never launches."""
+        `Rejected` and it never rides the transport or launches."""
         self._check_error()
         self._check_shutdown()
         views = np.asarray(views, np.float32)
@@ -297,16 +336,43 @@ class ServingEngine:
                 f"request has {views.shape[0]} views; topology "
                 f"{self.topo.describe()} expects {self.topo.num_views()}")
         fut: Future = Future()
+        if self.transport is None:
+            with self._work:
+                self._check_shutdown()
+                rid, admitted = self._admit_locked(fut)
+                if admitted:
+                    self._enqueue_locked(rid, views, fut)
+            return rid, fut
         with self._work:
             self._check_shutdown()
             rid, admitted = self._admit_locked(fut)
             if admitted:
-                for j, name in enumerate(self.topo.view_nodes()):
-                    self._queues[name].append((rid, views[j]))
-                self._futures[rid] = fut
-                self._submit_t[rid] = time.perf_counter()
-                self._work.notify()
+                self._reserved += 1
+        if not admitted:
+            return rid, fut
+        # the channel walk happens OUTSIDE the scheduler lock (the
+        # transport serialises itself); the enqueue below is atomic, so
+        # the per-node queues still pop aligned
+        try:
+            report = self.transport.send_request(
+                rid, views, deadline_ms=self.deadline_ms)
+        finally:
+            with self._work:
+                self._reserved -= 1
+        with self._work:
+            self._check_error()
+            self._reports[rid] = report
+            self._enqueue_locked(rid, views, fut)
         return rid, fut
+
+    def _enqueue_locked(self, rid: int, views: np.ndarray,
+                        fut: Future) -> None:
+        """(caller holds _work) One fragment per view node queue."""
+        for j, name in enumerate(self.topo.view_nodes()):
+            self._queues[name].append((rid, views[j]))
+        self._futures[rid] = fut
+        self._submit_t[rid] = time.perf_counter()
+        self._work.notify()
 
     def _admit_locked(self, fut: Future) -> Tuple[int, bool]:
         """(caller holds _work) Allocate a rid; shed when the queues are at
@@ -314,7 +380,8 @@ class ServingEngine:
         rid = self._next_rid
         self._next_rid += 1
         if self.max_queue is not None:
-            depth = max((len(q) for q in self._queues.values()), default=0)
+            depth = max((len(q) for q in self._queues.values()),
+                        default=0) + self._reserved
             if depth >= self.max_queue:
                 self.stats.shed += 1
                 fut.set_result(Rejected(
@@ -356,6 +423,32 @@ class ServingEngine:
             frags.append(np.stack([f for _, f in row]))
         return np.asarray(rids, np.int32), np.stack(frags)
 
+    def _collect_transport(self):
+        """Transport-mode collect (caller holds the lock): pending PATCH
+        rows first (stragglers whose views have now arrived, appended by
+        the previous launch), then the oldest aligned new requests, up to
+        the largest bucket.  Returns a list of (rid, (J, ...) views, (J,)
+        mask, resolve?, served_by) rows, or None when idle."""
+        rows = []
+        cap = self.buckets[-1]
+        while self._patches and len(rows) < cap:
+            rows.append(self._patches.popleft())
+        names = self.topo.view_nodes()
+        m = min(len(self._queues[nm]) for nm in names)
+        m = min(m, cap - len(rows))
+        for _ in range(m):
+            popped = [self._queues[nm].popleft() for nm in names]
+            rid = popped[0][0]
+            assert all(r == rid for r, _ in popped), (rid, popped)
+            views = np.stack([f for _, f in popped])
+            report = self._reports[rid]
+            # speculative: serve the at-deadline fusion, but answer from
+            # the NEXT bucket once the stragglers are patched in
+            resolve = not (self.speculative
+                           and bool(report.stragglers.any()))
+            rows.append((rid, views, report.on_time, resolve, "first"))
+        return rows or None
+
     def _execute(self, rids: np.ndarray, views: np.ndarray) -> None:
         n = len(rids)
         bucket = batching.pick_bucket(n, self.buckets)
@@ -384,32 +477,91 @@ class ServingEngine:
                                          views_fused=fused, latency_ms=lat,
                                          t_done=t_done, bucket=bucket))
 
+    def _execute_transport(self, rows) -> None:
+        """Launch one transport-mode batch: explicit per-row masks, padded
+        to the bucket grid (padding repeats the last row with an all-True
+        mask; row-inert either way).  Resolving rows complete their
+        Future and credit the delivered ledger with the mask they
+        consumed; non-resolving rows (speculative stragglers) re-enter as
+        patch rows carrying their EVENTUAL mask."""
+        n = len(rows)
+        bucket = batching.pick_bucket(n, self.buckets)
+        views = np.stack([v for _, v, _, _, _ in rows], axis=1)
+        mask = np.stack([m for _, _, m, _, _ in rows], axis=1)
+        pad = bucket - n
+        if pad:
+            views = np.concatenate(
+                [views, np.repeat(views[:, -1:], pad, axis=1)], axis=1)
+            mask = np.concatenate(
+                [mask, np.ones((mask.shape[0], pad), bool)], axis=1)
+        probs_np = self._predict(views, mask)[:n].cpu().numpy()  # waits
+        t_done = time.perf_counter()
+        self.stats.launches += 1
+        self.stats.launched_rows += bucket
+        for i, (rid, vrow, mrow, resolve, served_by) in enumerate(rows):
+            rid = int(rid)
+            if not resolve:
+                report = self._reports[rid]
+                self._patches.append(
+                    (rid, vrow, np.asarray(report.eventual, bool), True,
+                     "patched"))
+                continue
+            with self._work:
+                fut = self._futures.pop(rid)
+                t_sub = self._submit_t.pop(rid)
+                report = self._reports.pop(rid)
+            self.transport.credit_delivered(mrow)
+            lat = (t_done - t_sub) * 1e3
+            fused = int(np.asarray(mrow).sum())
+            recovered = int(report.stragglers.sum()) \
+                if served_by == "patched" else 0
+            self.stats.completed += 1
+            self.stats.latencies_ms.append(lat)
+            self.stats.views_fused.append(fused)
+            if served_by == "patched":
+                self.stats.patched += 1
+                self.stats.views_recovered += recovered
+            fut.set_result(ServedRequest(
+                rid=rid, probs=probs_np[i], views_fused=fused,
+                latency_ms=lat, t_done=t_done, bucket=bucket,
+                served_by=served_by, views_recovered=recovered))
+
+    def _collect_any(self):
+        return self._collect_transport() if self.transport is not None \
+            else self._collect()
+
+    def _execute_any(self, batch) -> None:
+        if self.transport is not None:
+            self._execute_transport(batch)
+        else:
+            self._execute(*batch)
+
     def step(self, timeout: float = 0.0) -> int:
         """One scheduler iteration inline: collect -> launch -> complete.
         Returns the number of requests completed (0 when idle past
         `timeout`)."""
         self._check_error()
         with self._work:
-            batch = self._collect()
+            batch = self._collect_any()
             if batch is None and timeout > 0:
                 self._work.wait(timeout)
-                batch = self._collect()
+                batch = self._collect_any()
         if batch is None:
             return 0
-        self._execute(*batch)
-        return len(batch[0])
+        self._execute_any(batch)
+        return len(batch) if self.transport is not None else len(batch[0])
 
     def _loop(self) -> None:
         try:
             while True:
                 with self._work:
-                    batch = self._collect()
+                    batch = self._collect_any()
                     if batch is None:
                         if self._stop.is_set():
                             return                 # queues drained: done
                         self._work.wait(timeout=0.05)
                         continue
-                self._execute(*batch)
+                self._execute_any(batch)
         except BaseException as exc:               # noqa: BLE001
             # a dead scheduler must not strand blocked submitters: fail
             # every pending Future now, re-raise on the next submit/stop

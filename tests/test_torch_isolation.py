@@ -5,8 +5,14 @@ entry points run on the card unless asked for the CPU.
     and no repro / repro.* module in sys.modules;
   * no source file under src/repro_torch imports jax or repro;
   * device=None means "cuda": without a card the entry points raise
-    (the search's driver too).
+    (the search's driver too);
+  * a cluster worker (`python -m repro_torch.cluster.worker`) starts and
+    registers without importing torch or jax, and the channel layer,
+    the policies, the cluster protocol and the membership ladder import
+    with neither in sys.modules (a respawn costs a process start, not a
+    torch import).
 """
+import json
 import os
 import pkgutil
 import re
@@ -51,7 +57,10 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.launch.serve", "repro_torch.checkpoint",
               "repro_torch.search", "repro_torch.search.space",
               "repro_torch.search.pricing", "repro_torch.search.pareto",
-              "repro_torch.search.driver"):
+              "repro_torch.search.driver", "repro_torch.transport.network",
+              "repro_torch.transport.adaptive", "repro_torch.chaos",
+              "repro_torch.cluster.supervisor",
+              "repro_torch.cluster.transport", "repro_torch.serving.loadgen"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -108,10 +117,65 @@ def test_device_none_means_cuda_and_raises_without_a_card(monkeypatch):
             lambda n=name: runner.run_scheme(n, views, torch.zeros(1), SMOKE,
                                              epochs=1),
         ]
+    from repro_torch.launch import serve
+    from repro_torch.transport import NetworkTransport
+    tr = NetworkTransport(None, SMOKE)
+    calls += [
+        lambda: runner.run_scheme("inl", views, torch.zeros(1), SMOKE,
+                                  epochs=1, transport=tr),
+        lambda: ServingEngine(scheme, st, SMOKE, transport=tr,
+                              speculative=True),
+        lambda: serve.main(["--arch", "paper-inl", "--smoke"]),
+    ]
     calls.append(lambda: convert.splitfed_from_jax(
         {"encoders": {"convs": [], "bns": []}}, {"encoders": {"bns": []}},
         SMOKE))
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    tr.close()
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=str(SRC.parent))
+
+
+def test_channel_layer_imports_without_torch_or_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch.transport.channel, repro_torch.transport.policy\n"
+        "import repro_torch.cluster.proto, repro_torch.cluster.membership\n"
+        "from repro_torch.transport import TcpListener, RetryPolicy\n"
+        "from repro_torch.cluster import HeartbeatMonitor, pack_msg\n"
+        "print(repr(sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'repro'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=_env())
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_worker_registers_without_importing_torch_or_jax():
+    """The worker as the supervisor spawns it, under -X importtime: it
+    prints its registration line, and no torch or jax module was
+    imported on the way."""
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m",
+         "repro_torch.cluster.worker", "--node", "m0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env())
+    try:
+        info = json.loads(proc.stdout.readline())
+    finally:
+        proc.terminate()
+        _, err = proc.communicate(timeout=30)
+    assert info["node"] == "m0" and info["pid"] == proc.pid
+    assert info["port"] > 0
+    imported = [line.rsplit("|", 1)[-1].strip() for line in err.splitlines()
+                if line.startswith("import time:")]
+    assert "repro_torch.cluster.worker" in imported or \
+        "repro_torch.transport.channel" in imported, err[-2000:]
+    heavy = [m for m in imported
+             if m.split(".")[0] in ("torch", "jax", "jaxlib")]
+    assert heavy == []

@@ -15,7 +15,11 @@ and for INL:
   * a directory whose newest npz lacks its sidecar (a save killed between
     the two files) resumes from the checkpoint before it, bit-identical;
   * a finished run resumes to its saved curve; a checkpoint whose
-    generator drew on another device type is refused.
+    generator drew on another device type is refused;
+  * `run_scheme(transport=)`, the reference's
+    test_transport_resume_replays_breakers_without_recharging, under both
+    dispatches and with an adaptive controller: bit for bit, the
+    transport's snapshot included.
 """
 import dataclasses
 import json
@@ -153,3 +157,53 @@ def test_finished_runs_and_foreign_generators(tmp_path):
         json.dump(meta, f)
     with pytest.raises(ValueError, match="device type that wrote it"):
         _run("inl", CFG, views, labels, 3, ckpt_dir=d, resume=True)
+
+
+def _transport(chaos=None, adaptive=False, seed=7):
+    from repro_torch.transport import (DEFAULT_RETRY, AdaptiveConfig,
+                                       AdaptivePolicy, NetworkTransport)
+    topo = linkfault.with_links(topology.star(CFG.num_clients),
+                                linkfault.LinkModel(erasure=0.2))
+    return NetworkTransport(
+        topo, CFG, seed=seed, policy=DEFAULT_RETRY, chaos=chaos,
+        adaptive=AdaptivePolicy(config=AdaptiveConfig(window=3))
+        if adaptive else None)
+
+
+@pytest.mark.parametrize("dispatch", ["scan", "per_round"])
+def test_transport_resume_replays_breakers_without_recharging(dispatch,
+                                                              tmp_path):
+    """The reference's twin (EPOCHS=4, HALF=2, m0->fuse down at ticks 1-2),
+    with an adaptive controller: the resumed run replays the completed
+    ticks without touching the restored ledgers, so its curve, final
+    checkpoint (state, ledgers, generator, the transport snapshot) and
+    snapshot equal the uninterrupted run's bit for bit."""
+    from repro_torch.chaos import ChaosSchedule
+    chaos = ChaosSchedule().down_edge("m0->fuse", 1, 2)
+    views, labels = _data(24)
+    kw = dict(batch_size=BATCH, eval_n=24, seed=3, device="cpu",
+              dispatch=dispatch)
+    full_dir, part_dir = str(tmp_path / "full"), str(tmp_path / "part")
+    tg = _transport(chaos, adaptive=True)
+    golden = runner.run_scheme("inl", views, labels, CFG, epochs=4,
+                               transport=tg, ckpt_dir=full_dir, **kw)
+    gsnap = tg.snapshot()
+    tg.close()
+    t1 = _transport(chaos, adaptive=True)
+    first = runner.run_scheme("inl", views, labels, CFG, epochs=2,
+                              transport=t1, ckpt_dir=part_dir, **kw)
+    t1.close()
+    assert first == golden[:2]
+    t2 = _transport(chaos, adaptive=True)
+    resumed = runner.run_scheme("inl", views, labels, CFG, epochs=4,
+                                transport=t2, ckpt_dir=part_dir,
+                                resume=True, **kw)
+    rsnap = t2.snapshot()
+    t2.close()
+    assert resumed == golden
+    assert gsnap == rsnap           # ledgers, breaker counters, adaptive
+    assert gsnap["adaptive"]["retunes"] > 0
+    assert gsnap["breaker"]["m0->fuse"]["opens"] > 0
+    assert gsnap["delivery_ratio"] < 1.0
+    _assert_same_checkpoint(full_dir, part_dir, 4)
+    assert checkpoint.load_meta(part_dir, 4)["transport"] == gsnap

@@ -7,16 +7,25 @@ JAX reference's.
     per-edge ledgers) equal, exactly, what the reference's `run_scheme`
     meters for the same settings: the closed forms do not depend on the
     weights or the random streams;
-  * the option that comes with a later slice (transport=) raises
-    NotImplementedError; a mesh that is not a ('client', 'data') mesh, a
+  * `transport=` runs (a lossy star's NetworkTransport, whose meter is
+    the run's); a mesh that is not a ('client', 'data') mesh, a
     mesh under dispatch="per_round" or beside transport=, and a packed wire
     at an unpackable width (CFG's 32 bits) raise ValueError with the
     reference's messages (dispatch="scan", the default, runs:
     tests/test_torch_dispatch.py; run_scheme(mesh=) on a mesh:
     tests/test_torch_sharded.py);
     `ckpt_dir=` with `resume=True` on an empty directory trains from
-    scratch and leaves its checkpoint (resume: tests/test_torch_recovery.py).
+    scratch and leaves its checkpoint (resume: tests/test_torch_recovery.py);
+  * `run_scheme(transport=)` for INL, FL and SL under both dispatches
+    equals, bit for bit, per-round `make_transport_round` calls on the
+    masks of a second transport built with the same seed, and its curve's
+    `gbits`, `measured_gbits` and `delivered_gbits` and the per-edge
+    ledgers equal the reference's `run_scheme(transport=)` exactly;
+    `meter=` beside `transport=` raises the reference's ValueError.
 """
+import dataclasses
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -30,8 +39,18 @@ from repro_torch import checkpoint  # noqa: E402
 from repro_torch.core import bandwidth as tbw  # noqa: E402
 from repro_torch.core import schemes, topology  # noqa: E402
 from repro_torch.core.schemes import base, runner  # noqa: E402
+from repro_torch import tree_leaves  # noqa: E402
 
 N, BATCH, EPOCHS = 256, 32, 2
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread while a test runs (the workers of a parallel
+    test run share the machine's cores)."""
+    n = torch.get_num_threads()
+    yield
+    torch.set_num_threads(n)
 
 
 def _data():
@@ -78,7 +97,7 @@ def test_run_scheme_trains_and_meters_as_the_reference():
     ({"dispatch": "bogus"}, ValueError, "unknown dispatch"),
     ({"mesh": object()}, ValueError,
      "sharded schemes need a 'client' mesh axis; got ()"),
-    ({"transport": object()}, NotImplementedError, "transport slice"),
+    ({"transport": "lossy star"}, None, None),
     ({"ckpt_dir": None, "resume": True}, None, None),
     ({"wire": "packed"}, ValueError, "packable"),
     # per-edge widths run; a packed wire refuses an unpackable edge
@@ -94,6 +113,16 @@ def test_run_scheme_trains_and_meters_as_the_reference():
         "per-edge-widths", "mesh-per-round", "mesh-transport"])
 def test_deferred_options_raise(kw, err, match, tmp_path):
     views, labels = _data()
+    if kw.get("transport") == "lossy star":
+        # the transport slice's option runs, metering on the transport
+        tr = _transport("inl", "port", seed=1)
+        curve = runner.run_scheme("inl", views[:, :BATCH], labels[:BATCH],
+                                  CFG, epochs=1, batch_size=BATCH,
+                                  device="cpu", transport=tr)
+        tr.close()
+        assert [p.epoch for p in curve] == [1]
+        assert curve[0].gbits == tr.meter.gbits > 0
+        return
     if err is None:
         # the checkpoint slice's options run: an empty directory resumes
         # from nothing and holds the run's checkpoint afterwards
@@ -149,3 +178,125 @@ def test_epoch_fn_equals_per_round_calls():
     with pytest.raises(ValueError, match="sharded schemes need a 'client' "
                                          "mesh axis"):
         scheme.make_epoch(CFG, mesh=object())
+
+
+# ---------------------------------------------------------------------------
+# run_scheme(transport=)
+# ---------------------------------------------------------------------------
+
+T_BATCH = 8
+TRANSPORT_N = 10 * T_BATCH       # an epoch: one FL round, 10 INL/SL rounds
+
+
+def _transport(name, side, seed=4):
+    """A lossy star's NetworkTransport (erasure 0.3, latency against a
+    deadline, m1 killed at ticks 2-4, m3's edge flapping) of one
+    package."""
+    if side == "ref":
+        from repro.chaos import ChaosSchedule
+        from repro.core import linkfault as lf
+        from repro.core import topology as topo_lib
+        from repro.transport import DEFAULT_RETRY, NetworkTransport
+    else:
+        from repro_torch.chaos import ChaosSchedule
+        from repro_torch.core import linkfault as lf
+        from repro_torch.core import topology as topo_lib
+        from repro_torch.transport import DEFAULT_RETRY, NetworkTransport
+    cfg = dataclasses.replace(CFG, fusion_deadline_ms=25.0)
+    topo = lf.with_links(topo_lib.star(CFG.num_clients),
+                         lf.LinkModel(erasure=0.3, latency_ms=5.0,
+                                      jitter_ms=10.0))
+    chaos = ChaosSchedule().kill_node("m1", at=2, duration=3) \
+        .flap_edge("m3->fuse", start=0, stop=12, period=2)
+    return NetworkTransport(topo, cfg, seed=seed, policy=DEFAULT_RETRY,
+                            chaos=chaos)
+
+
+@pytest.fixture(scope="module")
+def transport_data():
+    imgs, labels = multiview.make_base_dataset(
+        TRANSPORT_N, image_shape=CFG.image_shape, seed=0)
+    return multiview.make_views(imgs, CFG.noise_stds), labels
+
+
+@pytest.mark.parametrize("dispatch", ["scan", "per_round"])
+@pytest.mark.parametrize("name", ["inl", "fl", "sl"])
+def test_run_scheme_transport_equals_per_round_replay(name, dispatch,
+                                                      transport_data):
+    views, labels = transport_data
+    scheme = schemes.get(name)
+    attr = "make_transport_epoch" if dispatch == "scan" \
+        else "make_transport_round"
+    make, finals = getattr(scheme, attr), []
+
+    def recording(*a, **kw):
+        fn = make(*a, **kw)
+
+        def rec(*ra, **rkw):
+            out = fn(*ra, **rkw)
+            finals.append(out[0])
+            return out
+        return rec
+    setattr(scheme, attr, recording)
+    tr = _transport(name, "port")
+    try:
+        curve = runner.run_scheme(name, views, labels, CFG, epochs=2,
+                                  batch_size=T_BATCH, eval_n=40, seed=2,
+                                  dispatch=dispatch, transport=tr,
+                                  device="cpu")
+    finally:
+        delattr(scheme, attr)
+        tr.close()
+    # the replay: a second transport from the same seed gives the masks
+    twin = _transport(name, "port")
+    bpr = scheme.batches_per_round(CFG)
+    rounds = runner.rounds_per_epoch(scheme, CFG, TRANSPORT_N, T_BATCH)
+    state = scheme.init(CFG, torch.Generator().manual_seed(2),
+                        device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    round_fn = scheme.make_transport_round(CFG)
+    tv, tl = torch.from_numpy(views), torch.from_numpy(labels).long()
+    masks = []
+    for ep in range(2):
+        ev, el = runner.epoch_batches(tv, tl, ep, rounds, bpr, T_BATCH)
+        for r in range(rounds):
+            mask = twin.round_outcome(ep * rounds + r, T_BATCH,
+                                      charge=False).mask
+            masks.append(mask)
+            state, _ = round_fn(state, ev[r], el[r], gen, mask)
+    twin.close()
+    masks = np.stack(masks)
+    assert masks.any() and not masks.all()
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(finals[-1]), tree_leaves(state)))
+    assert len(curve) == 2 and curve[-1].delivered_gbits < curve[-1].gbits
+
+
+@pytest.mark.parametrize("name", ["inl", "fl", "sl"])
+def test_transport_ledgers_equal_the_reference(name, transport_data):
+    views, labels = transport_data
+    tr = _transport(name, "port")
+    curve = runner.run_scheme(name, views, labels, CFG, epochs=2,
+                              batch_size=T_BATCH, eval_n=40, transport=tr,
+                              device="cpu")
+    tr.close()
+    jtr = _transport(name, "ref")
+    jcurve = jrunner.run_scheme(name, views, labels, CFG, epochs=2,
+                                batch_size=T_BATCH, eval_n=40, transport=jtr)
+    jtr.close()
+    for p, q in zip(curve, jcurve):
+        assert (p.gbits, p.measured_gbits, p.delivered_gbits) == \
+            (q.gbits, q.measured_gbits, q.delivered_gbits)
+    assert runner._meter_dump(tr.meter) == jrunner._meter_dump(jtr.meter)
+    assert tr.snapshot() == jtr.snapshot()
+    assert 0 < curve[-1].delivered_gbits < curve[-1].gbits
+
+
+def test_transport_refuses_a_foreign_meter():
+    views, labels = _data()
+    tr = _transport("inl", "port")
+    with pytest.raises(ValueError, match="meter"):
+        runner.run_scheme("inl", views, labels, CFG, epochs=1,
+                          batch_size=T_BATCH, transport=tr,
+                          meter=tbw.BandwidthMeter(), device="cpu")
+    tr.close()

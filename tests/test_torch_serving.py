@@ -12,9 +12,20 @@ tests/test_serving.py and the engine units of tests/test_cluster.py.
   * a deadline and link models on the edges (a lossy star, a chain with a
     lossy last hop) serve rows equal to `predict_batched` under the
     request-id-keyed masks, and meter the masks' payload fraction;
-  * each option not ported yet raises NotImplementedError naming its slice.
+  * over a transport (repro_torch/transport): speculative fusion needs a
+    transport (the reference's ValueError); stragglers are patched into
+    the next bucket; a hard outage credits nothing delivered; on a lossy
+    star with a deadline the port's engine and the reference's, each over
+    its own package's transport from one seed, give the same masks,
+    `served_by`, `patched`, `views_recovered` and ledgers exactly and the
+    same probabilities within atol 1e-5;
+  * loadgen's guards (percentiles of 0 and 1 samples, 0 and 1 requests),
+    `--requests` clamping, and the `--arch paper-inl` front end on the CPU
+    (transport, speculative fusion, a deadline; a checkpoint written by
+    the reference served through `--ckpt-dir`).
 """
 import time
+import warnings
 
 import numpy as np
 import pytest
@@ -35,6 +46,17 @@ from tests._schemes_common import CFG  # noqa: E402
 from tests._torch_common import jax_inl, torch_inl, views_np  # noqa: E402
 
 N_VIEWS = 24
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread while a test runs (the workers of a parallel
+    test run share the machine's cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inl():
@@ -298,14 +320,243 @@ def test_faulty_serving_options(option):
 
 
 # ---------------------------------------------------------------------------
-# options of later slices
+# the transport slice's options
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option, slice_name", [
-    (dict(transport=object()), "transport"),
+    (dict(transport="loopback"), "transport"),
     (dict(speculative=True), "transport"),
 ])
 def test_unported_options_raise(option, slice_name):
+    """Both options run now: transport= serves over a transport, and
+    speculative=True without one raises the reference's ValueError."""
+    scheme, state, views = _inl()
+    if "transport" not in option:
+        with pytest.raises(ValueError, match=slice_name):
+            ServingEngine(scheme, state, CFG, device="cpu", **option)
+        return
+    tr = _port_transport(ttopo.star(CFG.num_clients))
+    engine = ServingEngine(scheme, state, CFG, transport=tr, device="cpu")
+    probs, results = engine.serve(views[:, :3])
+    tr.close()
+    assert engine.meter is tr.meter and tr.meter.delivery_ratio == 1.0
+    assert [r.views_fused for r in results] == [CFG.num_clients] * 3
+    np.testing.assert_allclose(probs, _jax_predict(views[:, :3]), rtol=0,
+                               atol=1e-5)
+
+
+def _port_transport(topo, **kw):
+    from repro_torch.transport import NO_RETRY, NetworkTransport
+    kw.setdefault("policy", NO_RETRY)
+    kw.setdefault("breaker", None)
+    return NetworkTransport(topo, CFG, seed=0, **kw)
+
+
+def _late_star(latency_ms=50.0):
+    # deterministic stragglers: every link delivers (erasure 0, jitter 0)
+    # but 50 ms of latency blows a 10 ms fusion deadline on every view
+    return linkfault.with_links(
+        ttopo.star(CFG.num_clients),
+        linkfault.LinkModel(erasure=0.0, latency_ms=latency_ms,
+                            jitter_ms=0.0))
+
+
+def test_speculative_requires_transport():
     scheme, state, _ = _inl()
-    with pytest.raises(NotImplementedError, match=slice_name):
-        ServingEngine(scheme, state, CFG, device="cpu", **option)
+    with pytest.raises(ValueError, match="transport"):
+        ServingEngine(scheme, state, CFG, seed=0, speculative=True,
+                      device="cpu")
+
+
+def test_speculative_fusion_patches_stragglers():
+    """All J views delivered but LATE: without speculation the fusion at
+    the deadline answers from nothing; with it, the request is answered by
+    the next bucket's PATCHED fusion carrying every recovered view."""
+    scheme, state, views = _inl()
+    J, n = CFG.num_clients, 5
+    topo = _late_star()
+
+    tr = _port_transport(topo)
+    plain = ServingEngine(scheme, state, CFG, topology=topo, transport=tr,
+                          deadline_ms=10.0, seed=0, device="cpu")
+    _, res = plain.serve(views[:, :n])
+    tr.close()
+    assert [r.views_fused for r in res] == [0] * n
+    assert all(r.served_by == "first" for r in res)
+    assert plain.stats.patched == 0
+
+    tr = _port_transport(topo)
+    spec = ServingEngine(scheme, state, CFG, topology=topo, transport=tr,
+                         deadline_ms=10.0, seed=0, speculative=True,
+                         device="cpu")
+    probs, res = spec.serve(views[:, :n])
+    snap = tr.snapshot()
+    tr.close()
+    assert all(r.served_by == "patched" for r in res)
+    assert [r.views_fused for r in res] == [J] * n
+    assert [r.views_recovered for r in res] == [J] * n
+    assert spec.stats.patched == n and spec.stats.views_recovered == n * J
+    # the patched fusion consumed every view -> full delivered credit
+    assert snap["delivery_ratio"] == 1.0
+    # an all-views patched fusion decides like the clean engine
+    clean = ServingEngine(scheme, state, CFG, seed=0, device="cpu")
+    cp, _ = clean.serve(views[:, :n])
+    assert np.allclose(probs, cp, atol=2e-6, rtol=0)
+    assert np.array_equal(np.argmax(probs, -1), np.argmax(cp, -1))
+
+
+def test_transport_serving_credits_only_consumed_views():
+    """Non-speculative serving under a hard outage: the at-deadline fusion
+    consumed nothing, so the delivered ledger stays empty while offered
+    accrues per attempt."""
+    from repro_torch.chaos import ChaosSchedule
+    scheme, state, views = _inl()
+    topo = ttopo.resolve(None, CFG)
+    chaos = ChaosSchedule()
+    for e in topo.edges:
+        chaos = chaos.down_edge(e.key, 0, 64)
+    tr = _port_transport(topo, chaos=chaos)
+    engine = ServingEngine(scheme, state, CFG, transport=tr, seed=0,
+                           device="cpu")
+    _, res = engine.serve(views[:, :3])
+    assert [r.views_fused for r in res] == [0, 0, 0]
+    assert tr.meter.total_bits > 0 and tr.meter.delivered_bits == 0.0
+    tr.close()
+
+
+def _speculative_run(side, views):
+    """20 requests through one package's engine and transport: a lossy
+    star (erasure 0.2, latency 5 + Exp(10) ms) against a 30 ms deadline,
+    DEFAULT_RETRY, speculative fusion."""
+    if side == "ref":
+        from repro.core import linkfault as lf
+        from repro.core import schemes as sch
+        from repro.core import topology as tp
+        from repro.serving import ServingEngine as Engine
+        from repro.transport import DEFAULT_RETRY, NetworkTransport
+        jp, js = jax_inl(CFG)
+        state, kw = {"params": jp, "state": js}, {}
+    else:
+        from repro_torch.core import linkfault as lf
+        from repro_torch.core import schemes as sch
+        from repro_torch.core import topology as tp
+        from repro_torch.transport import DEFAULT_RETRY, NetworkTransport
+        Engine = ServingEngine
+        params, st = torch_inl(CFG)
+        state, kw = {"params": params, "state": st}, {"device": "cpu"}
+    topo = lf.with_links(tp.star(CFG.num_clients),
+                         lf.LinkModel(erasure=0.2, latency_ms=5.0,
+                                      jitter_ms=10.0))
+    tr = NetworkTransport(topo, CFG, seed=11, policy=DEFAULT_RETRY)
+    engine = Engine(sch.get("inl"), state, CFG, topology=topo, transport=tr,
+                    deadline_ms=30.0, seed=0, speculative=True, **kw)
+    probs, res = engine.serve(views[:, :20])
+    tr.close()
+    return (np.asarray(probs), [(r.rid, r.views_fused, r.served_by,
+                                 r.views_recovered) for r in res],
+            (engine.stats.patched, engine.stats.views_recovered,
+             engine.stats.launches, engine.stats.launched_rows),
+            tr.snapshot(), dict(tr.meter.edge_bits),
+            dict(tr.meter.edge_delivered_bits))
+
+
+def test_speculative_serving_equals_the_reference_engine():
+    _, _, views = _inl()
+    ref, port = _speculative_run("ref", views), _speculative_run("port",
+                                                                 views)
+    np.testing.assert_allclose(port[0], ref[0], rtol=0, atol=1e-5)
+    assert port[1:] == ref[1:]
+    served_by = [r[2] for r in port[1]]
+    assert "patched" in served_by and "first" in served_by
+    assert port[2][0] == served_by.count("patched") and port[2][1] > 0
+    assert 0 < port[3]["delivery_ratio"] < 1
+
+
+# ---------------------------------------------------------------------------
+# loadgen guards and the front end
+# ---------------------------------------------------------------------------
+
+def test_percentile_guards_degenerate_samples():
+    from repro_torch.serving.loadgen import percentile_ms
+    assert percentile_ms([], 50) == 0.0           # not a ValueError
+    assert percentile_ms([], 99) == 0.0
+    assert percentile_ms([7.25], 50) == 7.25      # one sample IS every pct
+    assert percentile_ms([7.25], 99) == 7.25
+    lats = [1.0, 2.0, 3.0, 4.0]
+    assert percentile_ms(lats, 50) == pytest.approx(np.percentile(lats, 50))
+
+
+def test_run_poisson_zero_and_one_request_nan_free():
+    from repro_torch.serving.loadgen import run_poisson
+    scheme, state, views = _inl()
+    engine = ServingEngine(scheme, state, CFG, seed=0, buckets=(1,),
+                           device="cpu")
+    with engine:
+        empty = run_poisson(engine, views[:, :4], rate_rps=100.0,
+                            num_requests=0)
+        one = run_poisson(engine, views[:, :4], rate_rps=100.0,
+                          num_requests=1)
+    for summary, served in ((empty, 0), (one, 1)):
+        assert summary["served"] == served
+        for k, v in summary.items():
+            assert np.isfinite(v), (k, v)
+    assert empty["p50_ms"] == 0.0 and empty["mean_views_fused"] == 0.0
+    assert one["p99_ms"] == one["p50_ms"] > 0.0
+    assert one["mean_views_fused"] == CFG.num_clients
+
+
+def test_clamp_requests_warns_and_clamps():
+    from repro_torch.launch.serve import clamp_requests
+    assert clamp_requests(8, 100) == 8
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        assert clamp_requests(1000, 640) == 640
+    assert any(issubclass(x.category, RuntimeWarning)
+               and "exceeds" in str(x.message) for x in w)
+    with pytest.raises(ValueError, match="strict"):
+        clamp_requests(1000, 640, strict=True)
+
+
+def test_paper_inl_front_end_over_a_socket_transport(tmp_path, capsys):
+    """`--arch paper-inl --smoke` on the CPU: trains, serves 24 requests
+    over socket channels with speculative fusion and a 10 ms deadline,
+    and saves its model to --ckpt-dir; a second call serves that
+    checkpoint without training."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "paper-inl", "--smoke", "--device", "cpu",
+            "--requests", "24", "--transport", "socket", "--speculative",
+            "--deadline-ms", "10", "--ckpt-dir", str(tmp_path)]
+    out = serve.main(argv)
+    assert out["served"] == 24 and out["patched"] > 0
+    assert out["views_recovered"] > 0
+    assert all(c == 0 for c in out["trace_counts"].values())   # CPU: eager
+    again = serve.main(argv)
+    assert "serving from checkpoint step 2" in capsys.readouterr().out
+    assert again["views_fused"] == out["views_fused"]
+    assert again["accuracy"] == out["accuracy"]
+
+
+def test_front_end_serves_a_reference_checkpoint(tmp_path, capsys):
+    """A checkpoint the reference wrote (its layout: conv weights HWIO)
+    serves through `--ckpt-dir`, answering as the reference's predict."""
+    import jax
+    from repro import checkpoint as jcheckpoint
+    from repro.core import schemes as jschemes
+    from repro_torch.launch import serve
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    smoke = PaperExperimentConfig(conv_channels=(4,), d_bottleneck=8,
+                                  dense_units=(32,), image_shape=(16, 16, 3),
+                                  dataset_size=640)
+    jstate = jschemes.get("inl").init(smoke, jax.random.PRNGKey(5))
+    jcheckpoint.save(str(tmp_path), 7, jax.device_get(jstate))
+    out = serve.main(["--arch", "paper-inl", "--smoke", "--device", "cpu",
+                      "--requests", "16", "--ckpt-dir", str(tmp_path)])
+    assert "serving from checkpoint step 7" in capsys.readouterr().out
+    from repro.data import multiview as jmv
+    imgs, labels = jmv.make_base_dataset(640, image_shape=smoke.image_shape,
+                                         seed=0)
+    views = jmv.make_views(imgs, smoke.noise_stds)[:, :16]
+    want = np.asarray(jinl.predict(jstate["params"], jstate["state"],
+                                   jnp.asarray(views)))
+    assert out["accuracy"] == float(np.mean(np.argmax(want, -1)
+                                            == labels[:16]))

@@ -168,8 +168,11 @@ def test_device_none_means_cuda_and_raises_without_a_card(monkeypatch):
 
 
 def test_unported_paths_raise_naming_their_slice():
+    # `--arch paper-inl` serves now (tests/test_torch_serving.py); the
+    # crash-resume rig waits for the LLM stack's launch/train
+    from repro_torch import chaos
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "paper-inl", "--device", "cpu"])
+        chaos.main([])
     attn = dataclasses.replace(CFG, block_pattern=("attn",), num_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         zoo.init_params(attn, 0, device="cpu")
