@@ -244,12 +244,13 @@ Phases, each checked; any failed check exits non-zero before the last line:
               (cut_prior_bwd, unpack_dequant and pack beside their first
               designs' times, with cut_prior_bwd's first two launches
               apart), with the card's name and power limit on every line.
-  8. llm      the LLM stack, Zamba2-2.7B:
+  8. llm      the LLM stack, Zamba2-2.7B, then the attention-block models:
                 llm kernels  flash_attn_fwd against its plain version over
                              (B, S, H, KV, Dh) in {(1,128,4,4,32),
                              (2,256,8,2,64), (1,256,8,1,64), (2,192,32,32,80)
                              (ragged), (1,512,2,2,128), (2,512,32,32,80),
-                             (4,512,32,32,80) (the serving prefill's)},
+                             (4,512,32,32,80) (the serving prefill's),
+                             (2,200,16,16,192) (MLA's head dim, ragged)},
                              causal, window {0, 100}, q_offset {0, 64} on a
                              q slice; ssd_scan (y and the final state) over
                              (B, S, H, P, N, chunk) in {(1,128,2,32,16,32),
@@ -297,9 +298,31 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              plain version, the first (SIMT) kernels' times
                              from PERF.md, the scan's four launches by the
                              profiler and, for attention,
-                             scaled_dot_product_attention (timed only).
+                             scaled_dot_product_attention (timed only);
+                llm attn     each attention-block model in bf16 at its
+                             published widths (ATTN_MODELS): Llama-3.2-1B,
+                             Qwen1.5-4B, StarCoder2-3B, CodeQwen1.5-7B at
+                             full depth, Arctic-480B at 1 layer and
+                             DeepSeek-V2-236B at 3 (its dense layer 0 and
+                             two MoE layers); one prefill at B=4, P=512,
+                             launch counts set to 0 just before and read
+                             just after, exactly one flash_attn_fwd a
+                             layer (16, 40, 30, 32, 1, 3; DeepSeek's at
+                             Dh=192), each call against its plain version
+                             on its own inputs at the bf16 bar, two decode
+                             steps with finite logits, peak memory;
+                             Llama-3.2-1B then served, 4 requests x 512 x
+                             32 tokens: 16 launches (the decode steps
+                             none), wall time and the graphed decode per
+                             token; flash_attn_fwd at Dh=192, H=KV=128,
+                             B=4, S=512 and 2048 beside its bound, the
+                             plain version and
+                             scaled_dot_product_attention.
 
-The line before the last two is {"kernels": [...]} (the cut-layer kernels
+The line before the last two is {"kernels": [...]} (flash_attn_fwd's
+Dh=192 instance in an entry of its own, with DeepSeek-V2's launches; the
+flash entry's counts per attention-block model, `launches_on_attn_models`;
+the cut-layer kernels
 of the hybrids' path with their counts per run, `launches_on_hybrids`,
 every cut-layer kernel's counts in the graphed runs,
 `launches_on_graphs`, and in the transport phase's runs,
@@ -362,7 +385,7 @@ BF16_FLOPS = 989e12                 # H100 SXM dense bf16 tensor cores
 FP32_BAR, BF16_BAR = 2e-5, 2e-2     # the bars of tests/test_kernels.py
 FLASH_CASES = ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 256, 8, 1, 64),
                (2, 192, 32, 32, 80), (1, 512, 2, 2, 128), (2, 512, 32, 32, 80),
-               (4, 512, 32, 32, 80))
+               (4, 512, 32, 32, 80), (2, 200, 16, 16, 192))
 SSD_CASES = ((1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 64, 128),
              (1, 192, 2, 16, 8, 64), (2, 512, 80, 64, 64, 256),
              (4, 512, 80, 64, 64, 256))
@@ -372,6 +395,12 @@ LLM_CPU_STEPS = 8
 LLM_MARGIN = 1e-2                   # top-2 logit margin of a decided token
 LLM_CONSIST_P = 255                 # P and P + 1 both prefill in one chunk
 TENSOR_CORE_KERNELS = ("flash_attn_fwd", "ssd_scan")
+# the attention-block models served in the `llm attn` phase: (arch, depth on
+# the card (None: the full config), flash_attn_fwd launches per prefill)
+ATTN_MODELS = (("llama3.2-1b", None, 16), ("qwen1.5-4b", None, 40),
+               ("starcoder2-3b", None, 30), ("codeqwen1.5-7b", None, 32),
+               ("arctic-480b", 1, 1), ("deepseek-v2-236b", 3, 3))
+MLA_HEADS, MLA_DH = 128, 192        # DeepSeek-V2's prefill attention
 # graph_ms of the first, SIMT (fp32 FMA) kernels at the bf16 shapes of
 # llm_kernel_timing, (kernel, S) -> ms: the final chip_smoke.py run that
 # measured them on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
@@ -5493,18 +5522,7 @@ def decode_timing(torch, cfg, params, card_line):
           f"median {wall:.3f} ms over {steps_n} steps; device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall:.3f} [{card_line}]")
     # the graphed step on a fresh cache: one capture, then replays
-    graphed = steps.make_decode_step(cfg, greedy=True)
-    _, cache = prefill(params, {"tokens": prompts})
-    cache = zoo.pad_cache(cache, 2 + 2 * steps_n + 20)
-    box = [tok, cache, LLM_PROMPT]
-
-    def one_graphed():
-        pos = torch.full((), box[2], dtype=torch.int64, device=DEV)
-        box[0], box[1] = graphed(params, {"tokens": box[0][:, None],
-                                          "cache_len": pos}, box[1])
-        box[2] += 1
-    g_wall = timed_host(torch, one_graphed, reps=steps_n)
-    g_dev = cuda_ms(torch, one_graphed, reps=steps_n, warmup=2)
+    g_wall, g_dev = graphed_decode_ms(torch, cfg, params, prompts, steps_n)
     out["decode graphed"] = (g_wall, g_dev)
     print(f"graphs times: llm decode per token (B={LLM_B}, cache "
           f"{LLM_PROMPT}+): eager wall {wall:.3f} ms, busy {busy:.3f} ms, "
@@ -5563,6 +5581,175 @@ def llm_kernel_timing(torch, card_line):
               f"{bound:.4f} ms by {by} ({flops:.3g} flops, {nbytes} bytes; "
               f"{bound / k_ms:.3f} of the bound); no single torch call "
               f"[{card_line}]")
+    return rows
+
+
+def attn_model(arch, num_layers=None):
+    """The registered full config in bf16, its depth cut to num_layers."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    return dataclasses.replace(cfg, dtype="bfloat16")
+
+
+def graphed_decode_ms(torch, cfg, params, prompts, steps_n=24):
+    """The graphed greedy decode step a token after a prefill of `prompts`:
+    (host-clock median ms, device ms from CUDA events around steps_n
+    back-to-back steps)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    _, cache = steps.make_prefill_step(cfg)(params, {"tokens": prompts})
+    cache = zoo.pad_cache(cache, 2 + 2 * steps_n + 20)
+    graphed = steps.make_decode_step(cfg, greedy=True)
+    box = [prompts[:, -1], cache, prompts.shape[1]]
+
+    def one():
+        pos = torch.full((), box[2], dtype=torch.int64, device=DEV)
+        box[0], box[1] = graphed(params, {"tokens": box[0][:, None],
+                                          "cache_len": pos}, box[1])
+        box[2] += 1
+    wall = timed_host(torch, one, reps=steps_n)
+    return wall, cuda_ms(torch, one, reps=steps_n, warmup=2)
+
+
+def llm_attn_phase(torch, card_line):
+    """The attention-block transformers in bf16 at their published widths
+    (ATTN_MODELS): each model's prefill at B=4, P=512 with its flash calls
+    held against the plain version on their own inputs, the launches
+    counted (set to 0 just before, read just after) against the table, and
+    two decode steps with finite logits; Llama-3.2-1B at full depth then
+    served, 4 requests x 512 x 32 tokens, launches counted, and its
+    graphed decode timed.  Returns ({arch: flash launches in its prefill},
+    {"llama serve": launches}, max |kernel - plain| over every call,
+    {"deepseek": max |kernel - plain| of its Dh = 192 calls})."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import zoo
+    launches_by_model, worst, worst192 = {}, 0.0, 0.0
+    serve_launches = None
+    for arch, depth, want in ATTN_MODELS:
+        t0 = time.perf_counter()
+        cfg = attn_model(arch, depth)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = zoo.init_params(
+            cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        prompts = serve.prompts_for(cfg, LLM_B, LLM_PROMPT, 0).to(DEV)
+        prefill = steps.make_prefill_step(cfg)
+        torch.cuda.synchronize()
+        reset_launches()
+        (logits, cache), seen = kernel_inputs_of(
+            lambda: prefill(params, {"tokens": prompts}))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect_launches(launches, {"flash_attn_fwd": want},
+                        f"{arch} prefill (B={LLM_B}, P={LLM_PROMPT})")
+        check(len(seen["flash_attn_fwd"]) == want,
+              f"{arch}: {len(seen['flash_attn_fwd'])} flash calls, not "
+              f"{want}")
+        dh = {q.shape[-1] for (q, _, _), _ in seen["flash_attn_fwd"]}
+        check(dh == {MLA_DH if cfg.use_mla else cfg.head_dim},
+              f"{arch}: flash calls at head dims {dh}")
+        err, _, o_max = path_inputs_check(torch, seen)
+        err = err["flash_attn_fwd"]
+        del seen
+        worst = max(worst, err)
+        if cfg.use_mla:
+            worst192 = max(worst192, err)
+        launches_by_model[arch] = launches["flash_attn_fwd"]
+        cache = zoo.pad_cache(cache, 2)
+        decode = steps.make_decode_step(cfg)
+        all_logits = [logits]
+        for t in range(2):
+            tok = torch.argmax(all_logits[-1], dim=-1)[:, None]
+            lg, cache = decode(params, {"tokens": tok,
+                                        "cache_len": LLM_PROMPT + t}, cache)
+            all_logits.append(lg)
+        for lg in all_logits:
+            check(lg.shape == (LLM_B, cfg.vocab_size)
+                  and bool(torch.isfinite(lg).all()),
+                  f"{arch}: non-finite logits")
+        del cache, all_logits, logits
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        what = [f"{cfg.num_layers} layers", f"d_model {cfg.d_model}",
+                f"{zoo.param_count(cfg)} parameters"]
+        if depth:
+            what[0] = f"{depth} of {attn_model(arch).num_layers} layers"
+        if cfg.is_moe:
+            what.append(f"MoE {cfg.moe.num_experts} experts top-"
+                        f"{cfg.moe.experts_per_token}")
+        if cfg.use_mla:
+            what.append("MLA")
+        print(f"llm attn: {arch} (bf16, {', '.join(what)}): prefill B={LLM_B} "
+              f"P={LLM_PROMPT} launched flash_attn_fwd "
+              f"{launches['flash_attn_fwd']} times at Dh {sorted(dh)}, each "
+              f"== plain on its inputs, max |kernel - plain| {err:.3g} (max "
+              f"|o| {o_max:.3g}, bar {BF16_BAR}); two decode steps, logits "
+              f"finite; peak memory {peak:.2f} GiB; "
+              f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+        if arch == "llama3.2-1b":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t1 = time.perf_counter()
+            gen = serve.serve_batch(cfg, params, prompts, LLM_GEN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            serve_launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check(gen.shape == (LLM_B, LLM_GEN) and int(gen.min()) >= 0
+                  and int(gen.max()) < cfg.vocab_size,
+                  f"{arch}: tokens out of range {gen}")
+            expect_launches(serve_launches, {"flash_attn_fwd": want},
+                            f"{arch} serve_batch (one prefill, "
+                            f"{LLM_GEN - 1} graphed decode steps)")
+            d_wall, d_dev = graphed_decode_ms(torch, cfg, params, prompts)
+            print(f"llm attn serving: {arch} (full width and depth, bf16) "
+                  f"served {LLM_B} requests x prompt {LLM_PROMPT} x "
+                  f"{LLM_GEN} tokens in {wall:.3f} s; flash_attn_fwd "
+                  f"launched {serve_launches['flash_attn_fwd']} times (the "
+                  f"prefill; the decode steps none); peak memory "
+                  f"{peak:.2f} GiB; graphed decode per token {d_wall:.3f} ms "
+                  f"wall, {d_dev:.3f} ms device (CUDA events); sample "
+                  f"{gen[0, :8].tolist()} [{card_line}]")
+        # the decode step's graph keeps the parameters it captured
+        del params, prefill, decode
+        torch.cuda.empty_cache()
+    return launches_by_model, serve_launches, worst, worst192
+
+
+def mla_kernel_timing(torch, card_line):
+    """flash_attn_fwd's Dh = 192 instance at DeepSeek-V2's prefill heads
+    (H = KV = 128), B=4, S=512 and 2048, bf16: device time (graph_ms)
+    beside the bound, the plain version and scaled_dot_product_attention
+    (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    rows = {}
+    H, Dh, bf16 = MLA_HEADS, MLA_DH, torch.bfloat16
+    for S in (LLM_PROMPT, 2048):
+        reps = 20 if S == LLM_PROMPT else 5
+        timed = lambda fn: graph_ms(torch, fn, reps)
+        q, k, v = qkv_inputs(torch, LLM_B, S, H, H, Dh, bf16, 7)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        flops, nbytes = attn_cost(torch, LLM_B, S, H, H, Dh, bf16)
+        bound, by = bound_of(flops, nbytes, BF16_FLOPS)
+        k_ms = timed(lambda: flash_attention.flash_attn_fwd(q, k, v,
+                                                            causal=True))
+        p_ms = timed(lambda: ref.attention_ref(q, k, v, causal=True))
+        l_ms = timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+        rows[S] = (k_ms, p_ms, bound, by, l_ms)
+        print(f"flash_attn_fwd B={LLM_B} S={S} H=KV={H} Dh={Dh} bf16 "
+              f"causal (MLA's prefill): device time kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, scaled_dot_product_attention "
+              f"{l_ms:.4f} ms, bound {bound:.4f} ms by {by} ({flops:.3g} "
+              f"flops, {nbytes} bytes; {bound / k_ms:.3f} of the bound, "
+              f"{flops / k_ms / 1e9:.1f} TFLOP/s) [{card_line}]")
     return rows
 
 
@@ -5693,6 +5880,11 @@ def main() -> int:
     del llm_params
     rows.update(llm_kernel_timing(torch, card))
     torch.cuda.synchronize()
+    on_attn, attn_serve_launches, attn_worst, mla_worst = llm_attn_phase(
+        torch, card)
+    worst["flash_attn_fwd"] = max(worst["flash_attn_fwd"], attn_worst)
+    mla_rows = mla_kernel_timing(torch, card)
+    torch.cuda.synchronize()
     launches = {"cut_fwd": train_launches["cut_fwd"],
                 "cut_bwd": train_launches["cut_bwd"],
                 "cut_prior_fwd": prior_launches["cut_prior_fwd"],
@@ -5733,6 +5925,9 @@ def main() -> int:
           f"{on_transport}")
     check(not any(llm_graph_launches.values()),
           f"the graphed decode loop launched {llm_graph_launches}")
+    check(all(n > 0 for n in on_attn.values()),
+          f"an attention-block model's prefill never launched "
+          f"flash_attn_fwd: {on_attn}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s; final accuracy {accuracy}, "
           f"train step " + ", ".join(
@@ -5811,6 +6006,25 @@ def main() -> int:
             "launches_per_prefill": {"flash_attn_fwd": 9,
                                      "ssd_scan": 54}[kname],
             "path": "Zamba2-2.7B serving (prefill)"})
+        if kname == "flash_attn_fwd":
+            kernels[-1]["launches_on_attn_models"] = on_attn
+            kernels[-1]["launches_on_llama_serving"] = \
+                attn_serve_launches["flash_attn_fwd"]
+    k_ms, p_ms, b_ms, by, l_ms = mla_rows[LLM_PROMPT]
+    k2, p2, b2, _, l2 = mla_rows[2048]
+    kernels.append({
+        "name": f"flash_attn_fwd (Dh={MLA_DH} instance)", "route": "cuda",
+        "source": f"{src}flash_attn_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "launches": on_attn["deepseek-v2-236b"], "max_abs_err": mla_worst,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": l_ms,
+        "shape": f"B={LLM_B} S={LLM_PROMPT} H=KV={MLA_HEADS} Dh={MLA_DH} "
+                 f"bf16 (DeepSeek-V2's MLA prefill)",
+        "at_s2048": {"ms": k2, "plain_ms": p2, "bound_ms": b2,
+                     "library_ms": l2},
+        "launches_per_prefill": "1 a layer (3 at num_layers=3)",
+        "path": "DeepSeek-V2-236B serving (prefill), 3 of 60 layers"})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

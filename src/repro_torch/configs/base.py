@@ -4,7 +4,7 @@ Reference: src/repro/configs/base.py, copied field for field (the port
 imports nothing of the JAX package).  Only the architectures the port runs
 are registered: each registers its full config and a reduced smoke config,
 which the CPU tests instantiate.  The assigned input shapes and
-`arch_for_shape` come with the dry-run's slice (ROADMAP queue 1, item 6).
+`arch_for_shape` come with the dry-run's slice (ROADMAP queue 1, item 6.7).
 """
 from __future__ import annotations
 
@@ -154,6 +154,10 @@ class ModelConfig:
         from repro_torch.models import zoo
         return zoo.param_count(self)
 
+    def active_param_count(self) -> int:
+        from repro_torch.models import zoo
+        return zoo.param_count(self, active_only=True)
+
 
 # ---------------------------------------------------------------------------
 # Input-shape configs (assigned)
@@ -176,11 +180,11 @@ class ShapeConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# the ported architectures; the reference's other configs (llama3.2-1b,
-# qwen1.5-4b, starcoder2-3b, codeqwen1.5-7b, arctic-480b, deepseek-v2-236b,
-# xlstm-125m, musicgen-medium, internvl2-2b) come with the LLM stack's later
-# slices (ROADMAP queue 1, item 6)
-_ARCH_MODULES = ["zamba2_2_7b"]
+# the ported architectures; the reference's other configs (xlstm-125m,
+# musicgen-medium, internvl2-2b) come with the LLM stack's later slices
+# (ROADMAP queue 1, items 6.4 and 6.5)
+_ARCH_MODULES = ["qwen1_5_4b", "arctic_480b", "llama3_2_1b", "starcoder2_3b",
+                 "deepseek_v2_236b", "codeqwen1_5_7b", "zamba2_2_7b"]
 
 _REGISTRY: dict = {}
 _SMOKE_REGISTRY: dict = {}

@@ -154,19 +154,28 @@ def hybrid_from_jax(params_np, state_np, modes_np, cfg, device=None):
 FP32_LEAVES = ("A_log", "D", "dt_bias")
 
 
+def keeps_fp32(path) -> bool:
+    """Whether the LLM leaf at `path` (its keys, outermost first) stays
+    fp32 in a low-precision model: the SSM's A_log, D and dt_bias, and the
+    MoE router's weight (router/w), which the reference draws in fp32."""
+    name = path[-1]
+    return name in FP32_LEAVES or tuple(path[-2:]) == ("router", "w")
+
+
 def zoo_from_jax(params_np, cfg, *, device=None, dtype=None):
     """The reference LLM's params (nested dicts and lists of numpy leaves,
     any float type: a bf16 leaf is read through float32) -> the port's, on
-    `device` (None: cuda) in `dtype` (None: cfg.dtype)."""
+    `device` (None: cuda) in `dtype` (None: cfg.dtype), the leaves of
+    `keeps_fp32` in fp32."""
     from repro_torch.models import zoo
     device = resolve_device(device)
     dtype = dtype if dtype is not None else zoo.model_dtype(cfg)
 
-    def walk(tree, name=None):
+    def walk(tree, path=()):
         if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            return [walk(v, name) for v in tree]
+            return [walk(v, path + (i,)) for i, v in enumerate(tree)]
         t = _tensor(tree, device)
-        return t if name in FP32_LEAVES else t.to(dtype)
+        return t if keeps_fp32(path) else t.to(dtype)
     return walk(params_np)

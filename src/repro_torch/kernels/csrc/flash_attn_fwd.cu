@@ -43,6 +43,9 @@
 // Why not `wgmma` and TMA: Zamba2's Dh = 80 makes 160-byte rows, which fit
 // none of the 32/64/128-byte `wgmma` swizzle widths without splitting the
 // head dimension, while `mma.sync` takes Dh = 80 as 5 k-steps of 16.
+// Dh = 192 is DeepSeek-V2's MLA prefill (qk 128 + 64 rope, v padded from
+// 128 by the caller, so a third of its P.V multiplies zeros): 24 n-tiles,
+// 96 floats of o a lane, 128,000 bytes of shared memory, one block an SM.
 // Numerics: in bf16 a score's products are exact in fp32, so rounding P is
 // the error a tensor-core P.V adds to the plain fp32 version: with P in
 // one bf16, |dp| <= 2^-9 p, so |do| <= 2^-9 sum_j p_j |v_j| / l <=
@@ -264,9 +267,12 @@ __host__ __device__ constexpr size_t mma_smem_bytes(int dh) {
   return sizeof(bf16) * (size_t)(kBQ + 4 * kBK) * tc::padded(dh);
 }
 
-// Dh <= 80 fits 3 blocks (12 warps) an SM in registers (<= 168 a lane)
+// Dh <= 80 fits 3 blocks (12 warps) an SM in registers (<= 168 a lane);
+// Dh = 192 (MLA's prefill) takes 128,000 bytes of shared memory, so one
+// block an SM, and 96 accumulator floats a lane
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads, DH <= 80 ? 3 : 2)
+__global__ void __launch_bounds__(kMmaThreads,
+                                  DH <= 80 ? 3 : (DH <= 128 ? 2 : 1))
     flash_fwd_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -472,8 +478,9 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-// Only the head dims the port supports are instantiated (Dh 32, 64, 80
-// and 128; fp32: NJ 2, 4, 5 and 8); the wrapper raises on any other.
+// Only the head dims the port supports are instantiated (Dh 32, 64, 80,
+// 128 and 192; fp32: NJ 2, 4, 5, 8 and 12); the wrapper raises on any
+// other.
 int dispatch_f32(int Dh, const void* q, const void* k, const void* v,
                  void* o, int B, int Sq, int Sk, int H, int KV, int causal,
                  int window, int q_offset, float scale, cudaStream_t s) {
@@ -482,6 +489,7 @@ int dispatch_f32(int Dh, const void* q, const void* k, const void* v,
     case 64: return launch<float, 4>(q, k, v, o, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
     case 80: return launch<float, 5>(q, k, v, o, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
     case 128: return launch<float, 8>(q, k, v, o, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
+    case 192: return launch<float, 12>(q, k, v, o, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -494,6 +502,7 @@ int dispatch_bf16(int Dh, const void* q, const void* k, const void* v,
     case 64: return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
     case 80: return launch_mma<80>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
     case 128: return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 192: return launch_mma<192>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -502,8 +511,8 @@ int dispatch_bf16(int Dh, const void* q, const void* k, const void* v,
 
 // Plain C entry point, loaded with ctypes.  q, k, v, o contiguous in the
 // (B, S, heads, Dh) layout; is_bf16 selects their type (fp32 otherwise);
-// bf16 pointers 16-byte aligned.  Dh in {32, 64, 80, 128}.  Returns the
-// CUDA error of the launch (0 on success); the caller raises if it is
+// bf16 pointers 16-byte aligned.  Dh in {32, 64, 80, 128, 192}.  Returns
+// the CUDA error of the launch (0 on success); the caller raises if it is
 // not 0.
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                                      const void* v, void* o, int B, int Sq,

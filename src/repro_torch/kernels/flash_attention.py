@@ -31,7 +31,7 @@ LAUNCHES = {"flash_attn_fwd": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_I] * 9 + [_F, _I, _P]
-HEAD_DIMS = (32, 64, 80, 128)   # the instances csrc/flash_attn_fwd.cu builds
+HEAD_DIMS = (32, 64, 80, 128, 192)  # the instances flash_attn_fwd.cu builds
 
 
 def flash_attn_fwd(q, k, v, *, causal: bool = True, window: int = 0,

@@ -8,12 +8,15 @@ Reference: src/repro/launch/serve.py (`greedy`, `clamp_requests`,
 Usage (the card by default; `--device cpu` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --smoke --requests 4 --prompt-len 64 --gen-len 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-inl \\
       --transport socket --speculative --deadline-ms 10
 
-LLM weights are random, drawn from `--seed`; prompts come from the seeded
-Markov token stream (`data/tokens`).  `--smoke` takes the reduced config
-in fp32, as the reference does.
+`--arch` takes every registered LLM (`configs.base.list_archs()`: Zamba2
+and the attention-block models).  LLM weights are random, drawn from
+`--seed`; prompts come from the seeded Markov token stream
+(`data/tokens`).  `--smoke` takes the reduced config in fp32, as the
+reference does.
 
 `--arch paper-inl` serves the paper's in-network model: it trains INL
 (the smoke config with `--smoke`, else `PaperExperimentConfig()`) on the

@@ -7,7 +7,7 @@ the decode step, on the card, as a CUDA graph (repro_torch/graphs.py)
 captured once and replayed once per generated token, the counterpart of
 the reference's one compile of the decode step (`trace_log`).  Both run
 under `torch.no_grad`; the train steps come with the LLM training slice
-(ROADMAP queue 1, item 6).
+(ROADMAP queue 1, item 6.6).
 """
 from __future__ import annotations
 

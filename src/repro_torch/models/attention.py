@@ -1,15 +1,20 @@
-"""Attention: GQA/MQA/MHA with RoPE, sliding windows and KV caches.
+"""Attention: GQA/MQA/MHA with RoPE, sliding windows and KV caches, and
+DeepSeek-V2's MLA (multi-head latent attention) with compressed-cache
+decode.
 
 Reference: src/repro/models/attention.py (`gqa_init`, `gqa_param_count`,
-`gqa_make_cache`, `gqa_apply`, `decode_attention` and the `attn_*`
-fronts).  Prefill goes through `kernels/ops.attention`: the flash kernel
-on the card, its plain version on the CPU (the reference's model runs the
-same contract as a jnp blockwise scan).  Decode is one token against the
-cache in plain torch, softmax in fp32, with the reference's bf16
-roundings of the scaled query and the softmax weights.  DeepSeek-V2's
-MLA comes with a later slice of the LLM stack and raises here.
+`gqa_make_cache`, `gqa_apply`, `decode_attention`, `mla_init`,
+`mla_param_count`, `mla_make_cache`, `_mla_q`, `mla_apply` and the
+`attn_*` fronts).  Prefill goes through `kernels/ops.attention`: the flash
+kernel on the card, its plain version on the CPU (the reference's model
+runs the same contract as a jnp blockwise scan); MLA's prefill pads v up
+to the qk head dim (192 at DeepSeek-V2's widths) to make one call.
+Decode is one token against the cache in plain torch, softmax in fp32,
+with the reference's bf16 roundings: GQA's of the scaled query and the
+softmax weights, MLA's of the absorbed query and the weights in the
+compressed space.
 
-The decode step writes the new token's k/v into the cache in place (the
+The decode step writes the new token's cache entries in place (the
 reference donates the cache buffers to the same effect) and returns the
 same cache.
 """
@@ -18,13 +23,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
 NEG_INF = -1e30
-_MLA = ("MLA (DeepSeek-V2 multi-head latent attention) is not ported yet; "
-        "it comes with the LLM stack's MLA slice (ROADMAP queue 1, item 6)")
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, k_new, v_new, *,
@@ -172,36 +176,187 @@ def gqa_apply(p, cfg, x, positions, *, mode: str, cache=None,
         raise NotImplementedError(
             f"attention mode {mode!r}: the port serves (prefill, decode); "
             "training comes with the LLM training slice (ROADMAP queue 1, "
-            "item 6)")
+            "item 6.6)")
     y = layers.dense(p["wo"], out.reshape(B, S, H * Dh))
     return y, new_cache
 
 
 # ---------------------------------------------------------------------------
-# Unified front (MLA raises)
+# DeepSeek-V2 MLA
+# ---------------------------------------------------------------------------
+
+def mla_init(generator, cfg, dtype, device=None):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    kw = dict(dtype=dtype, device=device)
+    p = {}
+    if m.q_lora_rank:
+        p["wq_a"] = layers.dense_init(generator, d, m.q_lora_rank, **kw)
+        p["q_norm"] = layers.rmsnorm_init(m.q_lora_rank, **kw)
+        p["wq_b"] = layers.dense_init(generator, m.q_lora_rank,
+                                      H * m.qk_head_dim, **kw)
+    else:
+        p["wq"] = layers.dense_init(generator, d, H * m.qk_head_dim, **kw)
+    p["wkv_a"] = layers.dense_init(generator, d,
+                                   m.kv_lora_rank + m.qk_rope_head_dim, **kw)
+    p["kv_norm"] = layers.rmsnorm_init(m.kv_lora_rank, **kw)
+    p["wk_b"] = layers.dense_init(generator, m.kv_lora_rank,
+                                  H * m.qk_nope_head_dim, **kw)
+    p["wv_b"] = layers.dense_init(generator, m.kv_lora_rank,
+                                  H * m.v_head_dim, **kw)
+    p["wo"] = layers.dense_init(generator, H * m.v_head_dim, d, **kw)
+    return p
+
+
+def mla_param_count(cfg) -> int:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    n = 0
+    if m.q_lora_rank:
+        n += (d * m.q_lora_rank + m.q_lora_rank
+              + m.q_lora_rank * H * m.qk_head_dim)
+    else:
+        n += d * H * m.qk_head_dim
+    n += d * (m.kv_lora_rank + m.qk_rope_head_dim) + m.kv_lora_rank
+    n += m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+    n += H * m.v_head_dim * d
+    return n
+
+
+def mla_make_cache(cfg, batch: int, max_len: int, dtype, device=None):
+    m = cfg.mla
+    W = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    return {"c_kv": torch.zeros((batch, W, m.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, W, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def _mla_q(p, cfg, x):
+    m = cfg.mla
+    B, S, _ = x.shape
+    if m.q_lora_rank:
+        cq = layers.rmsnorm(p["q_norm"], layers.dense(p["wq_a"], x),
+                            cfg.norm_eps)
+        q = layers.dense(p["wq_b"], cq)
+    else:
+        q = layers.dense(p["wq"], x)
+    q = q.reshape(B, S, cfg.num_heads, m.qk_head_dim)
+    return q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+
+
+def _bmm_f32(a, b):
+    """a (n, i, k) @ b (n, k, j) as an fp32 result.  On the card a bf16
+    pair enters one product with an fp32 output, strided views read in
+    place (so no fp32 copy of a cache is made); elsewhere the operands are
+    upcast, which is exact."""
+    if a.device.type == "cuda" and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def mla_apply(p, cfg, x, positions, *, mode: str, cache=None,
+              cache_len=None):
+    """MLA.  Prefill expands the compressed kv and runs `ops.attention` on
+    q, k (nope + rope) and v padded to the qk head dim; decode runs in the
+    compressed space by weight absorption, against a cache of c_kv and the
+    shared rope key (kv_lora_rank + qk_rope_head_dim a token).  Returns
+    (y, new_cache)."""
+    m = cfg.mla
+    B, S, d = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = layers.dense(p["wkv_a"], x)
+    c_kv = layers.rmsnorm(p["kv_norm"], kv_a[..., :m.kv_lora_rank],
+                          cfg.norm_eps)
+    k_rope = kv_a[..., m.kv_lora_rank:][:, :, None, :]    # one shared head
+    k_rope = layers.apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
+    scale = 1.0 / math.sqrt(m.qk_head_dim)
+
+    if mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token and a cache")
+        if not isinstance(cache_len, torch.Tensor):
+            cache_len = torch.full((), int(cache_len), dtype=torch.int64,
+                                   device=x.device)
+        c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+        W = c_cache.shape[1]
+        slot = torch.remainder(cache_len, W) if cfg.sliding_window \
+            else cache_len
+        # the reference writes first and attends over the written cache
+        at = slot.reshape(1)
+        c_cache.index_copy_(1, at, c_kv.to(c_cache.dtype))
+        r_cache.index_copy_(1, at, k_rope.to(r_cache.dtype))
+        n_valid = torch.clamp(cache_len + 1, max=W)
+        cdt = c_cache.dtype
+        # weight absorption: q_nope through wk_b into the rank-kv_lora
+        # space, (H, B, nope) x (H, nope, rank) -> (H, B, rank), fp32
+        wk_b = p["wk_b"]["w"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+        q_abs = _bmm_f32(q_nope[:, 0].transpose(0, 1), wk_b.permute(1, 2, 0))
+        # scores (B, H, W): both products read the caches in place
+        s = (_bmm_f32(q_abs.transpose(0, 1).to(cdt), c_cache.transpose(1, 2))
+             + _bmm_f32(q_rope[:, 0].to(cdt), r_cache.transpose(1, 2))
+             ) * scale
+        valid = torch.arange(W, device=x.device) < n_valid
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        w = torch.softmax(s, dim=-1)
+        ctx = _bmm_f32(w.to(cdt), c_cache)                  # (B, H, rank)
+        # ctx and wv_b in fp32: (H, B, rank) x (H, rank, v) -> (H, B, v)
+        wv_b = p["wv_b"]["w"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+        out = torch.bmm(ctx.transpose(0, 1), wv_b.float().transpose(0, 1))
+        out = out.transpose(0, 1).to(x.dtype).reshape(B, S, H * m.v_head_dim)
+        new_cache = cache
+    elif mode == "prefill":
+        k_nope = layers.dense(p["wk_b"], c_kv).reshape(
+            B, S, H, m.qk_nope_head_dim)
+        v = layers.dense(p["wv_b"], c_kv).reshape(B, S, H, m.v_head_dim)
+        k_rope_b = k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope_b], dim=-1)
+        # v padded up to the qk head dim: one attention call (the kernel's
+        # scale 1/sqrt(Dh) is then MLA's 1/sqrt(qk_head_dim))
+        v_pad = F.pad(v, (0, m.qk_head_dim - m.v_head_dim))
+        out = ops.attention(q, k, v_pad, causal=True,
+                            window=cfg.sliding_window)
+        out = out[..., :m.v_head_dim].reshape(B, S, H * m.v_head_dim)
+        W = min(S, cfg.sliding_window) if cfg.sliding_window else S
+        cc, rc = c_kv[:, S - W:], k_rope[:, S - W:]
+        if cfg.sliding_window and S > W:
+            shift = (S - W) % W          # ring alignment (see gqa_apply)
+            cc = torch.roll(cc, shift, dims=1)
+            rc = torch.roll(rc, shift, dims=1)
+        new_cache = {"c_kv": cc.contiguous(), "k_rope": rc.contiguous()}
+    else:
+        raise NotImplementedError(
+            f"attention mode {mode!r}: the port serves (prefill, decode); "
+            "training comes with the LLM training slice (ROADMAP queue 1, "
+            "item 6.6)")
+    y = layers.dense(p["wo"], out)
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Unified front
 # ---------------------------------------------------------------------------
 
 def attn_init(generator, cfg, dtype, device=None):
-    if cfg.use_mla:
-        raise NotImplementedError(_MLA)
-    return gqa_init(generator, cfg, dtype, device)
+    f = mla_init if cfg.use_mla else gqa_init
+    return f(generator, cfg, dtype, device)
 
 
 def attn_param_count(cfg) -> int:
-    if cfg.use_mla:
-        raise NotImplementedError(_MLA)
-    return gqa_param_count(cfg)
+    return mla_param_count(cfg) if cfg.use_mla else gqa_param_count(cfg)
 
 
 def attn_make_cache(cfg, batch: int, max_len: int, dtype, device=None):
-    if cfg.use_mla:
-        raise NotImplementedError(_MLA)
-    return gqa_make_cache(cfg, batch, max_len, dtype, device)
+    f = mla_make_cache if cfg.use_mla else gqa_make_cache
+    return f(cfg, batch, max_len, dtype, device)
 
 
 def attn_apply(p, cfg, x, positions, *, mode: str, cache=None,
                cache_len=None):
-    if cfg.use_mla:
-        raise NotImplementedError(_MLA)
-    return gqa_apply(p, cfg, x, positions, mode=mode, cache=cache,
-                     cache_len=cache_len)
+    f = mla_apply if cfg.use_mla else gqa_apply
+    return f(p, cfg, x, positions, mode=mode, cache=cache,
+             cache_len=cache_len)

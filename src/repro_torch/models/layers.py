@@ -124,23 +124,51 @@ def apply_rope(x, positions, theta: float):
 # MLPs
 # ---------------------------------------------------------------------------
 
+def _weak(v: float, dtype) -> float:
+    """A Python constant as the reference's weak-typed constant: rounded to
+    `dtype` (in bf16 0.044715 is 0.044677734375)."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def silu(x):
+    """jax.nn.silu as the reference computes it, x * (1 / (1 + exp(-x))),
+    each op in x's dtype: in bf16 the exp, the sum, the reciprocal and the
+    product each round to bf16, where torch's F.silu rounds once (and
+    about a third of an MLP's bf16 activations would differ)."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def gelu_tanh(x):
+    """jax.nn.gelu's default, the tanh approximation (torch's F.gelu
+    defaults to the exact erf form), in the reference's ops and dtype:
+    x * 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x (x x))))."""
+    c = _weak(math.sqrt(2.0 / math.pi), x.dtype)
+    a = _weak(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + a * (x * (x * x)))))
+    return x * cdf
+
+
+_ACTS = {"silu": silu, "gelu": gelu_tanh, "relu": F.relu}
+
+
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, *,
              act: str = "silu", dtype=torch.float32, device=None):
-    """The gated SwiGLU MLP (3 mats), act == 'silu'.  The reference's plain
-    2-layer MLP for other activations comes with the configs that use it
-    (a later slice of the LLM stack)."""
-    if act != "silu":
-        raise NotImplementedError(
-            f"mlp act {act!r}: only SwiGLU is ported; the others come with "
-            "a later slice of the LLM stack (ROADMAP queue 1, item 6)")
+    """act == 'silu': the gated SwiGLU MLP (wi, wg, wo); any other act: the
+    plain 2-layer MLP (wi, wo)."""
     kw = dict(dtype=dtype, device=device)
-    return {"wi": dense_init(generator, d_model, d_ff, **kw),
-            "wg": dense_init(generator, d_model, d_ff, **kw),
-            "wo": dense_init(generator, d_ff, d_model, **kw)}
+    p = {"wi": dense_init(generator, d_model, d_ff, **kw)}
+    if act == "silu":
+        p["wg"] = dense_init(generator, d_model, d_ff, **kw)
+    p["wo"] = dense_init(generator, d_ff, d_model, **kw)
+    return p
 
 
-def mlp(p, x):
-    return dense(p["wo"], F.silu(dense(p["wi"], x)) * dense(p["wg"], x))
+def mlp(p, x, *, act: str = "silu"):
+    f = _ACTS[act]
+    h = f(dense(p["wi"], x))
+    if "wg" in p:
+        h = h * dense(p["wg"], x)
+    return dense(p["wo"], h)
 
 
 def mlp_param_count(d_model: int, d_ff: int, act: str = "silu") -> int:

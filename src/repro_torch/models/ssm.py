@@ -127,7 +127,7 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
         if state is None or S != 1:
             raise ValueError("decode takes one token and a state")
         xbc_t, conv_state = conv1d_step(p["conv"], xbc[:, 0], state["conv"])
-        xbc_t = F.silu(xbc_t)
+        xbc_t = layers.silu(xbc_t)
         xh = xbc_t[:, :d_in].reshape(Bsz, H, P)
         Bm = xbc_t[:, d_in:d_in + N]
         Cm = xbc_t[:, d_in + N:]
@@ -143,7 +143,7 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
         state["conv"].copy_(conv_state)
         new_state = state
     elif mode == "prefill":
-        xbc_act = F.silu(conv1d_causal(p["conv"], xbc))
+        xbc_act = layers.silu(conv1d_causal(p["conv"], xbc))
         xh = xbc_act[..., :d_in].reshape(Bsz, S, H, P).contiguous()
         Bm = xbc_act[..., d_in:d_in + N].contiguous()
         Cm = xbc_act[..., d_in + N:].contiguous()
@@ -160,6 +160,7 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
         raise NotImplementedError(
             f"mamba2 mode {mode!r}: the port serves (prefill, decode); "
             "training comes with the LLM training slice (ROADMAP queue 1, "
-            "item 6)")
-    y = layers.rmsnorm(p["norm"], y.to(x.dtype) * F.silu(z), cfg.norm_eps)
+            "item 6.6)")
+    y = layers.rmsnorm(p["norm"], y.to(x.dtype) * layers.silu(z),
+                       cfg.norm_eps)
     return layers.dense(p["out_proj"], y), new_state

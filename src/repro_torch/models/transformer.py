@@ -1,34 +1,39 @@
 """Block composition and the decoder stack.
 
 Reference: src/repro/models/transformer.py (`block_pattern`, `num_periods`,
-`_shared_attn_init`, `block_init`, `block_apply`, `block_make_cache`,
-`stack_init`, `stack_apply`, `stack_make_cache`, `stack_param_count`).
+`_attn_block_init`, `_attn_block_apply`, `_shared_attn_init`,
+`block_init`, `block_apply`, `block_make_cache`, `stack_init`,
+`stack_apply`, `stack_make_cache`, `stack_param_count`).
 
 A model is a repeating `block_pattern` (a period) of typed blocks over
-`num_layers // period` periods, plus Zamba2's parameter-SHARED attention
-block.  Parameters are stacked per position in the period, with a leading
-`nper` axis, as the reference stacks them for its `lax.scan`, so converted
-weights copy over leaf for leaf; `stack_apply` loops over the periods in
-Python.  Caches stack their per-period leaves the same way.
+`num_layers // period` periods, plus optional pre-layers outside the
+periods (DeepSeek-V2's dense layer 0) and Zamba2's parameter-SHARED
+attention block.  Parameters are stacked per position in the period, with
+a leading `nper` axis, as the reference stacks them for its `lax.scan`, so
+converted weights copy over leaf for leaf; `stack_apply` loops over the
+periods in Python.  Caches stack their per-period leaves the same way.
 
-Block kinds ported: "mamba" and "mamba+shared_attn" (Zamba2).  The "attn"
-block (dense and MoE transformers), DeepSeek-V2's dense pre-layers and the
-xLSTM blocks come with later slices of the LLM stack and raise.
+Block kinds ported: "attn" (pre-norm attention, GQA or MLA, then a dense
+MLP, or a MoE with Arctic's dense residual beside it), "mamba" and
+"mamba+shared_attn" (Zamba2).  The xLSTM blocks come with a later slice of
+the LLM stack (ROADMAP queue 1, item 6.4) and raise.  The MoE's aux values
+feed only the training loss, which comes with item 6.6: the blocks drop
+them.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch import tree_map, tree_stack
-from repro_torch.models import attention, layers, ssm
+from repro_torch import tree_leaves, tree_map, tree_stack
+from repro_torch.models import attention, layers, moe, ssm
 
-PORTED_KINDS = ("mamba", "mamba+shared_attn")
+PORTED_KINDS = ("attn", "mamba", "mamba+shared_attn")
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet; it comes with a later slice of the LLM "
-        "stack (ROADMAP queue 1, item 6)")
+        f"{what} is not ported yet; it comes with the LLM stack's xLSTM "
+        "slice (ROADMAP queue 1, item 6.4)")
 
 
 def block_pattern(cfg):
@@ -50,10 +55,46 @@ def _check_ported(cfg) -> None:
     for kind in block_pattern(cfg):
         if kind not in PORTED_KINDS:
             raise _not_ported(f"the {kind!r} block kind")
-    if cfg.is_moe or cfg.moe.first_dense_layers:
-        raise _not_ported("MoE")
-    if cfg.use_mla:
-        raise _not_ported("MLA")
+
+
+# ---------------------------------------------------------------------------
+# The attention block
+# ---------------------------------------------------------------------------
+
+def _attn_block_init(generator, cfg, dtype, device=None, *, use_moe: bool):
+    kw = dict(dtype=dtype, device=device)
+    p = {"attn_norm": layers.rmsnorm_init(cfg.d_model, **kw),
+         "attn": attention.attn_init(generator, cfg, dtype, device),
+         "ffn_norm": layers.rmsnorm_init(cfg.d_model, **kw)}
+    if use_moe:
+        p["moe"] = moe.moe_init(generator, cfg, dtype, device)
+        if cfg.moe.dense_residual:
+            p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                       act=cfg.act, **kw)
+    else:
+        p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                   act=cfg.act, **kw)
+    return p
+
+
+def _attn_block_apply(p, cfg, x, positions, *, mode, cache, cache_len,
+                      use_moe: bool):
+    h, new_cache = attention.attn_apply(
+        p["attn"], cfg, layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps),
+        positions, mode=mode, cache=cache, cache_len=cache_len)
+    x = x + h
+    hn = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+    if use_moe:
+        # the reference's moe_impl "ep" is moe_apply when no mesh is active
+        moe_fn = moe.moe_decode_apply if mode == "decode" else (
+            moe.moe_apply_ep if cfg.moe_impl == "ep" else moe.moe_apply)
+        mo, _ = moe_fn(p["moe"], cfg, hn)
+        if cfg.moe.dense_residual:
+            mo = mo + layers.mlp(p["mlp"], hn, act=cfg.act)
+        x = x + mo
+    else:
+        x = x + layers.mlp(p["mlp"], hn, act=cfg.act)
+    return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +118,11 @@ def _shared_attn_init(generator, cfg, dtype, device=None):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def block_init(generator, cfg, kind: str, dtype, device=None):
+def block_init(generator, cfg, kind: str, dtype, device=None, *,
+               use_moe: bool = False):
+    if kind == "attn":
+        return _attn_block_init(generator, cfg, dtype, device,
+                                use_moe=use_moe)
     if kind == "mamba":
         return {"norm": layers.rmsnorm_init(cfg.d_model, dtype, device),
                 "mamba": ssm.mamba2_init(generator, cfg, dtype, device)}
@@ -92,6 +137,8 @@ def block_init(generator, cfg, kind: str, dtype, device=None):
 
 def block_make_cache(cfg, kind: str, batch: int, max_len: int, dtype,
                      device=None):
+    if kind == "attn":
+        return attention.attn_make_cache(cfg, batch, max_len, dtype, device)
     if kind == "mamba":
         return ssm.mamba2_make_state(cfg, batch, dtype, device)
     if kind == "mamba+shared_attn":
@@ -102,8 +149,11 @@ def block_make_cache(cfg, kind: str, batch: int, max_len: int, dtype,
 
 
 def block_apply(p, cfg, kind: str, x, positions, *, mode, cache=None,
-                cache_len=None, shared=None, emb0=None):
+                cache_len=None, shared=None, emb0=None, use_moe=False):
     """Returns (x, new_cache)."""
+    if kind == "attn":
+        return _attn_block_apply(p, cfg, x, positions, mode=mode, cache=cache,
+                                 cache_len=cache_len, use_moe=use_moe)
     if kind == "mamba":
         h, st = ssm.mamba2_apply(p["mamba"], cfg,
                                  layers.rmsnorm(p["norm"], x, cfg.norm_eps),
@@ -124,7 +174,8 @@ def block_apply(p, cfg, kind: str, x, positions, *, mode, cache=None,
             positions, mode=mode, cache=acache, cache_len=cache_len)
         g = g + hh
         g = g + layers.mlp(shared["ffn"],
-                           layers.rmsnorm(shared["ffn_norm"], g, cfg.norm_eps))
+                           layers.rmsnorm(shared["ffn_norm"], g, cfg.norm_eps),
+                           act=cfg.act)
         # per-invocation (unshared) output adapter
         x = x + layers.dense(p["adapter"], g)
         return x, {"mamba": mst, "attn": ast}
@@ -135,15 +186,44 @@ def block_apply(p, cfg, kind: str, x, positions, *, mode, cache=None,
 # The stack
 # ---------------------------------------------------------------------------
 
+def _use_moe(cfg, kind: str) -> bool:
+    return cfg.is_moe and kind == "attn"
+
+
+def _stacked_blocks(make, nper: int):
+    """One tree whose leaves stack `nper` calls of make() on a leading
+    axis, holding no more than the stack and one block at a time: each
+    block is copied in as it is made, and a single period's block is
+    viewed, not copied (Arctic's one layer is 28 GB in bf16)."""
+    block = make()
+    if nper == 1:
+        return tree_map(lambda t: t.unsqueeze(0), block)
+    out = tree_map(lambda t: t.new_empty((nper,) + t.shape), block)
+    for per in range(nper):
+        if per:
+            del block
+            block = make()
+        for dst, src in zip(tree_leaves(out), tree_leaves(block)):
+            dst[per].copy_(src)
+    return out
+
+
 def stack_init(generator, cfg, dtype, device=None):
-    """{"pattern": [one tree per period position, leaves (nper, ...)],
+    """{"pre": [DeepSeek-V2's dense pre-layers] (when it has any),
+    "pattern": [one tree per period position, leaves (nper, ...)],
     "shared": the shared attention block (when the pattern uses it)}."""
     _check_ported(cfg)
     pat = block_pattern(cfg)
     nper = num_periods(cfg)
-    p = {"pattern": [
-        tree_stack([block_init(generator, cfg, kind, dtype, device)
-                    for _ in range(nper)]) for kind in pat]}
+    p = {}
+    if cfg.moe.first_dense_layers:
+        p["pre"] = [_attn_block_init(generator, cfg, dtype, device,
+                                     use_moe=False)
+                    for _ in range(cfg.moe.first_dense_layers)]
+    p["pattern"] = [
+        _stacked_blocks(lambda kind=kind: block_init(
+            generator, cfg, kind, dtype, device,
+            use_moe=_use_moe(cfg, kind)), nper) for kind in pat]
     if any("shared_attn" in k for k in pat):
         p["shared"] = _shared_attn_init(generator, cfg, dtype, device)
     return p
@@ -153,12 +233,22 @@ def stack_param_count(cfg) -> int:
     _check_ported(cfg)
     pat = block_pattern(cfg)
     nper = num_periods(cfg)
+    dense_mlp = layers.mlp_param_count(cfg.d_model, cfg.d_ff, cfg.act)
+    ffn = dense_mlp
+    if cfg.is_moe:
+        ffn = moe.moe_param_count(cfg) + (
+            dense_mlp if cfg.moe.dense_residual else 0)
     per_kind = {
+        "attn": lambda: attention.attn_param_count(cfg) + 2 * cfg.d_model
+        + ffn,
         "mamba": lambda: ssm.mamba2_param_count(cfg) + cfg.d_model,
         "mamba+shared_attn": lambda: (ssm.mamba2_param_count(cfg) + cfg.d_model
                                       + cfg.d_model * cfg.d_model),
     }
     n = sum(nper * per_kind[kind]() for kind in pat)
+    if cfg.moe.first_dense_layers:
+        n += cfg.moe.first_dense_layers * (
+            attention.attn_param_count(cfg) + 2 * cfg.d_model + dense_mlp)
     if any("shared_attn" in k for k in pat):
         n += (2 * cfg.d_model * cfg.d_model + 2 * cfg.d_model
               + attention.attn_param_count(cfg)
@@ -169,10 +259,16 @@ def stack_param_count(cfg) -> int:
 def stack_make_cache(cfg, batch: int, max_len: int, dtype, device=None):
     _check_ported(cfg)
     nper = num_periods(cfg)
-    return {"pattern": [
+    cache = {}
+    if cfg.moe.first_dense_layers:
+        cache["pre"] = [block_make_cache(cfg, "attn", batch, max_len, dtype,
+                                         device)
+                        for _ in range(cfg.moe.first_dense_layers)]
+    cache["pattern"] = [
         tree_map(lambda t: t.expand((nper,) + t.shape).clone(),
                  block_make_cache(cfg, kind, batch, max_len, dtype, device))
-        for kind in block_pattern(cfg)]}
+        for kind in block_pattern(cfg)]
+    return cache
 
 
 def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None):
@@ -184,6 +280,15 @@ def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None):
     nper = num_periods(cfg)
     shared = p.get("shared")
     emb0 = x if shared is not None else None
+    new_cache = {}
+    if "pre" in p:
+        pre = []
+        for i, bp in enumerate(p["pre"]):
+            c = cache["pre"][i] if mode == "decode" else None
+            x, nc = block_apply(bp, cfg, "attn", x, positions, mode=mode,
+                                cache=c, cache_len=cache_len)
+            pre.append(nc)
+        new_cache["pre"] = pre
     outs = [[] for _ in pat]
     for per in range(nper):
         for i, kind in enumerate(pat):
@@ -192,9 +297,10 @@ def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None):
                  if mode == "decode" else None)
             x, nc = block_apply(bp, cfg, kind, x, positions, mode=mode,
                                 cache=c, cache_len=cache_len, shared=shared,
-                                emb0=emb0)
+                                emb0=emb0, use_moe=_use_moe(cfg, kind))
             if mode != "decode":
                 outs[i].append(nc)
     if mode == "decode":
         return x, cache
-    return x, {"pattern": [tree_stack(o) for o in outs]}
+    new_cache["pattern"] = [tree_stack(o) for o in outs]
+    return x, new_cache

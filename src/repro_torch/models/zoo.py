@@ -7,22 +7,22 @@ Reference: src/repro/models/zoo.py (`init_params`, `param_count`,
     forward(params, cfg, batch, mode, cache)      -> (logits, new_cache)
     make_cache(cfg, batch_size, max_len, device)  -> cache tree
     pad_cache(cache, extra)                       -> cache, k/v grown
-    param_count(cfg)                              -> analytic N
+    param_count(cfg, active_only=False)           -> analytic N
 
 Batch dict keys: `tokens` (B, S) integer ids; `cache_len` (decode) the
 count of valid cache entries: a 0-dim int64 tensor on the device (a
 Python int is moved there), as the reference's is a traced value, so one
 decode step serves every position and a CUDA graph of it can be replayed
 with the position in a static buffer.  Text models only: the audio
-and VLM front ends come with a later slice of the LLM stack, as does
-training (the loss and its chunked cross entropy).
+and VLM front ends come with a later slice of the LLM stack (item 6.5),
+as does training (the loss and its chunked cross entropy, item 6.6).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import as_generator, resolve_device
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, moe, transformer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -36,7 +36,7 @@ def _check_text(cfg) -> None:
         raise NotImplementedError(
             f"modality {cfg.modality!r} is not ported yet; the audio and VLM "
             "front ends come with a later slice of the LLM stack (ROADMAP "
-            "queue 1, item 6)")
+            "queue 1, item 6.5)")
 
 
 # ---------------------------------------------------------------------------
@@ -61,10 +61,17 @@ def init_params(cfg, generator, device=None):
     return p
 
 
-def param_count(cfg) -> int:
-    """Analytic parameter count (equal to init_params' leaves)."""
+def param_count(cfg, active_only: bool = False) -> int:
+    """Analytic parameter count (equal to init_params' leaves); with
+    active_only, a MoE model counts the experts a token touches."""
     _check_text(cfg)
     n = transformer.stack_param_count(cfg) + cfg.d_model
+    if active_only and cfg.is_moe:
+        pat = transformer.block_pattern(cfg)
+        n_moe_layers = transformer.num_periods(cfg) * sum(
+            1 for k in pat if k == "attn")
+        n -= n_moe_layers * (moe.moe_param_count(cfg)
+                             - moe.moe_active_param_count(cfg))
     vpad = layers.pad_vocab(cfg.vocab_size)
     n += vpad * cfg.d_model
     if not cfg.tie_embeddings:
@@ -129,7 +136,9 @@ def make_cache(cfg, batch_size: int, max_len: int, device=None):
                                         resolve_device(device))
 
 
-_CACHE_TIME_AXIS = {"k": -3, "v": -3}
+# MLA's compressed cache (c_kv, k_rope) grows too: without it a decode
+# step would write at slot P of a cache of P slots
+_CACHE_TIME_AXIS = {"k": -3, "v": -3, "c_kv": -2, "k_rope": -2}
 
 
 def pad_cache(cache, extra: int):

@@ -80,10 +80,11 @@ def flat(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
-def zamba2_weights(jcfg, cfg):
+def zoo_weights(jcfg, cfg):
     """(numpy params of the reference's zoo at `jcfg`, the port's params at
     `cfg` on the CPU).  The leaves init leaves constant (A_log, D, dt_bias,
-    the norm scales, the conv biases) get seeded numpy noise, and the
+    the norm scales, q_norm's and kv_norm's among them, every bias: the
+    conv biases and the QKV biases) get seeded numpy noise, and Zamba2's
     per-layer adapters are drawn N(0, 1/d_model) in place of init's 1e-4
     scale, so the shared attention block moves the logits."""
     from repro.models import zoo as jzoo
@@ -95,7 +96,7 @@ def zamba2_weights(jcfg, cfg):
         x = np.asarray(x, np.float32)
         keys = [getattr(p, "key", None) for p in path]
         name = keys[-1]
-        if name == "b" and keys[-2] == "conv":
+        if name == "b":
             return (0.1 * rng.normal(size=x.shape)).astype(np.float32)
         if name == "w" and keys[-2] == "adapter":
             return (rng.normal(size=x.shape) / np.sqrt(jcfg.d_model)) \

@@ -32,7 +32,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_common import zamba2_weights  # noqa: E402
+from _torch_common import zoo_weights  # noqa: E402
 from repro.configs import get_smoke_config as jax_get_smoke  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
@@ -160,7 +160,7 @@ def test_bf16_smoke_model_serves_the_reference_greedy_ids():
     noise of the two packages' logits (BF16_LOGIT_NOISE of the largest
     logit) of the reference's pick, on the reference's own logits."""
     jcfg, cfg = _bf16_smoke(jax_get_smoke), _bf16_smoke(get_smoke_config)
-    jp, tp = zamba2_weights(jcfg, cfg)
+    jp, tp = zoo_weights(jcfg, cfg)
     # the reference's init keeps A_log, D and dt_bias fp32, the rest in
     # the model's dtype; the port's weights round the same values
     jp = jax.tree_util.tree_map_with_path(

@@ -28,7 +28,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_common import cuda_device, flat, zamba2_weights  # noqa: E402,F401
+from _torch_common import cuda_device, flat, zoo_weights  # noqa: E402,F401
 from repro.configs import get_smoke_config as jax_get_smoke  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import zoo as jzoo  # noqa: E402
@@ -232,7 +232,7 @@ ZCFG, ZJCFG = _smoke(get_smoke_config), _smoke(jax_get_smoke)
 
 @pytest.fixture(scope="module")
 def zamba2():
-    return zamba2_weights(ZJCFG, ZCFG)
+    return zoo_weights(ZJCFG, ZCFG)
 
 
 def test_decode_with_a_tensor_cache_len_matches_jax(zamba2):

@@ -161,7 +161,10 @@ def test_ssd_chunked_ref_refuses_a_ragged_chunk():
     # the tensor-core kernel's tile edges: S not a multiple of 16, Sq != Sk
     # with q_offset, and Zamba2's serving shape
     (2, 200, 4, 4, 64, 0, 0), (1, 200, 4, 2, 80, 50, 72),
-    (4, 512, 32, 32, 80, 0, 0)])
+    (4, 512, 32, 32, 80, 0, 0),
+    # Dh = 192, MLA's prefill: a ragged window case and DeepSeek-V2's
+    # serving shape (H = KV = 128)
+    (1, 200, 4, 4, 192, 50, 72), (4, 512, 128, 128, 192, 0, 0)])
 def test_flash_kernel_matches_plain_on_cuda(cuda_device, B, S, H, KV, Dh,
                                             window, q_offset, dtype):
     dt = getattr(torch, dtype)
@@ -175,6 +178,18 @@ def test_flash_kernel_matches_plain_on_cuda(cuda_device, B, S, H, KV, Dh,
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= (TOL if dtype == "float32" else BF16_TOL), err
+
+
+@pytest.mark.parametrize("Dh", [48, 96, 256])
+def test_flash_kernel_refuses_other_head_dims_on_cuda(cuda_device, Dh):
+    """No fallback: a head dim the kernel has no instance for (DeepSeek-V2's
+    smoke config takes 48) raises on the card; ops.attention too."""
+    q, k, v = (x.to(torch.bfloat16) for x in t(*qkv(1, 64, 4, 4, Dh),
+                                               device=cuda_device))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attn_fwd(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.attention(q, k, v, causal=True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
