@@ -317,11 +317,41 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              token; flash_attn_fwd at Dh=192, H=KV=128,
                              B=4, S=512 and 2048 beside its bound, the
                              plain version and
-                             scaled_dot_product_attention.
+                             scaled_dot_product_attention;
+                llm zoo      the reference's last three architectures in
+                             bf16 at published widths and full depth
+                             (ZOO_MODELS): MusicGen-medium through
+                             tokens_mc (the prompt on its 4 codebooks),
+                             InternVL2-2B on 256 seeded N(0, 1) patch
+                             embeddings before 256 text tokens, and
+                             xLSTM-125M; one prefill at B=4 over 512
+                             positions, launch counts set to 0 just before
+                             and read just after: exactly 48 flash_attn_fwd
+                             at Dh=64, 24 at Dh=128 and none for xLSTM
+                             (every counter 0), each flash call against its
+                             plain version on its own inputs at the bf16
+                             bar; the prefill's ms; MusicGen and xLSTM
+                             served 4 x 512 x 32 (48 and 0 launches, the
+                             decode none, one capture), InternVL2 two
+                             graphed decode steps with finite logits; the
+                             graphed decode per token, peak memory; under
+                             deterministic algorithms 8 graphed decode
+                             steps == 8 eager ones bit for bit (ids and
+                             logits, one capture); prefill of 512 + one
+                             decode step against prefill of 513: on an
+                             fp32 twin of the model (its bf16 weights in
+                             fp32) within rtol/atol 1e-3, in bf16 within
+                             3x the bf16 prefill's deviation from the
+                             twin's plus the twin's gap; one xLSTM period
+                             (num_layers=4) in fp32 on the card against
+                             the CPU port, prefill 512 and 8 decode steps
+                             fed the CPU's tokens within rtol/atol 1e-3;
+                             the phase's seconds.
 
 The line before the last two is {"kernels": [...]} (flash_attn_fwd's
 Dh=192 instance in an entry of its own, with DeepSeek-V2's launches; the
-flash entry's counts per attention-block model, `launches_on_attn_models`;
+flash entry's counts per attention-block model, and MusicGen's and
+InternVL2's, `launches_on_attn_models`;
 the cut-layer kernels
 of the hybrids' path with their counts per run, `launches_on_hybrids`,
 every cut-layer kernel's counts in the graphed runs,
@@ -401,6 +431,18 @@ ATTN_MODELS = (("llama3.2-1b", None, 16), ("qwen1.5-4b", None, 40),
                ("starcoder2-3b", None, 30), ("codeqwen1.5-7b", None, 32),
                ("arctic-480b", 1, 1), ("deepseek-v2-236b", 3, 3))
 MLA_HEADS, MLA_DH = 128, 192        # DeepSeek-V2's prefill attention
+# the models of the `llm zoo` phase, each at its full config in bf16:
+# (arch, flash_attn_fwd launches per prefill, their head dim)
+ZOO_MODELS = (("musicgen-medium", 48, 64), ("internvl2-2b", 24, 128),
+              ("xlstm-125m", 0, None))
+ZOO_STEPS = 8                       # graphed == eager decode steps
+# prefill of P + decode against prefill of P + 1 in bf16: decode's own
+# bf16 error (its roundings and two more a layer, q·scale and p) is taken
+# as at most twice the prefill's, so by the triangle inequality the bf16
+# gap is at most 3x the bf16 prefill's deviation from its fp32 twin plus
+# the fp32 twin's own handover gap
+ZOO_HANDOVER_NOISE = 3.0
+XLSTM_PERIOD = 4                    # ("mlstm",) * 3 + ("slstm",)
 # graph_ms of the first, SIMT (fp32 FMA) kernels at the bf16 shapes of
 # llm_kernel_timing, (kernel, S) -> ms: the final chip_smoke.py run that
 # measured them on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
@@ -5349,17 +5391,18 @@ def timed_host(torch, fn, reps):
     return statistics.median(times)
 
 
-def eager_decode(torch, cfg):
-    """The greedy decode step run eagerly, never captured: the body of
-    steps.make_decode_step(greedy=True), for holding the graphed step
-    against it."""
+def eager_decode(torch, cfg, greedy=True):
+    """The decode step run eagerly, never captured: the body of
+    steps.make_decode_step(greedy=greedy), for holding the graphed step
+    against it (greedy: the argmax ids, else the logits)."""
     from repro_torch.models import zoo
 
     @torch.no_grad()
     def decode(params, batch, cache):
         logits, cache = zoo.forward(params, cfg, batch, mode="decode",
                                     cache=cache)
-        return torch.argmax(logits[:, -1], dim=-1), cache
+        logits = logits[:, -1]
+        return (torch.argmax(logits, dim=-1) if greedy else logits), cache
     return decode
 
 
@@ -5522,7 +5565,8 @@ def decode_timing(torch, cfg, params, card_line):
           f"median {wall:.3f} ms over {steps_n} steps; device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall:.3f} [{card_line}]")
     # the graphed step on a fresh cache: one capture, then replays
-    g_wall, g_dev = graphed_decode_ms(torch, cfg, params, prompts, steps_n)
+    g_wall, g_dev = graphed_decode_ms(torch, cfg, params,
+                                      {"tokens": prompts}, steps_n)
     out["decode graphed"] = (g_wall, g_dev)
     print(f"graphs times: llm decode per token (B={LLM_B}, cache "
           f"{LLM_PROMPT}+): eager wall {wall:.3f} ms, busy {busy:.3f} ms, "
@@ -5594,21 +5638,49 @@ def attn_model(arch, num_layers=None):
     return dataclasses.replace(cfg, dtype="bfloat16")
 
 
-def graphed_decode_ms(torch, cfg, params, prompts, steps_n=24):
-    """The graphed greedy decode step a token after a prefill of `prompts`:
-    (host-clock median ms, device ms from CUDA events around steps_n
-    back-to-back steps)."""
+def zoo_inputs(cfg, ids):
+    """The batch of (B, S) token ids for cfg's modality: an audio model
+    reads them on each of its K codebooks (tokens_mc), as serve_batch
+    feeds it."""
+    if cfg.modality == "audio_tokens":
+        return {"tokens_mc": ids[..., None].expand(*ids.shape,
+                                                   cfg.num_codebooks)}
+    return {"tokens": ids}
+
+
+def last_ids(batch):
+    """The (B,) ids of a batch's last position (an audio model's first
+    codebook)."""
+    if "tokens_mc" in batch:
+        return batch["tokens_mc"][:, -1, 0]
+    return batch["tokens"][:, -1]
+
+
+def positions_of(batch):
+    """The positions a prefill of `batch` fills: the VLM's patches and its
+    text."""
+    ids = batch.get("tokens", batch.get("tokens_mc"))
+    n = ids.shape[1]
+    if "patch_embeds" in batch:
+        n += batch["patch_embeds"].shape[1]
+    return n
+
+
+def graphed_decode_ms(torch, cfg, params, batch, steps_n=24):
+    """The graphed greedy decode step a token after a prefill of `batch`
+    (any modality's): (host-clock median ms, device ms from CUDA events
+    around steps_n back-to-back steps)."""
     from repro_torch.launch import steps
     from repro_torch.models import zoo
-    _, cache = steps.make_prefill_step(cfg)(params, {"tokens": prompts})
+    _, cache = steps.make_prefill_step(cfg)(params, batch)
     cache = zoo.pad_cache(cache, 2 + 2 * steps_n + 20)
     graphed = steps.make_decode_step(cfg, greedy=True)
-    box = [prompts[:, -1], cache, prompts.shape[1]]
+    box = [last_ids(batch), cache, positions_of(batch)]
 
     def one():
         pos = torch.full((), box[2], dtype=torch.int64, device=DEV)
-        box[0], box[1] = graphed(params, {"tokens": box[0][:, None],
-                                          "cache_len": pos}, box[1])
+        box[0], box[1] = graphed(params, dict(zoo_inputs(
+            cfg, box[0][:, None]), cache_len=pos), box[1])
         box[2] += 1
     wall = timed_host(torch, one, reps=steps_n)
     return wall, cuda_ms(torch, one, reps=steps_n, warmup=2)
@@ -5705,7 +5777,8 @@ def llm_attn_phase(torch, card_line):
             expect_launches(serve_launches, {"flash_attn_fwd": want},
                             f"{arch} serve_batch (one prefill, "
                             f"{LLM_GEN - 1} graphed decode steps)")
-            d_wall, d_dev = graphed_decode_ms(torch, cfg, params, prompts)
+            d_wall, d_dev = graphed_decode_ms(torch, cfg, params,
+                                              {"tokens": prompts})
             print(f"llm attn serving: {arch} (full width and depth, bf16) "
                   f"served {LLM_B} requests x prompt {LLM_PROMPT} x "
                   f"{LLM_GEN} tokens in {wall:.3f} s; flash_attn_fwd "
@@ -5751,6 +5824,279 @@ def mla_kernel_timing(torch, card_line):
               f"flops, {nbytes} bytes; {bound / k_ms:.3f} of the bound, "
               f"{flops / k_ms / 1e9:.1f} TFLOP/s) [{card_line}]")
     return rows
+
+
+def zoo_prompt_batch(torch, cfg, length, seed):
+    """A prefill batch of LLM_B sequences over `length` positions: seeded
+    Markov prompts (an audio model's on each codebook); the VLM's first
+    num_prefix_tokens positions seeded N(0, 1) patch embeddings, as the
+    reference's dummy batch draws them, then text tokens."""
+    from repro_torch.launch import serve
+    ids = serve.prompts_for(cfg, LLM_B, length, seed).to(DEV)
+    if cfg.modality != "vlm":
+        return zoo_inputs(cfg, ids)
+    P = cfg.num_prefix_tokens
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    patches = torch.randn((LLM_B, P, cfg.d_model), generator=g, device=DEV)
+    return {"patch_embeds": patches.to(torch.bfloat16), "tokens": ids[:, P:]}
+
+
+def zoo_graph_check(torch, cfg, params, batch):
+    """Under deterministic algorithms, ZOO_STEPS decode steps from one
+    prefill of `batch`, each fed the eager run's greedy token: the graphed
+    step (steps.make_decode_step) against the eager body, the logits of
+    every step, the ids and every leaf of the final cache bit for bit, one
+    capture.  Returns the number of cache leaves compared."""
+    from repro_torch import tree_leaves, tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    P = positions_of(batch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        logits, cache0 = steps.make_prefill_step(cfg)(params, batch)
+        log, runs = [], {}
+        for label, decode in (("eager", eager_decode(torch, cfg, False)),
+                              ("graph", steps.make_decode_step(
+                                  cfg, trace_log=log))):
+            cache = zoo.pad_cache(tree_map(torch.clone, cache0), ZOO_STEPS)
+            lg, ids, lgs = logits, [], []
+            for t in range(ZOO_STEPS):
+                tok = torch.argmax(lg, dim=-1)
+                ids.append(tok[:, 0] if tok.ndim > 1 else tok)  # codebook 0
+                # both runs are fed the eager run's tokens
+                tok = runs["eager"][0][t] if runs else ids[-1]
+                pos = torch.full((), P + t, dtype=torch.int64, device=DEV)
+                lg, cache = decode(params, dict(zoo_inputs(
+                    cfg, tok[:, None]), cache_len=pos), cache)
+                lgs.append(lg)
+            runs[label] = (ids, lgs, cache)
+            del decode
+        (ids_e, lg_e, cache_e), (ids_g, lg_g, cache_g) = runs["eager"], \
+            runs["graph"]
+        check(all(torch.equal(a, b) for a, b in zip(ids_e, ids_g)),
+              f"{cfg.name}: graphed decode ids differ from the eager ones")
+        check(all(torch.equal(a, b) for a, b in zip(lg_e, lg_g)),
+              f"{cfg.name}: graphed decode logits differ from the eager "
+              f"ones")
+        le, lgl = tree_leaves(cache_e), tree_leaves(cache_g)
+        check(len(le) == len(lgl) and all(torch.equal(a, b)
+                                          for a, b in zip(le, lgl)),
+              f"{cfg.name}: the graphed final cache differs from the eager "
+              f"one")
+        check(len(log) == 1, f"{cfg.name}: {len(log)} captures, not 1")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return len(le)
+
+
+def zoo_handover_check(torch, cfg, params, seed):
+    """Prefill of LLM_PROMPT positions then one decode step of the next
+    token against a prefill of LLM_PROMPT + 1: the states and caches a
+    prefill hands to decode.  In fp32, on a twin of the model holding the
+    same (bf16) weights in fp32, the two last logits within LLM_CPU_TOL;
+    in bf16, within ZOO_HANDOVER_NOISE x the bf16 prefill's deviation
+    from the twin's, plus the twin's gap.  Returns ({"fp32": gap, "bf16":
+    gap, "noise": the bf16 prefill's deviation}, max |logit|), max |diff|
+    over the last logits."""
+    import dataclasses
+    from repro_torch import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    full = zoo_prompt_batch(torch, cfg, LLM_PROMPT + 1, seed)
+    head = {k: v if k == "patch_embeds" else v[:, :-1]
+            for k, v in full.items()}
+    tail = {k: v[:, -1:] for k, v in full.items() if k != "patch_embeds"}
+
+    def run(c, p):
+        prefill = steps.make_prefill_step(c)
+        want, _ = prefill(p, full)
+        _, cache = prefill(p, head)
+        got, _ = eager_decode(torch, c, False)(
+            p, dict(tail, cache_len=LLM_PROMPT), zoo.pad_cache(cache, 1))
+        return want.float(), got.float()
+    want16, got16 = run(cfg, params)
+    twin = tree_map(lambda t: t.float(), params)
+    want32, got32 = run(dataclasses.replace(cfg, dtype="float32"), twin)
+    del twin
+    torch.cuda.synchronize()
+    gap = {"fp32": float((got32 - want32).abs().max()),
+           "bf16": float((got16 - want16).abs().max()),
+           "noise": float((want16 - want32).abs().max())}
+    top = float(want16.abs().max())
+    check(torch.allclose(got32, want32, **LLM_CPU_TOL),
+          f"{cfg.name} in fp32: prefill {LLM_PROMPT} + one decode step "
+          f"against prefill {LLM_PROMPT + 1}: max |diff| {gap['fp32']}")
+    check(bool(torch.isfinite(got16).all()) and gap["bf16"]
+          <= ZOO_HANDOVER_NOISE * gap["noise"] + gap["fp32"],
+          f"{cfg.name} in bf16: prefill {LLM_PROMPT} + one decode step "
+          f"against prefill {LLM_PROMPT + 1}: max |diff| {gap['bf16']} > "
+          f"{ZOO_HANDOVER_NOISE} x the bf16 prefill's deviation from fp32 "
+          f"{gap['noise']} + the fp32 gap {gap['fp32']}")
+    return gap, top
+
+
+def xlstm_fp32_check(torch, card_line):
+    """One period of xLSTM-125M (num_layers=4: three mLSTM blocks and an
+    sLSTM) at full width in fp32: the card against the CPU port on one set
+    of weights, prefill of 512 and LLM_CPU_STEPS decode steps fed the CPU's
+    tokens, within LLM_CPU_TOL."""
+    import dataclasses
+    from repro_torch import tree_map
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(get_config("xlstm-125m"),
+                              num_layers=XLSTM_PERIOD, dtype="float32")
+    p_cpu = zoo.init_params(cfg, torch.Generator().manual_seed(1),
+                            device="cpu")
+    p_dev = tree_map(lambda t: t.to(DEV), p_cpu)
+    prompts = serve.prompts_for(cfg, 1, LLM_PROMPT, 1)
+    prefill = steps.make_prefill_step(cfg)
+    decode = eager_decode(torch, cfg, False)
+    lc, cc = prefill(p_cpu, {"tokens": prompts})
+    lg, cg = prefill(p_dev, {"tokens": prompts.to(DEV)})
+    errs = []
+    for t in range(LLM_CPU_STEPS + 1):
+        lg = lg.cpu()
+        check(torch.allclose(lg, lc, **LLM_CPU_TOL),
+              f"xLSTM fp32 step {t} logits card vs CPU max |diff| "
+              f"{(lg - lc).abs().max()}")
+        errs.append(float((lg - lc).abs().max()))
+        if t == LLM_CPU_STEPS:
+            break
+        tok = lc.argmax(dim=-1)[:, None]
+        lc, cc = decode(p_cpu, {"tokens": tok, "cache_len": LLM_PROMPT + t},
+                        cc)
+        lg, cg = decode(p_dev, {"tokens": tok.to(DEV),
+                                "cache_len": LLM_PROMPT + t}, cg)
+    print(f"llm zoo fp32: xLSTM-125M one period (num_layers="
+          f"{XLSTM_PERIOD}, d_model {cfg.d_model}): prefill {LLM_PROMPT} "
+          f"last logits card vs CPU max |diff| {errs[0]:.3g}, "
+          f"{LLM_CPU_STEPS} decode steps fed the CPU's tokens max |diff| "
+          f"{max(errs[1:]):.3g} (rtol/atol 1e-3) [{card_line}]")
+
+
+def llm_zoo_phase(torch, card_line):
+    """The reference's last three architectures (ZOO_MODELS) in bf16 at
+    their full configs: each model's prefill at B=4 over 512 positions with
+    its flash calls held against the plain version on their own inputs and
+    the launches counted (set to 0 just before, read just after); its
+    prefill time; MusicGen and xLSTM served 4 x 512 x 32 tokens (launches
+    counted, one capture), InternVL2 two graphed decode steps; the graphed
+    decode per token; graphed == eager decode bit for bit; the prefill-to-
+    decode handover; one xLSTM period in fp32 against the CPU.  Returns
+    ({arch: flash launches in its prefill}, max |kernel - plain|)."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import zoo
+    t_phase = time.perf_counter()
+    launches_by_model, worst = {}, 0.0
+    for arch, want, dh in ZOO_MODELS:
+        t0 = time.perf_counter()
+        cfg = attn_model(arch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = zoo.init_params(
+            cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        batch = zoo_prompt_batch(torch, cfg, LLM_PROMPT, 0)
+        prefill = steps.make_prefill_step(cfg)
+        torch.cuda.synchronize()
+        reset_launches()
+        (logits, cache), seen = kernel_inputs_of(
+            lambda: prefill(params, batch))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect_launches(launches, {"flash_attn_fwd": want},
+                        f"{arch} prefill (B={LLM_B}, {LLM_PROMPT} "
+                        f"positions)")
+        calls = seen["flash_attn_fwd"]
+        check(len(calls) == want, f"{arch}: {len(calls)} flash calls, not "
+                                  f"{want}")
+        dims = {q.shape[-1] for (q, _, _), _ in calls}
+        check(dims == ({dh} if want else set()),
+              f"{arch}: flash calls at head dims {dims}")
+        err, _, o_max = path_inputs_check(torch, seen)
+        err = err["flash_attn_fwd"]
+        del seen, calls
+        worst = max(worst, err)
+        launches_by_model[arch] = launches["flash_attn_fwd"]
+        shape = (LLM_B, cfg.num_codebooks, cfg.vocab_size) \
+            if cfg.modality == "audio_tokens" else (LLM_B, cfg.vocab_size)
+        check(logits.shape == shape and bool(torch.isfinite(logits).all()),
+              f"{arch}: prefill logits {tuple(logits.shape)}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
+        del logits, cache
+        prefill_ms = timed_host(torch, lambda: prefill(params, batch),
+                                reps=2)
+        served = ""
+        if cfg.modality == "vlm":
+            # the reference serves no VLM: two graphed decode steps
+            logits, cache = prefill(params, batch)
+            cache = zoo.pad_cache(cache, 2)
+            decode = steps.make_decode_step(cfg)
+            for t in range(2):
+                tok = torch.argmax(logits, dim=-1)[:, None]
+                logits, cache = decode(params, {
+                    "tokens": tok, "cache_len": LLM_PROMPT + t}, cache)
+                check(logits.shape == (LLM_B, cfg.vocab_size)
+                      and bool(torch.isfinite(logits).all()),
+                      f"{arch}: decode step {t} logits not finite")
+            del logits, cache, decode
+            served = "two graphed decode steps, logits finite"
+        else:
+            ids = batch.get("tokens", batch.get("tokens_mc"))
+            ids = ids if ids.ndim == 2 else ids[..., 0]
+            log = []
+            torch.cuda.synchronize()
+            reset_launches()
+            t1 = time.perf_counter()
+            gen = serve.serve_batch(cfg, params, ids, LLM_GEN,
+                                    trace_log=log)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            serve_launches = read_launches()
+            check(gen.shape == (LLM_B, LLM_GEN) and int(gen.min()) >= 0
+                  and int(gen.max()) < cfg.vocab_size and len(log) == 1,
+                  f"{arch}: served {tuple(gen.shape)}, ids in "
+                  f"[{int(gen.min())}, {int(gen.max())}], {len(log)} "
+                  f"captures")
+            expect_launches(serve_launches, {"flash_attn_fwd": want},
+                            f"{arch} serve_batch (one prefill, "
+                            f"{LLM_GEN - 1} graphed decode steps)")
+            served = (f"served {LLM_B} x {LLM_PROMPT} x {LLM_GEN} tokens in "
+                      f"{wall:.3f} s, flash_attn_fwd launched "
+                      f"{serve_launches['flash_attn_fwd']} times (the "
+                      f"decode steps none), one capture, sample "
+                      f"{gen[0, :8].tolist()}")
+        d_wall, d_dev = graphed_decode_ms(torch, cfg, params, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        leaves = zoo_graph_check(torch, cfg, params, batch)
+        gap, h_top = zoo_handover_check(torch, cfg, params, 3)
+        what = f"{cfg.num_layers} layers, d_model {cfg.d_model}, " \
+               f"{zoo.param_count(cfg)} parameters"
+        kern = (f"flash_attn_fwd {launches['flash_attn_fwd']} times at Dh "
+                f"{sorted(dims)}, each == plain on its inputs, max |kernel - "
+                f"plain| {err:.3g} (max |o| {o_max:.3g}, bar {BF16_BAR})"
+                if want else "no kernel (every launch counter 0)")
+        print(f"llm zoo: {arch} (bf16, {what}): prefill B={LLM_B} over "
+              f"{LLM_PROMPT} positions launched {kern}; prefill "
+              f"{prefill_ms:.3f} ms; {served}; graphed decode per token "
+              f"{d_wall:.3f} ms wall, {d_dev:.3f} ms device (CUDA events); "
+              f"peak memory {peak:.2f} GiB; {ZOO_STEPS} graphed decode "
+              f"steps == eager bit for bit (ids, logits, {leaves} cache "
+              f"leaves, one capture); prefill {LLM_PROMPT} + one decode "
+              f"step vs prefill {LLM_PROMPT + 1}: max |diff| in fp32 (the "
+              f"same weights) {gap['fp32']:.3g}, in bf16 {gap['bf16']:.3g} "
+              f"(the bf16 prefill's deviation from fp32 {gap['noise']:.3g}, "
+              f"largest logit {h_top:.3g}); "
+              f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+        del params, prefill, batch
+        torch.cuda.empty_cache()
+    xlstm_fp32_check(torch, card_line)
+    torch.cuda.empty_cache()
+    print(f"llm zoo: the phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{card_line}]")
+    return launches_by_model, worst
 
 
 CUT_LAYER_SOURCES = ("cut_fwd", "cut_bwd", "cut_prior_fwd", "cut_prior_bwd",
@@ -5885,6 +6231,9 @@ def main() -> int:
     worst["flash_attn_fwd"] = max(worst["flash_attn_fwd"], attn_worst)
     mla_rows = mla_kernel_timing(torch, card)
     torch.cuda.synchronize()
+    on_zoo, zoo_worst = llm_zoo_phase(torch, card)
+    worst["flash_attn_fwd"] = max(worst["flash_attn_fwd"], zoo_worst)
+    on_attn.update({arch: n for arch, n in on_zoo.items() if n})
     launches = {"cut_fwd": train_launches["cut_fwd"],
                 "cut_bwd": train_launches["cut_bwd"],
                 "cut_prior_fwd": prior_launches["cut_prior_fwd"],

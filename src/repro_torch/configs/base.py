@@ -1,9 +1,9 @@
 """Config system: model configs, input-shape configs, and the arch registry.
 
 Reference: src/repro/configs/base.py, copied field for field (the port
-imports nothing of the JAX package).  Only the architectures the port runs
-are registered: each registers its full config and a reduced smoke config,
-which the CPU tests instantiate.  The assigned input shapes and
+imports nothing of the JAX package).  Every LLM architecture of the
+reference is registered: each registers its full config and a reduced
+smoke config, which the CPU tests instantiate.  The assigned input shapes and
 `arch_for_shape` come with the dry-run's slice (ROADMAP queue 1, item 6.7).
 """
 from __future__ import annotations
@@ -180,11 +180,12 @@ class ShapeConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# the ported architectures; the reference's other configs (xlstm-125m,
-# musicgen-medium, internvl2-2b) come with the LLM stack's later slices
-# (ROADMAP queue 1, items 6.4 and 6.5)
-_ARCH_MODULES = ["qwen1_5_4b", "arctic_480b", "llama3_2_1b", "starcoder2_3b",
-                 "deepseek_v2_236b", "codeqwen1_5_7b", "zamba2_2_7b"]
+# every LLM architecture of the reference, in its order
+_ARCH_MODULES = [
+    "xlstm_125m", "qwen1_5_4b", "arctic_480b", "llama3_2_1b",
+    "musicgen_medium", "internvl2_2b", "starcoder2_3b", "deepseek_v2_236b",
+    "codeqwen1_5_7b", "zamba2_2_7b",
+]
 
 _REGISTRY: dict = {}
 _SMOKE_REGISTRY: dict = {}

@@ -23,10 +23,14 @@ per-branch encoders, as the reference does, and FL stacks the J client
 copies of everything along a leading axis.
 
 `zoo_from_jax` maps the reference's `models.zoo.init_params` tree onto the
-port's (`repro_torch.models.zoo`): the trees have one structure, dense
-(d_in, d_out) and conv1d (width, C) weights and the stacked (nper, ...)
-period leaves copy unchanged, and every leaf takes the model's dtype but
-A_log, D and dt_bias, which stay fp32 as in the reference.
+port's (`repro_torch.models.zoo`): the trees have one structure, and every
+leaf copies unchanged: dense (d_in, d_out) and conv1d (width, C) weights,
+the stacked (nper, ...) period leaves, xLSTM's leaves (mLSTM's up, conv,
+wq, wk, wv, w_if, norm, down; sLSTM's wx, block-diagonal r (H, dh, 4 dh),
+norm, ffn, ffn_norm), and an audio model's (K Vpad, d) codebook table
+(embed/w) and its heads.  Every leaf takes the model's dtype but those of
+`keeps_fp32` (A_log, D, dt_bias and the MoE router), which stay fp32 as in
+the reference.
 """
 from __future__ import annotations
 

@@ -12,11 +12,12 @@ Usage (the card by default; `--device cpu` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-inl \\
       --transport socket --speculative --deadline-ms 10
 
-`--arch` takes every registered LLM (`configs.base.list_archs()`: Zamba2
-and the attention-block models).  LLM weights are random, drawn from
-`--seed`; prompts come from the seeded Markov token stream
-(`data/tokens`).  `--smoke` takes the reduced config in fp32, as the
-reference does.
+`--arch` takes every registered LLM (`configs.base.list_archs()`: all
+ten of the reference's) but the VLM, which it refuses with the
+reference's message (its decode runs through the steps).  LLM weights are
+random, drawn from `--seed`; prompts come from the seeded Markov token
+stream (`data/tokens`), an audio model's broadcast to its K codebooks.
+`--smoke` takes the reduced config in fp32, as the reference does.
 
 `--arch paper-inl` serves the paper's in-network model: it trains INL
 (the smoke config with `--smoke`, else `PaperExperimentConfig()`) on the
@@ -70,7 +71,9 @@ def clamp_requests(n: int, available: int, *, strict: bool = False) -> int:
 def serve_batch(cfg, params, prompts, gen_len: int, *, trace_log=None):
     """prompts: (B, P) integer ids on the parameters' device.  Returns
     (B, gen_len) generated ids.  Prefill once, then greedy decode against
-    the cache, grown once by gen_len slots.
+    the cache, grown once by gen_len slots.  An audio model reads the
+    prompt on each of its K codebooks and feeds each generated token (the
+    first codebook's argmax) back on all K.
 
     The argmax lives inside the decode step (`make_decode_step(greedy=
     True)`), the token and cache_len stay on the device between steps, and
@@ -82,16 +85,25 @@ def serve_batch(cfg, params, prompts, gen_len: int, *, trace_log=None):
     prefill = steps_lib.make_prefill_step(cfg)
     decode = steps_lib.make_decode_step(cfg, greedy=True,
                                         trace_log=trace_log)
-    last_logits, cache = prefill(params, {"tokens": prompts})
+    audio = cfg.modality == "audio_tokens"
+    K = cfg.num_codebooks
+
+    def inputs(ids):                          # (B, S) -> the batch's key
+        if audio:
+            return {"tokens_mc": ids[..., None].expand(*ids.shape, K)}
+        return {"tokens": ids}
+    last_logits, cache = prefill(params, inputs(prompts))
     cache = zoo.pad_cache(cache, gen_len)
     tok = greedy(last_logits)
+    if audio:                                 # (B, K) -> the first codebook
+        tok = tok[:, 0]
     out = torch.empty((B, gen_len), dtype=tok.dtype, device=tok.device)
     out[:, 0] = tok
     for t in range(gen_len - 1):
         cache_len = torch.full((), P + t, dtype=torch.int64,
                                device=prompts.device)
-        tok, cache = decode(params, {"tokens": tok[:, None],
-                                     "cache_len": cache_len}, cache)
+        tok, cache = decode(params, dict(inputs(tok[:, None]),
+                                         cache_len=cache_len), cache)
         out[:, t + 1] = tok
     return out
 
@@ -436,6 +448,9 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.smoke:
         cfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.modality == "vlm":
+        raise SystemExit("serve demo supports text/audio archs; VLM decode "
+                         "is exercised via the dry-run")
     params = zoo.init_params(cfg, args.seed, device=device)
     prompts = prompts_for(cfg, args.requests, args.prompt_len,
                           args.seed).to(device)

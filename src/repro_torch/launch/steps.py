@@ -30,9 +30,11 @@ def make_prefill_step(cfg):
 def make_decode_step(cfg, *, greedy: bool = False, trace_log: list = None):
     """(params, batch, cache) -> (logits (B, V), cache), or with
     greedy=True (token ids (B,) int64, cache): the argmax lives in the step.
-    batch carries the new token (B, 1) and cache_len, the position it
-    takes (an int, or a 0-dim int64 tensor on the device); the cache is
-    updated in place.
+    batch carries the new token, `tokens` (B, 1) or an audio model's
+    `tokens_mc` (B, 1, K), and cache_len, the position it takes (an int,
+    or a 0-dim int64 tensor on the device); the cache is updated in place.
+    An audio model's logits are (B, K, V); greedy, it takes the argmax per
+    codebook and keeps the first codebook's, as the reference does.
 
     On CPU tensors the step runs eagerly.  On the card the first call for
     a given (params, cache, batch shapes) runs eagerly on a side stream
@@ -49,17 +51,20 @@ def make_decode_step(cfg, *, greedy: bool = False, trace_log: list = None):
         logits = logits[:, -1]
         if not greedy:
             return logits, new_cache
-        return torch.argmax(logits, dim=-1), new_cache
+        tok = torch.argmax(logits, dim=-1)
+        if tok.ndim > 1:                     # audio: (B, K) -> codebook 0
+            tok = tok[:, 0]
+        return tok, new_cache
 
     cache_of_graphs = graphs.GraphCache()
     statics = {}
 
     def decode_step(params, batch, cache):
-        tokens = batch["tokens"]
-        if tokens.device.type != "cuda":
+        inputs = {k: v for k, v in batch.items() if k != "cache_len"}
+        device = next(iter(inputs.values())).device
+        if device.type != "cuda":
             return eager(params, batch, cache)
-        batch = {"tokens": tokens,
-                 "cache_len": zoo.cache_len_tensor(batch, tokens.device)}
+        batch = dict(inputs, cache_len=zoo.cache_len_tensor(batch, device))
         key = (graphs.signature(params), graphs.signature(cache),
                tuple((k, tuple(v.shape), v.dtype)
                      for k, v in sorted(batch.items())))

@@ -1,16 +1,24 @@
-"""State-space blocks: Mamba2 (SSD) and its causal depthwise conv.
+"""State-space and recurrent blocks: Mamba2 (SSD), its causal depthwise
+conv, and xLSTM's mLSTM and sLSTM blocks.
 
 Reference: src/repro/models/ssm.py (`conv1d_init`, `conv1d_causal`,
 `conv1d_step`, `mamba2_init`, `mamba2_param_count`, `mamba2_make_state`,
-`mamba2_apply`).  Prefill runs the chunked SSD scan through
-`kernels/ops.ssd_scan`: the scan kernel on the card, its plain version on
-the CPU (the reference's model runs the same contract as the jnp
-`_ssd_chunked`).  Decode is the one-step recurrence in plain torch.  The
-xLSTM blocks come with a later slice of the LLM stack.
+`mamba2_apply`, `mlstm_init`, `mlstm_param_count`, `mlstm_make_state`,
+`_mlstm_cell`, `mlstm_apply`, `slstm_init`, `slstm_param_count`,
+`slstm_make_state`, `_slstm_cell`, `slstm_apply`).  Mamba2's prefill runs
+the chunked SSD scan through `kernels/ops.ssd_scan`: the scan kernel on
+the card, its plain version on the CPU (the reference's model runs the
+same contract as the jnp `_ssd_chunked`).  Decode is the one-step
+recurrence in plain torch.
 
-A_log, D and dt_bias are fp32 whatever the model's dtype, as in the
-reference.  The decode step writes the new SSM and conv states into the
-given state in place and returns it.
+The xLSTM recurrences are plain torch, as the reference's are jnp (it
+has no kernel for them): a prefill runs the cell once a step, in order.
+The reference's `_scan_chunked_remat` only rematerialises chunks of that
+scan for the backward pass; it computes the same steps.
+
+A_log, D and dt_bias, and every xLSTM state but the conv's, are fp32
+whatever the model's dtype, as in the reference.  A decode step writes
+the new states into the given state in place and returns it.
 """
 from __future__ import annotations
 
@@ -164,3 +172,245 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
     y = layers.rmsnorm(p["norm"], y.to(x.dtype) * layers.silu(z),
                        cfg.norm_eps)
     return layers.dense(p["out_proj"], y), new_state
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM block (matrix memory)
+# ---------------------------------------------------------------------------
+
+def _mlstm_dims(cfg):
+    """(d_in, H, dh): the up-projected width and its heads.  dh is
+    d_in // num_heads, not cfg.head_dim."""
+    d_in = cfg.ssm.expand * cfg.d_model
+    return d_in, cfg.num_heads, d_in // cfg.num_heads
+
+
+def mlstm_init(generator, cfg, dtype, device=None):
+    d = cfg.d_model
+    d_in, H, _ = _mlstm_dims(cfg)
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "up": layers.dense_init(generator, d, 2 * d_in, **kw),  # [x_m, z]
+        "conv": conv1d_init(generator, d_in, cfg.ssm.conv_width, dtype,
+                            device),
+        "wq": layers.dense_init(generator, d_in, d_in, **kw),
+        "wk": layers.dense_init(generator, d_in, d_in, **kw),
+        "wv": layers.dense_init(generator, d_in, d_in, **kw),
+        "w_if": layers.dense_init(generator, d_in, 2 * H, **kw),  # i, f
+        "norm": layers.rmsnorm_init(d_in, dtype, device),
+        "down": layers.dense_init(generator, d_in, d, **kw),
+    }
+
+
+def mlstm_param_count(cfg) -> int:
+    d = cfg.d_model
+    d_in, H, _ = _mlstm_dims(cfg)
+    n = d * 2 * d_in                                     # up
+    n += cfg.ssm.conv_width * d_in + d_in                # conv
+    n += 3 * d_in * d_in                                 # q, k, v
+    n += d_in * 2 * H                                    # gates
+    n += d_in + d_in * d                                 # norm + down
+    return n
+
+
+def mlstm_make_state(cfg, batch: int, dtype, device=None):
+    d_in, H, dh = _mlstm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((batch, H, dh, dh), **f32),
+        "n": torch.zeros((batch, H, dh), **f32),
+        "m": torch.full((batch, H), -1e30, **f32),
+        "conv": torch.zeros((batch, cfg.ssm.conv_width - 1, d_in),
+                            dtype=dtype, device=device),
+    }
+
+
+def _log_sigmoid(x):
+    """log sigmoid(x) as the reference writes it, -softplus(-x)."""
+    return -F.softplus(-x)
+
+
+def _mlstm_cell(carry, qkvif):
+    """One step of the stabilised mLSTM recurrence, all fp32.  carry: (C
+    (B, H, dh_k, dh_v), n (B, H, dh), m (B, H)); qkvif: q, k, v (B, H, dh)
+    and the raw gates i, f (B, H).  Returns (the new carry, h (B, H,
+    dh))."""
+    C, n, m = carry
+    q, k, v, i_raw, f_raw = qkvif
+    log_f = _log_sigmoid(f_raw)
+    m_new = torch.maximum(log_f + m, i_raw)
+    i_g = torch.exp(i_raw - m_new)
+    f_g = torch.exp(log_f + m - m_new)
+    C_new = f_g[..., None, None] * C + i_g[..., None, None] * (
+        k[..., :, None] * v[..., None, :])
+    n_new = f_g[..., None] * n + i_g[..., None] * k
+    num = torch.einsum("bhkv,bhk->bhv", C_new, q)
+    den = torch.abs(torch.einsum("bhk,bhk->bh", n_new, q)).clamp(min=1.0)
+    return (C_new, n_new, m_new), num / den[..., None]
+
+
+def mlstm_apply(p, cfg, x, *, mode: str, state=None):
+    """x: (B, S, d).  Returns (y, new_state): on 'prefill' the final (C, n,
+    m) of the recurrence and the last width-1 rows of the pre-conv branch;
+    on 'decode' (S == 1) `state`, updated in place."""
+    Bsz, S, _ = x.shape
+    d_in, H, dh = _mlstm_dims(cfg)
+    xm, z = torch.chunk(layers.dense(p["up"], x), 2, dim=-1)
+
+    if mode == "decode":
+        if state is None or S != 1:
+            raise ValueError("decode takes one token and a state")
+        xc, conv_state = conv1d_step(p["conv"], xm[:, 0], state["conv"])
+        xc = layers.silu(xc)[:, None]
+    elif mode == "prefill":
+        xc = layers.silu(conv1d_causal(p["conv"], xm))
+    else:
+        raise NotImplementedError(
+            f"mlstm mode {mode!r}: the port serves (prefill, decode); "
+            "training comes with the LLM training slice (ROADMAP queue 1, "
+            "item 6.6)")
+
+    def heads(t):
+        return t.reshape(Bsz, -1, H, dh).float()
+
+    # q and k are cast to fp32 before the scale; v comes from the
+    # pre-conv branch
+    q = heads(layers.dense(p["wq"], xc)) / math.sqrt(dh)
+    k = heads(layers.dense(p["wk"], xc)) / math.sqrt(dh)
+    v = heads(layers.dense(p["wv"], xm))
+    gates = layers.dense(p["w_if"], xc).float().reshape(Bsz, -1, 2, H)
+    i_raw, f_raw = gates[:, :, 0], gates[:, :, 1]        # (B, S, H)
+
+    if mode == "decode":
+        carry = (state["C"], state["n"], state["m"])
+        (C, n, m), h = _mlstm_cell(carry, (q[:, 0], k[:, 0], v[:, 0],
+                                           i_raw[:, 0], f_raw[:, 0]))
+        h = h[:, None]                                   # (B, 1, H, dh)
+        for name, t in (("C", C), ("n", n), ("m", m), ("conv", conv_state)):
+            state[name].copy_(t)
+        new_state = state
+    else:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        carry = (torch.zeros((Bsz, H, dh, dh), **f32),
+                 torch.zeros((Bsz, H, dh), **f32),
+                 torch.full((Bsz, H), -1e30, **f32))
+        hs = []
+        for t in range(S):
+            carry, h_t = _mlstm_cell(carry, (q[:, t], k[:, t], v[:, t],
+                                             i_raw[:, t], f_raw[:, t]))
+            hs.append(h_t)
+        h = torch.stack(hs, dim=1)                       # (B, S, H, dh)
+        # the conv state holds the last width-1 rows of the raw xm, zero
+        # rows in front when S < width-1
+        w1 = cfg.ssm.conv_width - 1
+        tail = F.pad(xm, (0, 0, max(0, w1 - S), 0))[:, -w1:]
+        new_state = {"C": carry[0], "n": carry[1], "m": carry[2],
+                     "conv": tail.contiguous()}
+
+    h = h.reshape(Bsz, -1, d_in).to(x.dtype)
+    h = layers.rmsnorm(p["norm"], h, cfg.norm_eps) * layers.silu(z)
+    return layers.dense(p["down"], h), new_state
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: sLSTM block (scalar memory, recurrent gates)
+# ---------------------------------------------------------------------------
+
+def _slstm_dims(cfg):
+    """(H, dh, ff): heads, head width and the gated FFN's width (pf=4/3,
+    rounded up to a multiple of 64)."""
+    d = cfg.d_model
+    H = cfg.num_heads
+    return H, d // H, int(math.ceil(4 / 3 * d / 64) * 64)
+
+
+def slstm_init(generator, cfg, dtype, device=None):
+    d = cfg.d_model
+    H, dh, ff = _slstm_dims(cfg)
+    kw = dict(dtype=dtype, device=device)
+    r = torch.randn((H, dh, 4 * dh), generator=generator,
+                    device=device) / math.sqrt(dh)
+    return {
+        "wx": layers.dense_init(generator, d, 4 * d, **kw),  # i, f, z, o
+        "r": r.to(dtype),                                # block-diagonal
+        "norm": layers.rmsnorm_init(d, dtype, device),
+        "ffn": layers.mlp_init(generator, d, ff, act="silu", **kw),
+        "ffn_norm": layers.rmsnorm_init(d, dtype, device),
+    }
+
+
+def slstm_param_count(cfg) -> int:
+    d = cfg.d_model
+    H, dh, ff = _slstm_dims(cfg)
+    return d * 4 * d + H * dh * 4 * dh + 2 * d + 3 * d * ff
+
+
+def slstm_make_state(cfg, batch: int, dtype, device=None):
+    H, dh, _ = _slstm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"c": torch.zeros((batch, H, dh), **f32),
+            "n": torch.zeros((batch, H, dh), **f32),
+            "h": torch.zeros((batch, H, dh), **f32),
+            "m": torch.full((batch, H, dh), -1e30, **f32)}
+
+
+def _slstm_cell(p_r, carry, x_gates, H, dh):
+    """One step.  carry: (c, n, h, m), each (B, H, dh) fp32; x_gates: (B,
+    4d) pre-activations from the input path; p_r: the recurrent weight
+    (H, dh, 4 dh), in any dtype (cast to fp32 here).  Returns the new
+    carry."""
+    c, n, h, m = carry
+    rec = torch.einsum("bhd,hde->bhe", h, p_r.float())   # (B, H, 4 dh)
+    g = x_gates.reshape(-1, H, 4, dh).float() + rec.reshape(-1, H, 4, dh)
+    i_raw, f_raw, z_raw, o_raw = g.unbind(dim=2)
+    log_f = _log_sigmoid(f_raw)
+    m_new = torch.maximum(log_f + m, i_raw)
+    i_g = torch.exp(i_raw - m_new)
+    f_g = torch.exp(log_f + m - m_new)
+    c_new = f_g * c + i_g * torch.tanh(z_raw)
+    n_new = f_g * n + i_g
+    h_new = torch.sigmoid(o_raw) * c_new / n_new.clamp(min=1.0)
+    return c_new, n_new, h_new, m_new
+
+
+def slstm_apply(p, cfg, x, *, mode: str, state=None):
+    """x: (B, S, d).  Returns (y, new_state): on 'prefill' the final (c, n,
+    h, m); on 'decode' (S == 1) `state`, updated in place.  The block's
+    FFN residual sits inside it: y = h + mlp(ffn_norm(h)), h = norm(hs)."""
+    Bsz, S, d = x.shape
+    H, dh, _ = _slstm_dims(cfg)
+    xg = layers.dense(p["wx"], x)                        # (B, S, 4d)
+    r = p["r"].float()                                   # cast once
+
+    if mode == "decode":
+        if state is None or S != 1:
+            raise ValueError("decode takes one token and a state")
+        carry = _slstm_cell(r, (state["c"], state["n"], state["h"],
+                                state["m"]), xg[:, 0], H, dh)
+        hs = carry[2][:, None]                           # (B, 1, H, dh)
+        for name, t in zip(("c", "n", "h", "m"), carry):
+            state[name].copy_(t)
+        new_state = state
+    elif mode == "prefill":
+        f32 = dict(dtype=torch.float32, device=x.device)
+        carry = (torch.zeros((Bsz, H, dh), **f32),
+                 torch.zeros((Bsz, H, dh), **f32),
+                 torch.zeros((Bsz, H, dh), **f32),
+                 torch.full((Bsz, H, dh), -1e30, **f32))
+        hs = []
+        for t in range(S):
+            carry = _slstm_cell(r, carry, xg[:, t], H, dh)
+            hs.append(carry[2])
+        hs = torch.stack(hs, dim=1)                      # (B, S, H, dh)
+        new_state = dict(zip(("c", "n", "h", "m"), carry))
+    else:
+        raise NotImplementedError(
+            f"slstm mode {mode!r}: the port serves (prefill, decode); "
+            "training comes with the LLM training slice (ROADMAP queue 1, "
+            "item 6.6)")
+
+    h = layers.rmsnorm(p["norm"], hs.reshape(Bsz, -1, d).to(x.dtype),
+                       cfg.norm_eps)
+    out = h + layers.mlp(
+        p["ffn"], layers.rmsnorm(p["ffn_norm"], h, cfg.norm_eps), act="silu")
+    return out, new_state

@@ -13,12 +13,13 @@ a leading `nper` axis, as the reference stacks them for its `lax.scan`, so
 converted weights copy over leaf for leaf; `stack_apply` loops over the
 periods in Python.  Caches stack their per-period leaves the same way.
 
-Block kinds ported: "attn" (pre-norm attention, GQA or MLA, then a dense
-MLP, or a MoE with Arctic's dense residual beside it), "mamba" and
-"mamba+shared_attn" (Zamba2).  The xLSTM blocks come with a later slice of
-the LLM stack (ROADMAP queue 1, item 6.4) and raise.  The MoE's aux values
-feed only the training loss, which comes with item 6.6: the blocks drop
-them.
+Block kinds, every one of the reference's: "attn" (pre-norm attention,
+GQA or MLA, then a dense MLP, or a MoE with Arctic's dense residual beside
+it), "mamba" and "mamba+shared_attn" (Zamba2), "mlstm" and "slstm"
+(xLSTM; each a pre-norm residual, x + block(norm(x))).  An unknown kind
+raises ValueError, as in the reference.  The MoE's aux values feed only
+the training loss, which comes with ROADMAP queue 1's item 6.6: the
+blocks drop them.
 """
 from __future__ import annotations
 
@@ -26,15 +27,6 @@ import torch
 
 from repro_torch import tree_leaves, tree_map, tree_stack
 from repro_torch.models import attention, layers, moe, ssm
-
-PORTED_KINDS = ("attn", "mamba", "mamba+shared_attn")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with the LLM stack's xLSTM "
-        "slice (ROADMAP queue 1, item 6.4)")
-
 
 def block_pattern(cfg):
     if cfg.block_pattern:
@@ -49,12 +41,6 @@ def num_periods(cfg):
         raise ValueError(f"{cfg.name}: {n_scanned} layers not divisible by "
                          f"period {len(pat)}")
     return n_scanned // len(pat)
-
-
-def _check_ported(cfg) -> None:
-    for kind in block_pattern(cfg):
-        if kind not in PORTED_KINDS:
-            raise _not_ported(f"the {kind!r} block kind")
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +118,13 @@ def block_init(generator, cfg, kind: str, dtype, device=None, *,
                 "adapter": layers.dense_init(generator, cfg.d_model,
                                              cfg.d_model, dtype=dtype,
                                              scale=1e-4, device=device)}
-    raise _not_ported(f"the {kind!r} block kind")
+    if kind == "mlstm":
+        return {"norm": layers.rmsnorm_init(cfg.d_model, dtype, device),
+                "mlstm": ssm.mlstm_init(generator, cfg, dtype, device)}
+    if kind == "slstm":
+        return {"norm": layers.rmsnorm_init(cfg.d_model, dtype, device),
+                "slstm": ssm.slstm_init(generator, cfg, dtype, device)}
+    raise ValueError(kind)
 
 
 def block_make_cache(cfg, kind: str, batch: int, max_len: int, dtype,
@@ -145,7 +137,11 @@ def block_make_cache(cfg, kind: str, batch: int, max_len: int, dtype,
         return {"mamba": ssm.mamba2_make_state(cfg, batch, dtype, device),
                 "attn": attention.attn_make_cache(cfg, batch, max_len, dtype,
                                                   device)}
-    raise _not_ported(f"the {kind!r} block kind")
+    if kind == "mlstm":
+        return ssm.mlstm_make_state(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return ssm.slstm_make_state(cfg, batch, dtype, device)
+    raise ValueError(kind)
 
 
 def block_apply(p, cfg, kind: str, x, positions, *, mode, cache=None,
@@ -179,7 +175,13 @@ def block_apply(p, cfg, kind: str, x, positions, *, mode, cache=None,
         # per-invocation (unshared) output adapter
         x = x + layers.dense(p["adapter"], g)
         return x, {"mamba": mst, "attn": ast}
-    raise _not_ported(f"the {kind!r} block kind")
+    if kind in ("mlstm", "slstm"):
+        apply = ssm.mlstm_apply if kind == "mlstm" else ssm.slstm_apply
+        h, st = apply(p[kind], cfg,
+                      layers.rmsnorm(p["norm"], x, cfg.norm_eps),
+                      mode=mode, state=cache)
+        return x + h, st
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +214,6 @@ def stack_init(generator, cfg, dtype, device=None):
     """{"pre": [DeepSeek-V2's dense pre-layers] (when it has any),
     "pattern": [one tree per period position, leaves (nper, ...)],
     "shared": the shared attention block (when the pattern uses it)}."""
-    _check_ported(cfg)
     pat = block_pattern(cfg)
     nper = num_periods(cfg)
     p = {}
@@ -230,7 +231,6 @@ def stack_init(generator, cfg, dtype, device=None):
 
 
 def stack_param_count(cfg) -> int:
-    _check_ported(cfg)
     pat = block_pattern(cfg)
     nper = num_periods(cfg)
     dense_mlp = layers.mlp_param_count(cfg.d_model, cfg.d_ff, cfg.act)
@@ -244,6 +244,8 @@ def stack_param_count(cfg) -> int:
         "mamba": lambda: ssm.mamba2_param_count(cfg) + cfg.d_model,
         "mamba+shared_attn": lambda: (ssm.mamba2_param_count(cfg) + cfg.d_model
                                       + cfg.d_model * cfg.d_model),
+        "mlstm": lambda: ssm.mlstm_param_count(cfg) + cfg.d_model,
+        "slstm": lambda: ssm.slstm_param_count(cfg) + cfg.d_model,
     }
     n = sum(nper * per_kind[kind]() for kind in pat)
     if cfg.moe.first_dense_layers:
@@ -257,7 +259,6 @@ def stack_param_count(cfg) -> int:
 
 
 def stack_make_cache(cfg, batch: int, max_len: int, dtype, device=None):
-    _check_ported(cfg)
     nper = num_periods(cfg)
     cache = {}
     if cfg.moe.first_dense_layers:
@@ -275,7 +276,6 @@ def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None):
     """x: (B, S, d) -> (x, new_cache).  'prefill' builds the cache, each
     leaf stacked over the periods; 'decode' updates `cache` in place and
     returns it."""
-    _check_ported(cfg)
     pat = block_pattern(cfg)
     nper = num_periods(cfg)
     shared = p.get("shared")

@@ -1,4 +1,4 @@
-"""Model zoo: full-model init and forward for the ported architectures.
+"""Model zoo: full-model init and forward for every LLM architecture.
 
 Reference: src/repro/models/zoo.py (`init_params`, `param_count`,
 `_embed_inputs`, `_project_out`, `forward`, `make_cache`, `pad_cache`).
@@ -9,13 +9,19 @@ Reference: src/repro/models/zoo.py (`init_params`, `param_count`,
     pad_cache(cache, extra)                       -> cache, k/v grown
     param_count(cfg, active_only=False)           -> analytic N
 
-Batch dict keys: `tokens` (B, S) integer ids; `cache_len` (decode) the
-count of valid cache entries: a 0-dim int64 tensor on the device (a
-Python int is moved there), as the reference's is a traced value, so one
-decode step serves every position and a CUDA graph of it can be replayed
-with the position in a static buffer.  Text models only: the audio
-and VLM front ends come with a later slice of the LLM stack (item 6.5),
-as does training (the loss and its chunked cross entropy, item 6.6).
+Batch dict keys (each optional but what the modality reads):
+  tokens        (B, S) ids       text / code tokens; the VLM's text
+  tokens_mc     (B, S, K) ids    audio: K parallel codebook streams
+  input_embeds  (B, S, d)        audio: the stub EnCodec front end's frames
+  patch_embeds  (B, P, d)        VLM: the stub vision encoder's patches,
+                                 prepended to the text embeddings
+  cache_len     () int64         decode: the count of valid cache entries
+`cache_len` is a 0-dim int64 tensor on the device (a Python int is moved
+there), as the reference's is a traced value, so one decode step serves
+every position and a CUDA graph of it can be replayed with the position
+in a static buffer.  An audio model's logits are (B, S, K, V), one row a
+codebook.  Training (the loss and its chunked cross entropy) comes with
+ROADMAP queue 1's item 6.6.
 """
 from __future__ import annotations
 
@@ -31,14 +37,6 @@ def model_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _check_text(cfg) -> None:
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"modality {cfg.modality!r} is not ported yet; the audio and VLM "
-            "front ends come with a later slice of the LLM stack (ROADMAP "
-            "queue 1, item 6.5)")
-
-
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
@@ -46,14 +44,22 @@ def _check_text(cfg) -> None:
 def init_params(cfg, generator, device=None):
     """Random weights from `generator` (a torch.Generator on `device`'s
     type, or an int seed), in cfg.dtype on `device` (None: cuda)."""
-    _check_text(cfg)
     device = resolve_device(device)
     gen = as_generator(generator, device)
     dtype = model_dtype(cfg)
     p = {"stack": transformer.stack_init(gen, cfg, dtype, device),
-         "final_norm": layers.rmsnorm_init(cfg.d_model, dtype, device),
-         "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
-                                    device)}
+         "final_norm": layers.rmsnorm_init(cfg.d_model, dtype, device)}
+    if cfg.modality == "audio_tokens":
+        # K codebook embedding tables, stored as one (K Vpad, d) table,
+        # and K output heads as one dense layer
+        kv = cfg.num_codebooks * layers.pad_vocab(cfg.vocab_size)
+        w = torch.randn((kv, cfg.d_model), generator=gen, device=device)
+        p["embed"] = {"w": (w * 0.02).to(dtype)}
+        p["heads"] = layers.dense_init(gen, cfg.d_model, kv, dtype=dtype,
+                                       device=device)
+        return p
+    p["embed"] = layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
+                                   device)
     if not cfg.tie_embeddings:
         p["unembed"] = layers.dense_init(
             gen, cfg.d_model, layers.pad_vocab(cfg.vocab_size), dtype=dtype,
@@ -64,7 +70,6 @@ def init_params(cfg, generator, device=None):
 def param_count(cfg, active_only: bool = False) -> int:
     """Analytic parameter count (equal to init_params' leaves); with
     active_only, a MoE model counts the experts a token touches."""
-    _check_text(cfg)
     n = transformer.stack_param_count(cfg) + cfg.d_model
     if active_only and cfg.is_moe:
         pat = transformer.block_pattern(cfg)
@@ -73,6 +78,8 @@ def param_count(cfg, active_only: bool = False) -> int:
         n -= n_moe_layers * (moe.moe_param_count(cfg)
                              - moe.moe_active_param_count(cfg))
     vpad = layers.pad_vocab(cfg.vocab_size)
+    if cfg.modality == "audio_tokens":
+        return n + 2 * cfg.num_codebooks * vpad * cfg.d_model
     n += vpad * cfg.d_model
     if not cfg.tie_embeddings:
         n += vpad * cfg.d_model
@@ -84,12 +91,24 @@ def param_count(cfg, active_only: bool = False) -> int:
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(p, cfg, batch):
-    """Returns (h, positions) for text tokens; decode positions start at
-    cache_len."""
-    _check_text(cfg)
-    tokens = batch["tokens"]
-    h = layers.embed(p["embed"], tokens)
-    B, S = tokens.shape
+    """Returns (h, positions): the text, audio or VLM inputs embedded, and
+    positions 0..S-1 over the whole (prefix and text) sequence, or from
+    cache_len on in decode."""
+    dtype = model_dtype(cfg)
+    if cfg.modality == "audio_tokens":
+        if "input_embeds" in batch:           # the stub EnCodec front end
+            h = batch["input_embeds"].to(dtype)
+        else:
+            toks = batch["tokens_mc"]         # (B, S, K)
+            offs = torch.arange(cfg.num_codebooks, device=toks.device) \
+                * layers.pad_vocab(cfg.vocab_size)
+            h = layers.embed(p["embed"], toks + offs).sum(dim=2)
+    elif cfg.modality == "vlm" and "patch_embeds" in batch:
+        txt = layers.embed(p["embed"], batch["tokens"])
+        h = torch.cat([batch["patch_embeds"].to(dtype), txt], dim=1)
+    else:
+        h = layers.embed(p["embed"], batch["tokens"])
+    B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)
     start = cache_len_tensor(batch, h.device)
     if start is not None:
@@ -110,6 +129,11 @@ def cache_len_tensor(batch, device):
 
 
 def _project_out(p, cfg, h):
+    if cfg.modality == "audio_tokens":
+        B, S = h.shape[0], h.shape[1]
+        logits = layers.dense(p["heads"], h).reshape(
+            B, S, cfg.num_codebooks, layers.pad_vocab(cfg.vocab_size))
+        return logits[..., :cfg.vocab_size]
     if cfg.tie_embeddings:
         return layers.unembed(p["embed"], h, cfg.vocab_size)
     return layers.dense(p["unembed"], h)[..., :cfg.vocab_size]

@@ -173,13 +173,9 @@ def test_unported_paths_raise_naming_their_slice():
     from repro_torch import chaos
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         chaos.main([])
-    # the attention-block models serve now (tests/test_torch_attn_models.py);
-    # xLSTM, the audio and VLM front ends and training wait for their items
-    mlstm = dataclasses.replace(CFG, block_pattern=("mlstm",), num_layers=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 6\.4"):
-        zoo.init_params(mlstm, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 6\.5"):
-        zoo.param_count(dataclasses.replace(CFG, modality="audio"))
+    # every architecture serves now (tests/test_torch_attn_models.py,
+    # tests/test_torch_xlstm.py, tests/test_torch_modalities.py); training
+    # waits for its item
     attn_cfg = get_smoke_config("llama3.2-1b")
     p = attention.gqa_init(torch.Generator().manual_seed(0), attn_cfg,
                            torch.float32)
