@@ -347,6 +347,31 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              the CPU port, prefill 512 and 8 decode steps
                              fed the CPU's tokens within rtol/atol 1e-3;
                              the phase's seconds.
+  9. llm train  the attention blocks' train mode, deterministic algorithms
+                on (TF32 off): flash_attn_fwd's logsumexp at Llama-3.2-1B's
+                (4, 2048, 32, 8, 64) in bf16 and fp32 and DeepSeek-V2's
+                MLA (1, 2048, 128, 128, 192) in bf16 within LSE_BAR of the
+                plain version's, o with the lse written == o without it
+                bit for bit; on those inputs the attention backward
+                (`attention.flash_bwd`, the reference's `_flash_bwd`) from
+                the kernel's (o, lse) within 2e-2 of the largest |gradient|
+                of the same backward from the plain forward's, autograd
+                through `blockwise_attention` == it bit for bit, its ms;
+                Llama-3.2-1B at full width, 2 layers, fp32: the loss and
+                every gradient leaf on the card against the CPU port
+                (rtol 1e-3, the INL step's bar) and one make_train_step's
+                loss and grad_norm; Llama-3.2-1B at its full config in
+                bf16, B=4, S=2048, remat on: 8 steps of
+                make_scan_train_step with default_optimizer on Markov
+                batches, every loss finite and the last below the first,
+                exactly 2 x 16 x 8 = 256 flash launches (a forward and a
+                recompute a layer a step), the 8 steps' ms, one step's ms
+                and its forward's, tokens/s, peak memory; DeepSeek-V2 cut
+                to 2 layers (dense layer 0, one MoE layer; 5.4 B
+                parameters) in bf16: one loss_and_metrics forward and
+                backward at B=1, S=2048, ce, lb_loss, z_loss and every
+                gradient finite, exactly 3 flash launches at Dh=192, ms
+                and peak memory; the phase's seconds.
 
 The line before the last two is {"kernels": [...]} (flash_attn_fwd's
 Dh=192 instance in an entry of its own, with DeepSeek-V2's launches; the
@@ -356,7 +381,10 @@ the cut-layer kernels
 of the hybrids' path with their counts per run, `launches_on_hybrids`,
 every cut-layer kernel's counts in the graphed runs,
 `launches_on_graphs`, and in the transport phase's runs,
-`launches_on_transport`),
+`launches_on_transport`; the flash entry's counts in the train runs,
+`launches_on_train`, its lse error, `lse_max_abs_err`, and the
+attention backward's ms on the train path's shapes,
+`train_backward_ms`),
 the one before the last
 nvidia-smi's name and power limit, and the last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -368,8 +396,9 @@ prints only their device times (phase 7's kernel lines, each kernel a call
 launches by name with its time), and no result line; with --decode-times
 it builds the two LLM kernels and prints only Zamba2-2.7B's decode
 latency per token (phase 8's `llm decode latency` and graphed decode
-lines, seeded weights), and no result line.  Either times the checkout it
-sits in: to compare two checkouts on one card, copy it into both and run
+lines, seeded weights), and no result line; with --llm-train it builds
+flash_attn_fwd and runs only phase 9, and no result line.  Either times
+the checkout it sits in: to compare two checkouts on one card, copy it into both and run
 them in turns, one after another on the same card.
 """
 from __future__ import annotations
@@ -443,6 +472,22 @@ ZOO_STEPS = 8                       # graphed == eager decode steps
 # the fp32 twin's own handover gap
 ZOO_HANDOVER_NOISE = 3.0
 XLSTM_PERIOD = 4                    # ("mlstm",) * 3 + ("slstm",)
+# the `llm train` phase: flash_attn_fwd's lse and the attention backward on
+# the train path's shapes (label, (B, S, H, KV, Dh), dtype): Llama-3.2-1B's
+# and DeepSeek-V2's MLA
+LSE_CASES = (("Llama-3.2-1B attention", (4, 2048, 32, 8, 64), "bfloat16"),
+             ("Llama-3.2-1B attention", (4, 2048, 32, 8, 64), "float32"),
+             ("DeepSeek-V2 MLA attention", (1, 2048, 128, 128, 192),
+              "bfloat16"))
+# |lse kernel - plain|: both sum the same fp32 terms in other orders (the
+# tensor cores' fp32 accumulation, exp2f against expf): ~1e-5 on lse ~ 8-10;
+# an lse error d scales every p of the backward by e^-d, so 1e-4 moves the
+# gradients by 1e-4 of themselves, 200x under the bf16 bar
+LSE_BAR = 1e-4
+LLM_TRAIN_BATCH = (4, 2048)         # Llama's full-width train step, B x S
+LLM_TRAIN_STEPS = 8
+LLM_TRAIN_CPU_LAYERS = 2            # Llama's fp32 card-vs-CPU step
+LLM_TRAIN_CPU_BATCH = (2, 256)
 # graph_ms of the first, SIMT (fp32 FMA) kernels at the bf16 shapes of
 # llm_kernel_timing, (kernel, S) -> ms: the final chip_smoke.py run that
 # measured them on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
@@ -5399,7 +5444,7 @@ def eager_decode(torch, cfg, greedy=True):
 
     @torch.no_grad()
     def decode(params, batch, cache):
-        logits, cache = zoo.forward(params, cfg, batch, mode="decode",
+        logits, cache, _ = zoo.forward(params, cfg, batch, mode="decode",
                                     cache=cache)
         logits = logits[:, -1]
         return (torch.argmax(logits, dim=-1) if greedy else logits), cache
@@ -6099,6 +6144,302 @@ def llm_zoo_phase(torch, card_line):
     return launches_by_model, worst
 
 
+# ---------------------------------------------------------------------------
+# 9. LLM training: the attention blocks' train mode
+# ---------------------------------------------------------------------------
+
+def lse_and_backward_check(torch, card_line):
+    """flash_attn_fwd's logsumexp on the train path's shapes (LSE_CASES):
+    lse against the plain version's, o with the lse written == o without it
+    bit for bit; then the attention backward (`attention.flash_bwd`, the
+    port of the reference's `_flash_bwd`) from the kernel's (o, lse)
+    against the same backward from the plain forward's, within BF16_BAR of
+    the largest |gradient|, and autograd through
+    `attention.blockwise_attention` on the card == the kernel's backward
+    bit for bit.  Returns ({case: backward ms (CUDA events)}, max |lse
+    kernel - plain|)."""
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.models import attention
+    bwd_ms, lse_worst = {}, 0.0
+    for label, (B, S, H, KV, Dh), dname in LSE_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v = qkv_inputs(torch, B, S, H, KV, Dh, dtype, S + Dh + 1)
+        do = qkv_inputs(torch, B, S, H, H, Dh, dtype, 3)[0]
+        o_plain, lse_plain = ref.attention_ref(q, k, v, causal=True,
+                                               lse=True)
+        o_only = flash_attention.flash_attn_fwd(q, k, v, causal=True)
+        o_k, lse_k = flash_attention.flash_attn_fwd(q, k, v, causal=True,
+                                                    lse=True)
+        torch.cuda.synchronize()
+        check(torch.equal(o_only, o_k),
+              f"{label}: o with the lse written differs from o without it")
+        check(lse_k.shape == (B, S, H) and lse_k.dtype == torch.float32,
+              f"{label}: lse {tuple(lse_k.shape)} {lse_k.dtype}")
+        err_lse = float((lse_k - lse_plain).abs().max())
+        check(err_lse <= LSE_BAR, f"{label}: |lse kernel - plain| "
+                                  f"{err_lse} > {LSE_BAR}")
+        lse_worst = max(lse_worst, err_lse)
+        opts = dict(causal=True, window=0, q_offset=0, block_q=512,
+                    block_k=512)
+        g_k = attention.flash_bwd(q, k, v, o_k, lse_k, do, **opts)
+        g_p = attention.flash_bwd(q, k, v, o_plain, lse_plain, do, **opts)
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = attention.blockwise_attention(qs, ks, vs, causal=True)
+        g_a = torch.autograd.grad(out, (qs, ks, vs), do)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b, c in zip("qkv", g_k, g_p, g_a):
+            top = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            check(err <= BF16_BAR * top,
+                  f"{label}: d{name} from the kernel's forward differs from "
+                  f"the plain forward's by {err} > {BF16_BAR} x {top}")
+            check(torch.equal(a, c), f"{label}: autograd's d{name} through "
+                                     f"blockwise_attention != flash_bwd's")
+            errs.append(err / top)
+        del g_p, g_a, out, o_plain, lse_plain
+        ms = cuda_ms(torch, lambda: attention.flash_bwd(
+            q, k, v, o_k, lse_k, do, **opts), reps=3, warmup=1)
+        bwd_ms[f"{label}, {dname}"] = ms
+        print(f"llm train: {label} {(B, S, H, KV, Dh)} {dtype}: lse == "
+              f"plain within {err_lse:.3g} (bar {LSE_BAR}), o with lse == o "
+              f"without bit for bit; (dq, dk, dv) from the kernel's forward "
+              f"vs the plain forward's within {max(errs):.3g} of the largest "
+              f"(bar {BF16_BAR}), autograd == flash_bwd bit for bit; the "
+              f"backward (plain torch, fp32) {ms:.3f} ms [{card_line}]")
+        del q, k, v, do, o_only, o_k, lse_k, g_k
+        torch.cuda.empty_cache()
+    return bwd_ms, lse_worst
+
+
+def lm_batches_on(torch, cfg, B, S, steps, seed):
+    """(steps, B, S) token ids of `data/tokens.markov_stream` and their
+    next-token labels, on the card."""
+    from repro_torch.data import tokens
+    toks = tokens.markov_stream(cfg.vocab_size, steps * B * (S + 1),
+                                seed=seed).reshape(steps, B, S + 1)
+    t = torch.from_numpy(toks.astype(np.int64)).to(DEV)
+    return {"tokens": t[..., :-1].contiguous(),
+            "labels": t[..., 1:].contiguous()}
+
+
+def llm_card_vs_cpu(torch, card_line):
+    """Llama-3.2-1B at full width, LLM_TRAIN_CPU_LAYERS layers, fp32: one
+    set of seeded weights on the card and on the CPU; the loss and every
+    gradient leaf of `zoo.loss_and_metrics` (the card's through the flash
+    kernel, the CPU's through the plain version) within the INL step's bar
+    (`grads_close`), then one `make_train_step` (SGD) on each: the loss and
+    grad_norm within rtol 1e-3."""
+    import dataclasses
+    from repro_torch import optim, tree_leaves, tree_map, value_and_grad
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(attn_model("llama3.2-1b",
+                                         LLM_TRAIN_CPU_LAYERS),
+                              dtype="float32")
+    cpu = zoo.init_params(cfg, 11, device="cpu")
+    gpu = tree_map(lambda t: t.to(DEV), cpu)
+    B, S = LLM_TRAIN_CPU_BATCH
+    batch = lm_batches_on(torch, cfg, B, S, 1, 12)
+    batch = {k: v[0] for k, v in batch.items()}
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    reset_launches()
+    l_gpu, _, g_gpu = value_and_grad(
+        lambda p: zoo.loss_and_metrics(p, cfg, batch), gpu)
+    torch.cuda.synchronize()
+    launches = read_launches()["flash_attn_fwd"]
+    check(launches == 2 * LLM_TRAIN_CPU_LAYERS,
+          f"card-vs-cpu: {launches} flash launches, not a forward and a "
+          f"recompute a layer")
+    l_cpu, _, g_cpu = value_and_grad(
+        lambda p: zoo.loss_and_metrics(p, cfg, cpu_batch), cpu)
+    max_leaf, max_abs, off = grads_close(float(l_gpu), float(l_cpu),
+                                         tree_leaves(g_gpu),
+                                         tree_leaves(g_cpu), "llama train")
+    del g_gpu, g_cpu
+    sgd = optim.sgd(1e-2)
+    step = steps.make_train_step(cfg, sgd)
+    got = {}
+    for dev, p, b in (("cpu", cpu, cpu_batch), (DEV, gpu, batch)):
+        _, _, m = step(p, sgd.init(p), b)
+        got[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    check(np.allclose(got[DEV], got["cpu"], rtol=1e-3, atol=0),
+          f"llama train step card {got[DEV]} vs cpu {got['cpu']}")
+    print(f"llm train: Llama-3.2-1B at full width, {LLM_TRAIN_CPU_LAYERS} "
+          f"layers, fp32, B={B} S={S}: loss card {float(l_gpu):.7f} cpu "
+          f"{float(l_cpu):.7f}, {launches} flash launches (a forward and a "
+          f"recompute a layer); every gradient leaf within rtol 1e-3 atol "
+          f"1e-5 as a tensor, largest |card - cpu| / |cpu| of a leaf "
+          f"{max_leaf:.3g}, largest entry difference {max_abs:.3g} ({off} "
+          f"entries outside the bar entry by entry); one make_train_step "
+          f"(SGD): loss, grad_norm card {got[DEV]} cpu {got['cpu']} "
+          f"[{card_line}]")
+
+
+def llama_train_run(torch, card_line):
+    """Llama-3.2-1B at its full config in bf16 (tied embeddings, remat on):
+    `make_scan_train_step` with `default_optimizer(cfg, total_steps=8)`
+    over LLM_TRAIN_STEPS Markov batches of B x S, launches set to 0 just
+    before and read just after (exactly a forward and a recompute a layer a
+    step); every loss finite, the last below the first; then one step's
+    ms (CUDA events, median of 3 `make_train_step` calls), the forward's
+    share (one `loss_and_metrics` with grad, no backward), tokens/s and
+    peak memory.  Returns (launches, {metric: value})."""
+    from repro_torch import tree_leaves, tree_unflatten
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    t0 = time.perf_counter()
+    cfg = attn_model("llama3.2-1b")
+    B, S = LLM_TRAIN_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = zoo.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             device=DEV)
+    opt = steps.default_optimizer(cfg, total_steps=LLM_TRAIN_STEPS)
+    opt_state = opt.init(params)
+    batches = lm_batches_on(torch, cfg, B, S, LLM_TRAIN_STEPS, 0)
+    epoch = steps.make_scan_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    params, opt_state, ms = epoch(params, opt_state, batches)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = read_launches()
+    epoch_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = ms["loss"].tolist()
+    want = 2 * cfg.num_layers * LLM_TRAIN_STEPS
+    expect_launches(launches, {"flash_attn_fwd": want},
+                    f"Llama-3.2-1B, {LLM_TRAIN_STEPS} train steps (a "
+                    f"forward and a recompute a layer)")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"Llama-3.2-1B train losses {losses}")
+    check(bool(torch.isfinite(ms["grad_norm"]).all()),
+          f"grad_norm {ms['grad_norm'].tolist()}")
+    step = steps.make_train_step(cfg, opt)
+    batch = {k: v[0] for k, v in batches.items()}
+    box = [params, opt_state]
+
+    def one():
+        box[0], box[1], _ = step(box[0], box[1], batch)
+    step_ms = statistics.median(cuda_ms(torch, one, reps=1, warmup=0)
+                                for _ in range(3))
+
+    def fwd():
+        # the forward as the train step runs it: under autograd, the
+        # periods' inputs saved for the recompute
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(box[0])]
+        return zoo.loss_and_metrics(tree_unflatten(box[0], leaves), cfg,
+                                    batch)[0]
+    fwd_ms = cuda_ms(torch, fwd, reps=1, warmup=1)
+    peak_all = torch.cuda.max_memory_allocated() / 2 ** 30
+    tok_s = B * S / (step_ms / 1e3)
+    print(f"llm train: Llama-3.2-1B (bf16, full config, "
+          f"{zoo.param_count(cfg)} parameters, remat on) "
+          f"make_scan_train_step over {LLM_TRAIN_STEPS} Markov batches of "
+          f"B={B} S={S}, default_optimizer: losses "
+          f"{[round(x, 4) for x in losses]}; flash_attn_fwd launched "
+          f"{launches['flash_attn_fwd']} times (2 x {cfg.num_layers} layers "
+          f"x {LLM_TRAIN_STEPS} steps); the {LLM_TRAIN_STEPS} steps "
+          f"{epoch_ms:.1f} ms (CUDA events), {wall:.2f} s wall; peak memory "
+          f"{peak:.2f} GiB; a step {step_ms:.1f} ms (median of 3, CUDA "
+          f"events), {tok_s:.0f} tokens/s, its forward with grad "
+          f"{fwd_ms:.1f} ms (the backward and update {step_ms - fwd_ms:.1f} "
+          f"ms, {(step_ms - fwd_ms) / step_ms:.3f} of the step); peak "
+          f"memory with the timed steps {peak_all:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+    del params, opt_state, box, batches, batch
+    torch.cuda.empty_cache()
+    return launches["flash_attn_fwd"], {
+        "step_ms": step_ms, "tokens_per_s": tok_s, "peak_gib": peak,
+        "fwd_ms": fwd_ms, "epoch_ms": epoch_ms}
+
+
+def deepseek_train_check(torch, card_line):
+    """DeepSeek-V2-236B in bf16 at its published widths cut to 2 layers
+    (the dense layer 0 and one MoE layer, ~5.4 B parameters): one
+    `loss_and_metrics` forward and backward at B=1, S=2048 (no optimizer
+    step: AdamW's fp32 state would add ~64 GB); ce, lb_loss, z_loss and
+    every gradient finite; flash_attn_fwd launched exactly 3 times at
+    Dh=192 (the pre-layer, then the period and its recompute).  Returns
+    (launches, ms)."""
+    from repro_torch import tree_leaves, value_and_grad
+    from repro_torch.models import zoo
+    t0 = time.perf_counter()
+    cfg = attn_model("deepseek-v2-236b", 2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = zoo.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             device=DEV)
+    batch = lm_batches_on(torch, cfg, 1, LLM_TRAIN_BATCH[1], 1, 5)
+    batch = {k: v[0] for k, v in batch.items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    (_, metrics, grads), seen = kernel_inputs_of(lambda: value_and_grad(
+        lambda p: zoo.loss_and_metrics(p, cfg, batch), params))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect_launches(launches, {"flash_attn_fwd": 3},
+                    "DeepSeek-V2 2 layers, one forward and backward")
+    dims = {q.shape[-1] for (q, _, _), _ in seen["flash_attn_fwd"]}
+    check(dims == {MLA_DH}, f"DeepSeek-V2 train: flash calls at {dims}")
+    del seen
+    vals = {k: float(metrics[k].detach())
+            for k in ("ce", "lb_loss", "z_loss", "loss")}
+    check(all(np.isfinite(list(vals.values()))),
+          f"DeepSeek-V2 train metrics {vals}")
+    leaves = tree_leaves(grads)
+    finite = all(bool(torch.isfinite(g).all()) for g in leaves)
+    check(finite, "DeepSeek-V2 train: a gradient is not finite")
+    del grads, leaves
+    ms = cuda_ms(torch, lambda: value_and_grad(
+        lambda p: zoo.loss_and_metrics(p, cfg, batch), params),
+        reps=1, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"llm train: DeepSeek-V2-236B (bf16, 2 of 60 layers: dense layer "
+          f"0 and one MoE layer, {zoo.param_count(cfg)} parameters) "
+          f"loss_and_metrics forward and backward at B=1 S="
+          f"{LLM_TRAIN_BATCH[1]}: {vals}, every gradient finite; "
+          f"flash_attn_fwd launched {launches['flash_attn_fwd']} times at "
+          f"Dh {sorted(dims)}; {ms:.1f} ms (CUDA events); peak memory "
+          f"{peak:.2f} GiB (no MoE config fits one card with AdamW's state "
+          f"at full width); {time.perf_counter() - t0:.1f} s [{card_line}]")
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches["flash_attn_fwd"], ms
+
+
+def llm_train_phase(torch, card_line):
+    """The attention blocks' train mode on the card, deterministic
+    algorithms on (TF32 is off since the device phase): the kernel's lse
+    and the backward, Llama's step against the CPU, Llama-3.2-1B trained 8
+    steps at full width, DeepSeek-V2's MLA and MoE forward and backward.
+    Returns ({run: flash launches}, {metric: value}, max |lse kernel -
+    plain|)."""
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        bwd_ms, lse_worst = lse_and_backward_check(torch, card_line)
+        llm_card_vs_cpu(torch, card_line)
+        llama_launches, llama = llama_train_run(torch, card_line)
+        ds_launches, ds_ms = deepseek_train_check(torch, card_line)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"llm train: the phase {time.perf_counter() - t0:.1f} s "
+          f"[{card_line}]")
+    llama.update(deepseek_ms=ds_ms, bwd_ms=bwd_ms)
+    return ({"llama3.2-1b 8 steps": llama_launches,
+             "deepseek-v2-236b fwd+bwd": ds_launches}, llama, lse_worst)
+
+
 CUT_LAYER_SOURCES = ("cut_fwd", "cut_bwd", "cut_prior_fwd", "cut_prior_bwd",
                      "cut_fwd_pack", "pack", "unpack_dequant")
 # the kernels the hybrid schemes' runs launch (the deterministic cut)
@@ -6122,6 +6463,9 @@ def main() -> int:
                         help="build the LLM kernels and print only "
                              "Zamba2-2.7B's decode latency per token, "
                              "eager and graphed")
+    parser.add_argument("--llm-train", action="store_true",
+                        help="build flash_attn_fwd and run only the "
+                             "`llm train` phase")
     args = parser.parse_args()
     try:
         import torch
@@ -6153,6 +6497,10 @@ def main() -> int:
         params = zoo.init_params(
             cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
         decode_timing(torch, cfg, params, card)
+        return 0
+    if args.llm_train:
+        build_phase(("flash_attn_fwd",))
+        llm_train_phase(torch, card)
         return 0
     build_phase()
     worst = {"cut_fwd": kernel_phase(torch),
@@ -6234,6 +6582,9 @@ def main() -> int:
     on_zoo, zoo_worst = llm_zoo_phase(torch, card)
     worst["flash_attn_fwd"] = max(worst["flash_attn_fwd"], zoo_worst)
     on_attn.update({arch: n for arch, n in on_zoo.items() if n})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    on_train, train_times, lse_worst = llm_train_phase(torch, card)
     launches = {"cut_fwd": train_launches["cut_fwd"],
                 "cut_bwd": train_launches["cut_bwd"],
                 "cut_prior_fwd": prior_launches["cut_prior_fwd"],
@@ -6277,6 +6628,8 @@ def main() -> int:
     check(all(n > 0 for n in on_attn.values()),
           f"an attention-block model's prefill never launched "
           f"flash_attn_fwd: {on_attn}")
+    check(all(n > 0 for n in on_train.values()),
+          f"a train run never launched flash_attn_fwd: {on_train}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s; final accuracy {accuracy}, "
           f"train step " + ", ".join(
@@ -6290,7 +6643,10 @@ def main() -> int:
               f"{row[0]:.3f} ms)" for k, row in graph_times.items()
               if k != "predict" and len(row) == 4)
           + f"; transport round {transport_times[0]:.3f} ms (the graphed "
-            f"lossy round {transport_times[1]:.3f} ms)")
+            f"lossy round {transport_times[1]:.3f} ms)"
+          + f"; Llama-3.2-1B train step {train_times['step_ms']:.1f} ms "
+            f"({train_times['tokens_per_s']:.0f} tokens/s, peak "
+            f"{train_times['peak_gib']:.2f} GiB)")
     src = "src/repro_torch/kernels/csrc/"
     replaces = "src/repro/kernels/inl_bottleneck.py:"
     kernels = []
@@ -6359,6 +6715,9 @@ def main() -> int:
             kernels[-1]["launches_on_attn_models"] = on_attn
             kernels[-1]["launches_on_llama_serving"] = \
                 attn_serve_launches["flash_attn_fwd"]
+            kernels[-1]["launches_on_train"] = on_train
+            kernels[-1]["lse_max_abs_err"] = lse_worst
+            kernels[-1]["train_backward_ms"] = train_times["bwd_ms"]
     k_ms, p_ms, b_ms, by, l_ms = mla_rows[LLM_PROMPT]
     k2, p2, b2, _, l2 = mla_rows[2048]
     kernels.append({

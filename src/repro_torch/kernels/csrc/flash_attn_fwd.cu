@@ -10,7 +10,13 @@
 // over the keys j that the mask keeps: j < Sk, and with `causal`
 // j <= i + q_offset, and with `window` > 0 (i + q_offset) - j < window.
 // Masked scores are -1e30 and the sum is divided by max(l, 1e-30), as in
-// the reference.  o is written in q's type.  The TPU kernel casts k and v
+// the reference.  o is written in q's type.  With a non-null `lse` (fp32,
+// (B, Sq, H)) each query row also writes its logsumexp, m + log(max(l,
+// 1e-30)) in natural-log units of the scaled scores, as the reference's
+// `_flash_fwd_core` saves it for its backward (src/repro/models/
+// attention.py:86-87): the lane that holds a row's final (m, l) writes it
+// after o, so o is the same bit for bit with or without it, and a null
+// `lse` (the prefill) writes nothing more.  The TPU kernel casts k and v
 // to fp32 (flash_attention.py:46-47), so its p.astype(v.dtype) is a cast
 // to fp32: the reference keeps P in fp32.  Tiles wholly above the causal
 // diagonal or below the window are not visited (their terms are exactly
@@ -94,9 +100,10 @@ size_t smem_bytes(int dh) {
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int Sq,
-                     int Sk, int H, int KV, int Dh, int causal, int window,
-                     int q_offset, float scale) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                     int Dh, int causal, int window, int q_offset,
+                     float scale) {
   extern __shared__ float smem[];
   const int ds = head_stride(Dh);
   float* Qs = smem;
@@ -233,13 +240,16 @@ __global__ void __launch_bounds__(kThreads)
       const int d = cg + 16 * j;
       if (d < Dh) store(out + d, acc[i][j] / den);
     }
+    // m and l are the half-warp's reduced pair, in natural-log units
+    if (lse != nullptr && cg == 0)
+      lse[(int64_t)(b * Sq + q0 + r) * H + h] = m[i] + logf(den);
   }
 }
 
 template <typename T, int NJ>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, int Dh, int causal, int window,
-           int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KV, int Dh, int causal,
+           int window, int q_offset, float scale, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, NJ>;
   const size_t smem = smem_bytes(Dh);
   cudaError_t err = cudaFuncSetAttribute(
@@ -247,7 +257,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kern<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV, Dh,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H, KV, Dh,
       causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
@@ -261,6 +271,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr size_t mma_smem_bytes(int dh) {
   // the q tile and two buffers each of the k and v tiles
@@ -276,8 +287,9 @@ __global__ void __launch_bounds__(kMmaThreads,
     flash_fwd_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                         int Sq, int Sk, int H, int KV, int causal,
-                         int window, int q_offset, float scale_log2) {
+                         float* __restrict__ lse, int Sq, int Sk, int H,
+                         int KV, int causal, int window, int q_offset,
+                         float scale_log2) {
   constexpr int DS = tc::padded(DH);  // shared row stride, elements
   constexpr int KS = DH / 16;         // k-steps of q k^T
   constexpr int NT = DH / 8;          // n-tiles of o
@@ -459,13 +471,17 @@ __global__ void __launch_bounds__(kMmaThreads,
           acc[j][2 * r] / den, acc[j][2 * r + 1] / den);
       *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + 2 * t) = pair;
     }
+    // every lane of the quad holds the reduced pair; m is in log2 units
+    if (lse != nullptr && t == 0)
+      lse[((int64_t)b * Sq + q0 + row) * H + h] =
+          (m[r] + log2f(den)) * kLn2;
   }
 }
 
 template <int DH>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KV, int causal, int window,
-               int q_offset, float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+               int window, int q_offset, float scale, cudaStream_t stream) {
   auto kern = flash_fwd_mma_kernel<DH>;
   const size_t smem = mma_smem_bytes(DH);
   cudaError_t err = cudaFuncSetAttribute(
@@ -473,8 +489,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kern<<<grid, kMmaThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, Sq, Sk, H,
-      KV, causal, window, q_offset, scale * kLog2e);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, Sq, Sk,
+      H, KV, causal, window, q_offset, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -482,27 +498,29 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
 // 128 and 192; fp32: NJ 2, 4, 5, 8 and 12); the wrapper raises on any
 // other.
 int dispatch_f32(int Dh, const void* q, const void* k, const void* v,
-                 void* o, int B, int Sq, int Sk, int H, int KV, int causal,
-                 int window, int q_offset, float scale, cudaStream_t s) {
+                 void* o, float* lse, int B, int Sq, int Sk, int H, int KV,
+                 int causal, int window, int q_offset, float scale,
+                 cudaStream_t s) {
   switch (Dh) {
-    case 32: return launch<float, 2>(q, k, v, o, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
-    case 64: return launch<float, 4>(q, k, v, o, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
-    case 80: return launch<float, 5>(q, k, v, o, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
-    case 128: return launch<float, 8>(q, k, v, o, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
-    case 192: return launch<float, 12>(q, k, v, o, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
+    case 32: return launch<float, 2>(q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
+    case 64: return launch<float, 4>(q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
+    case 80: return launch<float, 5>(q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
+    case 128: return launch<float, 8>(q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
+    case 192: return launch<float, 12>(q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 int dispatch_bf16(int Dh, const void* q, const void* k, const void* v,
-                  void* o, int B, int Sq, int Sk, int H, int KV, int causal,
-                  int window, int q_offset, float scale, cudaStream_t s) {
+                  void* o, float* lse, int B, int Sq, int Sk, int H, int KV,
+                  int causal, int window, int q_offset, float scale,
+                  cudaStream_t s) {
   switch (Dh) {
-    case 32: return launch_mma<32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
-    case 64: return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
-    case 80: return launch_mma<80>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
-    case 128: return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
-    case 192: return launch_mma<192>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 32: return launch_mma<32>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 64: return launch_mma<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 80: return launch_mma<80>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 128: return launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 192: return launch_mma<192>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -511,11 +529,13 @@ int dispatch_bf16(int Dh, const void* q, const void* k, const void* v,
 
 // Plain C entry point, loaded with ctypes.  q, k, v, o contiguous in the
 // (B, S, heads, Dh) layout; is_bf16 selects their type (fp32 otherwise);
-// bf16 pointers 16-byte aligned.  Dh in {32, 64, 80, 128, 192}.  Returns
+// bf16 pointers 16-byte aligned.  lse: null, or fp32 (B, Sq, H), each
+// row's logsumexp.  Dh in {32, 64, 80, 128, 192}.  Returns
 // the CUDA error of the launch (0 on success); the caller raises if it is
 // not 0.
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
-                                     const void* v, void* o, int B, int Sq,
+                                     const void* v, void* o, void* lse,
+                                     int B, int Sq,
                                      int Sk, int H, int KV, int Dh,
                                      int causal, int window, int q_offset,
                                      float scale, int is_bf16, void* stream) {
@@ -526,9 +546,9 @@ extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
   if (is_bf16) {
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
-    return dispatch_bf16(Dh, q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                         q_offset, scale, s);
+    return dispatch_bf16(Dh, q, k, v, o, (float*)lse, B, Sq, Sk, H, KV,
+                         causal, window, q_offset, scale, s);
   }
-  return dispatch_f32(Dh, q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                      q_offset, scale, s);
+  return dispatch_f32(Dh, q, k, v, o, (float*)lse, B, Sq, Sk, H, KV, causal,
+                      window, q_offset, scale, s);
 }

@@ -46,16 +46,17 @@ def cutlayer(mu, logvar, eps, *, link_bits: int = 32,
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
-              q_offset: int = 0):
+              q_offset: int = 0, return_lse: bool = False):
     """Causal (GQA) attention forward.  q: (B, Sq, H, Dh); k, v:
     (B, Sk, KV, Dh).  CPU tensors take `ref.attention_ref`, CUDA tensors
     the flash kernel (csrc/flash_attn_fwd.cu).  Returns (B, Sq, H, Dh) in
-    q's dtype."""
+    q's dtype, or with return_lse=True (out, each query row's logsumexp
+    (B, Sq, H) fp32), the residual the attention backward reads."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, lse=return_lse)
     return _fa.flash_attn_fwd(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset)
+                              q_offset=q_offset, lse=return_lse)
 
 
 def ssd_scan(x, dt, a, bm, cm, dskip, *, chunk: int):

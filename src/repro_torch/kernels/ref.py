@@ -357,18 +357,22 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  q_offset: int = 0):
+                  q_offset: int = 0, lse: bool = False):
     """Masked softmax attention, in fp32.  q: (B, Sq, H, Dh); k, v:
     (B, Sk, KV, Dh) with H % KV == 0, query head h reading kv head
     h // (H / KV) (by a reshape, no copy).  q_offset is the position of
     q[0] minus k[0]; window > 0 keeps keys with q_pos - k_pos < window.
-    Masked scores are -1e30.  Returns (B, Sq, H, Dh) in q's dtype."""
+    Masked scores are -1e30.  Returns (B, Sq, H, Dh) in q's dtype, or
+    with lse=True (out, the logsumexp of each row's masked fp32 scores
+    (B, Sq, H)).  float64 inputs are computed in float64 (the gradient
+    checks of the attention backward)."""
     B, Sq, H, Dh = q.shape
     _, Sk, KV, _ = k.shape
     g = H // KV
     scale = 1.0 / float(np.sqrt(Dh))
-    qf = (q.float() * scale).reshape(B, Sq, KV, g, Dh)
-    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.float())
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = (q.to(acc) * scale).reshape(B, Sq, KV, g, Dh)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.to(acc))
     q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -378,8 +382,13 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         mask = mask & (q_pos - k_pos < window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(acc))
+    out = out.reshape(B, Sq, H, Dh).to(q.dtype)
+    if not lse:
+        return out
+    # (B, KV, g, Sq) -> (B, Sq, KV * g)
+    return out, torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2).reshape(
+        B, Sq, H)
 
 
 def ssd_chunked_ref(x, dt, a, bm, cm, dskip, *, chunk: int):

@@ -1,28 +1,110 @@
-"""Step functions: prefill and decode, the units the serving driver runs.
+"""Step functions: train, prefill and decode, the units the launcher and
+the serving driver run.
 
-Reference: src/repro/launch/steps.py (`make_prefill_step`,
-`make_decode_step`).  The reference jits them; the port runs the prefill
-eagerly (it keeps the card busy: a graph would save nothing there) and
+Reference: src/repro/launch/steps.py (`grouped_batches`,
+`stack_batches`, `make_train_step`, `make_prefill_step`,
+`make_decode_step`, `make_scan_train_step`, `default_optimizer`).  The
+reference jits them; the port runs the train step and the prefill
+eagerly (they keep the card busy: a graph would save little there) and
 the decode step, on the card, as a CUDA graph (repro_torch/graphs.py)
 captured once and replayed once per generated token, the counterpart of
-the reference's one compile of the decode step (`trace_log`).  Both run
-under `torch.no_grad`; the train steps come with the LLM training slice
-(ROADMAP queue 1, item 6.6).
+the reference's one compile of the decode step (`trace_log`).  Prefill
+and decode run under `torch.no_grad`.  The train step takes gradients
+with `torch.autograd.grad` over the parameter leaves of
+`zoo.loss_and_metrics`; `make_scan_train_step` runs K of them in one
+call, where the reference scans them.  INL over an LLM
+(`make_inl_train_step`, scheme "inl") comes with ROADMAP queue 1, item
+6.6c.
 """
 from __future__ import annotations
 
+from typing import Iterable, Iterator, List
+
+import numpy as np
 import torch
 
-from repro_torch import graphs, tree_leaves, tree_map
+from repro_torch import graphs, optim, tree_leaves, tree_map
+from repro_torch import tree_unflatten, value_and_grad
 from repro_torch.models import zoo
+
+
+def grouped_batches(data: Iterable, k: int) -> Iterator[List]:
+    """Chunk a batch stream into lists of k (a trailing partial group
+    kept)."""
+    group = []
+    for batch in data:
+        group.append(batch)
+        if len(group) == k:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+def stack_batches(group: List):
+    """Stack a group of batches (dicts of numpy arrays, nested dicts
+    allowed) into one of (K, ...) arrays on the host, the xs of
+    `make_scan_train_step`."""
+    first = group[0]
+    if isinstance(first, dict):
+        return {k: stack_batches([b[k] for b in group]) for k in first}
+    return np.stack(group)
+
+
+def make_train_step(cfg, optimizer, *, microbatches: int = 1,
+                    unroll: bool = False):
+    """(params, opt_state, batch) -> (params, opt_state, metrics), metrics
+    detached tensors on the parameters' device with "grad_norm", the
+    global norm of the gradients before clipping, added.
+
+    microbatches > 1 splits the batch along axis 0 and accumulates the
+    microbatches' gradients in fp32 buffers (never in a bf16 leaf's
+    .grad, which would round every add), then divides by their count and
+    averages their metrics.  `unroll` keeps the reference's signature:
+    without a scan to unroll, the port's microbatch loop is always a
+    Python loop."""
+    del unroll
+
+    def grads_of(params, batch):
+        _, metrics, grads = value_and_grad(
+            lambda p: zoo.loss_and_metrics(p, cfg, batch), params)
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            grads, metrics = grads_of(params, batch)
+        else:
+            B = tree_leaves(batch)[0].shape[0]
+            if B % microbatches:
+                raise ValueError(f"batch {B} does not split into "
+                                 f"{microbatches} microbatches")
+            n = B // microbatches
+            gsum = [torch.zeros(t.shape, dtype=torch.float32,
+                                device=t.device)
+                    for t in tree_leaves(params)]
+            ms = []
+            for i in range(microbatches):
+                one = tree_map(lambda x: x[i * n:(i + 1) * n], batch)
+                grads, m = grads_of(params, one)
+                for acc, g in zip(gsum, tree_leaves(grads)):
+                    acc.add_(g)
+                ms.append(m)
+                del grads
+            grads = tree_unflatten(params, [g / microbatches for g in gsum])
+            metrics = {k: torch.stack([m[k] for m in ms]).mean(dim=0)
+                       for k in ms[0]}
+        new_params, new_opt = optimizer.update(grads, opt_state, params)
+        metrics["grad_norm"] = optim.global_norm(grads)
+        return new_params, new_opt, metrics
+    return train_step
 
 
 def make_prefill_step(cfg):
     """(params, batch) -> (last_logits (B, V), cache)."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, cache = zoo.forward(params, cfg, batch, mode="prefill",
-                                    logits_positions="last")
+        logits, cache, _ = zoo.forward(params, cfg, batch, mode="prefill",
+                                       logits_positions="last")
         return logits[:, -1], cache
     return prefill_step
 
@@ -46,8 +128,8 @@ def make_decode_step(cfg, *, greedy: bool = False, trace_log: list = None):
     leaves one entry.  A capture or replay that fails raises."""
     @torch.no_grad()
     def eager(params, batch, cache):
-        logits, new_cache = zoo.forward(params, cfg, batch, mode="decode",
-                                        cache=cache)
+        logits, new_cache, _ = zoo.forward(params, cfg, batch,
+                                           mode="decode", cache=cache)
         logits = logits[:, -1]
         if not greedy:
             return logits, new_cache
@@ -88,3 +170,61 @@ def make_decode_step(cfg, *, greedy: bool = False, trace_log: list = None):
 
     decode_step.captures = cache_of_graphs.captures
     return decode_step
+
+
+def _release(tree, keep) -> None:
+    """Free the storage of `tree`'s leaves that no leaf of `keep` shares:
+    the port's counterpart of donating a buffer (the caller's tensors are
+    left empty)."""
+    kept = {t.untyped_storage().data_ptr() for t in tree_leaves(keep)}
+    for t in tree_leaves(tree):
+        st = t.untyped_storage()
+        if st.data_ptr() not in kept:
+            st.resize_(0)
+
+
+def make_scan_train_step(cfg, optimizer, *, scheme: str = "standard",
+                         microbatches: int = 1, donate: bool = None):
+    """K optimizer steps in one call: (params, opt_state, batches) ->
+    (params, opt_state, metrics stacked over the K steps), `batches` the
+    batch dict with a leading K axis (on the parameters' device).  The
+    steps run back to back with no read on the host between them.  Each
+    step's old params and optimizer state are dropped as the next are
+    made, so the peak holds one step's; with donate (None: on a CUDA
+    device, as the reference donates only on accelerators) the caller's
+    params and opt_state are freed after the first step, the counterpart
+    of the reference's donated buffers: the caller must not read them
+    again.  scheme "inl" (INL over an LLM) comes with ROADMAP queue 1,
+    item 6.6c."""
+    if scheme == "inl":
+        raise NotImplementedError(
+            "the inl scheme over an LLM (make_inl_train_step, core/inl_llm) "
+            "is not ported yet; it comes with ROADMAP queue 1, item 6.6c")
+    if scheme != "standard":
+        raise ValueError(f"scheme {scheme!r}: standard or inl")
+    inner = make_train_step(cfg, optimizer, microbatches=microbatches)
+
+    def epoch(params, opt_state, batches):
+        K = tree_leaves(batches)[0].shape[0]
+        give = donate if donate is not None \
+            else tree_leaves(params)[0].device.type == "cuda"
+        ms = []
+        for i in range(K):
+            batch = tree_map(lambda x: x[i], batches)
+            new_params, new_opt, m = inner(params, opt_state, batch)
+            if i == 0 and give:
+                _release((params, opt_state), (new_params, new_opt))
+            params, opt_state = new_params, new_opt
+            del new_params, new_opt
+            ms.append(m)
+        return params, opt_state, {k: torch.stack([m[k] for m in ms])
+                                   for k in ms[0]}
+    return epoch
+
+
+def default_optimizer(cfg, total_steps: int = 10_000):
+    """AdamW at 3e-4 with warmup and cosine decay, weight decay 0.1,
+    clipped at a global norm of 1: the reference's LLM optimizer."""
+    sched = optim.warmup_cosine_schedule(
+        3e-4, min(200, total_steps // 10 + 1), total_steps)
+    return optim.adamw(sched, weight_decay=0.1, clip_norm=1.0)

@@ -2,13 +2,19 @@
 DeepSeek-V2's MLA (multi-head latent attention) with compressed-cache
 decode.
 
-Reference: src/repro/models/attention.py (`gqa_init`, `gqa_param_count`,
+Reference: src/repro/models/attention.py (`blockwise_attention` with its
+custom VJP `_flash_fwd` / `_flash_bwd`, `gqa_init`, `gqa_param_count`,
 `gqa_make_cache`, `gqa_apply`, `decode_attention`, `mla_init`,
 `mla_param_count`, `mla_make_cache`, `_mla_q`, `mla_apply` and the
 `attn_*` fronts).  Prefill goes through `kernels/ops.attention`: the flash
 kernel on the card, its plain version on the CPU (the reference's model
 runs the same contract as a jnp blockwise scan); MLA's prefill pads v up
 to the qk head dim (192 at DeepSeek-V2's widths) to make one call.
+Train mode runs the same projections and `blockwise_attention`, an
+autograd Function whose forward is that call with the logsumexp asked
+for (`ops.attention(..., return_lse=True)`) and whose backward is the
+reference's `_flash_bwd` line for line in fp32 torch: the reference
+computes it in jnp outside any Pallas kernel.
 Decode is one token against the cache in plain torch, softmax in fp32,
 with the reference's bf16 roundings: GQA's of the scaled query and the
 softmax weights, MLA's of the absorbed query and the weights in the
@@ -29,6 +35,124 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention for training: the flash forward, a hand-written VJP
+# ---------------------------------------------------------------------------
+
+def _mask_for(q_pos, k_pos, Sk, *, causal, window):
+    mask = k_pos[None, :] < Sk
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window:
+        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+    return mask
+
+
+def flash_bwd(q, k, v, out, lse, dout, *, causal, window, q_offset,
+              block_q, block_k):
+    """The reference's `_flash_bwd`, doubly blocked: key tiles outer (each
+    emitting its dk, dv tile), query tiles inner (adding into a full-size
+    fp32 dq), in fp32; ragged tiles padded with zeros as the reference
+    pads them, GQA's kv gradients summed over the group axis.  A tile that
+    the causal mask or the window hides whole is skipped: its p is
+    exp(-1e30 - lse) = 0, so the reference adds exact zeros there.
+    q, out, dout: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); lse: (B, Sq, H)
+    fp32 (float64 inputs stay float64, for gradcheck).  Returns (dq, dk,
+    dv) in q's, k's and v's dtypes."""
+    B, Sq, H, Dh = q.shape
+    _, Sk, KV, _ = k.shape
+    g = H // KV
+    scale = 1.0 / math.sqrt(Dh)
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    nq, nk = -(-Sq // bq), -(-Sk // bk)
+    qpad, kpad = nq * bq - Sq, nk * bk - Sk
+    acc = torch.promote_types(q.dtype, torch.float32)
+    do = dout.to(acc).reshape(B, Sq, KV, g, Dh)
+    delta = torch.sum(do * out.to(acc).reshape(B, Sq, KV, g, Dh), dim=-1)
+    qf = q.to(acc).reshape(B, Sq, KV, g, Dh)
+    lse = lse.to(acc).reshape(B, Sq, KV, g)
+    if qpad:
+        qf, do = F.pad(qf, (0, 0, 0, 0, 0, 0, 0, qpad)), \
+            F.pad(do, (0, 0, 0, 0, 0, 0, 0, qpad))
+        delta = F.pad(delta, (0, 0, 0, 0, 0, qpad))
+        lse = F.pad(lse, (0, 0, 0, 0, 0, qpad))
+    kf, vf = k.to(acc), v.to(acc)
+    if kpad:
+        kf = F.pad(kf, (0, 0, 0, 0, 0, kpad))
+        vf = F.pad(vf, (0, 0, 0, 0, 0, kpad))
+    dq = qf.new_zeros((B, nq * bq, KV, g, Dh))
+    dk = kf.new_zeros((B, nk * bk, KV, Dh))
+    dv = kf.new_zeros((B, nk * bk, KV, Dh))
+    ar_q = torch.arange(bq, device=q.device)
+    ar_k = torch.arange(bk, device=q.device)
+    for ki in range(nk):
+        k0 = ki * bk
+        kc, vc = kf[:, k0:k0 + bk], vf[:, k0:k0 + bk]
+        k_pos = k0 + ar_k
+        dk_acc, dv_acc = dk[:, k0:k0 + bk], dv[:, k0:k0 + bk]
+        for qi in range(nq):
+            q0 = qi * bq
+            if causal and q0 + bq - 1 + q_offset < k0:
+                continue                     # above the diagonal
+            if window and q0 + q_offset - (k0 + bk - 1) >= window:
+                continue                     # behind the window
+            sl = slice(q0, q0 + bq)
+            qc, doc, dc, lc = qf[:, sl], do[:, sl], delta[:, sl], lse[:, sl]
+            q_pos = q0 + ar_q + q_offset
+            s = torch.einsum("bqkgd,btkd->bqkgt", qc, kc) * scale
+            mask = _mask_for(q_pos, k_pos, Sk, causal=causal, window=window)
+            s = torch.where(mask[None, :, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            p = torch.exp(s - lc[..., None])
+            dv_acc += torch.einsum("bqkgt,bqkgd->btkd", p, doc)
+            dp = torch.einsum("bqkgd,btkd->bqkgt", doc, vc)
+            ds = p * (dp - dc[..., None])
+            dq[:, sl] += torch.einsum("bqkgt,btkd->bqkgd", ds, kc) * scale
+            dk_acc += torch.einsum("bqkgt,bqkgd->btkd", ds, qc) * scale
+    return (dq[:, :Sq].reshape(B, Sq, H, Dh).to(q.dtype),
+            dk[:, :Sk].to(k.dtype), dv[:, :Sk].to(v.dtype))
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """The reference's `_blockwise_attention_vjp`: the forward is one
+    `ops.attention` call that also returns the logsumexp (flash_attn_fwd
+    on the card, `ref.attention_ref` on the CPU), the backward
+    `flash_bwd` from the saved (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, block_q, block_k):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = ops.attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        block_q=block_q, block_k=block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, block_q: int = 512,
+                        block_k: int = 512, scale=None):
+    """Attention with the reference's flash-style VJP.  q: (B, Sq, H, Dh);
+    k, v: (B, Sk, KV, Dh), H % KV == 0.  The scale is the kernel's,
+    1/sqrt(Dh): `scale` may only restate it (MLA passes 1/sqrt(qk head
+    dim), its Dh once v is padded).  Returns (B, Sq, H, Dh) in q's
+    dtype."""
+    Dh = q.shape[-1]
+    if scale is not None and not math.isclose(scale, 1.0 / math.sqrt(Dh),
+                                              rel_tol=1e-6):
+        raise ValueError(f"blockwise_attention runs at the kernel's scale "
+                         f"1/sqrt({Dh}); got {scale}")
+    return _BlockwiseAttention.apply(q, k, v, causal, int(window),
+                                     int(q_offset), block_q, block_k)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, k_new, v_new, *,
@@ -129,9 +253,11 @@ def gqa_make_cache(cfg, batch: int, max_len: int, dtype, device=None):
 
 def gqa_apply(p, cfg, x, positions, *, mode: str, cache=None,
               cache_len=None):
-    """x: (B, S, d).  mode 'prefill' -> full-sequence causal attention
-    (`ops.attention`) and a filled cache; mode 'decode' -> S == 1 against
-    the cache, which is updated in place.  Returns (y, new_cache)."""
+    """x: (B, S, d).  mode 'train' -> full-sequence causal attention
+    through `blockwise_attention` and no cache; 'prefill' -> the same
+    attention forward (`ops.attention`) and a filled cache; 'decode' ->
+    S == 1 against the cache, which is updated in place.  Returns (y,
+    new_cache)."""
     B, S, d = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = layers.dense(p["wq"], x).reshape(B, S, H, Dh)
@@ -172,11 +298,15 @@ def gqa_apply(p, cfg, x, positions, *, mode: str, cache=None,
             kc = torch.roll(kc, shift, dims=1)
             vc = torch.roll(vc, shift, dims=1)
         new_cache = {"k": kc.contiguous(), "v": vc.contiguous()}
+    elif mode == "train":
+        out = blockwise_attention(q, k, v, causal=True,
+                                  window=cfg.sliding_window,
+                                  block_q=cfg.attn_block_q or 512,
+                                  block_k=cfg.attn_block_k or 512)
+        new_cache = None
     else:
-        raise NotImplementedError(
-            f"attention mode {mode!r}: the port serves (prefill, decode); "
-            "training comes with the LLM training slice (ROADMAP queue 1, "
-            "item 6.6)")
+        raise ValueError(f"attention mode {mode!r}: one of train, prefill, "
+                         f"decode")
     y = layers.dense(p["wo"], out.reshape(B, S, H * Dh))
     return y, new_cache
 
@@ -257,11 +387,12 @@ def _bmm_f32(a, b):
 
 def mla_apply(p, cfg, x, positions, *, mode: str, cache=None,
               cache_len=None):
-    """MLA.  Prefill expands the compressed kv and runs `ops.attention` on
-    q, k (nope + rope) and v padded to the qk head dim; decode runs in the
-    compressed space by weight absorption, against a cache of c_kv and the
-    shared rope key (kv_lora_rank + qk_rope_head_dim a token).  Returns
-    (y, new_cache)."""
+    """MLA.  Prefill and train expand the compressed kv and attend over q,
+    k (nope + rope) and v padded to the qk head dim (prefill by
+    `ops.attention`, train by `blockwise_attention`, which returns no
+    cache); decode runs in the compressed space by weight absorption,
+    against a cache of c_kv and the shared rope key (kv_lora_rank +
+    qk_rope_head_dim a token).  Returns (y, new_cache)."""
     m = cfg.mla
     B, S, d = x.shape
     H = cfg.num_heads
@@ -307,8 +438,7 @@ def mla_apply(p, cfg, x, positions, *, mode: str, cache=None,
         wv_b = p["wv_b"]["w"].reshape(m.kv_lora_rank, H, m.v_head_dim)
         out = torch.bmm(ctx.transpose(0, 1), wv_b.float().transpose(0, 1))
         out = out.transpose(0, 1).to(x.dtype).reshape(B, S, H * m.v_head_dim)
-        new_cache = cache
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         k_nope = layers.dense(p["wk_b"], c_kv).reshape(
             B, S, H, m.qk_nope_head_dim)
         v = layers.dense(p["wv_b"], c_kv).reshape(B, S, H, m.v_head_dim)
@@ -316,11 +446,23 @@ def mla_apply(p, cfg, x, positions, *, mode: str, cache=None,
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope_b], dim=-1)
         # v padded up to the qk head dim: one attention call (the kernel's
-        # scale 1/sqrt(Dh) is then MLA's 1/sqrt(qk_head_dim))
+        # scale 1/sqrt(Dh) is then MLA's 1/sqrt(qk_head_dim)); the padded
+        # columns are trimmed, so their gradient is zero
         v_pad = F.pad(v, (0, m.qk_head_dim - m.v_head_dim))
-        out = ops.attention(q, k, v_pad, causal=True,
-                            window=cfg.sliding_window)
+        if mode == "train":
+            out = blockwise_attention(q, k, v_pad, causal=True,
+                                      window=cfg.sliding_window, scale=scale,
+                                      block_q=cfg.attn_block_q or 512,
+                                      block_k=cfg.attn_block_k or 512)
+        else:
+            out = ops.attention(q, k, v_pad, causal=True,
+                                window=cfg.sliding_window)
         out = out[..., :m.v_head_dim].reshape(B, S, H * m.v_head_dim)
+    else:
+        raise ValueError(f"attention mode {mode!r}: one of train, prefill, "
+                         f"decode")
+    new_cache = None
+    if mode == "prefill":
         W = min(S, cfg.sliding_window) if cfg.sliding_window else S
         cc, rc = c_kv[:, S - W:], k_rope[:, S - W:]
         if cfg.sliding_window and S > W:
@@ -328,11 +470,8 @@ def mla_apply(p, cfg, x, positions, *, mode: str, cache=None,
             cc = torch.roll(cc, shift, dims=1)
             rc = torch.roll(rc, shift, dims=1)
         new_cache = {"c_kv": cc.contiguous(), "k_rope": rc.contiguous()}
-    else:
-        raise NotImplementedError(
-            f"attention mode {mode!r}: the port serves (prefill, decode); "
-            "training comes with the LLM training slice (ROADMAP queue 1, "
-            "item 6.6)")
+    elif mode == "decode":
+        new_cache = cache
     y = layers.dense(p["wo"], out)
     return y, new_cache
 

@@ -15,9 +15,15 @@ every device, where a CUDA `index_add_` would add in no fixed order.
 Decode contracts over k in one product (one rounding), as the reference's
 `moe_decode_apply` does; the two paths round differently there too.
 
-Aux values (the load-balance and z losses, the expert load) are returned
-as the reference returns them; the block keeps them for the training
-slice (ROADMAP queue 1, item 6.6).
+Aux values (the load-balance and z losses, the expert load, which, as
+the reference's `stop_gradient` makes it, carries no gradient) are
+returned as the reference returns them; the blocks sum them over the
+layers for the training loss (`zoo.loss_and_metrics`).  Under autograd
+the dispatch's gather `xf[tok_id]`, its scatter `buf[rows] = gathered`
+and the combine's gather `out[slot]` take the reference's gradients
+(take / scatter-add / gather); on the card their backward adds with
+atomics, so runs compared bit for bit there take
+`torch.use_deterministic_algorithms(True)`.
 """
 from __future__ import annotations
 
@@ -150,7 +156,7 @@ def moe_apply(p, cfg, x):
     ce = F.one_hot(top_e, E).float().sum(dim=(0, 1)) / (T * k)
     aux = {"lb_loss": E * torch.sum(me * ce),
            "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
-           "expert_load": ce}
+           "expert_load": ce.detach()}
     return y.reshape(B, S, d), aux
 
 

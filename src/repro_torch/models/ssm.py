@@ -167,8 +167,8 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
     else:
         raise NotImplementedError(
             f"mamba2 mode {mode!r}: the port serves (prefill, decode); "
-            "training comes with the LLM training slice (ROADMAP queue 1, "
-            "item 6.6)")
+            "training the recurrent blocks comes with ROADMAP queue 1, "
+            "item 6.6b")
     y = layers.rmsnorm(p["norm"], y.to(x.dtype) * layers.silu(z),
                        cfg.norm_eps)
     return layers.dense(p["out_proj"], y), new_state
@@ -267,8 +267,8 @@ def mlstm_apply(p, cfg, x, *, mode: str, state=None):
     else:
         raise NotImplementedError(
             f"mlstm mode {mode!r}: the port serves (prefill, decode); "
-            "training comes with the LLM training slice (ROADMAP queue 1, "
-            "item 6.6)")
+            "training the recurrent blocks comes with ROADMAP queue 1, "
+            "item 6.6b")
 
     def heads(t):
         return t.reshape(Bsz, -1, H, dh).float()
@@ -406,8 +406,8 @@ def slstm_apply(p, cfg, x, *, mode: str, state=None):
     else:
         raise NotImplementedError(
             f"slstm mode {mode!r}: the port serves (prefill, decode); "
-            "training comes with the LLM training slice (ROADMAP queue 1, "
-            "item 6.6)")
+            "training the recurrent blocks comes with ROADMAP queue 1, "
+            "item 6.6b")
 
     h = layers.rmsnorm(p["norm"], hs.reshape(Bsz, -1, d).to(x.dtype),
                        cfg.norm_eps)

@@ -2,8 +2,8 @@
 
 Reference: src/repro/models/transformer.py (`block_pattern`, `num_periods`,
 `_attn_block_init`, `_attn_block_apply`, `_shared_attn_init`,
-`block_init`, `block_apply`, `block_make_cache`, `stack_init`,
-`stack_apply`, `stack_make_cache`, `stack_param_count`).
+`_zero_aux`, `block_init`, `block_apply`, `block_make_cache`,
+`stack_init`, `stack_apply`, `stack_make_cache`, `stack_param_count`).
 
 A model is a repeating `block_pattern` (a period) of typed blocks over
 `num_layers // period` periods, plus optional pre-layers outside the
@@ -11,22 +11,35 @@ periods (DeepSeek-V2's dense layer 0) and Zamba2's parameter-SHARED
 attention block.  Parameters are stacked per position in the period, with
 a leading `nper` axis, as the reference stacks them for its `lax.scan`, so
 converted weights copy over leaf for leaf; `stack_apply` loops over the
-periods in Python.  Caches stack their per-period leaves the same way.
+periods in Python, taking each period's parameters from one `unbind` of
+each stacked leaf (so under autograd each leaf's gradient is stacked
+once, not summed from a full-size gradient a period).  Caches stack their
+per-period leaves the same way.  In train mode, with `cfg.remat` and
+`cfg.scan_layers`, each period runs under `torch.utils.checkpoint` with
+nothing saved inside it, the counterpart of the reference's
+`jax.checkpoint(policy=nothing_saveable)` around its scanned period: the
+backward recomputes the period's forward (one more `flash_attn_fwd` a
+layer).  The pre-layers are not rematerialised, as in the reference.
 
 Block kinds, every one of the reference's: "attn" (pre-norm attention,
 GQA or MLA, then a dense MLP, or a MoE with Arctic's dense residual beside
 it), "mamba" and "mamba+shared_attn" (Zamba2), "mlstm" and "slstm"
 (xLSTM; each a pre-norm residual, x + block(norm(x))).  An unknown kind
-raises ValueError, as in the reference.  The MoE's aux values feed only
-the training loss, which comes with ROADMAP queue 1's item 6.6: the
-blocks drop them.
+raises ValueError, as in the reference.  Every block returns the MoE's
+aux values (the load-balance and z losses, the expert load; zeros for a
+block without a MoE), and `stack_apply` returns their sum over the
+blocks, which the training loss reads.  The recurrent kinds (mamba2,
+mLSTM, sLSTM) do not train yet: their train mode raises naming ROADMAP
+queue 1's item 6.6b.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
-from repro_torch import tree_leaves, tree_map, tree_stack
+from repro_torch import tree_leaves, tree_map, tree_stack, tree_unflatten
 from repro_torch.models import attention, layers, moe, ssm
+
 
 def block_pattern(cfg):
     if cfg.block_pattern:
@@ -70,17 +83,28 @@ def _attn_block_apply(p, cfg, x, positions, *, mode, cache, cache_len,
         positions, mode=mode, cache=cache, cache_len=cache_len)
     x = x + h
     hn = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+    aux = _zero_aux(cfg, x.device)
     if use_moe:
         # the reference's moe_impl "ep" is moe_apply when no mesh is active
         moe_fn = moe.moe_decode_apply if mode == "decode" else (
             moe.moe_apply_ep if cfg.moe_impl == "ep" else moe.moe_apply)
-        mo, _ = moe_fn(p["moe"], cfg, hn)
+        mo, aux = moe_fn(p["moe"], cfg, hn)
         if cfg.moe.dense_residual:
             mo = mo + layers.mlp(p["mlp"], hn, act=cfg.act)
         x = x + mo
     else:
         x = x + layers.mlp(p["mlp"], hn, act=cfg.act)
-    return x, new_cache
+    return x, new_cache, aux
+
+
+def _zero_aux(cfg, device=None):
+    z = dict(dtype=torch.float32, device=device)
+    return {"lb_loss": torch.zeros((), **z), "z_loss": torch.zeros((), **z),
+            "expert_load": torch.zeros((max(cfg.moe.num_experts, 1),), **z)}
+
+
+def _add_aux(acc, aux):
+    return {k: acc[k] + aux[k] for k in acc}
 
 
 # ---------------------------------------------------------------------------
@@ -146,15 +170,16 @@ def block_make_cache(cfg, kind: str, batch: int, max_len: int, dtype,
 
 def block_apply(p, cfg, kind: str, x, positions, *, mode, cache=None,
                 cache_len=None, shared=None, emb0=None, use_moe=False):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux)."""
     if kind == "attn":
         return _attn_block_apply(p, cfg, x, positions, mode=mode, cache=cache,
                                  cache_len=cache_len, use_moe=use_moe)
+    aux = _zero_aux(cfg, x.device)
     if kind == "mamba":
         h, st = ssm.mamba2_apply(p["mamba"], cfg,
                                  layers.rmsnorm(p["norm"], x, cfg.norm_eps),
                                  mode=mode, state=cache)
-        return x + h, st
+        return x + h, st, aux
     if kind == "mamba+shared_attn":
         mcache = cache["mamba"] if cache is not None else None
         acache = cache["attn"] if cache is not None else None
@@ -174,13 +199,13 @@ def block_apply(p, cfg, kind: str, x, positions, *, mode, cache=None,
                            act=cfg.act)
         # per-invocation (unshared) output adapter
         x = x + layers.dense(p["adapter"], g)
-        return x, {"mamba": mst, "attn": ast}
+        return x, {"mamba": mst, "attn": ast}, aux
     if kind in ("mlstm", "slstm"):
         apply = ssm.mlstm_apply if kind == "mlstm" else ssm.slstm_apply
         h, st = apply(p[kind], cfg,
                       layers.rmsnorm(p["norm"], x, cfg.norm_eps),
                       mode=mode, state=cache)
-        return x + h, st
+        return x + h, st, aux
     raise ValueError(kind)
 
 
@@ -272,35 +297,63 @@ def stack_make_cache(cfg, batch: int, max_len: int, dtype, device=None):
     return cache
 
 
+def _periods(tree, nper: int):
+    """[tree of period i's views] for i < nper, from one `unbind(0)` of each
+    stacked leaf (one backward node a leaf, not one full-size gradient a
+    period)."""
+    leaves = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [u[i] for u in leaves]) for i in range(nper)]
+
+
 def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None):
-    """x: (B, S, d) -> (x, new_cache).  'prefill' builds the cache, each
-    leaf stacked over the periods; 'decode' updates `cache` in place and
-    returns it."""
+    """x: (B, S, d) -> (x, new_cache, aux_sum).  'prefill' builds the
+    cache, each leaf stacked over the periods; 'decode' updates `cache` in
+    place and returns it; 'train' builds none (None) and, with cfg.remat
+    and cfg.scan_layers, recomputes each period in the backward.  aux_sum
+    is the blocks' aux values summed in the reference's order."""
     pat = block_pattern(cfg)
     nper = num_periods(cfg)
     shared = p.get("shared")
     emb0 = x if shared is not None else None
+    aux_sum = _zero_aux(cfg, x.device)
     new_cache = {}
     if "pre" in p:
         pre = []
         for i, bp in enumerate(p["pre"]):
             c = cache["pre"][i] if mode == "decode" else None
-            x, nc = block_apply(bp, cfg, "attn", x, positions, mode=mode,
-                                cache=c, cache_len=cache_len)
+            x, nc, aux = block_apply(bp, cfg, "attn", x, positions, mode=mode,
+                                     cache=c, cache_len=cache_len)
+            aux_sum = _add_aux(aux_sum, aux)
             pre.append(nc)
         new_cache["pre"] = pre
+
+    def period(x, aux_acc, params, caches):
+        ncs = []
+        for i, kind in enumerate(pat):
+            x, nc, aux = block_apply(
+                params[i], cfg, kind, x, positions, mode=mode,
+                cache=caches[i], cache_len=cache_len, shared=shared,
+                emb0=emb0, use_moe=_use_moe(cfg, kind))
+            aux_acc = _add_aux(aux_acc, aux)
+            ncs.append(nc)
+        return x, aux_acc, ncs
+
+    remat = mode == "train" and cfg.remat and cfg.scan_layers
+    params = list(zip(*[_periods(t, nper) for t in p["pattern"]]))
     outs = [[] for _ in pat]
     for per in range(nper):
-        for i, kind in enumerate(pat):
-            bp = tree_map(lambda t: t[per], p["pattern"][i])
-            c = (tree_map(lambda t: t[per], cache["pattern"][i])
-                 if mode == "decode" else None)
-            x, nc = block_apply(bp, cfg, kind, x, positions, mode=mode,
-                                cache=c, cache_len=cache_len, shared=shared,
-                                emb0=emb0, use_moe=_use_moe(cfg, kind))
-            if mode != "decode":
+        caches = ([tree_map(lambda t: t[per], c) for c in cache["pattern"]]
+                  if mode == "decode" else [None] * len(pat))
+        if remat:
+            x, aux_sum, _ = torch.utils.checkpoint.checkpoint(
+                period, x, aux_sum, params[per], caches, use_reentrant=False)
+        else:
+            x, aux_sum, ncs = period(x, aux_sum, params[per], caches)
+            for i, nc in enumerate(ncs):
                 outs[i].append(nc)
+    if mode == "train":
+        return x, None, aux_sum
     if mode == "decode":
-        return x, cache
+        return x, cache, aux_sum
     new_cache["pattern"] = [tree_stack(o) for o in outs]
-    return x, new_cache
+    return x, new_cache, aux_sum

@@ -1,12 +1,14 @@
 """Model zoo: full-model init and forward for every LLM architecture.
 
 Reference: src/repro/models/zoo.py (`init_params`, `param_count`,
-`_embed_inputs`, `_project_out`, `forward`, `make_cache`, `pad_cache`).
+`_embed_inputs`, `_project_out`, `forward`, `make_cache`, `pad_cache`,
+`softmax_xent`, `CE_CHUNK`, `chunked_xent`, `loss_and_metrics`).
 
     init_params(cfg, generator, device=None)      -> params tree
-    forward(params, cfg, batch, mode, cache)      -> (logits, new_cache)
+    forward(params, cfg, batch, mode, cache)      -> (logits, new_cache, aux)
     make_cache(cfg, batch_size, max_len, device)  -> cache tree
     pad_cache(cache, extra)                       -> cache, k/v grown
+    loss_and_metrics(params, cfg, batch)          -> (loss, metrics)
     param_count(cfg, active_only=False)           -> analytic N
 
 Batch dict keys (each optional but what the modality reads):
@@ -15,17 +17,24 @@ Batch dict keys (each optional but what the modality reads):
   input_embeds  (B, S, d)        audio: the stub EnCodec front end's frames
   patch_embeds  (B, P, d)        VLM: the stub vision encoder's patches,
                                  prepended to the text embeddings
+  labels        (B, S) or        train: next-token targets over every
+                (B, S, K) ids    position (the VLM's patches too), -1 =
+                                 ignore; an audio model's per codebook
   cache_len     () int64         decode: the count of valid cache entries
 `cache_len` is a 0-dim int64 tensor on the device (a Python int is moved
 there), as the reference's is a traced value, so one decode step serves
 every position and a CUDA graph of it can be replayed with the position
 in a static buffer.  An audio model's logits are (B, S, K, V), one row a
-codebook.  Training (the loss and its chunked cross entropy) comes with
-ROADMAP queue 1's item 6.6.
+codebook.  The training loss projects and reduces the logits a chunk of
+positions at a time, each chunk under `torch.utils.checkpoint`, so only
+one (B, chunk, V) fp32 tile of logits lives at a time (the reference's
+`jax.checkpoint` per chunk of its scan).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import as_generator, resolve_device
 from repro_torch.models import layers, moe, transformer
@@ -139,19 +148,21 @@ def _project_out(p, cfg, h):
     return layers.dense(p["unembed"], h)[..., :cfg.vocab_size]
 
 
-def forward(params, cfg, batch, *, mode: str, cache=None,
+def forward(params, cfg, batch, *, mode: str = "train", cache=None,
             logits_positions: str = "all"):
-    """Returns (logits, new_cache).  mode 'prefill' fills a cache for the
-    prompt; 'decode' runs one token per sequence against `cache` (updated
-    in place).  logits_positions='last' projects only the final position."""
+    """Returns (logits, new_cache, aux), aux the MoE's aux values summed
+    over the blocks.  mode 'train' builds no cache (None); 'prefill' fills
+    a cache for the prompt; 'decode' runs one token per sequence against
+    `cache` (updated in place).  logits_positions='last' projects only the
+    final position."""
     h, positions = _embed_inputs(params, cfg, batch)
-    h, new_cache = transformer.stack_apply(
+    h, new_cache, aux = transformer.stack_apply(
         params["stack"], cfg, h, positions, mode=mode, cache=cache,
         cache_len=cache_len_tensor(batch, h.device))
     h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if logits_positions == "last":
         h = h[:, -1:]
-    return _project_out(params, cfg, h), new_cache
+    return _project_out(params, cfg, h), new_cache, aux
 
 
 def make_cache(cfg, batch_size: int, max_len: int, device=None):
@@ -182,3 +193,77 @@ def pad_cache(cache, extra: int):
         shape[ax] = extra
         return torch.cat([tree, tree.new_zeros(shape)], dim=ax)
     return walk(cache)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _label_nll(logits, labels, ignore: int = -1):
+    """(sum of the log-likelihoods of the non-ignored labels, their count),
+    fp32.  labels: logits' shape without the vocab axis."""
+    mask = (labels != ignore).to(torch.float32)
+    safe = torch.clamp(labels, min=0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (ll * mask).sum(), mask.sum()
+
+
+def softmax_xent(logits, labels, ignore: int = -1):
+    """Mean cross entropy over the non-ignored labels, fp32."""
+    ll, n = _label_nll(logits, labels, ignore)
+    return -ll / torch.clamp(n, min=1.0)
+
+
+CE_CHUNK = 512
+
+
+def chunked_xent(params, cfg, h, labels, *, chunk: int = CE_CHUNK):
+    """The projection and cross entropy a chunk of positions at a time: the
+    (B, S, vocab) fp32 logits are never whole.  Each chunk runs in
+    `torch.utils.checkpoint`, which keeps its inputs only, so under
+    autograd its logits are projected again in the backward.  A ragged last chunk is
+    padded with ignored labels, as the reference pads it."""
+    S = h.shape[1]
+    chunk = min(chunk, S)
+    nch = -(-S // chunk)
+    pad = nch * chunk - S
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        widths = (0, 0) * (labels.ndim - 2) + (0, pad)
+        labels = F.pad(labels, widths, value=-1)
+
+    def body(h_c, lab_c):
+        return _label_nll(_project_out(params, cfg, h_c), lab_c)
+
+    nll = h.new_zeros((), dtype=torch.float32)
+    cnt = h.new_zeros((), dtype=torch.float32)
+    for c in range(nch):
+        h_c = h[:, c * chunk:(c + 1) * chunk]
+        lab_c = labels[:, c * chunk:(c + 1) * chunk]
+        ll, n = torch.utils.checkpoint.checkpoint(body, h_c, lab_c,
+                                                  use_reentrant=False)
+        nll, cnt = nll - ll, cnt + n
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def loss_and_metrics(params, cfg, batch, *, mode: str = "train"):
+    """(loss, {"ce", "loss"} and, for a MoE config, "lb_loss" and
+    "z_loss"): the chunked cross entropy plus router_aux_weight · lb_loss
+    + router_z_weight · z_loss for a MoE."""
+    labels = batch["labels"]
+    h, positions = _embed_inputs(params, cfg, batch)
+    h, _, aux = transformer.stack_apply(
+        params["stack"], cfg, h, positions, mode=mode, cache=None,
+        cache_len=cache_len_tensor(batch, h.device))
+    h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    ce = chunked_xent(params, cfg, h, labels,
+                      chunk=cfg.ce_chunk or CE_CHUNK)
+    loss = ce
+    metrics = {"ce": ce}
+    if cfg.is_moe:
+        loss = loss + cfg.moe.router_aux_weight * aux["lb_loss"] \
+            + cfg.moe.router_z_weight * aux["z_loss"]
+        metrics.update(lb_loss=aux["lb_loss"], z_loss=aux["z_loss"])
+    metrics["loss"] = loss
+    return loss, metrics

@@ -352,7 +352,7 @@ def test_graphed_decode_step_equals_eager_on_cuda(cuda_device, zamba2):
 def zoo_decode(params, tok, cache_len, cache):
     """One eager greedy decode step, never captured."""
     with torch.no_grad():
-        logits, cache = zoo.forward(params, ZCFG,
+        logits, cache, _ = zoo.forward(params, ZCFG,
                                     {"tokens": tok[:, None],
                                      "cache_len": cache_len},
                                     mode="decode", cache=cache)
