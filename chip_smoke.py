@@ -347,7 +347,7 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              the CPU port, prefill 512 and 8 decode steps
                              fed the CPU's tokens within rtol/atol 1e-3;
                              the phase's seconds.
-  9. llm train  the attention blocks' train mode, deterministic algorithms
+  9. llm train  every architecture's train mode, deterministic algorithms
                 on (TF32 off): flash_attn_fwd's logsumexp at Llama-3.2-1B's
                 (4, 2048, 32, 8, 64) in bf16 and fp32 and DeepSeek-V2's
                 MLA (1, 2048, 128, 128, 192) in bf16 within LSE_BAR of the
@@ -371,7 +371,37 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 parameters) in bf16: one loss_and_metrics forward and
                 backward at B=1, S=2048, ce, lb_loss, z_loss and every
                 gradient finite, exactly 3 flash launches at Dh=192, ms
-                and peak memory; the phase's seconds.
+                and peak memory; the SSD scan's autograd Function
+                (`ssm._ssd_chunked`) at Zamba2's (4, 2048, 80, 64, 64,
+                256) and at a three-chunk shape, fp32 and bf16: its
+                forward == ssd_scan bit for bit, its backward (the plain
+                fp32 recompute) == autograd through ssd_chunked_ref in fp32
+                bit for bit and within 2e-2 of the largest |gradient| in
+                bf16, every gradient finite though a chunk's dt |a| passes
+                the ~88 at which the reference's backward gives NaN, its ms
+                and the memory it holds; Zamba2-2.7B at full width cut to
+                2 of 9 periods (12 mamba layers, 2 shared-attention calls,
+                0.77 B parameters) in bf16, B=4, S=2048: 4 steps of
+                make_scan_train_step, exactly 96 ssd_scan and 16 flash
+                launches, losses finite and falling, a step's ms, tokens/s,
+                peak memory; its fp32 twin at 1 period, B=2, S=512, card
+                against the CPU (loss within rtol 1e-5, every leaf within
+                the INL step's bar); xLSTM-125M at its full config in
+                bf16, B=4, S=512 (two checkpointed 256-step chunks): 2
+                steps, no kernel, losses finite, ms a step, peak memory;
+                its fp32 twin at 1 period, B=2, S=128, card against the
+                CPU; INL over Llama-3.2-1B at full width, 3 layers (4
+                encoders of 2, a 1-layer decoder), d_b=512, link_bits=4
+                (the packed wire), bf16, B=2, S=2048: 2 steps of
+                make_scan_train_step(scheme="inl") with AdamW without its
+                fp32 master copy (with it, the update outgrows the card
+                after the earlier phases), exactly one cut_fwd,
+                cut_bwd, pack and unpack_dequant a step and 36 flash
+                launches, losses finite, ms a step, peak memory (and a
+                forward and backward's alone); INL over the Llama smoke
+                config in fp32 at link_bits 16, 8, 4 and 4 with learned
+                priors, card against the CPU with their launches; the
+                phase's seconds.
 
 The line before the last two is {"kernels": [...]} (flash_attn_fwd's
 Dh=192 instance in an entry of its own, with DeepSeek-V2's launches; the
@@ -384,7 +414,10 @@ every cut-layer kernel's counts in the graphed runs,
 `launches_on_transport`; the flash entry's counts in the train runs,
 `launches_on_train`, its lse error, `lse_max_abs_err`, and the
 attention backward's ms on the train path's shapes,
-`train_backward_ms`),
+`train_backward_ms`; ssd_scan's counts in Zamba2's train run,
+`launches_on_train`, and the plain SSD backward's ms,
+`train_backward_ms`; the cut-layer and wire kernels' counts in INL over
+an LLM, `launches_on_inl_llm`),
 the one before the last
 nvidia-smi's name and power limit, and the last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -397,7 +430,8 @@ launches by name with its time), and no result line; with --decode-times
 it builds the two LLM kernels and prints only Zamba2-2.7B's decode
 latency per token (phase 8's `llm decode latency` and graphed decode
 lines, seeded weights), and no result line; with --llm-train it builds
-flash_attn_fwd and runs only phase 9, and no result line.  Either times
+the two LLM kernels and the cut-layer kernels and runs only phase 9, and
+no result line.  Either times
 the checkout it sits in: to compare two checkouts on one card, copy it into both and run
 them in turns, one after another on the same card.
 """
@@ -488,6 +522,27 @@ LLM_TRAIN_BATCH = (4, 2048)         # Llama's full-width train step, B x S
 LLM_TRAIN_STEPS = 8
 LLM_TRAIN_CPU_LAYERS = 2            # Llama's fp32 card-vs-CPU step
 LLM_TRAIN_CPU_BATCH = (2, 256)
+# the recurrent blocks' train mode and INL over an LLM (`llm train`):
+# the SSD scan's autograd Function on (label, (B, S, H, P, N, chunk)):
+# Zamba2-2.7B's full shape, and one with three chunks
+SSD_TRAIN_CASES = (("Zamba2-2.7B", (4, 2048, 80, 64, 64, 256)),
+                   ("nc=3", (2, 768, 16, 64, 64, 256)))
+ZAMBA_TRAIN_PERIODS = 2             # of 9: 12 of 54 layers, ~0.77 B params
+ZAMBA_TRAIN_BATCH = (4, 2048)
+ZAMBA_TRAIN_STEPS = 4
+ZAMBA_CPU_BATCH = (2, 512)          # one period in fp32: two SSD chunks
+XLSTM_TRAIN_BATCH = (4, 512)        # two 256-step checkpointed chunks
+XLSTM_TRAIN_STEPS = 2
+XLSTM_CPU_BATCH = (2, 128)          # one period in fp32
+INL_LLM_LAYERS = 3                  # Llama-3.2-1B: 2 encoder layers, 1 dec
+INL_LLM_BITS = 4                    # the packed wire
+INL_LLM_BATCH = (2, 2048)
+INL_LLM_STEPS = 2
+INL_CPU_BITS = (16, 8, 4)           # smoke width, fp32, card vs CPU
+# the cut-layer and wire kernels INL over an LLM launches at link_bits < 8
+INL_LLM_KERNELS = ("cut_fwd", "cut_bwd", "pack", "unpack_dequant")
+INL_LLM_RUN = f"inl over llama3.2-1b {INL_LLM_STEPS} steps"
+LOSS_RTOL = 1e-5                    # an fp32 train loss, card vs CPU
 # graph_ms of the first, SIMT (fp32 FMA) kernels at the bf16 shapes of
 # llm_kernel_timing, (kernel, S) -> ms: the final chip_smoke.py run that
 # measured them on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
@@ -6277,89 +6332,17 @@ def llm_card_vs_cpu(torch, card_line):
 
 
 def llama_train_run(torch, card_line):
-    """Llama-3.2-1B at its full config in bf16 (tied embeddings, remat on):
-    `make_scan_train_step` with `default_optimizer(cfg, total_steps=8)`
-    over LLM_TRAIN_STEPS Markov batches of B x S, launches set to 0 just
-    before and read just after (exactly a forward and a recompute a layer a
-    step); every loss finite, the last below the first; then one step's
-    ms (CUDA events, median of 3 `make_train_step` calls), the forward's
-    share (one `loss_and_metrics` with grad, no backward), tokens/s and
-    peak memory.  Returns (launches, {metric: value})."""
-    from repro_torch import tree_leaves, tree_unflatten
-    from repro_torch.launch import steps
-    from repro_torch.models import zoo
-    t0 = time.perf_counter()
+    """Llama-3.2-1B at its full config in bf16 (tied embeddings, remat on),
+    LLM_TRAIN_STEPS steps at LLM_TRAIN_BATCH (`train_run`): exactly a
+    forward and a recompute a layer a step, the forward's share of a
+    step.  Returns (flash launches, {metric: value})."""
     cfg = attn_model("llama3.2-1b")
-    B, S = LLM_TRAIN_BATCH
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params = zoo.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
-                             device=DEV)
-    opt = steps.default_optimizer(cfg, total_steps=LLM_TRAIN_STEPS)
-    opt_state = opt.init(params)
-    batches = lm_batches_on(torch, cfg, B, S, LLM_TRAIN_STEPS, 0)
-    epoch = steps.make_scan_train_step(cfg, opt)
-    torch.cuda.synchronize()
-    reset_launches()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t1 = time.perf_counter()
-    start.record()
-    params, opt_state, ms = epoch(params, opt_state, batches)
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    launches = read_launches()
-    epoch_ms = start.elapsed_time(end)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    losses = ms["loss"].tolist()
-    want = 2 * cfg.num_layers * LLM_TRAIN_STEPS
-    expect_launches(launches, {"flash_attn_fwd": want},
-                    f"Llama-3.2-1B, {LLM_TRAIN_STEPS} train steps (a "
-                    f"forward and a recompute a layer)")
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"Llama-3.2-1B train losses {losses}")
-    check(bool(torch.isfinite(ms["grad_norm"]).all()),
-          f"grad_norm {ms['grad_norm'].tolist()}")
-    step = steps.make_train_step(cfg, opt)
-    batch = {k: v[0] for k, v in batches.items()}
-    box = [params, opt_state]
-
-    def one():
-        box[0], box[1], _ = step(box[0], box[1], batch)
-    step_ms = statistics.median(cuda_ms(torch, one, reps=1, warmup=0)
-                                for _ in range(3))
-
-    def fwd():
-        # the forward as the train step runs it: under autograd, the
-        # periods' inputs saved for the recompute
-        leaves = [t.detach().requires_grad_(True)
-                  for t in tree_leaves(box[0])]
-        return zoo.loss_and_metrics(tree_unflatten(box[0], leaves), cfg,
-                                    batch)[0]
-    fwd_ms = cuda_ms(torch, fwd, reps=1, warmup=1)
-    peak_all = torch.cuda.max_memory_allocated() / 2 ** 30
-    tok_s = B * S / (step_ms / 1e3)
-    print(f"llm train: Llama-3.2-1B (bf16, full config, "
-          f"{zoo.param_count(cfg)} parameters, remat on) "
-          f"make_scan_train_step over {LLM_TRAIN_STEPS} Markov batches of "
-          f"B={B} S={S}, default_optimizer: losses "
-          f"{[round(x, 4) for x in losses]}; flash_attn_fwd launched "
-          f"{launches['flash_attn_fwd']} times (2 x {cfg.num_layers} layers "
-          f"x {LLM_TRAIN_STEPS} steps); the {LLM_TRAIN_STEPS} steps "
-          f"{epoch_ms:.1f} ms (CUDA events), {wall:.2f} s wall; peak memory "
-          f"{peak:.2f} GiB; a step {step_ms:.1f} ms (median of 3, CUDA "
-          f"events), {tok_s:.0f} tokens/s, its forward with grad "
-          f"{fwd_ms:.1f} ms (the backward and update {step_ms - fwd_ms:.1f} "
-          f"ms, {(step_ms - fwd_ms) / step_ms:.3f} of the step); peak "
-          f"memory with the timed steps {peak_all:.2f} GiB; "
-          f"{time.perf_counter() - t0:.1f} s [{card_line}]")
-    del params, opt_state, box, batches, batch
-    torch.cuda.empty_cache()
-    return launches["flash_attn_fwd"], {
-        "step_ms": step_ms, "tokens_per_s": tok_s, "peak_gib": peak,
-        "fwd_ms": fwd_ms, "epoch_ms": epoch_ms}
+    launches, metrics = train_run(
+        torch, cfg, *LLM_TRAIN_BATCH, LLM_TRAIN_STEPS,
+        "Llama-3.2-1B (full config)", card_line,
+        want={"flash_attn_fwd": 2 * cfg.num_layers * LLM_TRAIN_STEPS},
+        forward_share=True)
+    return launches["flash_attn_fwd"], metrics
 
 
 def deepseek_train_check(torch, card_line):
@@ -6417,6 +6400,404 @@ def deepseek_train_check(torch, card_line):
     return launches["flash_attn_fwd"], ms
 
 
+def ssd_train_check(torch, card_line):
+    """The SSD scan's autograd Function (`ssm._ssd_chunked`) on the card,
+    on SSD_TRAIN_CASES in fp32 and bf16: the forward == `ops.ssd_scan`
+    (the kernel) bit for bit; the backward against autograd through the
+    plain `ssd_chunked_ref` on the card, recomputed in fp32: fp32 bit for
+    bit, bf16 (the kernel's bf16 forward, bf16 gradients) within BF16_BAR
+    of the largest |gradient|; the plain backward's ms a call (CUDA
+    events: the fp32 recompute and its autograd, which is what the
+    Function's backward runs) and the memory it holds beyond its inputs.
+    The draws' dt |a| summed over a chunk passes the ~88 at which exp
+    overflows above the diagonal: every gradient must be finite (the
+    reference's arithmetic gives NaN there; the port masks before the
+    exp).  Returns {case: backward ms}."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ssm
+    bwd_ms = {}
+    for label, (B, S, H, P, N, L) in SSD_TRAIN_CASES:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            ins = ssd_inputs(torch, B, S, H, P, N, dtype, S + N + 3)
+            gen = torch.Generator(device=DEV).manual_seed(S + 1)
+            gy = torch.randn((B, S, H, P), generator=gen,
+                             device=DEV).to(dtype)
+            gs = torch.randn((B, H, N, P), generator=gen, device=DEV)
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            dA = (ins[1] * ins[2]).reshape(B, S // L, L, H).sum(dim=2)
+            worst = float(-dA.min())
+            out = ssm._ssd_chunked(*leaves, chunk=L)
+            want = ops.ssd_scan(*ins, chunk=L)
+            check(torch.equal(out[0], want[0])
+                  and torch.equal(out[1], want[1]),
+                  f"SSD Function {label} {dname}: forward != ssd_scan")
+            del want
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            grads = torch.autograd.grad(out, leaves, (gy, gs))
+            torch.cuda.synchronize()
+            held = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            del out
+            f32 = [t.detach().float().requires_grad_(True) for t in ins]
+
+            def plain_bwd():
+                outs = ref.ssd_chunked_ref(*f32, chunk=L)
+                return torch.autograd.grad(outs, f32, (gy.float(), gs))
+            plain = plain_bwd()
+            errs = []
+            for name, g, w in zip(("x", "dt", "a", "bm", "cm", "dskip"),
+                                  grads, plain):
+                check(g.dtype == ins[len(errs)].dtype,
+                      f"SSD Function: d{name} in {g.dtype}")
+                check(bool(torch.isfinite(g).all()),
+                      f"SSD Function {label} {dname}: d{name} not finite")
+                if dtype == torch.float32:
+                    check(torch.equal(g, w), f"SSD Function {label}: fp32 "
+                                             f"d{name} != autograd through "
+                                             f"ssd_chunked_ref")
+                    errs.append(0.0)
+                else:
+                    top = float(w.abs().max())
+                    err = float((g.float() - w).abs().max())
+                    check(err <= BF16_BAR * top,
+                          f"SSD Function {label}: bf16 d{name} {err} > "
+                          f"{BF16_BAR} x {top}")
+                    errs.append(err / top)
+            del grads, plain
+            ms = cuda_ms(torch, plain_bwd, reps=3, warmup=1)
+            if dtype == torch.float32:
+                bwd_ms[label] = ms
+            print(f"llm train: SSD Function {label} (B, S, H, P, N, chunk) "
+                  f"= {(B, S, H, P, N, L)} {dname}: forward == ssd_scan bit "
+                  f"for bit; backward "
+                  + ("== autograd through ssd_chunked_ref bit for bit"
+                     if dtype == torch.float32 else
+                     f"within {max(errs):.3g} of the largest |gradient| of "
+                     f"the plain fp32 one (bar {BF16_BAR})")
+                  + f", every gradient finite at a chunk's dt |a| up to "
+                    f"{worst:.1f}; the plain backward (fp32 recompute + "
+                    f"autograd) {ms:.3f} ms a call, {held:.2f} GiB held "
+                    f"beyond its inputs [{card_line}]")
+            del ins, leaves, f32, gy, gs
+            torch.cuda.empty_cache()
+    return bwd_ms
+
+
+def loss_close(l_gpu, l_cpu, what):
+    check(abs(l_gpu - l_cpu) <= LOSS_RTOL * abs(l_cpu),
+          f"{what}: loss card {l_gpu} vs cpu {l_cpu} (rtol {LOSS_RTOL})")
+
+
+def zoo_card_vs_cpu(torch, cfg, B, S, what, card_line):
+    """One set of seeded fp32 weights of `cfg` on the card and on the CPU:
+    `zoo.loss_and_metrics`' loss within LOSS_RTOL and every gradient leaf
+    within the INL step's bar (`grads_close`).  Returns the card's
+    launches."""
+    from repro_torch import tree_leaves, tree_map, value_and_grad
+    from repro_torch.models import zoo
+    cpu = zoo.init_params(cfg, 13, device="cpu")
+    gpu = tree_map(lambda t: t.to(DEV), cpu)
+    batch = {k: v[0] for k, v in lm_batches_on(torch, cfg, B, S, 1,
+                                                14).items()}
+    reset_launches()
+    l_gpu, _, g_gpu = value_and_grad(
+        lambda p: zoo.loss_and_metrics(p, cfg, batch), gpu)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    l_cpu, _, g_cpu = value_and_grad(
+        lambda p: zoo.loss_and_metrics(
+            p, cfg, {k: v.cpu() for k, v in batch.items()}), cpu)
+    loss_close(float(l_gpu), float(l_cpu), what)
+    max_leaf, max_abs, off = grads_close(float(l_gpu), float(l_cpu),
+                                         tree_leaves(g_gpu),
+                                         tree_leaves(g_cpu), what)
+    print(f"llm train: {what}, fp32, B={B} S={S}: loss card "
+          f"{float(l_gpu):.7f} cpu {float(l_cpu):.7f} (rtol {LOSS_RTOL}); "
+          f"every gradient leaf within rtol 1e-3 atol 1e-5 as a tensor, "
+          f"largest |card - cpu| / |cpu| of a leaf {max_leaf:.3g}, largest "
+          f"entry difference {max_abs:.3g} ({off} entries outside the bar "
+          f"entry by entry); launches {_nonzero(launches)} [{card_line}]")
+    return launches
+
+
+def train_run(torch, cfg, B, S, n_steps, what, card_line, *, want,
+              time_steps=True, falling=True, forward_share=False):
+    """`cfg` at B x S: `make_scan_train_step` with
+    `default_optimizer(cfg, total_steps=n_steps)` over n_steps Markov
+    batches, launches set to 0 just before and read just after (== `want`);
+    every loss finite and, with falling, the last below the first; the
+    steps' ms (CUDA events) and peak memory; with time_steps, one step's
+    ms (median of 3 `make_train_step` calls) and tokens/s, else the
+    scan's ms a step; with forward_share, the ms of the forward as the
+    step runs it (with grad, the periods' inputs saved for the recompute).
+    Returns (launches, {metric: value})."""
+    from repro_torch import tree_leaves, tree_unflatten
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = zoo.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             device=DEV)
+    opt = steps.default_optimizer(cfg, total_steps=n_steps)
+    opt_state = opt.init(params)
+    batches = lm_batches_on(torch, cfg, B, S, n_steps, 0)
+    epoch = steps.make_scan_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, opt_state, ms = epoch(params, opt_state, batches)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    epoch_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = ms["loss"].tolist()
+    expect_launches(launches, want, f"{what}, {n_steps} train steps")
+    check(all(np.isfinite(losses)) and (losses[-1] < losses[0]
+                                        or not falling),
+          f"{what} train losses {losses}")
+    check(bool(torch.isfinite(ms["grad_norm"]).all()),
+          f"{what} grad_norm {ms['grad_norm'].tolist()}")
+    step_ms, fwd_ms = epoch_ms / n_steps, None
+    if time_steps:
+        step = steps.make_train_step(cfg, opt)
+        batch = {k: v[0] for k, v in batches.items()}
+        box = [params, opt_state]
+
+        def one():
+            box[0], box[1], _ = step(box[0], box[1], batch)
+        step_ms = statistics.median(cuda_ms(torch, one, reps=1, warmup=0)
+                                    for _ in range(3))
+
+        def fwd():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(box[0])]
+            return zoo.loss_and_metrics(tree_unflatten(box[0], leaves), cfg,
+                                        batch)[0]
+        if forward_share:
+            fwd_ms = cuda_ms(torch, fwd, reps=1, warmup=1)
+        params, opt_state = box
+        del box, batch
+    tok_s = B * S / (step_ms / 1e3)
+    print(f"llm train: {what} ({cfg.dtype}, {zoo.param_count(cfg)} "
+          f"parameters, remat {'on' if cfg.remat else 'off'}) "
+          f"make_scan_train_step over {n_steps} Markov batches of B={B} "
+          f"S={S}, default_optimizer: losses "
+          f"{[round(x, 4) for x in losses]}; launches {_nonzero(launches)}; "
+          f"the {n_steps} steps {epoch_ms:.1f} ms (CUDA events); a step "
+          f"{step_ms:.1f} ms ("
+          + ("median of 3 make_train_step calls" if time_steps
+             else "the scan's mean") + "), "
+          + ("" if fwd_ms is None else
+             f"its forward with grad {fwd_ms:.1f} ms (the backward and "
+             f"update {(step_ms - fwd_ms) / step_ms:.3f} of the step), ")
+          + f"{tok_s:.0f} tokens/s; peak "
+          f"memory {peak:.2f} GiB (the scan), "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB with the "
+          f"timed steps; {time.perf_counter() - t0:.1f} s [{card_line}]")
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms, "tokens_per_s": tok_s,
+                      "peak_gib": peak, "epoch_ms": epoch_ms,
+                      "fwd_ms": fwd_ms}
+
+
+def zamba_train_check(torch, card_line):
+    """Zamba2-2.7B at its published widths cut to ZAMBA_TRAIN_PERIODS of
+    its 9 periods, bf16, trained ZAMBA_TRAIN_STEPS steps: ssd_scan exactly
+    twice a mamba layer a step (the forward and the period's recompute;
+    the Function's backward recomputes in plain torch) and flash_attn_fwd
+    twice a shared-attention call a step; then its fp32 twin at one period
+    on the card against the CPU.  Returns (launches, metrics)."""
+    import dataclasses
+    per = len(zamba2(torch).block_pattern)
+    cfg = zamba2(torch, num_layers=ZAMBA_TRAIN_PERIODS * per)
+    n_mamba = cfg.num_layers
+    n_shared = ZAMBA_TRAIN_PERIODS
+    want = {"ssd_scan": 2 * n_mamba * ZAMBA_TRAIN_STEPS,
+            "flash_attn_fwd": 2 * n_shared * ZAMBA_TRAIN_STEPS}
+    launches, metrics = train_run(
+        torch, cfg, *ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_STEPS,
+        f"Zamba2-2.7B at full width, {ZAMBA_TRAIN_PERIODS} of 9 periods "
+        f"({n_mamba} of 54 mamba layers, {n_shared} shared-attention "
+        f"calls)", card_line, want=want)
+    twin = dataclasses.replace(zamba2(torch, num_layers=per),
+                               dtype="float32")
+    zoo_card_vs_cpu(torch, twin, *ZAMBA_CPU_BATCH,
+                    "Zamba2-2.7B at full width, 1 period", card_line)
+    return launches, metrics
+
+
+def xlstm_train_check(torch, card_line):
+    """xLSTM-125M at its full config in bf16, XLSTM_TRAIN_STEPS steps at
+    B x S = XLSTM_TRAIN_BATCH (two checkpointed 256-step chunks), no
+    kernel launched, the losses finite (two steps, one of them in the
+    warmup, need not fall); then its fp32 twin at one period and a short S on
+    the card against the CPU.  Returns metrics."""
+    import dataclasses
+    cfg = attn_model("xlstm-125m")
+    _, metrics = train_run(torch, cfg, *XLSTM_TRAIN_BATCH, XLSTM_TRAIN_STEPS,
+                           "xLSTM-125M (full config)", card_line, want={},
+                           time_steps=False, falling=False)
+    twin = dataclasses.replace(attn_model("xlstm-125m", XLSTM_PERIOD),
+                               dtype="float32")
+    zoo_card_vs_cpu(torch, twin, *XLSTM_CPU_BATCH,
+                    "xLSTM-125M, 1 period", card_line)
+    return metrics
+
+
+def inl_cfg(cfg, **inl):
+    import dataclasses
+    return dataclasses.replace(cfg, inl=dataclasses.replace(cfg.inl, **inl))
+
+
+def inl_llm_train_run(torch, card_line):
+    """INL over Llama-3.2-1B at its published widths, num_layers cut to
+    INL_LLM_LAYERS (J = 4 encoders of 2 layers, a 1-layer decoder, d_b =
+    512), bf16, link_bits INL_LLM_BITS (the packed wire): INL_LLM_STEPS
+    steps of `make_scan_train_step(scheme="inl")` drawing from a
+    generator, launches set to 0 just before and read just after: one
+    cut_fwd, cut_bwd, pack and unpack_dequant a step, flash_attn_fwd a
+    forward and a recompute a layer a node and the decoder's; losses
+    finite; ms a step and peak memory.  The optimizer is
+    `default_optimizer`'s AdamW (its schedule, weight decay and clipping)
+    without the fp32 master copy: over 2.14 B parameters the functional
+    update holds the old and the new state at once, ~30 B a parameter
+    with the master copy, ~26 without, and with the master copy the
+    update ran the card out of memory after the script's earlier phases.
+    Returns (launches, metrics)."""
+    from repro_torch import optim, tree_leaves, value_and_grad
+    from repro_torch.core import inl_llm
+    from repro_torch.launch import steps
+    t0 = time.perf_counter()
+    cfg = inl_cfg(attn_model("llama3.2-1b", INL_LLM_LAYERS),
+                  link_bits=INL_LLM_BITS)
+    J, d_b = cfg.inl.num_nodes, cfg.inl.d_bottleneck
+    B, S = INL_LLM_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = inl_llm.init(cfg, torch.Generator(device=DEV).manual_seed(0),
+                          device=DEV)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = optim.adamw(
+        optim.warmup_cosine_schedule(3e-4, INL_LLM_STEPS // 10 + 1,
+                                     INL_LLM_STEPS),
+        weight_decay=0.1, clip_norm=1.0, keep_master=False)
+    opt_state = opt.init(params)
+    batches = lm_batches_on(torch, cfg, B, S, INL_LLM_STEPS, 3)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    epoch = steps.make_scan_train_step(cfg, opt, scheme="inl")
+    torch.cuda.synchronize()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, opt_state, ms = epoch(params, opt_state, batches, gen)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    epoch_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    enc_layers = inl_llm.encoder_cfg(cfg).num_layers
+    dec_layers = inl_llm.decoder_cfg(cfg).num_layers
+    want = {k: INL_LLM_STEPS for k in INL_LLM_KERNELS}
+    want["flash_attn_fwd"] = 2 * (J * enc_layers + dec_layers) \
+        * INL_LLM_STEPS
+    expect_launches(launches, want, "INL over Llama-3.2-1B")
+    losses = ms["loss"].tolist()
+    check(all(np.isfinite(losses)), f"INL over Llama losses {losses}")
+    step_ms = epoch_ms / INL_LLM_STEPS
+    # the forward and backward alone, without the optimizer's update
+    batch = {k: v[0] for k, v in batches.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, grads = value_and_grad(
+        lambda p: inl_llm.loss_fn(p, cfg, batch, gen), params)
+    torch.cuda.synchronize()
+    peak_fwd_bwd = torch.cuda.max_memory_allocated() / 2 ** 30
+    del grads, batch
+    print(f"llm train: INL over Llama-3.2-1B at full width, {J} encoders "
+          f"of {enc_layers} layers, a {dec_layers}-layer decoder, d_b={d_b}, "
+          f"link_bits={cfg.inl.link_bits} (packed wire), bf16, {n_params} "
+          f"parameters: {INL_LLM_STEPS} steps of make_scan_train_step("
+          f"scheme='inl') at B={B} S={S}, AdamW (default_optimizer's "
+          f"schedule, no fp32 master copy): losses "
+          f"{[round(x, 4) for x in losses]}, ce_joint "
+          f"{[round(x, 4) for x in ms['ce_joint'].tolist()]}, rate_mean "
+          f"{[round(x, 3) for x in ms['rate_mean'].tolist()]}; launches "
+          f"{_nonzero(launches)} (one cut layer over all {J} x {B} x {S} "
+          f"rows a step); {step_ms:.1f} ms a step (CUDA events, the "
+          f"scan's mean), {B * S / step_ms * 1e3:.0f} tokens/s; peak "
+          f"memory {peak:.2f} GiB (AdamW's update), a forward and backward "
+          f"alone {peak_fwd_bwd:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms, "peak_gib": peak,
+                      "peak_fwd_bwd_gib": peak_fwd_bwd}
+
+
+def inl_llm_card_vs_cpu(torch, card_line):
+    """INL over the Llama-3.2-1B smoke config in fp32 (J = 2, one encoder
+    and one decoder layer) at link_bits INL_CPU_BITS, and at 4 with
+    learned priors: one set of weights and draws made on the CPU, the loss
+    within LOSS_RTOL and every gradient leaf within `grads_close`'s bar,
+    card against CPU.  Returns {run: launches}."""
+    import dataclasses
+    from repro_torch import tree_leaves, tree_map, value_and_grad
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core import inl_llm
+    base = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                               dtype="float32")
+    runs = [(f"link_bits={b}", inl_cfg(base, link_bits=b))
+            for b in INL_CPU_BITS]
+    runs.append(("link_bits=4, learned priors",
+                 inl_cfg(base, link_bits=4, learned_prior=True)))
+    B, S = 2, 64
+    out = {}
+    for label, cfg in runs:
+        cpu = inl_llm.init(cfg, 21, device="cpu")
+        if cfg.inl.learned_prior:
+            gen = torch.Generator().manual_seed(22)
+            cpu = cpu._replace(priors={
+                k: 0.1 * torch.randn(v.shape, generator=gen)
+                for k, v in cpu.priors.items()})
+        gpu = tree_map(lambda t: t.to(DEV), cpu)
+        noise, eps = inl_llm.draw_noise(
+            cfg, torch.Generator().manual_seed(23), B, S)
+        batch = {k: v[0] for k, v in lm_batches_on(torch, cfg, B, S, 1,
+                                                    24).items()}
+        reset_launches()
+        l_gpu, _, g_gpu = value_and_grad(
+            lambda p: inl_llm.loss_fn(p, cfg, batch, noise=noise.to(DEV),
+                                      eps=eps.to(DEV)), gpu)
+        torch.cuda.synchronize()
+        out[label] = read_launches()
+        l_cpu, _, g_cpu = value_and_grad(
+            lambda p: inl_llm.loss_fn(
+                p, cfg, {k: v.cpu() for k, v in batch.items()},
+                noise=noise, eps=eps), cpu)
+        loss_close(float(l_gpu), float(l_cpu), f"INL smoke {label}")
+        max_leaf, max_abs, off = grads_close(
+            float(l_gpu), float(l_cpu), tree_leaves(g_gpu),
+            tree_leaves(g_cpu), f"INL smoke {label}")
+        print(f"llm train: INL over the Llama-3.2-1B smoke config, fp32, "
+              f"{label}, B={B} S={S}: loss card {float(l_gpu):.7f} cpu "
+              f"{float(l_cpu):.7f}; every gradient leaf within rtol 1e-3 "
+              f"atol 1e-5 as a tensor, largest |card - cpu| / |cpu| of a "
+              f"leaf {max_leaf:.3g}, largest entry difference "
+              f"{max_abs:.3g} ({off} entries outside the bar entry by "
+              f"entry); launches {_nonzero(out[label])} [{card_line}]")
+    return out
+
+
 def llm_train_phase(torch, card_line):
     """The attention blocks' train mode on the card, deterministic
     algorithms on (TF32 is off since the device phase): the kernel's lse
@@ -6431,13 +6812,30 @@ def llm_train_phase(torch, card_line):
         llm_card_vs_cpu(torch, card_line)
         llama_launches, llama = llama_train_run(torch, card_line)
         ds_launches, ds_ms = deepseek_train_check(torch, card_line)
+        ssd_bwd_ms = ssd_train_check(torch, card_line)
+        zamba_launches, zamba = zamba_train_check(torch, card_line)
+        xlstm = xlstm_train_check(torch, card_line)
+        inl_launches, inl = inl_llm_train_run(torch, card_line)
+        inl_cpu_launches = inl_llm_card_vs_cpu(torch, card_line)
     finally:
         torch.use_deterministic_algorithms(False)
     print(f"llm train: the phase {time.perf_counter() - t0:.1f} s "
           f"[{card_line}]")
-    llama.update(deepseek_ms=ds_ms, bwd_ms=bwd_ms)
-    return ({"llama3.2-1b 8 steps": llama_launches,
-             "deepseek-v2-236b fwd+bwd": ds_launches}, llama, lse_worst)
+    llama.update(deepseek_ms=ds_ms, bwd_ms=bwd_ms, ssd_bwd_ms=ssd_bwd_ms,
+                 zamba=zamba, xlstm=xlstm, inl=inl)
+    flash = {"llama3.2-1b 8 steps": llama_launches,
+             "deepseek-v2-236b fwd+bwd": ds_launches,
+             f"zamba2-2.7b {ZAMBA_TRAIN_PERIODS} periods "
+             f"{ZAMBA_TRAIN_STEPS} steps": zamba_launches["flash_attn_fwd"],
+             INL_LLM_RUN: inl_launches["flash_attn_fwd"]}
+    on_ssd = {f"zamba2-2.7b {ZAMBA_TRAIN_PERIODS} periods "
+              f"{ZAMBA_TRAIN_STEPS} steps": zamba_launches["ssd_scan"]}
+    runs = {INL_LLM_RUN: inl_launches,
+            **{f"inl smoke fp32 {run}": counts
+               for run, counts in inl_cpu_launches.items()}}
+    on_inl = {k: {run: counts[k] for run, counts in runs.items()
+                  if counts[k]} for k in CUT_LAYER_SOURCES}
+    return flash, on_ssd, on_inl, llama, lse_worst
 
 
 CUT_LAYER_SOURCES = ("cut_fwd", "cut_bwd", "cut_prior_fwd", "cut_prior_bwd",
@@ -6464,8 +6862,8 @@ def main() -> int:
                              "Zamba2-2.7B's decode latency per token, "
                              "eager and graphed")
     parser.add_argument("--llm-train", action="store_true",
-                        help="build flash_attn_fwd and run only the "
-                             "`llm train` phase")
+                        help="build the LLM and cut-layer kernels and run "
+                             "only the `llm train` phase")
     args = parser.parse_args()
     try:
         import torch
@@ -6499,7 +6897,7 @@ def main() -> int:
         decode_timing(torch, cfg, params, card)
         return 0
     if args.llm_train:
-        build_phase(("flash_attn_fwd",))
+        build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)
         llm_train_phase(torch, card)
         return 0
     build_phase()
@@ -6584,7 +6982,8 @@ def main() -> int:
     on_attn.update({arch: n for arch, n in on_zoo.items() if n})
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    on_train, train_times, lse_worst = llm_train_phase(torch, card)
+    on_train, ssd_on_train, on_inl_llm, train_times, lse_worst = \
+        llm_train_phase(torch, card)
     launches = {"cut_fwd": train_launches["cut_fwd"],
                 "cut_bwd": train_launches["cut_bwd"],
                 "cut_prior_fwd": prior_launches["cut_prior_fwd"],
@@ -6630,6 +7029,11 @@ def main() -> int:
           f"flash_attn_fwd: {on_attn}")
     check(all(n > 0 for n in on_train.values()),
           f"a train run never launched flash_attn_fwd: {on_train}")
+    check(all(n > 0 for n in ssd_on_train.values()),
+          f"the Zamba2 train run never launched ssd_scan: {ssd_on_train}")
+    check(all(on_inl_llm[k].get(INL_LLM_RUN, 0) > 0
+              for k in INL_LLM_KERNELS),
+          f"a kernel of INL over an LLM never launched: {on_inl_llm}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s; final accuracy {accuracy}, "
           f"train step " + ", ".join(
@@ -6646,7 +7050,17 @@ def main() -> int:
             f"lossy round {transport_times[1]:.3f} ms)"
           + f"; Llama-3.2-1B train step {train_times['step_ms']:.1f} ms "
             f"({train_times['tokens_per_s']:.0f} tokens/s, peak "
-            f"{train_times['peak_gib']:.2f} GiB)")
+            f"{train_times['peak_gib']:.2f} GiB)"
+          + f"; Zamba2-2.7B ({ZAMBA_TRAIN_PERIODS} periods) train step "
+            f"{train_times['zamba']['step_ms']:.1f} ms "
+            f"({train_times['zamba']['tokens_per_s']:.0f} tokens/s, peak "
+            f"{train_times['zamba']['peak_gib']:.2f} GiB)"
+          + f"; xLSTM-125M train step "
+            f"{train_times['xlstm']['step_ms']:.1f} ms (peak "
+            f"{train_times['xlstm']['peak_gib']:.2f} GiB)"
+          + f"; INL over Llama-3.2-1B train step "
+            f"{train_times['inl']['step_ms']:.1f} ms (peak "
+            f"{train_times['inl']['peak_gib']:.2f} GiB)")
     src = "src/repro_torch/kernels/csrc/"
     replaces = "src/repro/kernels/inl_bottleneck.py:"
     kernels = []
@@ -6687,6 +7101,8 @@ def main() -> int:
             "launches_on_transport": on_transport[kname]}
         if kname in on_hybrids:
             entry["launches_on_hybrids"] = on_hybrids[kname]
+        if on_inl_llm[kname]:
+            entry["launches_on_inl_llm"] = on_inl_llm[kname]
         if kname in REDESIGNED:
             entry["redesigned"] = REDESIGNED[kname]
             entry["at_large_r"] = {
@@ -6718,6 +7134,9 @@ def main() -> int:
             kernels[-1]["launches_on_train"] = on_train
             kernels[-1]["lse_max_abs_err"] = lse_worst
             kernels[-1]["train_backward_ms"] = train_times["bwd_ms"]
+        else:
+            kernels[-1]["launches_on_train"] = ssd_on_train
+            kernels[-1]["train_backward_ms"] = train_times["ssd_bwd_ms"]
     k_ms, p_ms, b_ms, by, l_ms = mla_rows[LLM_PROMPT]
     k2, p2, b2, _, l2 = mla_rows[2048]
     kernels.append({

@@ -22,6 +22,11 @@ architectures, `inl_heterogeneous_from_jax`); SL and FL keep a list of J
 per-branch encoders, as the reference does, and FL stacks the J client
 copies of everything along a leading axis.
 
+`inl_llm_from_jax` maps the reference's `core.inl_llm.INLLLMParams` onto
+the port's (`repro_torch.core.inl_llm`): the stacked (J, ...) encoders,
+the decoder and the branch heads leaf for leaf as `zoo_from_jax` copies a
+model's, the learned priors in fp32.
+
 `zoo_from_jax` maps the reference's `models.zoo.init_params` tree onto the
 port's (`repro_torch.models.zoo`): the trees have one structure, and every
 leaf copies unchanged: dense (d_in, d_out) and conv1d (width, C) weights,
@@ -183,3 +188,18 @@ def zoo_from_jax(params_np, cfg, *, device=None, dtype=None):
         t = _tensor(tree, device)
         return t if keeps_fp32(path) else t.to(dtype)
     return walk(params_np)
+
+
+def inl_llm_from_jax(params_np, cfg, *, device=None, dtype=None):
+    """The reference's INL-over-an-LLM params (an `INLLLMParams` of numpy
+    leaves: encoders, decoder, branch_heads, priors) -> the port's
+    `inl_llm.INLLLMParams` on `device` (None: cuda) in `dtype` (None:
+    cfg.dtype); the leaves of `keeps_fp32` and the priors in fp32."""
+    from repro_torch.core.inl_llm import INLLLMParams
+    kw = dict(device=device, dtype=dtype)
+    priors = {k: _tensor(v, resolve_device(device))
+              for k, v in dict(params_np.priors).items()}
+    return INLLLMParams(zoo_from_jax(params_np.encoders, cfg, **kw),
+                        zoo_from_jax(params_np.decoder, cfg, **kw),
+                        zoo_from_jax(params_np.branch_heads, cfg, **kw),
+                        priors)

@@ -24,12 +24,12 @@ LOG2PI = math.log(2.0 * math.pi)
 
 
 def head_init(generator: torch.Generator, d_in: int, d_bottleneck: int, *,
-              device=None):
-    """Projection from encoder features to (mu, logvar)."""
+              dtype=torch.float32, device=None):
+    """Projection from encoder features to (mu, logvar), in `dtype`."""
     return {"mu": layers.dense_init(generator, d_in, d_bottleneck, bias=True,
-                                    device=device),
+                                    dtype=dtype, device=device),
             "logvar": layers.dense_init(generator, d_in, d_bottleneck,
-                                        bias=True, scale=1e-2,
+                                        bias=True, scale=1e-2, dtype=dtype,
                                         device=device)}
 
 

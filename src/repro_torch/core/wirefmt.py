@@ -91,13 +91,16 @@ def check_axis(axis_name):
     return axis_name
 
 
-def dyn_quantize(g, bits: int):
+def dyn_quantize(g, bits: int, axis=-1):
     """Dynamic-scale uniform quantizer (value map) of the backward link:
-    each row of the error vectors g (..., d) is coded on a
-    (2^bits - 1)-level grid over [-max|g|, max|g|] of that row, which makes
-    the result independent of batch or client sharding."""
+    the error vectors g (..., d) are coded on a (2^bits - 1)-level grid
+    over [-max|g|, max|g|], the maximum taken over `axis`: by default each
+    row's, which makes the result independent of batch or client
+    sharding; axis=None gives the per-tensor scale of
+    `linkmodel.packed_wire_concat`."""
     gf = g.to(torch.float32)
-    m = torch.amax(torch.abs(gf), dim=-1, keepdim=True)
+    m = torch.amax(torch.abs(gf)) if axis is None \
+        else torch.amax(torch.abs(gf), dim=axis, keepdim=True)
     # a tensor divided by a tensor: torch computes float / tensor as a
     # reciprocal times the float, which is not the reference's division;
     # the 0-dim numerator is a fill on the device (no host copy, so a

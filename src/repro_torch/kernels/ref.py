@@ -31,6 +31,8 @@ are sized (core/wirefmt.shipped_nbytes).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -413,12 +415,18 @@ def ssd_chunked_ref(x, dt, a, bm, cm, dskip, *, chunk: int):
     dA = dtc * a.float()[None, None, None, :]            # (B,nc,cs,H), <= 0
     cum = torch.cumsum(dA, dim=2)                        # within-chunk cumsum
 
-    # intra-chunk: decay(i <- j) = exp(cum_i - cum_j), j <= i
+    # intra-chunk: decay(i <- j) = exp(cum_i - cum_j), j <= i, else 0.
+    # The mask goes in before the exp: above the diagonal seg >= 0 is the
+    # chunk's whole dt |a| at worst, and past ~88 its exp is inf.  The
+    # reference masks after the exp, so its backward's 0 * inf is NaN
+    # there; here the same values come out, and the gradients equal the
+    # reference's wherever those are finite
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,i,j,H)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg),
-                        torch.zeros((), device=x.device))
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                                  torch.full((), -math.inf,
+                                             device=x.device)))
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     att = cb[..., None] * decay * dtc[:, :, None, :, :]  # weight dt_j
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", att, xc)

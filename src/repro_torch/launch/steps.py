@@ -3,7 +3,8 @@ the serving driver run.
 
 Reference: src/repro/launch/steps.py (`grouped_batches`,
 `stack_batches`, `make_train_step`, `make_prefill_step`,
-`make_decode_step`, `make_scan_train_step`, `default_optimizer`).  The
+`make_decode_step`, `make_inl_train_step`, `make_scan_train_step`,
+`default_optimizer`).  The
 reference jits them; the port runs the train step and the prefill
 eagerly (they keep the card busy: a graph would save little there) and
 the decode step, on the card, as a CUDA graph (repro_torch/graphs.py)
@@ -13,8 +14,9 @@ and decode run under `torch.no_grad`.  The train step takes gradients
 with `torch.autograd.grad` over the parameter leaves of
 `zoo.loss_and_metrics`; `make_scan_train_step` runs K of them in one
 call, where the reference scans them.  INL over an LLM
-(`make_inl_train_step`, scheme "inl") comes with ROADMAP queue 1, item
-6.6c.
+(`make_inl_train_step`, scheme "inl") runs `core/inl_llm`'s step, which
+draws its noise from a torch.Generator, one draw a step, or takes the
+draws as data.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch import graphs, optim, tree_leaves, tree_map
 from repro_torch import tree_unflatten, value_and_grad
+from repro_torch.core import inl_llm
 from repro_torch.models import zoo
 
 
@@ -172,6 +175,13 @@ def make_decode_step(cfg, *, greedy: bool = False, trace_log: list = None):
     return decode_step
 
 
+def make_inl_train_step(cfg, optimizer):
+    """The paper's scheme on this architecture (core/inl_llm):
+    (params, opt_state, batch, generator=None, *, noise=None, eps=None) ->
+    (params, opt_state, metrics)."""
+    return inl_llm.make_train_step(cfg, optimizer)
+
+
 def _release(tree, keep) -> None:
     """Free the storage of `tree`'s leaves that no leaf of `keep` shares:
     the port's counterpart of donating a buffer (the caller's tensors are
@@ -194,24 +204,47 @@ def make_scan_train_step(cfg, optimizer, *, scheme: str = "standard",
     device, as the reference donates only on accelerators) the caller's
     params and opt_state are freed after the first step, the counterpart
     of the reference's donated buffers: the caller must not read them
-    again.  scheme "inl" (INL over an LLM) comes with ROADMAP queue 1,
-    item 6.6c."""
-    if scheme == "inl":
-        raise NotImplementedError(
-            "the inl scheme over an LLM (make_inl_train_step, core/inl_llm) "
-            "is not ported yet; it comes with ROADMAP queue 1, item 6.6c")
-    if scheme != "standard":
-        raise ValueError(f"scheme {scheme!r}: standard or inl")
-    inner = make_train_step(cfg, optimizer, microbatches=microbatches)
+    again.
 
-    def epoch(params, opt_state, batches):
+    scheme "inl" (INL over an LLM, `make_inl_train_step`): (params,
+    opt_state, batches, generator=None, *, noise=None, eps=None), params
+    an `inl_llm.INLLLMParams`; each step takes one draw, from `generator`
+    (`inl_llm.draw_noise`), or step i takes noise[i] and eps[i] of the
+    given (K, J, B, S, ...) stacks, where the reference takes one PRNG key
+    a step."""
+    if scheme == "inl":
+        if microbatches != 1:
+            raise ValueError("the inl scheme takes no microbatches")
+        inl_step = make_inl_train_step(cfg, optimizer)
+
+        def inner(params, opt_state, batch, i, generator, noise, eps):
+            draws = {} if noise is None else {"noise": noise[i],
+                                              "eps": eps[i]}
+            return inl_step(params, opt_state, batch, generator, **draws)
+    elif scheme == "standard":
+        train_step = make_train_step(cfg, optimizer,
+                                     microbatches=microbatches)
+
+        def inner(params, opt_state, batch, *_):
+            return train_step(params, opt_state, batch)
+    else:
+        raise ValueError(f"scheme {scheme!r}: standard or inl")
+
+    def epoch(params, opt_state, batches, generator=None, *, noise=None,
+              eps=None):
+        if scheme == "standard" and any(
+                x is not None for x in (generator, noise, eps)):
+            raise ValueError("the standard scheme draws nothing")
+        if (noise is None) != (eps is None):
+            raise ValueError("pass noise= and eps= together")
         K = tree_leaves(batches)[0].shape[0]
         give = donate if donate is not None \
             else tree_leaves(params)[0].device.type == "cuda"
         ms = []
         for i in range(K):
             batch = tree_map(lambda x: x[i], batches)
-            new_params, new_opt, m = inner(params, opt_state, batch)
+            new_params, new_opt, m = inner(params, opt_state, batch, i,
+                                           generator, noise, eps)
             if i == 0 and give:
                 _release((params, opt_state), (new_params, new_opt))
             params, opt_state = new_params, new_opt

@@ -2,19 +2,23 @@
 conv, and xLSTM's mLSTM and sLSTM blocks.
 
 Reference: src/repro/models/ssm.py (`conv1d_init`, `conv1d_causal`,
-`conv1d_step`, `mamba2_init`, `mamba2_param_count`, `mamba2_make_state`,
-`mamba2_apply`, `mlstm_init`, `mlstm_param_count`, `mlstm_make_state`,
-`_mlstm_cell`, `mlstm_apply`, `slstm_init`, `slstm_param_count`,
-`slstm_make_state`, `_slstm_cell`, `slstm_apply`).  Mamba2's prefill runs
-the chunked SSD scan through `kernels/ops.ssd_scan`: the scan kernel on
-the card, its plain version on the CPU (the reference's model runs the
-same contract as the jnp `_ssd_chunked`).  Decode is the one-step
-recurrence in plain torch.
+`conv1d_step`, `mamba2_init`, `mamba2_param_count`, `_ssd_chunked`,
+`mamba2_make_state`, `mamba2_apply`, `_scan_chunked_remat`, `mlstm_init`,
+`mlstm_param_count`, `mlstm_make_state`, `_mlstm_cell`, `mlstm_apply`,
+`slstm_init`, `slstm_param_count`, `slstm_make_state`, `_slstm_cell`,
+`slstm_apply`).  Mamba2's prefill and train forward run the chunked SSD
+scan through `kernels/ops.ssd_scan`: the scan kernel on the card, its
+plain version on the CPU (the reference's model runs the same contract
+as the jnp `_ssd_chunked`).  In train mode `_ssd_chunked` is an autograd
+Function whose backward recomputes the plain fp32 `ssd_chunked_ref` and
+differentiates it, the function the reference differentiates.  Decode is
+the one-step recurrence in plain torch.
 
 The xLSTM recurrences are plain torch, as the reference's are jnp (it
 has no kernel for them): a prefill runs the cell once a step, in order.
-The reference's `_scan_chunked_remat` only rematerialises chunks of that
-scan for the backward pass; it computes the same steps.
+Train mode runs the same steps through `_scan_chunked_remat`, which
+checkpoints chunks of `cfg.ssm.chunk_size` steps so that the backward
+keeps one carry a chunk, not one a step.
 
 A_log, D and dt_bias, and every xLSTM state but the conv's, are fp32
 whatever the model's dtype, as in the reference.  A decode step writes
@@ -26,8 +30,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 
 
@@ -104,6 +109,45 @@ def mamba2_param_count(cfg) -> int:
     return n
 
 
+class _SSDChunked(torch.autograd.Function):
+    """The chunked SSD scan with a gradient: forward `ops.ssd_scan` (the
+    kernel on the card, `ref.ssd_chunked_ref` on the CPU); backward
+    recomputes `ref.ssd_chunked_ref` in fp32 from the six saved inputs
+    and differentiates it, each gradient cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, cm, dskip, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, bm, cm, dskip)
+        return ops.ssd_scan(x, dt, a, bm, cm, dskip, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().float().requires_grad_(True) for t in saved]
+            outs = ref.ssd_chunked_ref(*ins, chunk=ctx.chunk)
+            pairs = [(o, g.float()) for o, g in zip(outs, (gy, gstate))
+                     if g is not None]
+            if not pairs:
+                return (None,) * 7
+            grads = torch.autograd.grad([o for o, _ in pairs], ins,
+                                        [g for _, g in pairs],
+                                        allow_unused=True)
+        # cm reaches y only: zero when only the state's cotangent comes
+        return (*(torch.zeros_like(t) if g is None else g.to(t.dtype)
+                  for g, t in zip(grads, saved)), None)
+
+
+def _ssd_chunked(x, dt, a, bm, cm, dskip, chunk: int):
+    """The chunked SSD scan, differentiable in all six inputs.  Shapes and
+    dtypes as `ops.ssd_scan`; returns (y (B, S, H, P) in x's dtype, final
+    state (B, H, N, P) fp32).  The backward holds a handful of (B, nc,
+    chunk, chunk, H) fp32 intermediates of the recompute at a time."""
+    return _SSDChunked.apply(x, dt, a, bm, cm, dskip, chunk)
+
+
 def mamba2_make_state(cfg, batch: int, dtype, device=None):
     s = cfg.ssm
     d_in = s.d_inner(cfg.d_model)
@@ -119,7 +163,8 @@ def mamba2_make_state(cfg, batch: int, dtype, device=None):
 def mamba2_apply(p, cfg, x, *, mode: str, state=None):
     """x: (B, S, d).  Returns (y, new_state): on 'prefill' the final SSM
     state of the scan and the last width-1 rows of the pre-activation conv
-    input; on 'decode' (S == 1) `state`, updated in place."""
+    input; on 'decode' (S == 1) `state`, updated in place; on 'train' no
+    state (None), the scan through `_ssd_chunked`'s gradient."""
     s = cfg.ssm
     Bsz, S, d = x.shape
     d_in = s.d_inner(d)
@@ -150,28 +195,63 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
         state["ssm"].copy_(ssm_state)
         state["conv"].copy_(conv_state)
         new_state = state
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         xbc_act = layers.silu(conv1d_causal(p["conv"], xbc))
         xh = xbc_act[..., :d_in].reshape(Bsz, S, H, P).contiguous()
         Bm = xbc_act[..., d_in:d_in + N].contiguous()
         Cm = xbc_act[..., d_in + N:].contiguous()
         dt = F.softplus(dt_raw.float() + p["dt_bias"]).contiguous()
-        y, fin = ops.ssd_scan(xh, dt, A.contiguous(), Bm, Cm,
-                              p["D"].contiguous(), chunk=s.chunk_size)
+        scan = ops.ssd_scan if mode == "prefill" else _ssd_chunked
+        y, fin = scan(xh, dt, A.contiguous(), Bm, Cm, p["D"].contiguous(),
+                      chunk=s.chunk_size)
         y = y.reshape(Bsz, S, d_in)
-        # the conv state holds the last width-1 rows of the PRE-activation
-        # conv input, zero rows in front when S < width-1
-        w1 = s.conv_width - 1
-        tail = F.pad(xbc, (0, 0, max(0, w1 - S), 0))[:, -w1:]
-        new_state = {"ssm": fin, "conv": tail.contiguous()}
+        new_state = None
+        if mode == "prefill":
+            # the conv state holds the last width-1 rows of the
+            # PRE-activation conv input, zero rows in front when S < width-1
+            w1 = s.conv_width - 1
+            tail = F.pad(xbc, (0, 0, max(0, w1 - S), 0))[:, -w1:]
+            new_state = {"ssm": fin, "conv": tail.contiguous()}
     else:
-        raise NotImplementedError(
-            f"mamba2 mode {mode!r}: the port serves (prefill, decode); "
-            "training the recurrent blocks comes with ROADMAP queue 1, "
-            "item 6.6b")
+        raise ValueError(f"mamba2 mode {mode!r}: train, prefill or decode")
     y = layers.rmsnorm(p["norm"], y.to(x.dtype) * layers.silu(z),
                        cfg.norm_eps)
     return layers.dense(p["out_proj"], y), new_state
+
+
+# ---------------------------------------------------------------------------
+# The time scan of the xLSTM cells
+# ---------------------------------------------------------------------------
+
+def _scan_steps(cell, carry, seq):
+    """Run cell once a step, in order.  seq: a tuple of (B, T, ...)
+    tensors; cell: (carry, (one (B, ...) slice of each)) -> (carry, y).
+    Returns (the last carry, the ys stacked on axis 1)."""
+    ys = []
+    for t in range(seq[0].shape[1]):
+        carry, y = cell(carry, tuple(x[:, t] for x in seq))
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
+
+
+def _scan_chunked_remat(cell, init, seq, S: int, chunk: int):
+    """The time scan with chunk-level rematerialisation: the S steps run in
+    chunks of `chunk`, each under a non-reentrant checkpoint, so the
+    backward keeps the carry at each chunk's start and recomputes the
+    chunk's steps (S/chunk carries saved, not S).  The steps and their
+    values are `_scan_steps`' exactly; the plain loop runs when chunk does
+    not divide S or holds it whole, as in the reference.  Inside the
+    stack's period checkpoint each level recomputes once."""
+    chunk = min(chunk, S)
+    if S % chunk or S == chunk:
+        return _scan_steps(cell, init, seq)
+    carry, ys = init, []
+    for lo in range(0, S, chunk):
+        part = tuple(x[:, lo:lo + chunk] for x in seq)
+        carry, y = torch.utils.checkpoint.checkpoint(
+            _scan_steps, cell, carry, part, use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +332,8 @@ def _mlstm_cell(carry, qkvif):
 def mlstm_apply(p, cfg, x, *, mode: str, state=None):
     """x: (B, S, d).  Returns (y, new_state): on 'prefill' the final (C, n,
     m) of the recurrence and the last width-1 rows of the pre-conv branch;
-    on 'decode' (S == 1) `state`, updated in place."""
+    on 'decode' (S == 1) `state`, updated in place; on 'train' no state
+    (None), the steps through `_scan_chunked_remat`."""
     Bsz, S, _ = x.shape
     d_in, H, dh = _mlstm_dims(cfg)
     xm, z = torch.chunk(layers.dense(p["up"], x), 2, dim=-1)
@@ -262,13 +343,10 @@ def mlstm_apply(p, cfg, x, *, mode: str, state=None):
             raise ValueError("decode takes one token and a state")
         xc, conv_state = conv1d_step(p["conv"], xm[:, 0], state["conv"])
         xc = layers.silu(xc)[:, None]
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         xc = layers.silu(conv1d_causal(p["conv"], xm))
     else:
-        raise NotImplementedError(
-            f"mlstm mode {mode!r}: the port serves (prefill, decode); "
-            "training the recurrent blocks comes with ROADMAP queue 1, "
-            "item 6.6b")
+        raise ValueError(f"mlstm mode {mode!r}: train, prefill or decode")
 
     def heads(t):
         return t.reshape(Bsz, -1, H, dh).float()
@@ -294,18 +372,19 @@ def mlstm_apply(p, cfg, x, *, mode: str, state=None):
         carry = (torch.zeros((Bsz, H, dh, dh), **f32),
                  torch.zeros((Bsz, H, dh), **f32),
                  torch.full((Bsz, H), -1e30, **f32))
-        hs = []
-        for t in range(S):
-            carry, h_t = _mlstm_cell(carry, (q[:, t], k[:, t], v[:, t],
-                                             i_raw[:, t], f_raw[:, t]))
-            hs.append(h_t)
-        h = torch.stack(hs, dim=1)                       # (B, S, H, dh)
-        # the conv state holds the last width-1 rows of the raw xm, zero
-        # rows in front when S < width-1
-        w1 = cfg.ssm.conv_width - 1
-        tail = F.pad(xm, (0, 0, max(0, w1 - S), 0))[:, -w1:]
-        new_state = {"C": carry[0], "n": carry[1], "m": carry[2],
-                     "conv": tail.contiguous()}
+        seq = (q, k, v, i_raw, f_raw)
+        if mode == "train":
+            carry, h = _scan_chunked_remat(_mlstm_cell, carry, seq, S,
+                                           cfg.ssm.chunk_size)
+            new_state = None
+        else:
+            carry, h = _scan_steps(_mlstm_cell, carry, seq)
+            # the conv state holds the last width-1 rows of the raw xm,
+            # zero rows in front when S < width-1
+            w1 = cfg.ssm.conv_width - 1
+            tail = F.pad(xm, (0, 0, max(0, w1 - S), 0))[:, -w1:]
+            new_state = {"C": carry[0], "n": carry[1], "m": carry[2],
+                         "conv": tail.contiguous()}
 
     h = h.reshape(Bsz, -1, d_in).to(x.dtype)
     h = layers.rmsnorm(p["norm"], h, cfg.norm_eps) * layers.silu(z)
@@ -375,7 +454,8 @@ def _slstm_cell(p_r, carry, x_gates, H, dh):
 
 def slstm_apply(p, cfg, x, *, mode: str, state=None):
     """x: (B, S, d).  Returns (y, new_state): on 'prefill' the final (c, n,
-    h, m); on 'decode' (S == 1) `state`, updated in place.  The block's
+    h, m); on 'decode' (S == 1) `state`, updated in place; on 'train' no
+    state (None), the steps through `_scan_chunked_remat`.  The block's
     FFN residual sits inside it: y = h + mlp(ffn_norm(h)), h = norm(hs)."""
     Bsz, S, d = x.shape
     H, dh, _ = _slstm_dims(cfg)
@@ -391,23 +471,25 @@ def slstm_apply(p, cfg, x, *, mode: str, state=None):
         for name, t in zip(("c", "n", "h", "m"), carry):
             state[name].copy_(t)
         new_state = state
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         f32 = dict(dtype=torch.float32, device=x.device)
         carry = (torch.zeros((Bsz, H, dh), **f32),
                  torch.zeros((Bsz, H, dh), **f32),
                  torch.zeros((Bsz, H, dh), **f32),
                  torch.full((Bsz, H, dh), -1e30, **f32))
-        hs = []
-        for t in range(S):
-            carry = _slstm_cell(r, carry, xg[:, t], H, dh)
-            hs.append(carry[2])
-        hs = torch.stack(hs, dim=1)                      # (B, S, H, dh)
-        new_state = dict(zip(("c", "n", "h", "m"), carry))
+
+        def step(carry, g_t):
+            new = _slstm_cell(r, carry, g_t[0], H, dh)
+            return new, new[2]
+        if mode == "train":
+            carry, hs = _scan_chunked_remat(step, carry, (xg,), S,
+                                            cfg.ssm.chunk_size)
+            new_state = None
+        else:
+            carry, hs = _scan_steps(step, carry, (xg,))  # (B, S, H, dh)
+            new_state = dict(zip(("c", "n", "h", "m"), carry))
     else:
-        raise NotImplementedError(
-            f"slstm mode {mode!r}: the port serves (prefill, decode); "
-            "training the recurrent blocks comes with ROADMAP queue 1, "
-            "item 6.6b")
+        raise ValueError(f"slstm mode {mode!r}: train, prefill or decode")
 
     h = layers.rmsnorm(p["norm"], hs.reshape(Bsz, -1, d).to(x.dtype),
                        cfg.norm_eps)

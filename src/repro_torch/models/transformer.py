@@ -28,9 +28,10 @@ it), "mamba" and "mamba+shared_attn" (Zamba2), "mlstm" and "slstm"
 raises ValueError, as in the reference.  Every block returns the MoE's
 aux values (the load-balance and z losses, the expert load; zeros for a
 block without a MoE), and `stack_apply` returns their sum over the
-blocks, which the training loss reads.  The recurrent kinds (mamba2,
-mLSTM, sLSTM) do not train yet: their train mode raises naming ROADMAP
-queue 1's item 6.6b.
+blocks, which the training loss reads.  Every kind trains: mamba2
+through the SSD scan's autograd Function, mLSTM and sLSTM through their
+chunk-checkpointed time scans, which nest inside the period's checkpoint
+(each level recomputes once in the backward).
 """
 from __future__ import annotations
 

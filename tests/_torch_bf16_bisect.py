@@ -9,14 +9,19 @@ attention, the activation as the port computes it and as torch's one-
 rounding F.silu would, the MLP, the block against the reference run
 eagerly and jitted, and the FFN norm the jitted reference computes from
 the unrounded x + h); bf16 GQA decode attention at g = 4 over three
-seeds; and the smoke models' prefill logits (Llama, and Zamba2 at
-num_layers=4) against the reference's, with the port's silu, with F.silu
-in its place, and with the block's FFN norm fed the fp32 x + h as the
-jitted reference feeds it.  The bars that tests/test_torch_attn_models.py
+seeds; the first mamba2 block of the bf16 Zamba2 smoke model stage by
+stage (in_proj, conv, silu, softplus, the SSD scan's y and state, the
+gate, the norm, the out_proj, the block against the reference run
+eagerly and jitted, and the gate's norm fed the unrounded product as the
+jitted reference feeds it); and the smoke models' prefill logits (Llama,
+and Zamba2 at num_layers=4) against the reference's, with the port's
+silu, with F.silu in its place, and with the block's FFN norm fed the
+fp32 x + h as the jitted reference feeds it.  The bars that tests/test_torch_attn_models.py
 and ROADMAP queue 3 state come from these counts.  Imports both packages,
 as the tests do; the port itself imports no JAX.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -30,11 +35,12 @@ from repro.configs import get_smoke_config as jax_get_smoke
 from repro.launch import steps as jsteps
 from repro.models import attention as jattention
 from repro.models import layers as jlayers
+from repro.models import ssm as jssm
 from repro.models import transformer as jtransformer
 from repro_torch import convert, tree_map
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.launch import steps
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, ssm, transformer
 
 BF16 = torch.bfloat16
 
@@ -124,6 +130,80 @@ def block_steps():
                           cfg.norm_eps).to(BF16), want)
 
 
+def mamba_steps():
+    """The first mamba2 block of the bf16 Zamba2 smoke model, each stage
+    fed the same bf16 inputs in both packages (the reference jitted): the
+    in_proj, the causal conv (fp32 shifted sums in the port, one XLA conv
+    in the reference), its silu, the SSD scan's y and final state from
+    the same bf16 xh, Bm, Cm and fp32 dt, the gate y * silu(z) before the
+    norm, the norm, the out_proj, and the whole block."""
+    jcfg, cfg, jp, tp = bf16_pair("zamba2-2.7b", num_layers=4)
+    jb = jax.tree.map(lambda t: t[0], jp["stack"]["pattern"][0]["mamba"])
+    tb = tree_map(lambda t: t[0], tp["stack"]["pattern"][0]["mamba"])
+    s = cfg.ssm
+    B, S, d = 2, 128, cfg.d_model
+    d_in, H, N, P = s.d_inner(d), s.num_heads(d), s.state_dim, s.head_dim
+    xj = jnp.asarray(np.random.default_rng(1).normal(size=(B, S, d)),
+                     jnp.bfloat16)
+    x = to_t(xj)
+    zj = jax.jit(jlayers.dense)(jb["in_proj"], xj)
+    report("mamba in_proj", layers.dense(tb["in_proj"], x), zj)
+    zz, xbc_j, dt_raw_j = jnp.split(zj, [d_in, 2 * d_in + 2 * N], axis=-1)
+    convj = jax.jit(jssm.conv1d_causal)(jb["conv"], xbc_j)
+    conv = ssm.conv1d_causal(tb["conv"], to_t(xbc_j))
+    report("conv1d_causal", conv, convj)
+    actj = jax.jit(jax.nn.silu)(convj)
+    report("silu(conv)", layers.silu(to_t(convj)), actj)
+    xh_j = actj[..., :d_in].reshape(B, S, H, P)
+    bm_j, cm_j = actj[..., d_in:d_in + N], actj[..., d_in + N:]
+    dt_j = jax.jit(lambda r, b: jax.nn.softplus(r.astype(jnp.float32) + b))(
+        dt_raw_j, jb["dt_bias"])
+    a_j = -jnp.exp(jb["A_log"])
+    dt = torch.from_numpy(np.array(dt_j))
+    report("softplus(dt_raw + dt_bias) (fp32)",
+           torch.nn.functional.softplus(to_t(dt_raw_j).float()
+                                        + tb["dt_bias"]), dt_j)
+    yj, finj = jax.jit(functools.partial(jssm._ssd_chunked,
+                                         chunk=s.chunk_size))(
+        xh_j, dt_j, a_j, bm_j, cm_j, jb["D"])
+    a = torch.from_numpy(np.array(a_j))
+    y, fin = ssm.ops.ssd_scan(to_t(xh_j), dt, a, to_t(bm_j), to_t(cm_j),
+                              tb["D"], chunk=s.chunk_size)
+    report("SSD y (the port's bf16 vs the reference's fp32)", y, yj)
+    report("SSD y, the reference's rounded to bf16", y,
+           yj.astype(jnp.bfloat16))
+    report("SSD final state (fp32)", fin, finj)
+    gate_j = jax.jit(lambda y, z: y.astype(jnp.bfloat16) * jax.nn.silu(z))(
+        yj.reshape(B, S, d_in), zz)
+    gate = y.reshape(B, S, d_in).to(BF16) * layers.silu(to_t(zz))
+    report("gate y * silu(z)", gate, gate_j)
+    normj = jax.jit(lambda p, x: jlayers.rmsnorm(p, x, jcfg.norm_eps))(
+        jb["norm"], gate_j)
+    report("norm", layers.rmsnorm(tb["norm"], to_t(gate_j), cfg.norm_eps),
+           normj)
+    report("out_proj", layers.dense(tb["out_proj"], to_t(normj)),
+           jax.jit(jlayers.dense)(jb["out_proj"], normj))
+    # jitted as one, XLA feeds the norm the unrounded fp32 product (the
+    # excess precision of the attention block's FFN norm)
+    gate_norm = jax.jit(lambda p, y, z: jlayers.rmsnorm(
+        p, y.astype(jnp.bfloat16) * jax.nn.silu(z), jcfg.norm_eps))(
+        jb["norm"], yj.reshape(B, S, d_in), zz)
+    yb = to_t(yj.astype(jnp.bfloat16)).reshape(B, S, d_in)
+    report("gate and norm vs jitted as one",
+           layers.rmsnorm(tb["norm"], yb * layers.silu(to_t(zz)),
+                          cfg.norm_eps), gate_norm)
+    report("norm of the fp32 gate product vs jitted as one",
+           layers.rmsnorm(tb["norm"], yb.float()
+                          * layers.silu(to_t(zz)).float(),
+                          cfg.norm_eps).to(BF16), gate_norm)
+    got = ssm.mamba2_apply(tb, cfg, x, mode="prefill")[0]
+    report("mamba2_apply prefill vs the reference eagerly", got,
+           jssm.mamba2_apply(jb, jcfg, xj, mode="prefill")[0])
+    report("mamba2_apply prefill vs the reference jitted", got,
+           jax.jit(lambda p, x: jssm.mamba2_apply(p, jcfg, x,
+                                                  mode="prefill")[0])(jb, xj))
+
+
 def gqa_decode():
     B, H, KV, Dh, W, n = 4, 32, 8, 64, 544, 300
     for seed in range(3):
@@ -147,7 +227,8 @@ def _excess_block(p, cfg, x, positions, *, mode, cache, cache_len,
         positions, mode=mode, cache=cache, cache_len=cache_len)
     xf = x.float() + h.float()
     hn = layers.rmsnorm(p["ffn_norm"], xf, cfg.norm_eps).to(x.dtype)
-    return xf.to(x.dtype) + layers.mlp(p["mlp"], hn, act=cfg.act), new_cache
+    return (xf.to(x.dtype) + layers.mlp(p["mlp"], hn, act=cfg.act),
+            new_cache, transformer._zero_aux(cfg, x.device))
 
 
 def model_logits():
@@ -184,5 +265,6 @@ def model_logits():
 if __name__ == "__main__":
     torch.set_num_threads(1)
     block_steps()
+    mamba_steps()
     gqa_decode()
     model_logits()

@@ -23,7 +23,9 @@ reference's `zoo.init_params` through `convert.zoo_from_jax`
   * three `default_optimizer` steps against the reference's: the losses,
     cross entropies and gradient norms (and DeepSeek's aux losses) at rtol
     1e-4.
-zamba2 and xLSTM train mode raise naming item 6.6b, scheme "inl" 6.6c.
+The recurrent blocks' train mode (mamba2, mLSTM, sLSTM) and the scheme
+"inl" of `make_scan_train_step` run here; their parity with the reference
+is in tests/test_torch_recurrent_train.py and tests/test_torch_inl_llm.py.
 """
 import dataclasses
 import functools
@@ -320,18 +322,58 @@ def test_default_optimizer_trajectory_matches_reference(arch):
 
 
 # ---------------------------------------------------------------------------
-# What trains later
+# The recurrent blocks and the inl scheme
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
-def test_recurrent_train_mode_raises_naming_item_6_6b(arch):
+def test_recurrent_blocks_train_with_finite_gradients(arch):
+    """mamba2 (and the shared attention block), mLSTM and sLSTM in train
+    mode: a finite loss, no cache, and a finite, non-zero gradient on
+    every leaf of the recurrent blocks."""
     _, cfg = cfgs(arch)
     params = zoo.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 6\.6b"):
-        zoo.loss_and_metrics(params, cfg, to_torch(np_batch(cfg, seq=8)))
+    batch = to_torch(np_batch(cfg, seq=8))
+    with torch.no_grad():
+        _, cache, _ = zoo.forward(params, cfg, batch, mode="train")
+    assert cache is None
+    loss, _, grads = value_and_grad(
+        lambda p: zoo.loss_and_metrics(p, cfg, batch), params)
+    assert bool(torch.isfinite(loss))
+    for kind, tree in zip(cfg.block_pattern, grads["stack"]["pattern"]):
+        block = tree["mamba" if "mamba" in kind else kind]
+        for g in tree_leaves(block):
+            assert bool(torch.isfinite(g).all()), kind
+            assert float(g.abs().max()) > 0.0, kind
 
 
-def test_inl_scheme_raises_naming_item_6_6c():
+def test_inl_scheme_scan_step_equals_single_inl_steps():
+    """make_scan_train_step(scheme="inl") over K = 2 with a generator ==
+    two make_inl_train_step calls drawing from a generator of the same
+    seed, bit for bit (params, AdamW state, metrics); the standard scheme
+    refuses draws."""
+    from repro_torch.core import inl_llm
     _, cfg = cfgs("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 6\.6c"):
-        steps.make_scan_train_step(cfg, optim.sgd(1e-2), scheme="inl")
+    cfg = dataclasses.replace(cfg, num_layers=2)
+    params = inl_llm.init(cfg, 0, device="cpu")
+    opt = optim.adamw(1e-3)
+    stacked = steps.stack_batches([np_batch(cfg, seq=16, seed=30 + i)
+                                   for i in range(2)])
+    p_scan, o_scan, m_scan = steps.make_scan_train_step(
+        cfg, opt, scheme="inl")(params, opt.init(params), to_torch(stacked),
+                                torch.Generator().manual_seed(5))
+    step = steps.make_inl_train_step(cfg, opt)
+    gen = torch.Generator().manual_seed(5)
+    p, o, ms = params, opt.init(params), []
+    for i in range(2):
+        p, o, m = step(p, o, to_torch({k: v[i] for k, v in stacked.items()}),
+                       gen)
+        ms.append(m)
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves((p_scan, o_scan)), tree_leaves((p, o))))
+    for k in m_scan:
+        assert torch.equal(m_scan[k], torch.stack([m[k] for m in ms])), k
+    assert bool(torch.isfinite(m_scan["loss"]).all())
+    with pytest.raises(ValueError, match="draws nothing"):
+        steps.make_scan_train_step(cfg, opt)(
+            params, opt.init(params), to_torch(stacked),
+            torch.Generator().manual_seed(5))

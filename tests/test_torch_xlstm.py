@@ -367,7 +367,5 @@ def test_block_dispatch_refuses_what_it_does_not_serve(weights):
     with pytest.raises(ValueError, match="mlstmx"):
         transformer.block_apply(bm, CFG, "mlstmx", x, pos, mode="prefill")
     for kind, bp in (("mlstm", bm), ("slstm", bs)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 6\.6"):
-            transformer.block_apply(bp, CFG, kind, x, pos, mode="train")
         with pytest.raises(ValueError, match="one token and a state"):
             transformer.block_apply(bp, CFG, kind, x, pos, mode="decode")

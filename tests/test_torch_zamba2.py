@@ -34,7 +34,7 @@ from repro.models import zoo as jzoo  # noqa: E402
 from repro_torch import convert, tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs.base import get_config, get_smoke_config  # noqa
 from repro_torch.launch import serve, steps  # noqa: E402
-from repro_torch.models import transformer, zoo  # noqa: E402
+from repro_torch.models import zoo  # noqa: E402
 
 ARCH = "zamba2-2.7b"
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -173,13 +173,7 @@ def test_unported_paths_raise_naming_their_slice():
     from repro_torch import chaos
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         chaos.main([])
-    # every architecture serves now (tests/test_torch_attn_models.py,
-    # tests/test_torch_xlstm.py, tests/test_torch_modalities.py), and the
-    # attention blocks train (tests/test_torch_llm_train.py); a mamba2
-    # block's training waits for item 6.6b
-    p = transformer.block_init(torch.Generator().manual_seed(0), CFG,
-                               "mamba", torch.float32)
-    x = torch.zeros(1, 4, CFG.d_model)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 6\.6b"):
-        transformer.block_apply(p, CFG, "mamba", x, torch.arange(4)[None],
-                                mode="train")
+    # every architecture serves (tests/test_torch_attn_models.py,
+    # tests/test_torch_xlstm.py, tests/test_torch_modalities.py) and
+    # trains (tests/test_torch_llm_train.py,
+    # tests/test_torch_recurrent_train.py)
