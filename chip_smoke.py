@@ -319,7 +319,8 @@ Phases, each checked; any failed check exits non-zero before the last line:
                              plain version and
                              scaled_dot_product_attention;
                 llm zoo      the reference's last three architectures in
-                             bf16 at published widths and full depth
+                             bf16 at published widths, full depth but
+                             xLSTM's 1 of 3 periods
                              (ZOO_MODELS): MusicGen-medium through
                              tokens_mc (the prompt on its 4 codebooks),
                              InternVL2-2B on 256 seeded N(0, 1) patch
@@ -360,13 +361,7 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 Llama-3.2-1B at full width, 2 layers, fp32: the loss and
                 every gradient leaf on the card against the CPU port
                 (rtol 1e-3, the INL step's bar) and one make_train_step's
-                loss and grad_norm; Llama-3.2-1B at its full config in
-                bf16, B=4, S=2048, remat on: 8 steps of
-                make_scan_train_step with default_optimizer on Markov
-                batches, every loss finite and the last below the first,
-                exactly 2 x 16 x 8 = 256 flash launches (a forward and a
-                recompute a layer a step), the 8 steps' ms, one step's ms
-                and its forward's, tokens/s, peak memory; DeepSeek-V2 cut
+                loss and grad_norm; DeepSeek-V2 cut
                 to 2 layers (dense layer 0, one MoE layer; 5.4 B
                 parameters) in bf16: one loss_and_metrics forward and
                 backward at B=1, S=2048, ce, lb_loss, z_loss and every
@@ -384,12 +379,13 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 0.77 B parameters) in bf16, B=4, S=2048: 4 steps of
                 make_scan_train_step, exactly 96 ssd_scan and 16 flash
                 launches, losses finite and falling, a step's ms, tokens/s,
-                peak memory; its fp32 twin at 1 period, B=2, S=512, card
+                peak memory; its fp32 twin at 1 period, B=1, S=512, card
                 against the CPU (loss within rtol 1e-5, every leaf within
-                the INL step's bar); xLSTM-125M at its full config in
-                bf16, B=4, S=512 (two checkpointed 256-step chunks): 2
-                steps, no kernel, losses finite, ms a step, peak memory;
-                its fp32 twin at 1 period, B=2, S=128, card against the
+                the INL step's bar); xLSTM-125M at its published widths
+                cut to 1 of 3 periods (4 layers) in bf16, B=4, S=256 (one
+                checkpointed 256-step chunk): 1 step, no kernel, the
+                loss finite, ms a step, peak memory;
+                its fp32 twin at 1 period, B=1, S=128, card against the
                 CPU; INL over Llama-3.2-1B at full width, 3 layers (4
                 encoders of 2, a 1-layer decoder), d_b=512, link_bits=4
                 (the packed wire), bf16, B=2, S=2048: 2 steps of
@@ -402,6 +398,31 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 config in fp32 at link_bits 16, 8, 4 and 4 with learned
                 priors, card against the CPU with their launches; the
                 phase's seconds.
+
+ 10. llm launch the launcher at full width, in-process: `python -m
+                repro_torch.launch.train --arch llama3.2-1b --steps 8
+                --batch 4 --seq 2048 --scan-steps 4` through `train.main`
+                (bf16, remat on, groups of 4 prefetched to the card):
+                every loss finite and the last below the first, exactly
+                2 x 16 x 8 = 256 flash launches (a forward and a recompute
+                a layer a step), a step's ms (the second group's wall / 4),
+                tokens/s, peak memory; a short run (the smoke config, 4
+                groups of 2) at --prefetch 1 and 2, the losses and grad
+                norms bit for bit; `chaos.crash_resume_check` with the
+                reference's chaos defaults (smoke Llama, scheme inl, 12
+                steps, SIGKILL after step 5) on the card, dense and with
+                learned priors side by side: resumed lines and final
+                checkpoints bit for bit, the cut-layer kernels (and
+                flash_attn_fwd) launched in the golden and the resumed
+                child; DeepSeek-V2's MoE layer at published widths in bf16,
+                droppless, over 2 spawned gloo ranks on the card (80
+                experts a rank) against moe_apply in this process: y
+                within 2e-2 of the largest |y|, aux within 1e-5, the
+                layer's ms; the dry-run's record of the CLI's step on a
+                1-rank mesh: argument bytes == the tensors' own and, in
+                512-byte blocks, == memory_allocated to the byte, the
+                model FLOPs over the measured step as a share of 989
+                TFLOP/s; the phase's seconds.
 
 The line before the last two is {"kernels": [...]} (flash_attn_fwd's
 Dh=192 instance in an entry of its own, with DeepSeek-V2's launches; the
@@ -417,7 +438,8 @@ attention backward's ms on the train path's shapes,
 `train_backward_ms`; ssd_scan's counts in Zamba2's train run,
 `launches_on_train`, and the plain SSD backward's ms,
 `train_backward_ms`; the cut-layer and wire kernels' counts in INL over
-an LLM, `launches_on_inl_llm`),
+an LLM, `launches_on_inl_llm`, and in the crash-resume children,
+`launches_on_crash_resume`),
 the one before the last
 nvidia-smi's name and power limit, and the last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -429,9 +451,9 @@ prints only their device times (phase 7's kernel lines, each kernel a call
 launches by name with its time), and no result line; with --decode-times
 it builds the two LLM kernels and prints only Zamba2-2.7B's decode
 latency per token (phase 8's `llm decode latency` and graphed decode
-lines, seeded weights), and no result line; with --llm-train it builds
-the two LLM kernels and the cut-layer kernels and runs only phase 9, and
-no result line.  Either times
+lines, seeded weights), and no result line; with --llm-train (--llm-launch) it builds
+the two LLM kernels and the cut-layer kernels and runs only phase 9 (10),
+and no result line.  Either times
 the checkout it sits in: to compare two checkouts on one card, copy it into both and run
 them in turns, one after another on the same card.
 """
@@ -439,6 +461,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -496,8 +519,11 @@ ATTN_MODELS = (("llama3.2-1b", None, 16), ("qwen1.5-4b", None, 40),
 MLA_HEADS, MLA_DH = 128, 192        # DeepSeek-V2's prefill attention
 # the models of the `llm zoo` phase, each at its full config in bf16:
 # (arch, flash_attn_fwd launches per prefill, their head dim)
-ZOO_MODELS = (("musicgen-medium", 48, 64), ("internvl2-2b", 24, 128),
-              ("xlstm-125m", 0, None))
+# (arch, flash launches a prefill, their head dim, depth: None = full);
+# xLSTM at 1 of its 3 periods (its eager cells make a full-depth prefill
+# 3 s, and the phase runs ten)
+ZOO_MODELS = (("musicgen-medium", 48, 64, None),
+              ("internvl2-2b", 24, 128, None), ("xlstm-125m", 0, None, 4))
 ZOO_STEPS = 8                       # graphed == eager decode steps
 # prefill of P + decode against prefill of P + 1 in bf16: decode's own
 # bf16 error (its roundings and two more a layer, q·scale and p) is taken
@@ -521,7 +547,7 @@ LSE_BAR = 1e-4
 LLM_TRAIN_BATCH = (4, 2048)         # Llama's full-width train step, B x S
 LLM_TRAIN_STEPS = 8
 LLM_TRAIN_CPU_LAYERS = 2            # Llama's fp32 card-vs-CPU step
-LLM_TRAIN_CPU_BATCH = (2, 256)
+LLM_TRAIN_CPU_BATCH = (1, 256)
 # the recurrent blocks' train mode and INL over an LLM (`llm train`):
 # the SSD scan's autograd Function on (label, (B, S, H, P, N, chunk)):
 # Zamba2-2.7B's full shape, and one with three chunks
@@ -530,10 +556,10 @@ SSD_TRAIN_CASES = (("Zamba2-2.7B", (4, 2048, 80, 64, 64, 256)),
 ZAMBA_TRAIN_PERIODS = 2             # of 9: 12 of 54 layers, ~0.77 B params
 ZAMBA_TRAIN_BATCH = (4, 2048)
 ZAMBA_TRAIN_STEPS = 4
-ZAMBA_CPU_BATCH = (2, 512)          # one period in fp32: two SSD chunks
-XLSTM_TRAIN_BATCH = (4, 512)        # two 256-step checkpointed chunks
-XLSTM_TRAIN_STEPS = 2
-XLSTM_CPU_BATCH = (2, 128)          # one period in fp32
+ZAMBA_CPU_BATCH = (1, 512)          # one period in fp32: two SSD chunks
+XLSTM_TRAIN_BATCH = (4, 256)        # one 256-step checkpointed chunk
+XLSTM_TRAIN_STEPS = 1                # one step (the launch phase's room)
+XLSTM_CPU_BATCH = (1, 128)          # one period in fp32
 INL_LLM_LAYERS = 3                  # Llama-3.2-1B: 2 encoder layers, 1 dec
 INL_LLM_BITS = 4                    # the packed wire
 INL_LLM_BATCH = (2, 2048)
@@ -542,6 +568,25 @@ INL_CPU_BITS = (16, 8, 4)           # smoke width, fp32, card vs CPU
 # the cut-layer and wire kernels INL over an LLM launches at link_bits < 8
 INL_LLM_KERNELS = ("cut_fwd", "cut_bwd", "pack", "unpack_dequant")
 INL_LLM_RUN = f"inl over llama3.2-1b {INL_LLM_STEPS} steps"
+# the llm launch phase: launch.train at full width, the crash-resume check
+# on the card, DeepSeek-V2's MoE layer over 2 gloo ranks, the dry-run
+LAUNCH_STEPS, LAUNCH_GROUP, LAUNCH_BATCH = 8, 4, (4, 2048)
+LAUNCH_ARGV = ("--arch", "llama3.2-1b", "--steps", str(LAUNCH_STEPS),
+               "--batch", str(LAUNCH_BATCH[0]), "--seq", str(LAUNCH_BATCH[1]),
+               "--scan-steps", str(LAUNCH_GROUP), "--device", DEV)
+LAUNCH_RUN = f"llama3.2-1b launch.train {LAUNCH_STEPS} steps"
+# --prefetch 1 against 2 on a short run: the smoke config, 4 groups of 2
+PREFETCH_ARGV = ("--arch", "llama3.2-1b", "--smoke", "--steps", "8",
+                 "--batch", "2", "--seq", "32", "--scan-steps", "2",
+                 "--device", DEV)
+CHAOS_ARGS = dict(arch="llama3.2-1b", scheme="inl", steps=12, batch=2,
+                  seq=32, scan_steps=2, ckpt_every=2, kill_after_step=5,
+                  seed=0)             # the reference's chaos defaults
+CHAOS_TIMEOUT = 240.0
+EP_ARCH, EP_BATCH, EP_RANKS = "deepseek-v2-236b", (2, 1024), 2
+EP_TIMEOUT = 240.0
+LAUNCH_PHASE_BUDGET_S = 120.0
+H100_BF16_FLOPS = 989e12              # NVIDIA's data sheet, dense bf16
 LOSS_RTOL = 1e-5                    # an fp32 train loss, card vs CPU
 # graph_ms of the first, SIMT (fp32 FMA) kernels at the bf16 shapes of
 # llm_kernel_timing, (kernel, S) -> ms: the final chip_smoke.py run that
@@ -6078,7 +6123,7 @@ def xlstm_fp32_check(torch, card_line):
 
 def llm_zoo_phase(torch, card_line):
     """The reference's last three architectures (ZOO_MODELS) in bf16 at
-    their full configs: each model's prefill at B=4 over 512 positions with
+    their published widths (xLSTM at 1 of 3 periods): each model's prefill at B=4 over 512 positions with
     its flash calls held against the plain version on their own inputs and
     the launches counted (set to 0 just before, read just after); its
     prefill time; MusicGen and xLSTM served 4 x 512 x 32 tokens (launches
@@ -6090,9 +6135,9 @@ def llm_zoo_phase(torch, card_line):
     from repro_torch.models import zoo
     t_phase = time.perf_counter()
     launches_by_model, worst = {}, 0.0
-    for arch, want, dh in ZOO_MODELS:
+    for arch, want, dh, depth in ZOO_MODELS:
         t0 = time.perf_counter()
-        cfg = attn_model(arch)
+        cfg = attn_model(arch, depth)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         params = zoo.init_params(
@@ -6331,20 +6376,6 @@ def llm_card_vs_cpu(torch, card_line):
           f"[{card_line}]")
 
 
-def llama_train_run(torch, card_line):
-    """Llama-3.2-1B at its full config in bf16 (tied embeddings, remat on),
-    LLM_TRAIN_STEPS steps at LLM_TRAIN_BATCH (`train_run`): exactly a
-    forward and a recompute a layer a step, the forward's share of a
-    step.  Returns (flash launches, {metric: value})."""
-    cfg = attn_model("llama3.2-1b")
-    launches, metrics = train_run(
-        torch, cfg, *LLM_TRAIN_BATCH, LLM_TRAIN_STEPS,
-        "Llama-3.2-1B (full config)", card_line,
-        want={"flash_attn_fwd": 2 * cfg.num_layers * LLM_TRAIN_STEPS},
-        forward_share=True)
-    return launches["flash_attn_fwd"], metrics
-
-
 def deepseek_train_check(torch, card_line):
     """DeepSeek-V2-236B in bf16 at its published widths cut to 2 layers
     (the dense layer 0 and one MoE layer, ~5.4 B parameters): one
@@ -6523,17 +6554,14 @@ def zoo_card_vs_cpu(torch, cfg, B, S, what, card_line):
 
 
 def train_run(torch, cfg, B, S, n_steps, what, card_line, *, want,
-              time_steps=True, falling=True, forward_share=False):
+              time_steps=True, falling=True):
     """`cfg` at B x S: `make_scan_train_step` with
     `default_optimizer(cfg, total_steps=n_steps)` over n_steps Markov
     batches, launches set to 0 just before and read just after (== `want`);
     every loss finite and, with falling, the last below the first; the
     steps' ms (CUDA events) and peak memory; with time_steps, one step's
     ms (median of 3 `make_train_step` calls) and tokens/s, else the
-    scan's ms a step; with forward_share, the ms of the forward as the
-    step runs it (with grad, the periods' inputs saved for the recompute).
-    Returns (launches, {metric: value})."""
-    from repro_torch import tree_leaves, tree_unflatten
+    scan's ms a step.  Returns (launches, {metric: value})."""
     from repro_torch.launch import steps
     from repro_torch.models import zoo
     t0 = time.perf_counter()
@@ -6564,7 +6592,7 @@ def train_run(torch, cfg, B, S, n_steps, what, card_line, *, want,
           f"{what} train losses {losses}")
     check(bool(torch.isfinite(ms["grad_norm"]).all()),
           f"{what} grad_norm {ms['grad_norm'].tolist()}")
-    step_ms, fwd_ms = epoch_ms / n_steps, None
+    step_ms = epoch_ms / n_steps
     if time_steps:
         step = steps.make_train_step(cfg, opt)
         batch = {k: v[0] for k, v in batches.items()}
@@ -6574,14 +6602,6 @@ def train_run(torch, cfg, B, S, n_steps, what, card_line, *, want,
             box[0], box[1], _ = step(box[0], box[1], batch)
         step_ms = statistics.median(cuda_ms(torch, one, reps=1, warmup=0)
                                     for _ in range(3))
-
-        def fwd():
-            leaves = [t.detach().requires_grad_(True)
-                      for t in tree_leaves(box[0])]
-            return zoo.loss_and_metrics(tree_unflatten(box[0], leaves), cfg,
-                                        batch)[0]
-        if forward_share:
-            fwd_ms = cuda_ms(torch, fwd, reps=1, warmup=1)
         params, opt_state = box
         del box, batch
     tok_s = B * S / (step_ms / 1e3)
@@ -6594,9 +6614,6 @@ def train_run(torch, cfg, B, S, n_steps, what, card_line, *, want,
           f"{step_ms:.1f} ms ("
           + ("median of 3 make_train_step calls" if time_steps
              else "the scan's mean") + "), "
-          + ("" if fwd_ms is None else
-             f"its forward with grad {fwd_ms:.1f} ms (the backward and "
-             f"update {(step_ms - fwd_ms) / step_ms:.3f} of the step), ")
           + f"{tok_s:.0f} tokens/s; peak "
           f"memory {peak:.2f} GiB (the scan), "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB with the "
@@ -6604,8 +6621,7 @@ def train_run(torch, cfg, B, S, n_steps, what, card_line, *, want,
     del params, opt_state, batches
     torch.cuda.empty_cache()
     return launches, {"step_ms": step_ms, "tokens_per_s": tok_s,
-                      "peak_gib": peak, "epoch_ms": epoch_ms,
-                      "fwd_ms": fwd_ms}
+                      "peak_gib": peak, "epoch_ms": epoch_ms}
 
 
 def zamba_train_check(torch, card_line):
@@ -6635,16 +6651,17 @@ def zamba_train_check(torch, card_line):
 
 
 def xlstm_train_check(torch, card_line):
-    """xLSTM-125M at its full config in bf16, XLSTM_TRAIN_STEPS steps at
-    B x S = XLSTM_TRAIN_BATCH (two checkpointed 256-step chunks), no
-    kernel launched, the losses finite (two steps, one of them in the
-    warmup, need not fall); then its fp32 twin at one period and a short S on
-    the card against the CPU.  Returns metrics."""
+    """xLSTM-125M at its published widths in bf16 cut to one period (4 of
+    its 12 layers: three mLSTM and one sLSTM block), XLSTM_TRAIN_STEPS
+    step at B x S = XLSTM_TRAIN_BATCH (one checkpointed 256-step chunk),
+    no kernel launched, the loss finite; then its fp32 twin at one period
+    and a short S on the card against the CPU.  Returns metrics."""
     import dataclasses
-    cfg = attn_model("xlstm-125m")
+    cfg = attn_model("xlstm-125m", XLSTM_PERIOD)
     _, metrics = train_run(torch, cfg, *XLSTM_TRAIN_BATCH, XLSTM_TRAIN_STEPS,
-                           "xLSTM-125M (full config)", card_line, want={},
-                           time_steps=False, falling=False)
+                           "xLSTM-125M (full width, 1 of 3 periods)",
+                           card_line, want={}, time_steps=False,
+                           falling=False)
     twin = dataclasses.replace(attn_model("xlstm-125m", XLSTM_PERIOD),
                                dtype="float32")
     zoo_card_vs_cpu(torch, twin, *XLSTM_CPU_BATCH,
@@ -6810,7 +6827,6 @@ def llm_train_phase(torch, card_line):
     try:
         bwd_ms, lse_worst = lse_and_backward_check(torch, card_line)
         llm_card_vs_cpu(torch, card_line)
-        llama_launches, llama = llama_train_run(torch, card_line)
         ds_launches, ds_ms = deepseek_train_check(torch, card_line)
         ssd_bwd_ms = ssd_train_check(torch, card_line)
         zamba_launches, zamba = zamba_train_check(torch, card_line)
@@ -6821,10 +6837,9 @@ def llm_train_phase(torch, card_line):
         torch.use_deterministic_algorithms(False)
     print(f"llm train: the phase {time.perf_counter() - t0:.1f} s "
           f"[{card_line}]")
-    llama.update(deepseek_ms=ds_ms, bwd_ms=bwd_ms, ssd_bwd_ms=ssd_bwd_ms,
+    times = dict(deepseek_ms=ds_ms, bwd_ms=bwd_ms, ssd_bwd_ms=ssd_bwd_ms,
                  zamba=zamba, xlstm=xlstm, inl=inl)
-    flash = {"llama3.2-1b 8 steps": llama_launches,
-             "deepseek-v2-236b fwd+bwd": ds_launches,
+    flash = {"deepseek-v2-236b fwd+bwd": ds_launches,
              f"zamba2-2.7b {ZAMBA_TRAIN_PERIODS} periods "
              f"{ZAMBA_TRAIN_STEPS} steps": zamba_launches["flash_attn_fwd"],
              INL_LLM_RUN: inl_launches["flash_attn_fwd"]}
@@ -6835,7 +6850,342 @@ def llm_train_phase(torch, card_line):
                for run, counts in inl_cpu_launches.items()}}
     on_inl = {k: {run: counts[k] for run, counts in runs.items()
                   if counts[k]} for k in CUT_LAYER_SOURCES}
-    return flash, on_ssd, on_inl, llama, lse_worst
+    return flash, on_ssd, on_inl, times, lse_worst
+
+
+# ---------------------------------------------------------------------------
+# 10. llm launch: launch.train, crash-resume, expert parallelism, dry-run
+# ---------------------------------------------------------------------------
+
+def llama_cli_run(torch, card_line, prefetch):
+    """`launch.train.main` in-process at full width (Llama-3.2-1B, bf16,
+    B=4, S=2048, 8 steps in groups of 4), launches set to 0 just before and
+    read just after.  Returns (history, launches, {metric: value})."""
+    from repro_torch.launch import train
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = train.main(list(LAUNCH_ARGV) + ["--prefetch", str(prefetch)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the second group's wall: its batches came in while the first ran
+    step_ms = (hist[1]["wall_s"] - hist[0]["wall_s"]) / LAUNCH_GROUP * 1e3
+    tok_s = LAUNCH_BATCH[0] * LAUNCH_BATCH[1] / (step_ms / 1e3)
+    return hist, launches, {"step_ms": step_ms, "tokens_per_s": tok_s,
+                            "peak_gib": peak, "wall_s": wall}
+
+
+def launch_cli_check(torch, card_line):
+    """The CLI at full width: exactly a forward and a recompute of
+    flash_attn_fwd a layer and step, losses finite and falling; then a
+    short run (the smoke config, 4 groups) at --prefetch 1 and 2, every
+    group's losses and grad norms equal bit for bit.  Returns (flash
+    launches, metrics)."""
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    cfg = attn_model("llama3.2-1b")
+    hist, launches, m = llama_cli_run(torch, card_line, 2)
+    expect_launches(launches, {"flash_attn_fwd":
+                               2 * cfg.num_layers * LAUNCH_STEPS},
+                    f"{LAUNCH_RUN}")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"launch.train losses {losses}")
+    short = {n: train.main(list(PREFETCH_ARGV) + ["--prefetch", str(n)])
+             for n in (1, 2)}
+    same = all([h[k] for h in short[1]] == [h[k] for h in short[2]]
+               for k in ("loss", "grad_norm"))
+    check(same and len(short[1]) == 4,
+          f"--prefetch 1 {short[1]} vs 2 {short[2]}")
+    print(f"llm launch: launch.train {' '.join(LAUNCH_ARGV)}: "
+          f"{zoo.param_count(cfg)} parameters, losses (a group's last step) "
+          f"{losses}, flash_attn_fwd {launches['flash_attn_fwd']} launches "
+          f"(a forward and a recompute a layer: "
+          f"{launches['flash_attn_fwd'] // LAUNCH_STEPS} a step); a step "
+          f"{m['step_ms']:.1f} ms (the second group's wall / "
+          f"{LAUNCH_GROUP}), {m['tokens_per_s']:.0f} tokens/s, peak "
+          f"{m['peak_gib']:.2f} GiB, the run {m['wall_s']:.1f} s; "
+          f"{' '.join(PREFETCH_ARGV)} at --prefetch 1 and 2: the 4 groups' "
+          f"losses and grad norms bit for bit [{card_line}]")
+    return launches["flash_attn_fwd"], m
+
+
+def crash_resume_card(torch, card_line):
+    """`chaos.crash_resume_check` with the reference's chaos defaults on
+    the card, dense and with learned priors, the two side by side (each
+    its own children): resumed lines and final checkpoints bit for bit
+    the uninterrupted run's, the cut-layer kernels launched in the golden
+    and the resumed child.  Returns {run: child launches}."""
+    import argparse
+    import shutil
+    import threading
+    from repro_torch import chaos
+    wants = {"dense": ("cut_fwd", "cut_bwd", "flash_attn_fwd"),
+             "learned prior": ("cut_prior_fwd", "cut_prior_bwd",
+                               "flash_attn_fwd")}
+    results = {}
+
+    def one(name):
+        wd = ROOT / "build" / "chaos" / name.replace(" ", "_")
+        shutil.rmtree(wd, ignore_errors=True)
+        args = argparse.Namespace(**CHAOS_ARGS, workdir=str(wd), device=DEV,
+                                  learned_prior=name == "learned prior")
+        try:
+            results[name] = chaos.crash_resume_check(args)
+        except BaseException as exc:          # reported below
+            results[name] = exc
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(n,), daemon=True)
+               for n in wants]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=max(CHAOS_TIMEOUT - (time.perf_counter() - t0), 1.0))
+    check(not any(t.is_alive() for t in threads),
+          f"crash-resume did not finish in {CHAOS_TIMEOUT:.0f} s")
+    out = {}
+    for name, want in wants.items():
+        rec = results.get(name)
+        check(isinstance(rec, dict) and rec["bitwise_identical"],
+              f"crash-resume {name}: {rec!r}")
+        runs = rec["kernel_launches"]
+        check(all(runs[r] and all(runs[r].get(k, 0) > 0 for k in want)
+                  for r in ("golden", "resumed")),
+              f"crash-resume {name}: children's launches {runs}")
+        out[name] = runs
+        print(f"llm launch: crash-resume ({name}) {CHAOS_ARGS}: SIGKILLed "
+              f"after step {CHAOS_ARGS['kill_after_step']}, resumed from "
+              f"step {rec['resume_from_step']}, {rec['metric_lines_compared']}"
+              f" metric lines and {rec['tensors_compared']} checkpoint "
+              f"tensors bit for bit the uninterrupted run's; the children's "
+              f"launches golden {runs['golden']} resumed {runs['resumed']} "
+              f"[{card_line}]")
+    print(f"llm launch: crash-resume, both checks side by side, "
+          f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+    return out
+
+
+def ep_cfg():
+    """DeepSeek-V2-236B at its published widths in bf16, the MoE's capacity
+    raised to every token (droppless)."""
+    import dataclasses
+    cfg = attn_model(EP_ARCH)
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.experts_per_token))
+
+
+def ep_layer(torch):
+    """(cfg, the MoE layer's params, x (B, S, d) bf16) from seeds, on the
+    card."""
+    from repro_torch.models import moe
+    cfg = ep_cfg()
+    p = moe.moe_init(torch.Generator(device=DEV).manual_seed(0), cfg,
+                     torch.bfloat16, device=DEV)
+    x = torch.randn(EP_BATCH + (cfg.d_model,), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(1))
+    return cfg, p, x.to(torch.bfloat16)
+
+
+def ep_rank(rank, world, store, queue):
+    """A spawned rank of the EP world: gloo over `store`, a (1, 2) ('data',
+    'model') mesh on cuda:0, this rank's 80 experts; moe_apply_ep once to
+    warm up, then 3 timed calls.  Puts (rank, ok, result or traceback)."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.models import moe
+        mesh = mesh_lib.Mesh((1, world), ("data", "model"), device=DEV)
+        cfg, p, x = ep_layer(torch)
+        ax = mesh.axis("model")
+        for k in ("wi", "wg", "wo"):
+            p[k] = p[k][ax.block(p[k].shape[0])].clone()
+        torch.cuda.empty_cache()
+        ms = []
+        with torch.no_grad():
+            for i in range(4):
+                mesh.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y, aux = moe.moe_apply_ep(p, cfg, x, mesh=mesh)
+                torch.cuda.synchronize()
+                if i:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+        # numpy, not tensors: a tensor crosses the queue as a shared-memory
+        # handle, which dies with this process
+        queue.put((rank, True, {
+            "y": y.float().cpu().numpy(),
+            "aux": {k: v.float().cpu().numpy() for k, v in aux.items()},
+            "ms": statistics.median(ms), "experts": p["wi"].shape[0],
+            "traffic": dict(ax.traffic)}))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def ep_card_check(torch, card_line):
+    """DeepSeek-V2's MoE layer (160 experts, 6 routed and 2 shared, d 5120,
+    f 1536, bf16, droppless) over 2 gloo ranks sharing the card against
+    `moe_apply` in this process on the same weights: y within 2e-2 of the
+    largest |y| on both ranks, the aux values equal within 1e-5.
+    Returns the EP layer's ms."""
+    import multiprocessing
+    import queue as queue_lib
+    from repro_torch.models import moe
+    root = ROOT / "build" / "ep"
+    root.mkdir(parents=True, exist_ok=True)
+    store = root / "store"
+    store.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=ep_rank, args=(r, EP_RANKS, str(store), q))
+             for r in range(EP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        torch.cuda.empty_cache()
+        cfg, params, x = ep_layer(torch)
+        with torch.no_grad():
+            y_ref, aux_ref = moe.moe_apply(params, cfg, x)
+            ref_ms = cuda_ms(torch, lambda: moe.moe_apply(params, cfg, x),
+                             reps=3, warmup=1)
+        del params
+        torch.cuda.empty_cache()
+        got, failed = {}, None
+        while len(got) < EP_RANKS and failed is None:
+            try:
+                rank, ok, value = q.get(timeout=max(
+                    EP_TIMEOUT - (time.perf_counter() - t0), 0.1))
+            except queue_lib.Empty:
+                failed = "a rank gave no result"
+                break
+            if ok:
+                got[rank] = value
+            else:
+                failed = f"rank {rank} failed:\n{value}"
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    check(failed is None, f"EP: {failed}")
+    y_ref = y_ref.float().cpu().numpy()
+    scale = float(np.abs(y_ref).max())
+    errs = [float(np.abs(got[r]["y"] - y_ref).max())
+            for r in range(EP_RANKS)]
+    check(max(errs) <= BF16_BAR * scale,
+          f"EP y off by {errs} (bar {BF16_BAR} x {scale})")
+    aux_err = max(float(np.abs(got[r]["aux"][k]
+                               - aux_ref[k].float().cpu().numpy()).max())
+                  for r in range(EP_RANKS) for k in aux_ref)
+    check(aux_err <= 1e-5, f"EP aux off by {aux_err}")
+    ms = max(got[r]["ms"] for r in range(EP_RANKS))
+    print(f"llm launch: EP, {EP_ARCH}'s MoE layer at published widths "
+          f"(E={cfg.moe.num_experts}, k={cfg.moe.experts_per_token}, "
+          f"{cfg.moe.num_shared_experts} shared, d={cfg.d_model}, "
+          f"f={cfg.moe.d_ff_expert}, bf16, droppless) at B x S = "
+          f"{EP_BATCH}, {EP_RANKS} gloo ranks on one card, "
+          f"{got[0]['experts']} experts a rank: y within {max(errs):.3g} of "
+          f"moe_apply's (largest |y| {scale:.3g}, bar {BF16_BAR} of it), "
+          f"aux within {aux_err:.3g}; a layer {ms:.3f} ms on the ranks "
+          f"(median of 3, gloo's bf16 psum of (T, d) through the host "
+          f"included; rank 0's traffic {got[0]['traffic']}), moe_apply in "
+          f"one process {ref_ms:.3f} ms; {time.perf_counter() - t0:.1f} s "
+          f"[{card_line}]")
+    return ms
+
+
+def dryrun_card_check(torch, card_line, step_ms):
+    """The dry-run's record of the CLI's step (Llama-3.2-1B, B=4, S=2048,
+    train) on a 1-rank mesh: its per-rank argument bytes, rounded leaf by
+    leaf to the allocator's 512-byte blocks, equal to `memory_allocated`
+    after the params, AdamW's state and a batch are made on the card (and
+    the exact bytes to the tensors' own); the roofline's compute term
+    against the CLI's measured step."""
+    from repro_torch import tree_leaves
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import zoo
+    t0 = time.perf_counter()
+    cfg = attn_model("llama3.2-1b")
+    shape = ShapeConfig("launch_train", LAUNCH_BATCH[1], LAUNCH_BATCH[0],
+                        "train")
+    rec = dryrun.run_record("llama3.2-1b", cfg, shape,
+                            mesh_lib.AbstractMesh((1, 1), ("data", "model")),
+                            "one rank")
+    dry_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    params = zoo.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             device=DEV)
+    opt_state = steps.default_optimizer(cfg).init(params)
+    batch = zoo.dummy_batch(cfg, shape, 0, device=DEV)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - m0
+    exact = sum(t.numel() * t.element_size()
+                for t in tree_leaves((params, opt_state, batch)))
+    mem = rec["memory"]
+    check(allocated == mem["argument_bytes_allocated"]
+          and exact == mem["argument_bytes"],
+          f"dry-run bytes {mem['argument_bytes']} "
+          f"({mem['argument_bytes_allocated']} in 512-byte blocks) vs the "
+          f"card's {exact} ({allocated} memory_allocated)")
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    r = rec["roofline"]
+    step_s = step_ms / 1e3
+    print(f"llm launch: dry-run of the CLI's step (Llama-3.2-1B, B=4, "
+          f"S=2048, train, 1 rank; {dry_s:.1f} s on meta): argument bytes "
+          f"{mem['argument_bytes']} (params {mem['params_bytes']}, AdamW "
+          f"state {mem['opt_state_bytes']}, batch {mem['batch_bytes']}) == "
+          f"the tensors' own; {mem['argument_bytes_allocated']} in 512-byte "
+          f"blocks == memory_allocated {allocated} to the byte; roofline "
+          f"terms compute {r['compute_s']:.4f} s, memory "
+          f"{r['memory_s']:.4f} s, dominant {r['dominant']}; model FLOPs "
+          f"{r['model_flops']:.4g} a step (counted {r['counted_flops']:.4g},"
+          f" useful {r['useful_flop_ratio']:.3f}) over the measured "
+          f"{step_ms:.1f}-ms step = {r['model_flops'] / step_s / 1e12:.1f} "
+          f"TFLOP/s, {r['model_flops'] / (step_s * H100_BF16_FLOPS):.4f} of "
+          f"989 TFLOP/s (the compute term {r['compute_s'] * 1e3:.1f} ms is "
+          f"{r['compute_s'] / step_s:.4f} of the step) [{card_line}]")
+    return rec
+
+
+def llm_launch_phase(torch, card_line):
+    """launch.train at full width (twice: --prefetch 2 and 1), the
+    crash-resume check on the card, EP over 2 gloo ranks, the dry-run
+    against the card's memory.  Returns ({run: flash launches}, CLI
+    metrics, crash-resume children's launches)."""
+    t0 = time.perf_counter()
+    flash, metrics = launch_cli_check(torch, card_line)
+    children = crash_resume_card(torch, card_line)
+    metrics["ep_ms"] = ep_card_check(torch, card_line)
+    dryrun_card_check(torch, card_line, metrics["step_ms"])
+    phase_s = time.perf_counter() - t0
+    print(f"llm launch: the phase {phase_s:.1f} s (budget "
+          f"{LAUNCH_PHASE_BUDGET_S:.0f} s) [{card_line}]")
+    metrics["phase_s"] = phase_s
+    return {LAUNCH_RUN: flash}, metrics, children
 
 
 CUT_LAYER_SOURCES = ("cut_fwd", "cut_bwd", "cut_prior_fwd", "cut_prior_bwd",
@@ -6864,7 +7214,14 @@ def main() -> int:
     parser.add_argument("--llm-train", action="store_true",
                         help="build the LLM and cut-layer kernels and run "
                              "only the `llm train` phase")
+    parser.add_argument("--llm-launch", action="store_true",
+                        help="build the LLM and cut-layer kernels and run "
+                             "only the `llm launch` phase")
     args = parser.parse_args()
+    # launch.train runs with deterministic algorithms on the card, under
+    # which cuBLAS wants this setting from the process's first matmul on
+    # (32 MiB of workspace, PyTorch's default size on sm_90 in any case)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -6899,6 +7256,10 @@ def main() -> int:
     if args.llm_train:
         build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)
         llm_train_phase(torch, card)
+        return 0
+    if args.llm_launch:
+        build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)
+        llm_launch_phase(torch, card)
         return 0
     build_phase()
     worst = {"cut_fwd": kernel_phase(torch),
@@ -6984,6 +7345,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     on_train, ssd_on_train, on_inl_llm, train_times, lse_worst = \
         llm_train_phase(torch, card)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    on_launch, launch_times, on_children = llm_launch_phase(torch, card)
+    on_train.update(on_launch)
+    train_times.update(launch_times)
     launches = {"cut_fwd": train_launches["cut_fwd"],
                 "cut_bwd": train_launches["cut_bwd"],
                 "cut_prior_fwd": prior_launches["cut_prior_fwd"],
@@ -7048,14 +7414,17 @@ def main() -> int:
               if k != "predict" and len(row) == 4)
           + f"; transport round {transport_times[0]:.3f} ms (the graphed "
             f"lossy round {transport_times[1]:.3f} ms)"
-          + f"; Llama-3.2-1B train step {train_times['step_ms']:.1f} ms "
+          + f"; Llama-3.2-1B train step (launch.train) "
+            f"{train_times['step_ms']:.1f} ms "
             f"({train_times['tokens_per_s']:.0f} tokens/s, peak "
-            f"{train_times['peak_gib']:.2f} GiB)"
+            f"{train_times['peak_gib']:.2f} GiB); the EP MoE layer on 2 "
+            f"gloo ranks {train_times['ep_ms']:.3f} ms; the llm launch "
+            f"phase {train_times['phase_s']:.1f} s"
           + f"; Zamba2-2.7B ({ZAMBA_TRAIN_PERIODS} periods) train step "
             f"{train_times['zamba']['step_ms']:.1f} ms "
             f"({train_times['zamba']['tokens_per_s']:.0f} tokens/s, peak "
             f"{train_times['zamba']['peak_gib']:.2f} GiB)"
-          + f"; xLSTM-125M train step "
+          + f"; xLSTM-125M (1 of 3 periods) train step "
             f"{train_times['xlstm']['step_ms']:.1f} ms (peak "
             f"{train_times['xlstm']['peak_gib']:.2f} GiB)"
           + f"; INL over Llama-3.2-1B train step "
@@ -7103,6 +7472,11 @@ def main() -> int:
             entry["launches_on_hybrids"] = on_hybrids[kname]
         if on_inl_llm[kname]:
             entry["launches_on_inl_llm"] = on_inl_llm[kname]
+        on_crash = {f"crash-resume {run} {child}": n[kname]
+                    for run, children in on_children.items()
+                    for child, n in children.items() if n.get(kname)}
+        if on_crash:
+            entry["launches_on_crash_resume"] = on_crash
         if kname in REDESIGNED:
             entry["redesigned"] = REDESIGNED[kname]
             entry["at_large_r"] = {

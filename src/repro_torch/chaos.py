@@ -24,15 +24,27 @@ processes (repro_torch/cluster) on a schedule and asserts the masks:
 
     PYTHONPATH=src python -m repro_torch.chaos --procs
 
-The reference's second rig, `crash_resume_check`, SIGKILLs a
-`launch/train.py` LLM training process and resumes it; the port has no
-`launch/train` yet (ROADMAP queue 1, item 6.7), so it raises
-NotImplementedError naming that item.
+`crash_resume_check` (the default, without `--procs`; the reference's
+`_train_argv`, `_run_until_kill`, `_final_arrays` and
+`crash_resume_check`) SIGKILLs a real `repro_torch.launch.train` process
+after `--kill-after-step`, resumes it with `--resume`, and asserts that
+the resumed metric lines equal the uninterrupted run's and that the final
+checkpoints are equal bit for bit:
+
+    PYTHONPATH=src python -m repro_torch.chaos [--device cpu] \
+        [--learned-prior]
+
+The children run with `--prefetch 1`, as the reference's; on the card
+the launcher always runs with deterministic algorithms.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
+import subprocess
+import sys
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -262,21 +274,139 @@ def cluster_drill(args) -> dict:
             "replay_identical": True}
 
 
+# ---------------------------------------------------------------------------
+# Crash-resume rig: SIGKILL a real training process, resume, compare
+# ---------------------------------------------------------------------------
+
+_SRC = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_LAUNCHES = "kernel launches: "      # launch/train.py's last line
+
+
+def _train_argv(args, ckpt_dir: str, resume: bool):
+    argv = [sys.executable, "-m", "repro_torch.launch.train",
+            "--arch", args.arch, "--smoke", "--scheme", args.scheme,
+            "--steps", str(args.steps), "--batch", str(args.batch),
+            "--seq", str(args.seq), "--scan-steps", str(args.scan_steps),
+            "--seed", str(args.seed), "--prefetch", "1",
+            "--ckpt-dir", ckpt_dir, "--ckpt-every", str(args.ckpt_every),
+            "--device", getattr(args, "device", "cuda")]
+    if getattr(args, "learned_prior", False):
+        argv.append("--learned-prior")
+    if resume:
+        argv.append("--resume")
+    return argv
+
+
+def _run_until_kill(argv, kill_after_step: Optional[int]):
+    """Run the training subprocess, streaming its JSON metric lines; when
+    `kill_after_step` is reached, SIGKILL the process mid-run (the crash
+    under test: no atexit, no flush, no goodbye).  Returns (metric lines,
+    killed?, the run's kernel launch counts, None for a killed run)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in [_SRC, env.get("PYTHONPATH", "")] if p)
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    lines, killed, other, launches = [], False, [], None
+    assert proc.stdout is not None
+    for line in proc.stdout:
+        line = line.strip()
+        if line.startswith(_LAUNCHES):
+            launches = json.loads(line[len(_LAUNCHES):])
+        if not line.startswith("{"):
+            other.append(line)
+            continue
+        try:
+            m = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if "step" in m:
+            lines.append(m)
+            if kill_after_step is not None and not killed \
+                    and m["step"] >= kill_after_step:
+                proc.send_signal(signal.SIGKILL)
+                killed = True
+                break
+    proc.stdout.read()
+    proc.wait()
+    if not killed and proc.returncode != 0:
+        raise RuntimeError(f"training run failed (rc={proc.returncode}); "
+                           f"argv={argv}\n" + "\n".join(other[-20:]))
+    return lines, killed, launches
+
+
+def _final_arrays(ckpt_dir: str):
+    from repro_torch import checkpoint
+    step = checkpoint.latest_step(ckpt_dir)
+    path = os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
+    with np.load(path) as data:
+        return step, {k: data[k].copy() for k in data.files}
+
+
 def crash_resume_check(args) -> dict:
-    """The reference's crash-resume assertion over `launch/train.py`
-    (SIGKILL an LLM training process mid-run, resume, compare bit for
-    bit).  The port's `launch/train` is not written yet, so this raises."""
-    raise NotImplementedError(
-        "crash_resume_check drives launch/train, which comes with ROADMAP "
-        "queue 1 item 6.7 (the rest of the LLM stack); run the cluster "
-        "drill with --procs")
+    """The CI crash-resume assertion, end to end:
+
+      1. GOLDEN: an uninterrupted run, metrics + final checkpoint kept;
+      2. CRASH:  the same run SIGKILLed once step `kill_after_step` prints;
+      3. RESUME: rerun with --resume: it restores the last checkpoint,
+         fast-forwards the data stream, restores the inl generator and
+         finishes the schedule;
+      4. assert every post-resume metric line equals the golden line for
+         the same step, and the final checkpoints match BIT FOR BIT.
+
+    `args` has the reference's fields (arch, scheme, steps, batch, seq,
+    scan_steps, seed, ckpt_every, kill_after_step, workdir) and, optional,
+    `device` (default cuda) and `learned_prior`.  Returns the comparison
+    record, the reference's with the golden and resumed children's kernel
+    launch counts added ("kernel_launches")."""
+    golden_dir = os.path.join(args.workdir, "golden")
+    crash_dir = os.path.join(args.workdir, "crash")
+    golden, _, golden_launches = _run_until_kill(
+        _train_argv(args, golden_dir, resume=False), None)
+    _expect(bool(golden), "golden run produced no metric lines")
+
+    partial, killed, _ = _run_until_kill(
+        _train_argv(args, crash_dir, resume=False), args.kill_after_step)
+    _expect(killed, f"run finished before step {args.kill_after_step}; "
+                    f"raise --steps or lower --kill-after-step")
+    from repro_torch import checkpoint
+    resume_from = checkpoint.latest_step(crash_dir)
+    _expect(resume_from is not None,
+            "crash left no checkpoint; lower --ckpt-every")
+
+    resumed, _, resumed_launches = _run_until_kill(
+        _train_argv(args, crash_dir, resume=True), None)
+    _expect(bool(resumed), "resumed run produced no metric lines")
+
+    by_step = {m["step"]: m for m in golden}
+    mismatches = []
+    for m in resumed:
+        g = by_step.get(m["step"])
+        if g is None or any(g.get(k) != v for k, v in m.items()
+                            if k != "wall_s"):
+            mismatches.append((m, g))
+    _expect(not mismatches,
+            f"resumed trajectory diverged from golden: {mismatches[:3]}")
+
+    gstep, garr = _final_arrays(golden_dir)
+    rstep, rarr = _final_arrays(crash_dir)
+    _expect(gstep == rstep, (gstep, rstep))
+    _expect(set(garr) == set(rarr), sorted(set(garr) ^ set(rarr))[:5])
+    diff = [k for k in garr if not np.array_equal(garr[k], rarr[k])]
+    _expect(not diff, f"final checkpoints differ bitwise on {diff[:5]}")
+    return {"resume_from_step": resume_from,
+            "final_step": gstep,
+            "metric_lines_compared": len(resumed),
+            "tensors_compared": len(garr),
+            "bitwise_identical": True,
+            "kernel_launches": {"golden": golden_launches,
+                                "resumed": resumed_launches}}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="chaos checks: the cluster drill (--procs); the "
-                    "crash-resume check over launch/train comes with "
-                    "ROADMAP item 6.7")
+        description="crash-resume chaos check over launch/train.py; "
+                    "--procs runs the cluster drill instead")
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--scheme", default="inl",
                     choices=["standard", "inl"])
@@ -288,6 +418,10 @@ def main(argv=None):
     ap.add_argument("--kill-after-step", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--workdir", default="chaos_workdir")
+    ap.add_argument("--learned-prior", action="store_true",
+                    help="inl scheme: train with learned priors")
+    ap.add_argument("--device", default="cuda",
+                    help="the training runs' device: cuda or cpu")
     ap.add_argument("--procs", action="store_true",
                     help="run the multi-process cluster drill (real worker "
                          "SIGKILL/SIGSTOP under a scripted schedule) "

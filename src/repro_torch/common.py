@@ -24,7 +24,11 @@ def resolve_device(device=None) -> torch.device:
 
 def as_generator(generator, device: torch.device) -> torch.Generator:
     """`generator`, a torch.Generator on `device`'s type, or an int seed of
-    a new one there."""
+    a new one there.  On the `meta` device, which draws nothing, any
+    generator will do (an int seeds one on the host)."""
+    if device.type == "meta":
+        return generator if isinstance(generator, torch.Generator) \
+            else torch.Generator().manual_seed(generator)
     if isinstance(generator, int):
         return torch.Generator(device=device).manual_seed(generator)
     if generator.device.type != device.type:

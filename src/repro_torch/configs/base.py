@@ -3,8 +3,9 @@
 Reference: src/repro/configs/base.py, copied field for field (the port
 imports nothing of the JAX package).  Every LLM architecture of the
 reference is registered: each registers its full config and a reduced
-smoke config, which the CPU tests instantiate.  The assigned input shapes and
-`arch_for_shape` come with the dry-run's slice (ROADMAP queue 1, item 6.7).
+smoke config, which the CPU tests instantiate.  The assigned input shapes
+(`INPUT_SHAPES`), `LONG_CONTEXT_WINDOW` and `arch_for_shape` are the
+reference's, which the launcher and the dry-run read.
 """
 from __future__ import annotations
 
@@ -176,6 +177,17 @@ class ShapeConfig:
         return self.mode == "decode"
 
 
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# Sliding-window size used to make dense archs sub-quadratic for long_500k.
+LONG_CONTEXT_WINDOW = 8_192
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
@@ -222,3 +234,11 @@ def list_archs() -> list:
     _ensure_loaded()
     return sorted(_REGISTRY)
 
+
+def arch_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
+    """Adapt a config to an input shape: dense/full-attention archs switch to
+    the sliding-window variant for long_500k (sub-quadratic requirement)."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid") \
+            and cfg.sliding_window == 0:
+        return cfg.with_sliding_window(LONG_CONTEXT_WINDOW)
+    return cfg

@@ -26,8 +26,10 @@ per node) also saves u and its backward yields the prior gradients too
 (`cut_prior_bwd`).  Autograd never differentiates a kernel body.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
-versions (kernels/ref.py), CUDA tensors the kernels, which raise if they
-cannot build or launch.  There is no fallback from one to the other.
+versions (kernels/ref.py), and so do `meta` tensors, on which the plain
+versions only propagate shapes (the dry-run); CUDA tensors take the
+kernels, which raise if they cannot build or launch.  There is no fallback
+from one to the other.
 
 The packed wire's entries — `cutlayer_pack_forward` (u, the codeword lanes
 and the rate from one read), `pack_values` and `unpack_dequant` — have no
@@ -50,6 +52,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 MODES = ("sample", "analytic", "none")
+PLAIN = ("cpu", "meta")     # the devices whose tensors take the plain versions
 PRIOR_MODES = ("sample", "analytic")
 _MODE_ID = {"sample": 0, "analytic": 1, "none": 2}
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -344,7 +347,7 @@ class _CutLayer(torch.autograd.Function):
     def forward(ctx, mu, logvar, eps, bits, mode):
         ctx.bits, ctx.mode = bits, mode
         ctx.save_for_backward(mu, logvar, eps)
-        if mu.device.type == "cpu":
+        if mu.device.type in PLAIN:
             return ref.cutlayer_fwd_ref(mu, logvar, eps, bits, mode)
         return cut_fwd(mu, logvar, eps, bits=bits, mode=mode)
 
@@ -364,7 +367,7 @@ class _CutLayerPrior(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mu, logvar, eps, pmu, plv, bits, mode):
         ctx.mode = mode
-        if mu.device.type == "cpu":
+        if mu.device.type in PLAIN:
             u, rate = ref.cutlayer_prior_fwd_ref(mu, logvar, eps, pmu, plv,
                                                  bits, mode)
         else:
@@ -377,7 +380,7 @@ class _CutLayerPrior(torch.autograd.Function):
     def backward(ctx, gu, grate):
         mu, logvar, eps, pmu, plv, u = ctx.saved_tensors
         gu, grate = gu.contiguous(), grate.contiguous()
-        if mu.device.type == "cpu":
+        if mu.device.type in PLAIN:
             # bits: the plain backward reads the saved u, never requantizes
             grads = ref.cutlayer_prior_bwd_ref(mu, logvar, eps, pmu, plv, u,
                                                gu, grate, 32, ctx.mode)
@@ -389,9 +392,9 @@ class _CutLayerPrior(torch.autograd.Function):
 
 def _device_type(tensors) -> str:
     devices = {t.device.type for t in tensors}
-    if devices not in ({"cpu"}, {"cuda"}):
-        raise ValueError(f"the cut layer runs on CPU or CUDA tensors, all "
-                         f"on one device; got {sorted(devices)}")
+    if devices not in ({"cpu"}, {"cuda"}, {"meta"}):
+        raise ValueError(f"the cut layer runs on CPU, CUDA or meta tensors, "
+                         f"all on one device; got {sorted(devices)}")
     return devices.pop()
 
 
@@ -455,7 +458,7 @@ def cutlayer_backward(mu, logvar, eps, gu, grate, *, link_bits: int,
     R = math.prod(shape[:-1])
     rows = [t.reshape(R, d).contiguous() for t in (mu, logvar, eps, gu)]
     gr = grate.reshape(R).contiguous()
-    if _device_type((*rows, gr)) == "cpu":
+    if _device_type((*rows, gr)) in PLAIN:
         grads = ref.cutlayer_bwd_ref(*rows, gr, link_bits, rate_estimator)
     else:
         grads = cut_bwd(*rows, gr, bits=link_bits, mode=rate_estimator)
@@ -480,7 +483,7 @@ def cutlayer_pack_forward(mu, logvar, eps, *, link_bits: int,
     d = shape[-1]
     R = math.prod(shape[:-1])
     rows = [t.reshape(R, d).contiguous() for t in (mu, logvar, eps)]
-    if _device_type(rows) == "cpu":
+    if _device_type(rows) in PLAIN:
         u, lanes, rate = ref.cutlayer_pack_fwd_ref(*rows, link_bits,
                                                    rate_estimator)
     else:
@@ -505,7 +508,7 @@ def pack_values(u, *, link_bits: int):
     shape = u.shape
     d = shape[-1]
     rows = u.reshape(math.prod(shape[:-1]), d).contiguous()
-    if _device_type((rows,)) == "cpu":
+    if _device_type((rows,)) in PLAIN:
         lanes = ref.pack_values_ref(rows, link_bits)
     else:
         lanes = pack(rows, bits=link_bits)
@@ -521,7 +524,7 @@ def unpack_dequant(packed, d: int, *, link_bits: int, dtype=torch.float32):
                          f"d={d} at {link_bits} bits (want {W})")
     shape = packed.shape
     rows = packed.reshape(math.prod(shape[:-1]), W).contiguous()
-    if _device_type((rows,)) == "cpu":
+    if _device_type((rows,)) in PLAIN:
         out = ref.unpack_dequant_ref(rows, d, link_bits, dtype=dtype)
     else:
         out = unpack(rows, d=d, bits=link_bits, dtype=dtype)

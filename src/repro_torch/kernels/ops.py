@@ -4,8 +4,10 @@ Reference: src/repro/kernels/ops.py (`cutlayer`, `attention`,
 `ssd_scan`).  The JAX package picks an implementation with
 `backend="auto"|"pallas"|"reference"`; here the device
 of the tensors decides, and nothing else: a CPU tensor takes the plain
-version, a CUDA tensor the hand-written kernel or an exception.  There is no
-setting that sends a CUDA tensor to the plain version.
+version, a CUDA tensor the hand-written kernel or an exception.  A `meta`
+tensor takes the plain version too, which then only propagates shapes
+(the dry-run counts a step's FLOPs on meta tensors, launch/dryrun.py).
+There is no setting that sends a CUDA tensor to the plain version.
 """
 from __future__ import annotations
 
@@ -48,11 +50,12 @@ def cutlayer(mu, logvar, eps, *, link_bits: int = 32,
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               q_offset: int = 0, return_lse: bool = False):
     """Causal (GQA) attention forward.  q: (B, Sq, H, Dh); k, v:
-    (B, Sk, KV, Dh).  CPU tensors take `ref.attention_ref`, CUDA tensors
-    the flash kernel (csrc/flash_attn_fwd.cu).  Returns (B, Sq, H, Dh) in
-    q's dtype, or with return_lse=True (out, each query row's logsumexp
-    (B, Sq, H) fp32), the residual the attention backward reads."""
-    if q.device.type == "cpu":
+    (B, Sk, KV, Dh).  CPU and meta tensors take `ref.attention_ref`, CUDA
+    tensors the flash kernel (csrc/flash_attn_fwd.cu).  Returns (B, Sq, H,
+    Dh) in q's dtype, or with return_lse=True (out, each query row's
+    logsumexp (B, Sq, H) fp32), the residual the attention backward
+    reads."""
+    if q.device.type in _bn.PLAIN:
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, lse=return_lse)
     return _fa.flash_attn_fwd(q, k, v, causal=causal, window=window,
@@ -62,9 +65,9 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
 def ssd_scan(x, dt, a, bm, cm, dskip, *, chunk: int):
     """Chunked Mamba2/SSD scan from a zero state.  x: (B, S, H, P); dt:
     (B, S, H) fp32 post-softplus; a, dskip: (H,) fp32; bm, cm: (B, S, N).
-    CPU tensors take `ref.ssd_chunked_ref`, CUDA tensors the scan kernel
-    (csrc/ssd_scan.cu).  Returns (y (B, S, H, P) in x's dtype, final state
-    (B, H, N, P) fp32)."""
-    if x.device.type == "cpu":
+    CPU and meta tensors take `ref.ssd_chunked_ref`, CUDA tensors the scan
+    kernel (csrc/ssd_scan.cu).  Returns (y (B, S, H, P) in x's dtype, final
+    state (B, H, N, P) fp32)."""
+    if x.device.type in _bn.PLAIN:
         return ref.ssd_chunked_ref(x, dt, a, bm, cm, dskip, chunk=chunk)
     return _ssd.ssd_scan(x, dt, a, bm, cm, dskip, chunk=chunk)

@@ -1,7 +1,9 @@
-"""Meshes of torch.distributed ranks for the sharded scheme rounds.
+"""Meshes: of torch.distributed ranks for the sharded rounds, and abstract
+ones for the pod-scale layouts.
 
 Reference: src/repro/launch/mesh.py (`_client_axis_size`,
-`make_inl_host_mesh`, `make_host_mesh`, `data_axes`).  The reference runs
+`make_production_mesh`, `make_inl_mesh`, `make_inl_host_mesh`,
+`make_host_mesh`, `data_axes`).  The reference runs
 one process over many devices and names mesh axes for `shard_map`; the
 port runs one process per rank, so a mesh axis is a process group:
 
@@ -38,8 +40,17 @@ chunk (what it sends to a gather, what it receives from a reduce-scatter,
 what it contributes to an all-reduce) to `Axis.traffic`; a replayed CUDA
 graph runs no Python and adds nothing.
 
-The 256- and 512-chip pod meshes (`make_inl_mesh`, `make_production_mesh`)
-and the LLM sharding rules wait for ROADMAP item 6.7.
+The 256- and 512-chip pod meshes (`make_production_mesh`, `make_inl_mesh`)
+cannot be instantiated as ranks here, so they are `AbstractMesh`es: axis
+names and sizes, no process group, as `jax.sharding.AbstractMesh` is.  The
+LLM sharding rules (launch/sharding.py) and the dry-run (launch/dryrun.py)
+read only `axis_names` and `shape`, which a `Mesh` exposes the same way.
+
+The reference's `current_abstract_mesh` reads the ambient mesh that
+`jax.sharding.set_mesh` installs; torch has no ambient mesh, so the port
+passes it explicitly: `zoo.forward(mesh=)` / `zoo.loss_and_metrics(mesh=)`
+-> `transformer.stack_apply(mesh=)` -> `moe.moe_apply_ep(mesh=)`, where the
+reference calls `current_abstract_mesh()`.
 """
 from __future__ import annotations
 
@@ -81,6 +92,53 @@ def _client_axis_size(num_clients: int, slots: int) -> int:
             f"disabled, batch/data parallelism still applies.",
             stacklevel=3)
     return client
+
+
+# ---------------------------------------------------------------------------
+# AbstractMesh: the pod meshes, names and sizes only
+# ---------------------------------------------------------------------------
+
+class AbstractMesh:
+    """Named axes and their sizes, with no ranks behind them
+    (`jax.sharding.AbstractMesh(axis_sizes, axis_names)`): `axis_names`,
+    `shape` (name -> size, in axis order) and `size`, the chip count."""
+
+    def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str]):
+        axis_sizes, axis_names = tuple(axis_sizes), tuple(axis_names)
+        if len(axis_sizes) != len(axis_names):
+            raise ValueError(f"{len(axis_sizes)} sizes for axes {axis_names}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, axis_sizes))
+        self.size = 1
+        for n in axis_sizes:
+            self.size *= n
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """Single pod: 16x16 = 256 chips (data, model).
+    Multi-pod: 2 pods x 256 = 512 chips (pod, data, model)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(shape, axes)
+
+
+def make_inl_mesh(num_clients: int, *, multi_pod: bool = False
+                  ) -> AbstractMesh:
+    """Mesh for the paper-mode (INL) trainer: a 'client' axis holds the J
+    edge nodes; remaining capacity goes to data/model parallelism.
+    256 (or 512) chips total, same hardware as make_production_mesh.
+
+    When J does not divide the per-model-group chip count the client axis
+    falls back to replicated (size 1, with a warning) instead of erroring —
+    the scheme still runs, data-parallel only."""
+    model = 16
+    total = 512 if multi_pod else 256
+    client = _client_axis_size(num_clients, total // model)
+    data = total // (client * model)
+    return AbstractMesh((client, data, model), ("client", "data", "model"))
 
 
 # ---------------------------------------------------------------------------

@@ -206,7 +206,10 @@ def _cache_product(a, cache_view):
     fp32 cache one fp32 matmul.  On the CPU the operands are upcast (exact
     for bf16) and summed over k one term after another, the order of
     XLA's CPU dot for one query per kv head, so that there the products
-    equal the reference's bit for bit."""
+    equal the reference's bit for bit.  On `meta` tensors (the dry-run)
+    it is one product, as on the card."""
+    if cache_view.device.type == "meta":
+        return torch.matmul(a, cache_view).float()
     if cache_view.device.type == "cuda":
         if cache_view.dtype == torch.float32:
             return torch.matmul(a, cache_view)

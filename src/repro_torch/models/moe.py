@@ -3,7 +3,8 @@ shared experts (DeepSeek-V2) and, in the block, Arctic's dense residual.
 
 Reference: src/repro/models/moe.py (`expert_capacity`, `moe_init`,
 `moe_param_count`, `moe_active_param_count`, `moe_apply`, `moe_apply_ep`,
-`moe_decode_apply`).
+`moe_decode_apply`).  `moe_apply_ep` takes the mesh as an argument
+(`mesh=`), where the reference reads its ambient abstract mesh.
 
 Each (token, choice) pair takes a slot in its expert's buffer of C slots,
 ranked token-major inside the expert; pairs ranked C or later are dropped.
@@ -47,6 +48,8 @@ def _stacked(generator, n, d_in, d_out, dtype, device):
     a time (a single fp32 draw of Arctic's (128, 7168, 4864) would take
     17.8 GB before the cast)."""
     w = torch.empty((n, d_in, d_out), dtype=dtype, device=device)
+    if w.device.type == "meta":         # shapes only: nothing to draw
+        return w
     for e in range(n):
         w[e] = torch.randn((d_in, d_out), generator=generator,
                            device=device) / math.sqrt(d_in)
@@ -161,15 +164,93 @@ def moe_apply(p, cfg, x):
 
 
 def moe_apply_ep(p, cfg, x, *, mesh=None):
-    """The expert-parallel MoE.  Without a mesh it is `moe_apply`, the
-    reference's route when no mesh with a 'model' axis is active; the
-    shard_map dispatch over a 'model' axis comes with the LLM mesh rules
-    (ROADMAP queue 1, item 6.7) and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE on a mesh is not ported yet; it comes with "
-            "the LLM mesh rules (ROADMAP queue 1, item 6.7)")
-    return moe_apply(p, cfg, x)
+    """The expert-parallel MoE over the 'model' axis of `mesh` (a
+    `launch/mesh.Mesh` of torch.distributed ranks), the reference's
+    shard_map dispatch.  Without a mesh, or on a mesh with no 'model' axis,
+    it is `moe_apply`, as the reference is with no mesh active.
+
+    On the mesh, x (B, S, d) is this rank's batch shard, the same on every
+    rank of its 'model' group, and p holds the router and shared experts
+    whole and this rank's block of E/m experts ("wi", "wg" (E/m, d, f),
+    "wo" (E/m, f, d); block r of the model axis holds experts r E/m ..
+    (r + 1) E/m - 1).  Each rank routes its own tokens over all E experts,
+    keeps the (token, choice) pairs of its own experts with the capacity
+    of its LOCAL token count, runs them, scatters them into a (T_loc, d)
+    partial, and one `Axis.psum` over 'model' adds the k contributions of
+    every token.  The aux values are each rank's, averaged over the batch
+    shards (pmean over 'pod' and 'data'), as the reference averages its
+    per-shard values outside the shard_map.
+
+    Gradients: the psum and the pmean are autograd Functions whose
+    backward is again a psum (a pmean), JAX's transpose under
+    check_rep=False.  That is sum semantics: the backward of a value that
+    is the same on several ranks must be seeded on each with its share of
+    the cotangent (1/m of it on a 'model' group), and a leaf held whole by
+    several ranks (the router, the shared experts, x over 'model') has
+    the sum over them as its gradient."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return moe_apply(p, cfg, x)
+    if not hasattr(mesh, "axis"):
+        raise ValueError("moe_apply_ep runs on a Mesh of torch.distributed "
+                         "ranks; an AbstractMesh has no process groups")
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.num_experts, m.experts_per_token
+    axis = mesh.axis("model")
+    if E % axis.size:
+        raise ValueError(f"{E} experts do not split over a 'model' axis of "
+                         f"{axis.size}")
+    e_loc = E // axis.size
+    if p["wi"].shape[0] != e_loc:
+        raise ValueError(f"this rank holds {p['wi'].shape[0]} experts; a "
+                         f"'model' axis of {axis.size} gives it {e_loc}")
+    T = B * S
+    C = expert_capacity(T, m)
+    xf = x.reshape(T, d)
+    logits, probs, top_w, top_e = _route(p, m, xf)
+
+    # this rank's (token, choice) pairs, ranked token-major in their expert
+    flat_e = top_e.reshape(T * k)
+    mine = torch.div(flat_e, e_loc, rounding_mode="floor") == axis.index
+    loc_e = torch.where(mine, flat_e % e_loc, torch.zeros_like(flat_e))
+    onehot = F.one_hot(loc_e, e_loc) * mine[:, None]
+    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(dim=-1) - 1
+    keep = mine & (pos >= 0) & (pos < C)
+    slot = torch.where(keep, loc_e * C + pos, torch.zeros_like(pos))
+
+    tok_id = torch.arange(T, device=x.device).repeat_interleave(k)
+    gathered = xf[tok_id] * keep[:, None].to(xf.dtype)
+    rows = torch.where(keep, slot, torch.full_like(slot, e_loc * C))
+    buf = xf.new_zeros((e_loc * C + 1, d))
+    buf[rows] = gathered
+    buf = buf[:e_loc * C].reshape(e_loc, C, d)
+
+    h = layers.silu(torch.bmm(buf, p["wi"])) * torch.bmm(buf, p["wg"])
+    out = torch.bmm(h, p["wo"]).reshape(e_loc * C, d)
+
+    slots_out = out[slot]
+    w = (top_w.reshape(T * k) * keep).to(xf.dtype)
+    contrib = (slots_out * w[:, None]).reshape(T, k, d)
+    y = xf.new_zeros((T, d))
+    for j in range(k):
+        y = y + contrib[:, j]
+    y = axis.psum(y)                          # the k experts of a token
+
+    if m.num_shared_experts:
+        y = y + layers.mlp(p["shared"], xf, act="silu")
+
+    me = probs.mean(dim=0)
+    ce = F.one_hot(top_e, E).float().sum(dim=(0, 1)) / (T * k)
+    aux = {"lb_loss": E * torch.sum(me * ce),
+           "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+           "expert_load": ce.detach()}
+    for name in ("pod", "data"):
+        if name in mesh.axis_names and mesh.shape[name] > 1:
+            dp = mesh.axis(name)
+            aux = {key: (dp.pmean(v) if key != "expert_load"
+                         else dp.mean_tree([v])[0])
+                   for key, v in aux.items()}
+    return y.reshape(B, S, d), aux
 
 
 def moe_decode_apply(p, cfg, x):

@@ -32,6 +32,12 @@ blocks, which the training loss reads.  Every kind trains: mamba2
 through the SSD scan's autograd Function, mLSTM and sLSTM through their
 chunk-checkpointed time scans, which nest inside the period's checkpoint
 (each level recomputes once in the backward).
+
+`mesh` (stack_apply, block_apply) is the mesh of torch.distributed ranks
+that a MoE with `moe_impl="ep"` dispatches its experts over (`moe.
+moe_apply_ep`); the reference reads the same from the ambient abstract
+mesh (`launch/mesh.current_abstract_mesh`), which the port passes
+explicitly.  None runs `moe_apply`, as the reference does with no mesh.
 """
 from __future__ import annotations
 
@@ -78,7 +84,7 @@ def _attn_block_init(generator, cfg, dtype, device=None, *, use_moe: bool):
 
 
 def _attn_block_apply(p, cfg, x, positions, *, mode, cache, cache_len,
-                      use_moe: bool):
+                      use_moe: bool, mesh=None):
     h, new_cache = attention.attn_apply(
         p["attn"], cfg, layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps),
         positions, mode=mode, cache=cache, cache_len=cache_len)
@@ -86,10 +92,12 @@ def _attn_block_apply(p, cfg, x, positions, *, mode, cache, cache_len,
     hn = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     aux = _zero_aux(cfg, x.device)
     if use_moe:
-        # the reference's moe_impl "ep" is moe_apply when no mesh is active
-        moe_fn = moe.moe_decode_apply if mode == "decode" else (
-            moe.moe_apply_ep if cfg.moe_impl == "ep" else moe.moe_apply)
-        mo, aux = moe_fn(p["moe"], cfg, hn)
+        if mode == "decode":
+            mo, aux = moe.moe_decode_apply(p["moe"], cfg, hn)
+        elif cfg.moe_impl == "ep":
+            mo, aux = moe.moe_apply_ep(p["moe"], cfg, hn, mesh=mesh)
+        else:
+            mo, aux = moe.moe_apply(p["moe"], cfg, hn)
         if cfg.moe.dense_residual:
             mo = mo + layers.mlp(p["mlp"], hn, act=cfg.act)
         x = x + mo
@@ -170,11 +178,13 @@ def block_make_cache(cfg, kind: str, batch: int, max_len: int, dtype,
 
 
 def block_apply(p, cfg, kind: str, x, positions, *, mode, cache=None,
-                cache_len=None, shared=None, emb0=None, use_moe=False):
+                cache_len=None, shared=None, emb0=None, use_moe=False,
+                mesh=None):
     """Returns (x, new_cache, aux)."""
     if kind == "attn":
         return _attn_block_apply(p, cfg, x, positions, mode=mode, cache=cache,
-                                 cache_len=cache_len, use_moe=use_moe)
+                                 cache_len=cache_len, use_moe=use_moe,
+                                 mesh=mesh)
     aux = _zero_aux(cfg, x.device)
     if kind == "mamba":
         h, st = ssm.mamba2_apply(p["mamba"], cfg,
@@ -226,6 +236,8 @@ def _stacked_blocks(make, nper: int):
     block = make()
     if nper == 1:
         return tree_map(lambda t: t.unsqueeze(0), block)
+    if tree_leaves(block)[0].device.type == "meta":   # shapes only
+        return tree_map(lambda t: t.new_empty((nper,) + t.shape), block)
     out = tree_map(lambda t: t.new_empty((nper,) + t.shape), block)
     for per in range(nper):
         if per:
@@ -306,7 +318,8 @@ def _periods(tree, nper: int):
     return [tree_unflatten(tree, [u[i] for u in leaves]) for i in range(nper)]
 
 
-def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None):
+def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None,
+                mesh=None):
     """x: (B, S, d) -> (x, new_cache, aux_sum).  'prefill' builds the
     cache, each leaf stacked over the periods; 'decode' updates `cache` in
     place and returns it; 'train' builds none (None) and, with cfg.remat
@@ -323,7 +336,7 @@ def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None):
         for i, bp in enumerate(p["pre"]):
             c = cache["pre"][i] if mode == "decode" else None
             x, nc, aux = block_apply(bp, cfg, "attn", x, positions, mode=mode,
-                                     cache=c, cache_len=cache_len)
+                                     cache=c, cache_len=cache_len, mesh=mesh)
             aux_sum = _add_aux(aux_sum, aux)
             pre.append(nc)
         new_cache["pre"] = pre
@@ -334,7 +347,7 @@ def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None):
             x, nc, aux = block_apply(
                 params[i], cfg, kind, x, positions, mode=mode,
                 cache=caches[i], cache_len=cache_len, shared=shared,
-                emb0=emb0, use_moe=_use_moe(cfg, kind))
+                emb0=emb0, use_moe=_use_moe(cfg, kind), mesh=mesh)
             aux_acc = _add_aux(aux_acc, aux)
             ncs.append(nc)
         return x, aux_acc, ncs

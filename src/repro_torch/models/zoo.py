@@ -2,7 +2,8 @@
 
 Reference: src/repro/models/zoo.py (`init_params`, `param_count`,
 `_embed_inputs`, `_project_out`, `forward`, `make_cache`, `pad_cache`,
-`softmax_xent`, `CE_CHUNK`, `chunked_xent`, `loss_and_metrics`).
+`softmax_xent`, `CE_CHUNK`, `chunked_xent`, `loss_and_metrics`,
+`input_specs`, `cache_specs`, `dummy_batch`).
 
     init_params(cfg, generator, device=None)      -> params tree
     forward(params, cfg, batch, mode, cache)      -> (logits, new_cache, aux)
@@ -10,6 +11,9 @@ Reference: src/repro/models/zoo.py (`init_params`, `param_count`,
     pad_cache(cache, extra)                       -> cache, k/v grown
     loss_and_metrics(params, cfg, batch)          -> (loss, metrics)
     param_count(cfg, active_only=False)           -> analytic N
+    input_specs(cfg, shape_cfg)                   -> {name: (shape, dtype)}
+    cache_specs(cfg, shape_cfg)                   -> cache tree on `meta`
+    dummy_batch(cfg, shape_cfg, generator)        -> batch of random values
 
 Batch dict keys (each optional but what the modality reads):
   tokens        (B, S) ids       text / code tokens; the VLM's text
@@ -28,7 +32,13 @@ in a static buffer.  An audio model's logits are (B, S, K, V), one row a
 codebook.  The training loss projects and reduces the logits a chunk of
 positions at a time, each chunk under `torch.utils.checkpoint`, so only
 one (B, chunk, V) fp32 tile of logits lives at a time (the reference's
-`jax.checkpoint` per chunk of its scan).
+`jax.checkpoint` per chunk of its scan).  `forward` and
+`loss_and_metrics` take `mesh=`, the ranks a MoE's experts are dispatched
+over (transformer.stack_apply); the reference reads its ambient mesh.
+
+The specs are (shape, dtype) pairs, ids int64 as everywhere in the port;
+`cache_specs` builds the cache on the `meta` device, so its leaves carry
+shapes and dtypes and allocate nothing.
 """
 from __future__ import annotations
 
@@ -149,7 +159,7 @@ def _project_out(p, cfg, h):
 
 
 def forward(params, cfg, batch, *, mode: str = "train", cache=None,
-            logits_positions: str = "all"):
+            logits_positions: str = "all", mesh=None):
     """Returns (logits, new_cache, aux), aux the MoE's aux values summed
     over the blocks.  mode 'train' builds no cache (None); 'prefill' fills
     a cache for the prompt; 'decode' runs one token per sequence against
@@ -158,7 +168,7 @@ def forward(params, cfg, batch, *, mode: str = "train", cache=None,
     h, positions = _embed_inputs(params, cfg, batch)
     h, new_cache, aux = transformer.stack_apply(
         params["stack"], cfg, h, positions, mode=mode, cache=cache,
-        cache_len=cache_len_tensor(batch, h.device))
+        cache_len=cache_len_tensor(batch, h.device), mesh=mesh)
     h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if logits_positions == "last":
         h = h[:, -1:]
@@ -247,7 +257,8 @@ def chunked_xent(params, cfg, h, labels, *, chunk: int = CE_CHUNK):
     return nll / torch.clamp(cnt, min=1.0)
 
 
-def loss_and_metrics(params, cfg, batch, *, mode: str = "train"):
+def loss_and_metrics(params, cfg, batch, *, mode: str = "train",
+                     mesh=None):
     """(loss, {"ce", "loss"} and, for a MoE config, "lb_loss" and
     "z_loss"): the chunked cross entropy plus router_aux_weight · lb_loss
     + router_z_weight · z_loss for a MoE."""
@@ -255,7 +266,7 @@ def loss_and_metrics(params, cfg, batch, *, mode: str = "train"):
     h, positions = _embed_inputs(params, cfg, batch)
     h, _, aux = transformer.stack_apply(
         params["stack"], cfg, h, positions, mode=mode, cache=None,
-        cache_len=cache_len_tensor(batch, h.device))
+        cache_len=cache_len_tensor(batch, h.device), mesh=mesh)
     h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     ce = chunked_xent(params, cfg, h, labels,
                       chunk=cfg.ce_chunk or CE_CHUNK)
@@ -267,3 +278,59 @@ def loss_and_metrics(params, cfg, batch, *, mode: str = "train"):
         metrics.update(lb_loss=aux["lb_loss"], z_loss=aux["z_loss"])
     metrics["loss"] = loss
     return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Input specs: (shape, dtype) stand-ins, nothing allocated
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg, shape_cfg):
+    """{name: (shape, dtype)} of a batch for (cfg, shape).  Decode shapes
+    describe ONE new token; the cache comes from cache_specs()."""
+    B, S = shape_cfg.global_batch, shape_cfg.seq_len
+    ids = torch.int64
+    dt = model_dtype(cfg)
+    if shape_cfg.mode in ("train", "prefill"):
+        if cfg.modality == "audio_tokens":
+            return {"input_embeds": ((B, S, cfg.d_model), dt),
+                    "labels": ((B, S, cfg.num_codebooks), ids)}
+        if cfg.modality == "vlm":
+            P = cfg.num_prefix_tokens
+            return {"patch_embeds": ((B, P, cfg.d_model), dt),
+                    "tokens": ((B, S - P), ids),
+                    "labels": ((B, S), ids)}
+        return {"tokens": ((B, S), ids), "labels": ((B, S), ids)}
+    # decode: one token against a cache of S entries
+    if cfg.modality == "audio_tokens":
+        return {"tokens_mc": ((B, 1, cfg.num_codebooks), ids),
+                "cache_len": ((), ids)}
+    return {"tokens": ((B, 1), ids), "cache_len": ((), ids)}
+
+
+def cache_specs(cfg, shape_cfg):
+    """The decode cache of (cfg, shape) built on the `meta` device: every
+    leaf's shape and dtype, no storage."""
+    return make_cache(cfg, shape_cfg.global_batch, shape_cfg.seq_len,
+                      device="meta")
+
+
+def dummy_batch(cfg, shape_cfg, generator=None, device=None):
+    """A batch of `input_specs`' shapes with random values from
+    `generator` (a torch.Generator on `device`'s type, or an int seed;
+    None: 0) on `device` (None: cuda), for small configs: ids uniform in
+    [0, vocab), cache_len = seq_len - 1, floats N(0, 1) drawn in fp32 and
+    cast."""
+    device = resolve_device(device)
+    gen = as_generator(0 if generator is None else generator, device)
+    out = {}
+    for name, (shape, dtype) in input_specs(cfg, shape_cfg).items():
+        if name == "cache_len":
+            out[name] = torch.full((), shape_cfg.seq_len - 1, dtype=dtype,
+                                   device=device)
+        elif dtype == torch.int64:
+            out[name] = torch.randint(0, cfg.vocab_size, shape, dtype=dtype,
+                                      generator=gen, device=device)
+        else:
+            out[name] = torch.randn(shape, generator=gen,
+                                    device=device).to(dtype)
+    return out

@@ -15,7 +15,8 @@ the state is a dict of tensors on the parameters' device, the step an int32
 0-dim tensor.  On a mesh (core/sharded.py) each rank updates its own shard
 of the parameters and moments, the global-norm clip reading the norm the
 round computed over every shard (`update(..., norm=)`); the ZeRO-1
-sharding of the LLM trainer's optimizer state waits for ROADMAP item 6.7.
+layout of the LLM optimizer state is `launch/sharding.opt_state_shardings`
+(the dry-run's per-rank bytes).
 """
 from __future__ import annotations
 

@@ -130,14 +130,18 @@ def test_unknown_mode_raises_valueerror():
 
 
 def test_dispatch_is_by_device_without_fallback():
-    """CPU tensors take the plain version; anything that is neither all-CPU
-    nor all-CUDA raises, and the kernel's launcher refuses CPU tensors."""
+    """CPU tensors take the plain version, and so do meta tensors (shapes
+    only, for the dry-run); tensors on more than one device raise, and the
+    kernel's launcher refuses CPU tensors."""
     mu, lv, eps = (torch.from_numpy(x) for x in _inputs((3, 8)))
     before = tbn.LAUNCHES["cut_fwd"]
     ops.cutlayer(mu, lv, eps)
     meta = [t.to("meta") for t in (mu, lv, eps)]
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        ops.cutlayer(*meta)
+    u, rate = ops.cutlayer(*meta)
+    assert u.device.type == rate.device.type == "meta"
+    assert u.shape == mu.shape and rate.shape == mu.shape[:-1]
+    with pytest.raises(ValueError, match="all on one device"):
+        ops.cutlayer(mu, *meta[1:])
     with pytest.raises(ValueError, match="CUDA tensors"):
         tbn.cut_fwd(mu, lv, eps, bits=8, mode="sample")
     assert tbn.LAUNCHES["cut_fwd"] == before     # the plain version ran

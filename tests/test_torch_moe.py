@@ -29,6 +29,7 @@ from repro.configs import get_smoke_config as jax_get_smoke  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_smoke_config  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, moe  # noqa: E402
 
 ARCHS = ("arctic-480b", "deepseek-v2-236b")
@@ -115,8 +116,15 @@ def test_moe_apply_ep_without_a_mesh_is_moe_apply(arch):
     y, aux = moe.moe_apply(tp, cfg, x)
     assert torch.equal(y_ep, y)
     assert all(torch.equal(aux_ep[k], aux[k]) for k in aux)
-    with pytest.raises(NotImplementedError, match="item 6.7"):
-        moe.moe_apply_ep(tp, cfg, x, mesh=object())
+    # a mesh without a 'model' axis is moe_apply too; the abstract pod
+    # meshes have no ranks to dispatch over (the mesh runs:
+    # tests/test_torch_moe_ep.py)
+    y_dp, _ = moe.moe_apply_ep(tp, cfg, x, mesh=mesh_lib.AbstractMesh(
+        (2,), ("data",)))
+    assert torch.equal(y_dp, y)
+    with pytest.raises(ValueError, match="AbstractMesh"):
+        moe.moe_apply_ep(tp, cfg, x,
+                         mesh=mesh_lib.make_production_mesh())
 
 
 def _bf16(arch, tilt):

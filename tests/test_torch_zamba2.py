@@ -167,12 +167,14 @@ def test_device_none_means_cuda_and_raises_without_a_card(monkeypatch):
         serve.main(["--arch", ARCH, "--smoke", "--requests", "1"])
 
 
-def test_unported_paths_raise_naming_their_slice():
+def test_unported_paths_raise_naming_their_slice(tmp_path):
     # `--arch paper-inl` serves now (tests/test_torch_serving.py); the
-    # crash-resume rig waits for the LLM stack's launch/train
+    # crash-resume rig drives launch/train (tests/test_torch_launch_train.py)
+    # and, like every entry point, runs on the card unless told the CPU:
+    # here its first training child refuses for want of one
     from repro_torch import chaos
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chaos.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos.main(["--workdir", str(tmp_path)])
     # every architecture serves (tests/test_torch_attn_models.py,
     # tests/test_torch_xlstm.py, tests/test_torch_modalities.py) and
     # trains (tests/test_torch_llm_train.py,
