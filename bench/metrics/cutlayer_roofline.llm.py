@@ -1,0 +1,3 @@
+"""cutlayer_roofline.llm: the cut-layer kernels' share of their bytes bound
+(bench/lib/readers.py)."""
+from bench.lib.readers import cutlayer_roofline as read  # noqa: F401

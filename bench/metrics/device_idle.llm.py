@@ -1,0 +1,3 @@
+"""device_idle.llm: the share of the traced window in which the device ran
+nothing (bench/lib/readers.py)."""
+from bench.lib.readers import device_idle as read  # noqa: F401
