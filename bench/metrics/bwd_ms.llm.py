@@ -1,0 +1,5 @@
+"""bwd_ms.llm: the median device ms of `backward` an eager step,
+over the units no profiler recorded (bench/lib/marks.py)."""
+from bench.lib.marks import phase_ms
+
+read = phase_ms("backward", "eager")

@@ -1,0 +1,5 @@
+"""bwd_ms.paper: the median device ms of `backward` a graphed round,
+over the units no profiler recorded (bench/lib/marks.py)."""
+from bench.lib.marks import phase_ms
+
+read = phase_ms("backward", "graph")

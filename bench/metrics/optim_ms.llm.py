@@ -1,0 +1,5 @@
+"""optim_ms.llm: the median device ms of `optimizer` an eager step,
+over the units no profiler recorded (bench/lib/marks.py)."""
+from bench.lib.marks import phase_ms
+
+read = phase_ms("optimizer", "eager")

@@ -423,6 +423,15 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 512-byte blocks, == memory_allocated to the byte, the
                 model FLOPs over the measured step as a share of 989
                 TFLOP/s; the phase's seconds.
+ 11. tracing    with --tracing only: the phase marks (repro_torch/tracing)
+                of graphed INL and FL rounds at full width, one epoch
+                function captured with marks and one without, timed in
+                turns by CUDA events around 100 / 20 rounds, their split;
+                the rounds under the profiler with spans on and off; INL
+                over StarCoder2-3B (3 layers, bf16, deterministic) at
+                B=1 S=4096 and B=8 S=512, eager steps with marks on and
+                off, the split, the allocator's retries, and the split of
+                steps the profiler recorded against the rest.
 
 The line before the last two is {"kernels": [...]} (flash_attn_fwd's
 Dh=192 instance in an entry of its own, with DeepSeek-V2's launches; the
@@ -453,7 +462,9 @@ it builds the two LLM kernels and prints only Zamba2-2.7B's decode
 latency per token (phase 8's `llm decode latency` and graphed decode
 lines, seeded weights), and no result line; with --llm-train (--llm-launch) it builds
 the two LLM kernels and the cut-layer kernels and runs only phase 9 (10),
-and no result line.  Either times
+and no result line; with --tracing it builds the same kernels and runs
+only phase 11, the phase marks' cost and what they read (`tracing:`
+lines), and no result line.  Either times
 the checkout it sits in: to compare two checkouts on one card, copy it into both and run
 them in turns, one after another on the same card.
 """
@@ -7188,6 +7199,190 @@ def llm_launch_phase(torch, card_line):
     return {LAUNCH_RUN: flash}, metrics, children
 
 
+# ---------------------------------------------------------------------------
+# 11. the port's own measurement: the phase marks' cost and what they read
+# ---------------------------------------------------------------------------
+
+TRACING_ROUNDS = {"inl": 100, "fl": 20}    # graphed rounds a timed call
+TRACING_LLM = ((1, 4096), (8, 512))        # (B, S) of INL over StarCoder2-3B
+TRACING_GROUPS = 5                         # groups of 4 steps a timed turn
+TRACING_TURNS = 3                          # turns of marks on, then off
+
+
+def events_ms(torch, fn):
+    """Device ms of fn() between CUDA events, synchronised."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def split_line(split) -> str:
+    if split is None:
+        return "no samples"
+    retries = "" if split["alloc_retries"] is None \
+        else f" retries {split['alloc_retries']:.2f}"
+    return (" ".join(f"{k} {split[k]:.4f}" for k in
+                     ("forward", "backward", "optimizer", "other", "unit"))
+            + f"{retries} (median of {split['n']})")
+
+
+def profiled_split(samples, kind):
+    got = [s for s in samples if s.kind == kind and s.profiled]
+    if not got:
+        return None
+    out = {k: statistics.median(s.ms[k] for s in got)
+           for k in ("forward", "backward", "optimizer", "other", "unit")}
+    return dict(out, alloc_retries=None, n=len(got))
+
+
+def tracing_paper_phase(torch, card_line):
+    """The paper's INL and FL at full width, graphed: one epoch function
+    captured with the marks' graph nodes and one without, timed in turns
+    by CUDA events around K replayed rounds; the split the marks read;
+    the same rounds under the profiler with the spans on and off."""
+    from repro_torch import tracing
+    from repro_torch.configs.paper_inl import PaperExperimentConfig
+    from repro_torch.core import schemes
+    from repro_torch.core.schemes import runner
+    cfg = PaperExperimentConfig()
+    B, lr = 64, 2e-3
+    for name, K in TRACING_ROUNDS.items():
+        scheme = schemes.get(name)
+        bpr = scheme.batches_per_round(cfg)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        n = K * bpr * B
+        views = torch.randn((cfg.num_clients, n) + tuple(cfg.image_shape),
+                            generator=gen, device=DEV)
+        labels = torch.randint(0, cfg.num_classes, (n,), generator=gen,
+                               device=DEV)
+        ev, el = runner.epoch_batches(views, labels, 0, K, bpr, B)
+        state = scheme.init(cfg, gen, lr=lr, device=DEV)
+        fns, gens = {}, {}
+        for on in (True, False):
+            tracing.MARKS = on
+            fns[on] = scheme.make_epoch(cfg, lr=lr)
+            gens[on] = torch.Generator(device=DEV).manual_seed(1)
+            fns[on](state, ev[:3], el[:3], gens[on])
+        tracing.MARKS = True
+        torch.cuda.synchronize()
+        mark = tracing.cursor()
+        ms = {True: [], False: []}
+        for _ in range(TRACING_TURNS + 1):
+            for on in (True, False):
+                ms[on].append(events_ms(torch, lambda: fns[on](
+                    state, ev, el, gens[on])) / K)
+        for on in ms:
+            del ms[on][0]                  # the first turn warms up
+        split = tracing.summary("graph", since=mark)
+        check(split is not None and split["n"] >= 3,
+              f"{name}: the graphed rounds' marks gave {split}")
+        with_, without = (statistics.median(ms[o]) for o in (True, False))
+        print(f"tracing: {name} graphed round {with_:.4f} ms with the "
+              f"marks' nodes, {without:.4f} ms without: "
+              f"{100 * (with_ / without - 1):+.3f}% (medians of "
+              f"{TRACING_TURNS} turns of "              f"{K} rounds; {[round(x, 4) for x in ms[True]]} / "
+              f"{[round(x, 4) for x in ms[False]]}) [{card_line}]")
+        print(f"tracing: {name} graphed round split (device ms): "
+              f"{split_line(split)} [{card_line}]")
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        host = {}
+        for spans in (None, True, False, True, False):
+            tracing.SPANS = bool(spans)
+            with torch.profiler.profile(activities=acts):
+                t0 = time.perf_counter()
+                fns[True](state, ev, el, gens[True])
+                torch.cuda.synchronize()
+                host.setdefault(spans, []).append(
+                    (time.perf_counter() - t0) * 1e3 / K)
+        tracing.SPANS = True
+        print(f"tracing: {name} profiled round, host ms (2 turns after one "
+              f"to warm the profiler up): spans on "              f"{[round(x, 4) for x in host[True]]}, off "
+              f"{[round(x, 4) for x in host[False]]} [{card_line}]")
+        del fns, gens, state, views, labels, ev, el
+        torch.cuda.empty_cache()
+
+
+def tracing_llm_phase(torch, card_line):
+    """INL over StarCoder2-3B at published widths, 3 of 30 layers, bf16:
+    groups of 4 eager steps timed in turns with the marks on and off by
+    CUDA events around TRACING_GROUPS groups (a host read a group); the
+    split the marks read and the allocator's retries; then two groups
+    under the profiler (CPU and CUDA) with the spans on and two off: the
+    profiled split against the unprofiled one and host ms a step."""
+    import dataclasses
+    from repro_torch import optim, tracing
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import inl_llm
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), num_layers=3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.use_deterministic_algorithms(True)     # as launch.train runs
+    for B, S in TRACING_LLM:
+        opt = optim.adamw(optim.warmup_cosine_schedule(3e-4, 100, 1000),
+                          weight_decay=0.1, clip_norm=1.0)
+        params = inl_llm.init(cfg, 0, device=DEV)
+        state = [params, opt.init(params)]
+        del params
+        epoch = steps.make_scan_train_step(cfg, opt, scheme="inl")
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        batches = {k: torch.randint(0, cfg.vocab_size, (4, B, S),
+                                    generator=gen, device=DEV)
+                   for k in ("tokens", "labels")}
+
+        def groups(n):
+            for _ in range(n):
+                p, o, ms = epoch(state[0], state[1], batches, gen)
+                state[:] = [p, o]
+                float(ms["loss"][-1])
+        groups(2)
+        mark = tracing.cursor()
+        ms = {True: [], False: []}
+        for _ in range(TRACING_TURNS):
+            for on in (True, False):
+                tracing.MARKS = on
+                ms[on].append(events_ms(torch, lambda: groups(
+                    TRACING_GROUPS)) / (4 * TRACING_GROUPS))
+        tracing.MARKS = True
+        split = tracing.summary("eager", since=mark)
+        check(split is not None and split["n"] >= 4 * TRACING_GROUPS,
+              f"B={B} S={S}: the steps' marks gave {split}")
+        with_, without = (statistics.median(ms[o]) for o in (True, False))
+        print(f"tracing: llm B={B} S={S} step {with_:.3f} ms with the "
+              f"marks, {without:.3f} ms without: "
+              f"{100 * (with_ / without - 1):+.3f}% ({TRACING_TURNS} "
+              f"turns of {4 * TRACING_GROUPS} steps each: "
+              f"{[round(x, 3) for x in ms[True]]} / "
+              f"{[round(x, 3) for x in ms[False]]}) [{card_line}]")
+        print(f"tracing: llm B={B} S={S} step split (device ms): "
+              f"{split_line(split)} [{card_line}]")
+        mark = tracing.cursor()
+        host = {}
+        for spans in (None, True, False, True, False):
+            tracing.SPANS = bool(spans)
+            with torch.profiler.profile(activities=acts):
+                t0 = time.perf_counter()
+                groups(1)
+                host.setdefault(spans, []).append(
+                    (time.perf_counter() - t0) * 1e3 / 4)
+        tracing.SPANS = True
+        groups(1)
+        print(f"tracing: llm B={B} S={S} profiled step split (device ms): "
+              f"{split_line(profiled_split(tracing.samples(mark), 'eager'))}"
+              f"; host ms a profiled step (2 turns after one to warm the "
+              f"profiler up): spans on {[round(x, 3) for x in host[True]]}, "
+              f"off {[round(x, 3) for x in host[False]]} [{card_line}]")
+        del state, epoch, batches
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+
+
 CUT_LAYER_SOURCES = ("cut_fwd", "cut_bwd", "cut_prior_fwd", "cut_prior_bwd",
                      "cut_fwd_pack", "pack", "unpack_dequant")
 # the kernels the hybrid schemes' runs launch (the deterministic cut)
@@ -7217,6 +7412,10 @@ def main() -> int:
     parser.add_argument("--llm-launch", action="store_true",
                         help="build the LLM and cut-layer kernels and run "
                              "only the `llm launch` phase")
+    parser.add_argument("--tracing", action="store_true",
+                        help="build the cut-layer and LLM kernels and run "
+                             "only the `tracing` phase: the phase marks' "
+                             "cost and what they read")
     args = parser.parse_args()
     # launch.train runs with deterministic algorithms on the card, under
     # which cuBLAS wants this setting from the process's first matmul on
@@ -7260,6 +7459,11 @@ def main() -> int:
     if args.llm_launch:
         build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)
         llm_launch_phase(torch, card)
+        return 0
+    if args.tracing:
+        build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)
+        tracing_paper_phase(torch, card)
+        tracing_llm_phase(torch, card)
         return 0
     build_phase()
     worst = {"cut_fwd": kernel_phase(torch),

@@ -10,6 +10,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import tracing
+
 
 def resolve_device(device=None) -> torch.device:
     """`device`, with None meaning "cuda"; raises when a CUDA device is
@@ -77,11 +79,16 @@ def value_and_grad(fn: Callable[..., Any], params, *args, **kwargs):
     """fn(params, *args, **kwargs) -> (loss, aux), differentiated with
     respect to every tensor leaf of `params` (a tree, or a tuple of trees)
     and nothing else.  Returns (loss detached, aux, grads): grads has
-    `params`' structure, with zeros where a leaf does not reach the loss."""
+    `params`' structure, with zeros where a leaf does not reach the loss.
+    The call is a step's "forward" and "backward" phases
+    (`tracing.phase`)."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    device = leaves[0].device
     with torch.enable_grad():
-        loss, aux = fn(tree_unflatten(params, leaves), *args, **kwargs)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with tracing.phase("forward", device):
+            loss, aux = fn(tree_unflatten(params, leaves), *args, **kwargs)
+        with tracing.phase("backward", device):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), aux, tree_unflatten(params, grads)

@@ -44,7 +44,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import graphs, tree_leaves, tree_map
+from repro_torch import graphs, tracing, tree_leaves, tree_map
 from repro_torch.core import linkfault
 from repro_torch.core import topology as topology_lib
 
@@ -364,11 +364,16 @@ class _GraphedRounds:
     """The card's epoch loop of `Scheme.make_epoch`: the device part of the
     round captured once per host signature (repro_torch/graphs.py) and
     replayed over the static state buffers, which persist from one epoch
-    to the next."""
+    to the next.  Each signature is captured twice into one memory pool:
+    without phase marks, replayed for every round but the signature's last
+    of the call, and with them (`marked`), a graphed round's unit
+    (`tracing.unit`), replayed for that last round; each call's start
+    harvests the marks, one sample a signature and call."""
 
     def __init__(self, plan, step):
         self.plan, self.step = plan, step
         self.graphs = graphs.GraphCache()
+        self.marked = graphs.GraphCache()
         self._state = None        # the static state buffers
         self._views = self._labels = None
         self._masks: Dict[Any, torch.Tensor] = {}
@@ -394,6 +399,7 @@ class _GraphedRounds:
         elif generator is not self._generator:
             raise ValueError("epoch_fn's graphs draw from the generator "
                              "they were captured with; pass that one")
+        tracing.harvest()
         K = views.shape[0]
         self._bind(state)
         plans = [self.plan(None if round_keys is None else round_keys[k],
@@ -405,18 +411,22 @@ class _GraphedRounds:
             stacked = linkfault.mask_tensor(
                 np.stack([plans[k][1] for k in masked]), views.device)
             dev_masks = dict(zip(masked, stacked))
+        last = {sig: k for k, (sig, _) in enumerate(plans)}
         stacked_metrics = None
         for k in range(K):
             sig = plans[k][0]
             graph = self.graphs.get(sig)
+            if graph is not None and last[sig] == k:
+                graph = self.marked.get(sig) or graph
             if graph is None:
                 metrics = self._first_round(sig, views[k], labels[k],
                                             dev_masks.get(k))
             else:
-                self._views.copy_(views[k])
-                self._labels.copy_(labels[k])
-                if k in dev_masks:
-                    self._masks[sig].copy_(dev_masks[k])
+                with tracing.span("epoch.stage"):
+                    self._views.copy_(views[k])
+                    self._labels.copy_(labels[k])
+                    if k in dev_masks:
+                        self._masks[sig].copy_(dev_masks[k])
                 metrics = graph.replay()
             if stacked_metrics is None:
                 stacked_metrics = {key: torch.empty((K,) + m.shape,
@@ -429,7 +439,8 @@ class _GraphedRounds:
 
     def _first_round(self, sig, views, labels, mask):
         """The round eagerly on a side stream (into the static state
-        buffers), then its device part captured for `sig`."""
+        buffers), then its device part captured for `sig`, without marks
+        and with them."""
         new, metrics = graphs.warm_up(self.step, self._state, views, labels,
                                       self._generator, sig, mask)
         torch._foreach_copy_(tree_leaves(self._state), tree_leaves(new))
@@ -442,16 +453,21 @@ class _GraphedRounds:
         buffers = (self._state, self._views, self._labels, smask)
 
         def device_part():
-            out, m = self.step(self._state, self._views, self._labels,
-                               self._generator, sig, smask)
-            dst, src = tree_leaves(self._state), tree_leaves(out)
-            moved = [(d, s) for d, s in zip(dst, src) if d is not s]
-            if moved:
-                torch._foreach_copy_([d for d, _ in moved],
-                                     [s for _, s in moved])
+            with tracing.unit(views.device):
+                out, m = self.step(self._state, self._views, self._labels,
+                                   self._generator, sig, smask)
+                dst, src = tree_leaves(self._state), tree_leaves(out)
+                moved = [(d, s) for d, s in zip(dst, src) if d is not s]
+                if moved:
+                    torch._foreach_copy_([d for d, _ in moved],
+                                         [s for _, s in moved])
             return m
-        self.graphs.capture(sig, device_part, generators=(self._generator,),
-                            keep=buffers)
+        plain = self.graphs.capture(sig, device_part, marks=False,
+                                    generators=(self._generator,),
+                                    keep=buffers)
+        if tracing.MARKS:
+            self.marked.capture(sig, device_part, pool=plain.pool(),
+                                generators=(self._generator,), keep=buffers)
         return metrics
 
 

@@ -24,6 +24,11 @@ the producer (the source iterator, host-side batch assembly, the copy) is
 captured and RE-RAISED on the consumer side at the next pull, after the
 items buffered before it.  A consumer that stops early (close() or GC)
 sets a stop flag, drains the queue and joins the thread.
+
+Spans (`tracing.span`): "repro.feed.wait" around the consumer's wait for
+an item and its stream's wait on the copy, "repro.feed.copy" around the
+producer's pinning and copy (in the producer's thread: a profiler sees it
+when it profiles all threads).
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from repro_torch import resolve_device, tree_leaves, tree_map
+from repro_torch import resolve_device, tracing, tree_leaves, tree_map
 
 # queue sentinel: exhaustion; a producer fault rides in a _Failure
 _DONE = object()
@@ -80,15 +85,16 @@ def prefetch_to_device(iterator: Iterable, *, size: int = 2,
 
     def _put(item):
         host = _host_tree(item)
-        if not cuda:
-            return tree_map(lambda t: t.to(device), host)
-        with torch.cuda.device(device), torch.cuda.stream(side):
-            moved = tree_map(
-                lambda t: t.pin_memory().to(device, non_blocking=True),
-                host)
-            done = torch.cuda.Event()
-            done.record(side)
-        return moved, done
+        with tracing.span("feed.copy"):
+            if not cuda:
+                return tree_map(lambda t: t.to(device), host)
+            with torch.cuda.device(device), torch.cuda.stream(side):
+                moved = tree_map(
+                    lambda t: t.pin_memory().to(device, non_blocking=True),
+                    host)
+                done = torch.cuda.Event()
+                done.record(side)
+            return moved, done
 
     # maxsize bounds host and device memory: at most `size` items buffered
     # plus the one the producer is transferring
@@ -128,17 +134,18 @@ def prefetch_to_device(iterator: Iterable, *, size: int = 2,
     thread.start()
     try:
         while True:
-            got = buf.get()
-            if got is _DONE:
-                return
-            if isinstance(got, _Failure):
-                raise got.exc
-            if cuda:
-                got, done = got
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(done)
-                for t in tree_leaves(got):
-                    t.record_stream(consumer)
+            with tracing.span("feed.wait"):
+                got = buf.get()
+                if got is _DONE:
+                    return
+                if isinstance(got, _Failure):
+                    raise got.exc
+                if cuda:
+                    got, done = got
+                    consumer = torch.cuda.current_stream(device)
+                    consumer.wait_event(done)
+                    for t in tree_leaves(got):
+                        t.record_stream(consumer)
             yield got
     finally:
         # the producer sees `stop` within its 0.1-s put timeout, so the

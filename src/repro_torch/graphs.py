@@ -28,12 +28,16 @@ generator is registered with the graph (`generators=`): a replay draws
 from the generator's current offset and advances it as the eager draws
 would, so replayed rounds draw the eager rounds' numbers bit for bit.
 
-Launch counts: the kernels' `LAUNCHES` counters (kernels/inl_bottleneck,
-flash_attention, ssm_scan) are bumped by their Python wrappers, which run
-only while a graph is captured.  `GraphCache.capture` takes back what the
-capture added (a capture launches nothing) and keeps it as the graph's
-launches; every replay adds them again.  So `LAUNCHES` counts kernel
-executions under either dispatch.
+Launch counts and phase marks: the kernels' `LAUNCHES` counters
+(kernels/inl_bottleneck, flash_attention, ssm_scan) are bumped by their
+Python wrappers, which run only while a graph is captured.
+`GraphCache.capture` runs the capture inside `tracing.capture()`, which
+takes back what the capture added (a capture launches nothing) and keeps
+it, with the phase marks recorded in the capture, as the graph's
+`Captured`; every replay adds the launches again and flags the marks for
+the next harvest.  So `LAUNCHES` counts kernel executions under either
+dispatch, and a graph captured with marks times its phases on every
+replay.
 
 Graphs are a card feature: callers take their eager path for CPU tensors
 and never ask for a graph there.  On the card a capture or a replay that
@@ -45,11 +49,7 @@ from typing import Any, Callable, Dict, Hashable, Iterable, Optional
 
 import torch
 
-from repro_torch import tree_leaves
-from repro_torch.kernels import flash_attention, inl_bottleneck, ssm_scan
-
-_COUNTERS = (inl_bottleneck.LAUNCHES, flash_attention.LAUNCHES,
-             ssm_scan.LAUNCHES)
+from repro_torch import tracing, tree_leaves
 
 
 def warm_up(fn: Callable, *args, **kwargs):
@@ -72,21 +72,25 @@ def warm_up(fn: Callable, *args, **kwargs):
 class Graph:
     """One captured call.  `outputs` is what the captured function
     returned; `replay()` re-runs the recorded kernels, adds the graph's
-    launches to the counters and returns `outputs` (the same tensors every
-    time, overwritten by each replay)."""
+    launches to the counters, flags its phase marks and returns `outputs`
+    (the same tensors every time, overwritten by each replay)."""
 
-    def __init__(self, graph, outputs, launches, keep):
+    def __init__(self, graph, outputs, captured, keep):
         self._graph = graph
         self.outputs = outputs
-        self.launches = launches      # [(counter dict, {kernel: count})]
+        self.captured = captured      # tracing.Captured: launches, marks
         self._keep = keep             # the static inputs the graph reads
+        captured.owned_by(self)
 
     def replay(self):
-        self._graph.replay()
-        for counts, added in self.launches:
-            for name, n in added.items():
-                counts[name] += n
+        with tracing.span("graph.replay"):
+            self._graph.replay()
+        self.captured.replayed()
         return self.outputs
+
+    def pool(self):
+        """The graph's memory pool, for `GraphCache.capture(pool=)`."""
+        return self._graph.pool()
 
 
 class GraphCache:
@@ -106,29 +110,24 @@ class GraphCache:
         return self._graphs.get(key)
 
     def capture(self, key: Hashable, fn: Callable[[], Any], *,
-                generators: Iterable = (), keep: Any = ()) -> Graph:
+                generators: Iterable = (), keep: Any = (),
+                marks: bool = True, pool=None) -> Graph:
         """Record fn() into a CUDA graph under `key`.  fn reads static
         buffers only; the graph keeps `keep` (those buffers) alive.
         `generators` — the torch.Generators fn draws from, registered so
-        that replays draw graph-safe."""
+        that replays draw graph-safe.  marks=False leaves fn's phase marks
+        out of the graph (`tracing.capture`).  `pool` — another graph's
+        memory pool (`Graph.pool()`) to share, for a graph that is never
+        replayed at the same time as that one."""
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
-        before = [dict(c) for c in _COUNTERS]
-        try:
-            with torch.cuda.graph(graph, capture_error_mode=self._mode):
-                outputs = fn()
-        finally:
-            # a capture launches nothing: take its counts back and keep
-            # them as the graph's launches
-            launches = []
-            for counts, old in zip(_COUNTERS, before):
-                added = {k: n - old.get(k, 0) for k, n in counts.items()
-                         if n != old.get(k, 0)}
-                counts.update(old)
-                if added:
-                    launches.append((counts, added))
-        self._graphs[key] = Graph(graph, outputs, launches, keep)
+        with tracing.span("graph.capture"), \
+                tracing.capture(marks=marks) as captured, \
+                torch.cuda.graph(graph, pool=pool,
+                                 capture_error_mode=self._mode):
+            outputs = fn()
+        self._graphs[key] = Graph(graph, outputs, captured, keep)
         self.captures[key] = self.captures.get(key, 0) + 1
         return self._graphs[key]
 

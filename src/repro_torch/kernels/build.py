@@ -29,6 +29,8 @@ from typing import Dict, Iterable
 
 import torch
 
+from repro_torch import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -139,12 +141,14 @@ def launch(name: str, fn, device, *args, what: str) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.cu, built first if needed (the
+    span "repro.kernel.build", so that a build inside a trace is named)."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    build_all([name])
-    with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(_library_path(name)))
-        return _loaded[name]
+    with tracing.span("kernel.build"):
+        build_all([name])
+        with _lock:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(str(_library_path(name)))
+            return _loaded[name]

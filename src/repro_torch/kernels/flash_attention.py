@@ -30,9 +30,10 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build
 
-LAUNCHES = {"flash_attn_fwd": 0}
+LAUNCHES = tracing.launch_counter(("flash_attn_fwd",))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 5 + [_I] * 9 + [_F, _I, _P]

@@ -49,6 +49,7 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build, ref
 
 MODES = ("sample", "analytic", "none")
@@ -57,9 +58,9 @@ PRIOR_MODES = ("sample", "analytic")
 _MODE_ID = {"sample": 0, "analytic": 1, "none": 2}
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-LAUNCHES = {"cut_fwd": 0, "cut_bwd": 0, "cut_prior_fwd": 0,
-            "cut_prior_bwd": 0, "cut_fwd_pack": 0, "pack": 0,
-            "unpack_dequant": 0}
+LAUNCHES = tracing.launch_counter((
+    "cut_fwd", "cut_bwd", "cut_prior_fwd", "cut_prior_bwd", "cut_fwd_pack",
+    "pack", "unpack_dequant"))
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)

@@ -25,9 +25,10 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build
 
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = tracing.launch_counter(("ssd_scan",))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 8 + [_I] * 7 + [_P, _P]

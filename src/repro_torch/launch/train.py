@@ -34,9 +34,19 @@ it returns.
 
 `main(argv=None)` returns the history (one dict a group), so a caller can
 run the CLI in-process; its "wall_s" is unrounded (the printed line
-rounds it to 0.1 s, as the reference's).  The last line printed is
-`kernel launches: {...}`, the process's launch counts of the hand-written
-kernels (what the crash-resume check reads from its children).
+rounds it to 0.1 s, as the reference's).  The line before the last is the
+run's step split, the medians over its steps that no profiler recorded of
+the device ms of each phase a step (`repro_torch.tracing`: forward,
+backward, optimizer and the rest of the step, "other") and the
+allocator's retries a step:
+
+    step split (median of 8 steps, device ms): forward 182.1 backward
+    401.7 optimizer 98.0 other 3.2; alloc retries 0.00 a step
+
+(one line; on the CPU, which has no device marks, `step split: not
+measured on cpu`).  The last line printed is `kernel launches: {...}`,
+the process's launch counts of the hand-written kernels (what the
+crash-resume check reads from its children).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
@@ -54,7 +64,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import checkpoint, optim, resolve_device, tree_leaves
+from repro_torch import (checkpoint, optim, resolve_device, tracing,
+                         tree_leaves)
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.data import prefetch
 from repro_torch.data import tokens as token_data
@@ -198,6 +209,7 @@ def _train(args, device):
             print(f"resumed from step {step} ({args.ckpt_dir})")
     t0 = time.time()
     history = []
+    marks_from = tracing.cursor()
     stacked = (_as_tensors(steps_lib.stack_batches(g))
                for g in steps_lib.grouped_batches(data, K))
     for batches in prefetch.prefetch_to_device(
@@ -230,8 +242,21 @@ def _train(args, device):
         key_metric = "loss" if "loss" in last else "ce"
         print(f"loss {first[key_metric]:.4f} -> {last[key_metric]:.4f} "
               f"({args.steps} steps, {time.time() - t0:.1f}s)")
+    print(step_split(tracing.summary("eager", since=marks_from), device))
     print("kernel launches: " + json.dumps(_launches()), flush=True)
     return history
+
+
+def step_split(split, device) -> str:
+    """The step-split line of `tracing.summary`'s medians."""
+    if split is None:
+        return f"step split: not measured on {device.type}"
+    retries = "not counted" if split["alloc_retries"] is None \
+        else f"{split['alloc_retries']:.2f} a step"
+    return (f"step split (median of {split['n']} steps, device ms): "
+            + " ".join(f"{k} {split[k]:.1f}" for k in
+                       ("forward", "backward", "optimizer", "other"))
+            + f"; alloc retries {retries}")
 
 
 def _launches() -> dict:

@@ -16,16 +16,18 @@ the state is a dict of tensors on the parameters' device, the step an int32
 of the parameters and moments, the global-norm clip reading the norm the
 round computed over every shard (`update(..., norm=)`); the ZeRO-1
 layout of the LLM optimizer state is `launch/sharding.opt_state_shardings`
-(the dry-run's per-rank bytes).
+(the dry-run's per-rank bytes).  Each `update`, its clip included, is a
+step's "optimizer" phase (`tracing.phase`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch import tree_leaves, tree_map
+from repro_torch import tracing, tree_leaves, tree_map
 
 
 class Optimizer(NamedTuple):
@@ -36,6 +38,15 @@ class Optimizer(NamedTuple):
 def _tree_zeros_like(tree):
     return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                           device=x.device), tree)
+
+
+def _marked(update):
+    """`update` as the step's "optimizer" phase."""
+    @functools.wraps(update)
+    def marked(grads, state, params, **kw):
+        with tracing.phase("optimizer", state["step"].device):
+            return update(grads, state, params, **kw)
+    return marked
 
 
 def _device(tree) -> torch.device:
@@ -131,7 +142,7 @@ def sgd(lr, momentum: float = 0.0, clip_norm: Optional[float] = None):
             params, upd)
         return new_params, new_state
 
-    return Optimizer(init, update)
+    return Optimizer(init, _marked(update))
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +203,7 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             new_state["master"] = new_master
         return new_params, new_state
 
-    return Optimizer(init, update)
+    return Optimizer(init, _marked(update))
 
 
 def adam(lr, **kw):

@@ -217,8 +217,9 @@ def test_train_cli_standard(capsys):
         assert all(math.isfinite(m[k]) for k in ("ce", "loss", "grad_norm"))
         assert line["loss"] == round(m["loss"], 4)
     assert out[0].startswith("arch=llama3.2-1b scheme=standard params=")
-    assert out[-2].startswith(f"loss {hist[0]['loss']:.4f} -> "
+    assert out[-3].startswith(f"loss {hist[0]['loss']:.4f} -> "
                               f"{hist[-1]['loss']:.4f} (4 steps")
+    assert out[-2] == "step split: not measured on cpu"   # no device marks
     assert out[-1] == "kernel launches: {}"       # no kernel on the CPU
     again = train.main(CLI + ["--prefetch", "1"])
     assert [m["loss"] for m in again] == [m["loss"] for m in hist]
@@ -235,7 +236,9 @@ def test_train_cli_inl_learned_prior(capsys):
     for m in hist:
         assert {"ce_joint", "rate_mean", "loss", "step"} <= set(m)
         assert all(math.isfinite(v) for v in m.values())
-    assert capsys.readouterr().out.splitlines()[-2].startswith("loss ")
+    out = capsys.readouterr().out.splitlines()
+    assert out[-3].startswith("loss ")
+    assert out[-2].startswith("step split: ")
 
 
 def test_crash_resume_check_on_the_cpu(tmp_path, monkeypatch):
