@@ -281,8 +281,8 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 llm fp32     one period (num_layers=6) at full width in
                              fp32, the adapter drawn N(0, 1/d_model) in
                              place of init's 1e-4 scale so the shared
-                             attention moves the logits: the card against the CPU on one set of
-                             weights, prefill 512 and 8 decode steps fed
+                attention moves the logits: the card against the CPU on one
+                set of weights, prefill 512 and 8 decode steps fed
                              the CPU's tokens within rtol/atol 1e-3, greedy
                              tokens equal where the CPU's top-2 margin
                              exceeds 1e-2 (closer calls counted); prefill of
@@ -353,11 +353,18 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 (4, 2048, 32, 8, 64) in bf16 and fp32 and DeepSeek-V2's
                 MLA (1, 2048, 128, 128, 192) in bf16 within LSE_BAR of the
                 plain version's, o with the lse written == o without it
-                bit for bit; on those inputs the attention backward
-                (`attention.flash_bwd`, the reference's `_flash_bwd`) from
-                the kernel's (o, lse) within 2e-2 of the largest |gradient|
-                of the same backward from the plain forward's, autograd
-                through `blockwise_attention` == it bit for bit, its ms;
+                bit for bit; on those inputs flash_attn_bwd from the
+                kernel's (o, lse) within 2e-2 of the largest |gradient| of
+                the plain backward (`ref.flash_bwd_ref`, the reference's
+                `_flash_bwd`) from the plain forward's, autograd through
+                `blockwise_attention` == the kernel's bit for bit;
+                flash_attn_bwd against `ref.flash_bwd_ref` on the same
+                inputs (BWD_CASES: the StarCoder2 cells' (1, 4096, 24, 2,
+                128) and (8, 512, 24, 2, 128), every other head dim, a
+                window, q_offset, ragged Sq and Sk, fp32) within
+                BWD_BF16_ULP / FP32_BAR, two launches bit for bit, one
+                counted a call, its ms beside its bound and the plain
+                version's;
                 Llama-3.2-1B at full width, 2 layers, fp32: the loss and
                 every gradient leaf on the card against the CPU port
                 (rtol 1e-3, the INL step's bar) and one make_train_step's
@@ -365,7 +372,8 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 to 2 layers (dense layer 0, one MoE layer; 5.4 B
                 parameters) in bf16: one loss_and_metrics forward and
                 backward at B=1, S=2048, ce, lb_loss, z_loss and every
-                gradient finite, exactly 3 flash launches at Dh=192, ms
+                gradient finite, exactly 3 flash launches at Dh=192 and
+                2 flash_attn_bwd (one a layer), ms
                 and peak memory; the SSD scan's autograd Function
                 (`ssm._ssd_chunked`) at Zamba2's (4, 2048, 80, 64, 64,
                 256) and at a three-chunk shape, fp32 and bf16: its
@@ -378,9 +386,10 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 2 of 9 periods (12 mamba layers, 2 shared-attention calls,
                 0.77 B parameters) in bf16, B=4, S=2048: 4 steps of
                 make_scan_train_step, exactly 96 ssd_scan and 16 flash
-                launches, losses finite and falling, a step's ms, tokens/s,
-                peak memory; its fp32 twin at 1 period, B=1, S=512, card
-                against the CPU (loss within rtol 1e-5, every leaf within
+                launches (and 8 flash_attn_bwd), losses finite and
+                falling, a step's ms, tokens/s, peak memory; its fp32 twin
+                at 1 period, B=1, S=512, card against the CPU (loss within
+                rtol 1e-5, every leaf within
                 the INL step's bar); xLSTM-125M at its published widths
                 cut to 1 of 3 periods (4 layers) in bf16, B=4, S=256 (one
                 checkpointed 256-step chunk): 1 step, no kernel, the
@@ -393,9 +402,10 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 fp32 master copy (with it, the update outgrows the card
                 after the earlier phases), exactly one cut_fwd,
                 cut_bwd, pack and unpack_dequant a step and 36 flash
-                launches, losses finite, ms a step, peak memory (and a
-                forward and backward's alone); INL over the Llama smoke
-                config in fp32 at link_bits 16, 8, 4 and 4 with learned
+                launches (18 flash_attn_bwd), losses finite, ms a step,
+                peak memory (and a forward and backward's alone); INL over
+                the Llama smoke config in fp32 at link_bits 16, 8, 4 and 4
+                with learned
                 priors, card against the CPU with their launches; the
                 phase's seconds.
 
@@ -405,18 +415,20 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 (bf16, remat on, groups of 4 prefetched to the card):
                 every loss finite and the last below the first, exactly
                 2 x 16 x 8 = 256 flash launches (a forward and a recompute
-                a layer a step), a step's ms (the second group's wall / 4),
-                tokens/s, peak memory; a short run (the smoke config, 4
-                groups of 2) at --prefetch 1 and 2, the losses and grad
+                a layer a step) and 128 flash_attn_bwd, a step's ms (the
+                second group's wall / 4), tokens/s, peak memory; a short
+                run (the smoke config, 4 groups of 2) at --prefetch 1 and
+                2, the losses and grad
                 norms bit for bit; `chaos.crash_resume_check` with the
                 reference's chaos defaults (smoke Llama, scheme inl, 12
                 steps, SIGKILL after step 5) on the card, dense and with
                 learned priors side by side: resumed lines and final
                 checkpoints bit for bit, the cut-layer kernels (and
-                flash_attn_fwd) launched in the golden and the resumed
-                child; DeepSeek-V2's MoE layer at published widths in bf16,
-                droppless, over 2 spawned gloo ranks on the card (80
-                experts a rank) against moe_apply in this process: y
+                flash_attn_fwd and flash_attn_bwd, fp32) launched in the
+                golden and the resumed child; DeepSeek-V2's MoE layer at
+                published widths in bf16, droppless, over 2 spawned gloo
+                ranks on the card (80 experts a rank) against moe_apply in
+                this process: y
                 within 2e-2 of the largest |y|, aux within 1e-5, the
                 layer's ms; the dry-run's record of the CLI's step on a
                 1-rank mesh: argument bytes == the tensors' own and, in
@@ -442,9 +454,9 @@ of the hybrids' path with their counts per run, `launches_on_hybrids`,
 every cut-layer kernel's counts in the graphed runs,
 `launches_on_graphs`, and in the transport phase's runs,
 `launches_on_transport`; the flash entry's counts in the train runs,
-`launches_on_train`, its lse error, `lse_max_abs_err`, and the
-attention backward's ms on the train path's shapes,
-`train_backward_ms`; ssd_scan's counts in Zamba2's train run,
+`launches_on_train`, its lse error, `lse_max_abs_err`; a
+flash_attn_bwd entry with its ms, bound and plain ms on BWD_CASES,
+`by_case`; ssd_scan's counts in Zamba2's train run,
 `launches_on_train`, and the plain SSD backward's ms,
 `train_backward_ms`; the cut-layer and wire kernels' counts in INL over
 an LLM, `launches_on_inl_llm`, and in the crash-resume children,
@@ -521,7 +533,7 @@ LLM_CPU_TOL = dict(rtol=1e-3, atol=1e-3)
 LLM_CPU_STEPS = 8
 LLM_MARGIN = 1e-2                   # top-2 logit margin of a decided token
 LLM_CONSIST_P = 255                 # P and P + 1 both prefill in one chunk
-TENSOR_CORE_KERNELS = ("flash_attn_fwd", "ssd_scan")
+TENSOR_CORE_KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "ssd_scan")
 # the attention-block models served in the `llm attn` phase: (arch, depth on
 # the card (None: the full config), flash_attn_fwd launches per prefill)
 ATTN_MODELS = (("llama3.2-1b", None, 16), ("qwen1.5-4b", None, 40),
@@ -555,6 +567,34 @@ LSE_CASES = (("Llama-3.2-1B attention", (4, 2048, 32, 8, 64), "bfloat16"),
 # an lse error d scales every p of the backward by e^-d, so 1e-4 moves the
 # gradients by 1e-4 of themselves, 200x under the bf16 bar
 LSE_BAR = 1e-4
+# flash_attn_bwd against its plain version on the same inputs (label,
+# (B, Sq, Sk, H, KV, Dh, window, q_offset), dtype): the two StarCoder2 cells'
+# attention, each other head dim (Llama-3.2-1B, Zamba2, DeepSeek-V2's MLA),
+# a window, q_offset with ragged Sq and Sk, and the fp32 instance
+BWD_CASES = (
+    ("train-4k", (1, 4096, 4096, 24, 2, 128, 0, 0), "bfloat16"),
+    ("train-512", (8, 512, 512, 24, 2, 128, 0, 0), "bfloat16"),
+    ("Dh=32", (4, 1024, 1024, 16, 4, 32, 0, 0), "bfloat16"),
+    ("Llama-3.2-1B", (4, 2048, 2048, 32, 8, 64, 0, 0), "bfloat16"),
+    ("Zamba2 window", (2, 2048, 2048, 32, 32, 80, 512, 0), "bfloat16"),
+    ("DeepSeek-V2 MLA", (1, 2048, 2048, 128, 128, 192, 0, 0), "bfloat16"),
+    ("ragged q_offset", (2, 1000, 1537, 24, 2, 128, 0, 537), "bfloat16"),
+    ("ragged window q_offset", (1, 777, 1300, 16, 4, 64, 300, 523),
+     "bfloat16"),
+    ("fp32 Dh=64", (1, 1024, 1024, 32, 8, 64, 0, 0), "float32"),
+    ("fp32 ragged window q_offset", (1, 500, 700, 8, 2, 128, 256, 200),
+     "float32"),
+    ("fp32 Dh=192", (1, 512, 512, 16, 16, 192, 0, 0), "float32"),
+    ("fp32 Dh=80 ragged", (2, 333, 333, 8, 8, 80, 0, 0), "float32"),
+    ("fp32 Dh=32", (1, 256, 256, 8, 2, 32, 0, 0), "float32"))
+# the bf16 bar of an entry: both versions round each gradient once, so
+# where the two fp32 values straddle a rounding midpoint they come one ulp
+# apart (up to 2^-7 of the value); the kernel's P and dS enter their
+# products as bf16 hi + lo (about 2^-16 of themselves) and its fp32 sums
+# run in another order, which moves the fp32 values far less (2^-12 of the
+# largest).  fp32: the same terms summed in another order, expf against
+# torch's exp, no final rounding: FP32_BAR of the largest
+BWD_BF16_ULP, BWD_BF16_ABS = 2.0 ** -7, 2.0 ** -12
 LLM_TRAIN_BATCH = (4, 2048)         # Llama's full-width train step, B x S
 LLM_TRAIN_STEPS = 8
 LLM_TRAIN_CPU_LAYERS = 2            # Llama's fp32 card-vs-CPU step
@@ -6262,16 +6302,15 @@ def llm_zoo_phase(torch, card_line):
 def lse_and_backward_check(torch, card_line):
     """flash_attn_fwd's logsumexp on the train path's shapes (LSE_CASES):
     lse against the plain version's, o with the lse written == o without it
-    bit for bit; then the attention backward (`attention.flash_bwd`, the
-    port of the reference's `_flash_bwd`) from the kernel's (o, lse)
-    against the same backward from the plain forward's, within BF16_BAR of
-    the largest |gradient|, and autograd through
-    `attention.blockwise_attention` on the card == the kernel's backward
-    bit for bit.  Returns ({case: backward ms (CUDA events)}, max |lse
-    kernel - plain|)."""
+    bit for bit; then the attention backward on the card (flash_attn_bwd
+    from the kernel's (o, lse)) against the plain path (`ref.flash_bwd_ref`
+    from the plain forward's (o, lse)), within BF16_BAR of the largest
+    |gradient|, and autograd through `attention.blockwise_attention` on the
+    card == the kernel's backward bit for bit.  Returns max |lse kernel -
+    plain|."""
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.models import attention
-    bwd_ms, lse_worst = {}, 0.0
+    lse_worst = 0.0
     for label, (B, S, H, KV, Dh), dname in LSE_CASES:
         dtype = getattr(torch, dname)
         q, k, v = qkv_inputs(torch, B, S, H, KV, Dh, dtype, S + Dh + 1)
@@ -6290,10 +6329,10 @@ def lse_and_backward_check(torch, card_line):
         check(err_lse <= LSE_BAR, f"{label}: |lse kernel - plain| "
                                   f"{err_lse} > {LSE_BAR}")
         lse_worst = max(lse_worst, err_lse)
-        opts = dict(causal=True, window=0, q_offset=0, block_q=512,
-                    block_k=512)
-        g_k = attention.flash_bwd(q, k, v, o_k, lse_k, do, **opts)
-        g_p = attention.flash_bwd(q, k, v, o_plain, lse_plain, do, **opts)
+        kw = dict(causal=True, window=0, q_offset=0)
+        g_k = flash_attention.flash_attn_bwd(q, k, v, o_k, lse_k, do, **kw)
+        g_p = ref.flash_bwd_ref(q, k, v, o_plain, lse_plain, do,
+                                block_q=512, block_k=512, **kw)
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
         out = attention.blockwise_attention(qs, ks, vs, causal=True)
         g_a = torch.autograd.grad(out, (qs, ks, vs), do)
@@ -6303,24 +6342,95 @@ def lse_and_backward_check(torch, card_line):
             top = float(b.float().abs().max())
             err = float((a.float() - b.float()).abs().max())
             check(err <= BF16_BAR * top,
-                  f"{label}: d{name} from the kernel's forward differs from "
-                  f"the plain forward's by {err} > {BF16_BAR} x {top}")
+                  f"{label}: d{name} on the card differs from the plain "
+                  f"path's by {err} > {BF16_BAR} x {top}")
             check(torch.equal(a, c), f"{label}: autograd's d{name} through "
-                                     f"blockwise_attention != flash_bwd's")
+                                     f"blockwise_attention != "
+                                     f"flash_attn_bwd's")
             errs.append(err / top)
-        del g_p, g_a, out, o_plain, lse_plain
-        ms = cuda_ms(torch, lambda: attention.flash_bwd(
-            q, k, v, o_k, lse_k, do, **opts), reps=3, warmup=1)
-        bwd_ms[f"{label}, {dname}"] = ms
         print(f"llm train: {label} {(B, S, H, KV, Dh)} {dtype}: lse == "
               f"plain within {err_lse:.3g} (bar {LSE_BAR}), o with lse == o "
-              f"without bit for bit; (dq, dk, dv) from the kernel's forward "
-              f"vs the plain forward's within {max(errs):.3g} of the largest "
-              f"(bar {BF16_BAR}), autograd == flash_bwd bit for bit; the "
-              f"backward (plain torch, fp32) {ms:.3f} ms [{card_line}]")
-        del q, k, v, do, o_only, o_k, lse_k, g_k
+              f"without bit for bit; (dq, dk, dv) of the kernels' forward "
+              f"and backward vs the plain forward's and backward's within "
+              f"{max(errs):.3g} of the largest (bar {BF16_BAR}), autograd "
+              f"through blockwise_attention == flash_attn_bwd bit for bit "
+              f"[{card_line}]")
+        del q, k, v, do, o_only, o_k, lse_k, g_k, g_p, g_a, out, o_plain
+        del lse_plain
         torch.cuda.empty_cache()
-    return bwd_ms, lse_worst
+    return lse_worst
+
+
+def flash_bwd_check(torch, card_line):
+    """flash_attn_bwd against its plain version `ref.flash_bwd_ref` on the
+    same (q, k, v, o, lse, do) (BWD_CASES: the two StarCoder2 cells'
+    shapes, each other head dim, a window, q_offset, ragged Sq and Sk, the
+    fp32 instance), within BWD_BF16_ULP of |plain| + BWD_BF16_ABS of max
+    |plain| in bf16 and FP32_BAR of max |plain| in fp32, entry by entry;
+    a second launch
+    on the same inputs == the first bit for bit; one launch counted a call;
+    the kernel's ms (CUDA events) beside its bound (2.5x the forward's 4 Dh
+    flops a kept pair and head at 989 TFLOP/s) and the plain version's.
+    Returns {case: {ms, bound_ms, plain_ms}}."""
+    from repro_torch.kernels import flash_attention, ref
+    rows = {}
+    for label, (B, Sq, Sk, H, KV, Dh, window, q_offset), dname in BWD_CASES:
+        dtype = getattr(torch, dname)
+        rng = np.random.default_rng(Sq + Sk + Dh)
+        q, do = (torch.from_numpy(rng.normal(size=(B, Sq, H, Dh)).astype(
+            np.float32)).to(DEV).to(dtype) for _ in range(2))
+        k, v = (torch.from_numpy(rng.normal(size=(B, Sk, KV, Dh)).astype(
+            np.float32)).to(DEV).to(dtype) for _ in range(2))
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        o, lse = flash_attention.flash_attn_fwd(q, k, v, lse=True, **kw)
+        before = read_launches()["flash_attn_bwd"]
+        got = flash_attention.flash_attn_bwd(q, k, v, o, lse, do, **kw)
+        again = flash_attention.flash_attn_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        check(read_launches()["flash_attn_bwd"] == before + 2,
+              f"{label}: two backward calls counted "
+              f"{read_launches()['flash_attn_bwd'] - before} launches")
+        want = ref.flash_bwd_ref(q, k, v, o, lse, do, block_q=512,
+                                 block_k=512, **kw)
+        worst = []
+        for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+            check(a.dtype == w.dtype and a.shape == w.shape,
+                  f"{label}: {name} {a.dtype} {tuple(a.shape)}")
+            check(torch.equal(a, a2), f"{label}: two launches' {name} differ")
+            a, w = a.float(), w.float()
+            top = float(w.abs().max())
+            err = (a - w).abs()
+            bar = BWD_BF16_ULP * w.abs() + BWD_BF16_ABS * top \
+                if dname == "bfloat16" else FP32_BAR * top
+            over = int((err > bar).sum())
+            check(over == 0, f"{label}: {over} entries of {name} beyond the "
+                             f"bar, max |kernel - plain| {float(err.max())} "
+                             f"of max |plain| {top}")
+            worst.append(float(err.max()) / top)
+        del got, again, want
+        k_ms = cuda_ms(torch, lambda: flash_attention.flash_attn_bwd(
+            q, k, v, o, lse, do, **kw), reps=10, warmup=2)
+        p_ms = cuda_ms(torch, lambda: ref.flash_bwd_ref(
+            q, k, v, o, lse, do, block_q=512, block_k=512, **kw),
+            reps=1, warmup=0)
+        rows_q = np.arange(Sq)[:, None] + q_offset
+        cols = np.arange(Sk)[None, :]
+        keep = (cols <= rows_q) & ((rows_q - cols < window) if window
+                                   else True)
+        pairs = int(keep.sum()) * B * H
+        bound = 2.5 * 4 * Dh * pairs / H100_BF16_FLOPS * 1e3
+        rows[label] = {"ms": k_ms, "bound_ms": bound, "plain_ms": p_ms}
+        print(f"llm train: flash_attn_bwd {label} (B, Sq, Sk, H, KV, Dh) = "
+              f"{(B, Sq, Sk, H, KV, Dh)} window={window} q_offset="
+              f"{q_offset} {dname}: dq, dk, dv == ref.flash_bwd_ref within "
+              f"the bar (largest |kernel - plain| / max |plain| "
+              f"{max(worst):.3g}), two launches bit for bit, one counted a "
+              f"call; {k_ms:.4f} ms (CUDA events), bound {bound:.4f} ms "
+              f"({100 * bound / k_ms:.1f}%), plain {p_ms:.3f} ms "
+              f"[{card_line}]")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
 
 
 def lm_batches_on(torch, cfg, B, S, steps, seed):
@@ -6362,6 +6472,9 @@ def llm_card_vs_cpu(torch, card_line):
     check(launches == 2 * LLM_TRAIN_CPU_LAYERS,
           f"card-vs-cpu: {launches} flash launches, not a forward and a "
           f"recompute a layer")
+    bwd = read_launches()["flash_attn_bwd"]
+    check(bwd == LLM_TRAIN_CPU_LAYERS,
+          f"card-vs-cpu: {bwd} flash_attn_bwd launches, not one a layer")
     l_cpu, _, g_cpu = value_and_grad(
         lambda p: zoo.loss_and_metrics(p, cfg, cpu_batch), cpu)
     max_leaf, max_abs, off = grads_close(float(l_gpu), float(l_cpu),
@@ -6379,8 +6492,9 @@ def llm_card_vs_cpu(torch, card_line):
     print(f"llm train: Llama-3.2-1B at full width, {LLM_TRAIN_CPU_LAYERS} "
           f"layers, fp32, B={B} S={S}: loss card {float(l_gpu):.7f} cpu "
           f"{float(l_cpu):.7f}, {launches} flash launches (a forward and a "
-          f"recompute a layer); every gradient leaf within rtol 1e-3 atol "
-          f"1e-5 as a tensor, largest |card - cpu| / |cpu| of a leaf "
+          f"recompute a layer), {bwd} flash_attn_bwd (fp32); every "
+          f"gradient leaf within rtol 1e-3 atol 1e-5 as a tensor, largest "
+          f"|card - cpu| / |cpu| of a leaf "
           f"{max_leaf:.3g}, largest entry difference {max_abs:.3g} ({off} "
           f"entries outside the bar entry by entry); one make_train_step "
           f"(SGD): loss, grad_norm card {got[DEV]} cpu {got['cpu']} "
@@ -6412,7 +6526,7 @@ def deepseek_train_check(torch, card_line):
         lambda p: zoo.loss_and_metrics(p, cfg, batch), params))
     torch.cuda.synchronize()
     launches = read_launches()
-    expect_launches(launches, {"flash_attn_fwd": 3},
+    expect_launches(launches, {"flash_attn_fwd": 3, "flash_attn_bwd": 2},
                     "DeepSeek-V2 2 layers, one forward and backward")
     dims = {q.shape[-1] for (q, _, _), _ in seen["flash_attn_fwd"]}
     check(dims == {MLA_DH}, f"DeepSeek-V2 train: flash calls at {dims}")
@@ -6434,7 +6548,8 @@ def deepseek_train_check(torch, card_line):
           f"loss_and_metrics forward and backward at B=1 S="
           f"{LLM_TRAIN_BATCH[1]}: {vals}, every gradient finite; "
           f"flash_attn_fwd launched {launches['flash_attn_fwd']} times at "
-          f"Dh {sorted(dims)}; {ms:.1f} ms (CUDA events); peak memory "
+          f"Dh {sorted(dims)}, flash_attn_bwd {launches['flash_attn_bwd']} "
+          f"(one a layer); {ms:.1f} ms (CUDA events); peak memory "
           f"{peak:.2f} GiB (no MoE config fits one card with AdamW's state "
           f"at full width); {time.perf_counter() - t0:.1f} s [{card_line}]")
     del params, batch
@@ -6648,7 +6763,8 @@ def zamba_train_check(torch, card_line):
     n_mamba = cfg.num_layers
     n_shared = ZAMBA_TRAIN_PERIODS
     want = {"ssd_scan": 2 * n_mamba * ZAMBA_TRAIN_STEPS,
-            "flash_attn_fwd": 2 * n_shared * ZAMBA_TRAIN_STEPS}
+            "flash_attn_fwd": 2 * n_shared * ZAMBA_TRAIN_STEPS,
+            "flash_attn_bwd": n_shared * ZAMBA_TRAIN_STEPS}
     launches, metrics = train_run(
         torch, cfg, *ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_STEPS,
         f"Zamba2-2.7B at full width, {ZAMBA_TRAIN_PERIODS} of 9 periods "
@@ -6738,6 +6854,7 @@ def inl_llm_train_run(torch, card_line):
     want = {k: INL_LLM_STEPS for k in INL_LLM_KERNELS}
     want["flash_attn_fwd"] = 2 * (J * enc_layers + dec_layers) \
         * INL_LLM_STEPS
+    want["flash_attn_bwd"] = (J * enc_layers + dec_layers) * INL_LLM_STEPS
     expect_launches(launches, want, "INL over Llama-3.2-1B")
     losses = ms["loss"].tolist()
     check(all(np.isfinite(losses)), f"INL over Llama losses {losses}")
@@ -6829,14 +6946,16 @@ def inl_llm_card_vs_cpu(torch, card_line):
 def llm_train_phase(torch, card_line):
     """The attention blocks' train mode on the card, deterministic
     algorithms on (TF32 is off since the device phase): the kernel's lse
-    and the backward, Llama's step against the CPU, Llama-3.2-1B trained 8
-    steps at full width, DeepSeek-V2's MLA and MoE forward and backward.
+    and the backward kernel, Llama's step against the CPU, Llama-3.2-1B
+    trained 8 steps at full width, DeepSeek-V2's MLA and MoE forward and
+    backward.
     Returns ({run: flash launches}, {metric: value}, max |lse kernel -
     plain|)."""
     t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        bwd_ms, lse_worst = lse_and_backward_check(torch, card_line)
+        lse_worst = lse_and_backward_check(torch, card_line)
+        bwd_ms = flash_bwd_check(torch, card_line)
         llm_card_vs_cpu(torch, card_line)
         ds_launches, ds_ms = deepseek_train_check(torch, card_line)
         ssd_bwd_ms = ssd_train_check(torch, card_line)
@@ -6901,7 +7020,9 @@ def launch_cli_check(torch, card_line):
     cfg = attn_model("llama3.2-1b")
     hist, launches, m = llama_cli_run(torch, card_line, 2)
     expect_launches(launches, {"flash_attn_fwd":
-                               2 * cfg.num_layers * LAUNCH_STEPS},
+                               2 * cfg.num_layers * LAUNCH_STEPS,
+                               "flash_attn_bwd":
+                               cfg.num_layers * LAUNCH_STEPS},
                     f"{LAUNCH_RUN}")
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -6916,7 +7037,9 @@ def launch_cli_check(torch, card_line):
           f"{zoo.param_count(cfg)} parameters, losses (a group's last step) "
           f"{losses}, flash_attn_fwd {launches['flash_attn_fwd']} launches "
           f"(a forward and a recompute a layer: "
-          f"{launches['flash_attn_fwd'] // LAUNCH_STEPS} a step); a step "
+          f"{launches['flash_attn_fwd'] // LAUNCH_STEPS} a step), "
+          f"flash_attn_bwd {launches['flash_attn_bwd']} (one a layer and "
+          f"step); a step "
           f"{m['step_ms']:.1f} ms (the second group's wall / "
           f"{LAUNCH_GROUP}), {m['tokens_per_s']:.0f} tokens/s, peak "
           f"{m['peak_gib']:.2f} GiB, the run {m['wall_s']:.1f} s; "
@@ -6935,9 +7058,10 @@ def crash_resume_card(torch, card_line):
     import shutil
     import threading
     from repro_torch import chaos
-    wants = {"dense": ("cut_fwd", "cut_bwd", "flash_attn_fwd"),
+    wants = {"dense": ("cut_fwd", "cut_bwd", "flash_attn_fwd",
+                       "flash_attn_bwd"),
              "learned prior": ("cut_prior_fwd", "cut_prior_bwd",
-                               "flash_attn_fwd")}
+                               "flash_attn_fwd", "flash_attn_bwd")}
     results = {}
 
     def one(name):
@@ -7711,7 +7835,6 @@ def main() -> int:
                 attn_serve_launches["flash_attn_fwd"]
             kernels[-1]["launches_on_train"] = on_train
             kernels[-1]["lse_max_abs_err"] = lse_worst
-            kernels[-1]["train_backward_ms"] = train_times["bwd_ms"]
         else:
             kernels[-1]["launches_on_train"] = ssd_on_train
             kernels[-1]["train_backward_ms"] = train_times["ssd_bwd_ms"]
@@ -7730,6 +7853,15 @@ def main() -> int:
                      "library_ms": l2},
         "launches_per_prefill": "1 a layer (3 at num_layers=3)",
         "path": "DeepSeek-V2-236B serving (prefill), 3 of 60 layers"})
+    kernels.append({
+        "name": "flash_attn_bwd", "route": "cuda",
+        "source": f"{src}flash_attn_bwd.cu",
+        "replaces": "no TPU kernel: src/repro/models/attention.py's "
+                    "_flash_bwd is jnp",
+        "bound_by": "operations", "library_ms": None,
+        "by_case": train_times["bwd_ms"],
+        "launches_per_train_step": "1 an attention layer",
+        "path": "LLM training (blockwise_attention's backward)"})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

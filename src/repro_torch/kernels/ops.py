@@ -1,7 +1,8 @@
 """Dispatching wrappers for the kernels.
 
 Reference: src/repro/kernels/ops.py (`cutlayer`, `attention`,
-`ssd_scan`).  The JAX package picks an implementation with
+`ssd_scan`); `attention_bwd` has no counterpart there (the reference's
+attention backward is jnp).  The JAX package picks an implementation with
 `backend="auto"|"pallas"|"reference"`; here the device
 of the tensors decides, and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor the hand-written kernel or an exception.  A `meta`
@@ -60,6 +61,22 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                                  q_offset=q_offset, lse=return_lse)
     return _fa.flash_attn_fwd(q, k, v, causal=causal, window=window,
                               q_offset=q_offset, lse=return_lse)
+
+
+def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                  window: int = 0, q_offset: int = 0, block_q: int = 512,
+                  block_k: int = 512):
+    """The attention backward from the forward's saved (q, k, v, out, lse)
+    and the output's gradient dout (B, Sq, H, Dh).  CPU and meta tensors
+    take `ref.flash_bwd_ref` (tiles of block_q x block_k), CUDA tensors the
+    backward kernel (csrc/flash_attn_bwd.cu, its own tiles).  Returns (dq,
+    dk, dv) in q's, k's and v's dtypes."""
+    if q.device.type in _bn.PLAIN:
+        return ref.flash_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                 window=window, q_offset=q_offset,
+                                 block_q=block_q, block_k=block_k)
+    return _fa.flash_attn_bwd(q, k, v, out, lse, dout, causal=causal,
+                              window=window, q_offset=q_offset)
 
 
 def ssd_scan(x, dt, a, bm, cm, dskip, *, chunk: int):

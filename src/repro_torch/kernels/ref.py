@@ -13,6 +13,7 @@ arithmetic step for step and are no yardstick of speed.
 the CUDA kernel, not of the reference, for the tests' bit-for-bit check.
 
 The LLM stack's: `attention_ref` (the flash-attention kernel's function),
+`flash_bwd_ref` (its backward's, from the saved lse),
 `ssd_chunked_ref` (the SSD scan kernel's: the port of the JAX model's
 `_ssd_chunked`, with its final state) and `ssd_scan_ref` (the sequential
 definition of the scan, for the tests).
@@ -35,6 +36,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 QUANT_RANGE = 4.0   # Gaussian bottlenecks: 4 sigma covers the latents
 
@@ -391,6 +393,82 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     # (B, KV, g, Sq) -> (B, Sq, KV * g)
     return out, torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2).reshape(
         B, Sq, H)
+
+
+def _mask_for(q_pos, k_pos, Sk, *, causal, window):
+    mask = k_pos[None, :] < Sk
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window:
+        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+    return mask
+
+
+def flash_bwd_ref(q, k, v, out, lse, dout, *, causal, window, q_offset,
+                  block_q, block_k):
+    """The attention backward's plain version (the kernel is
+    csrc/flash_attn_bwd.cu): the reference's `_flash_bwd`, doubly blocked:
+    key tiles outer (each
+    emitting its dk, dv tile), query tiles inner (adding into a full-size
+    fp32 dq), in fp32; ragged tiles padded with zeros as the reference
+    pads them, GQA's kv gradients summed over the group axis.  A tile that
+    the causal mask or the window hides whole is skipped: its p is
+    exp(-1e30 - lse) = 0, so the reference adds exact zeros there.
+    q, out, dout: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); lse: (B, Sq, H)
+    fp32 (float64 inputs stay float64, for gradcheck).  Returns (dq, dk,
+    dv) in q's, k's and v's dtypes."""
+    B, Sq, H, Dh = q.shape
+    _, Sk, KV, _ = k.shape
+    g = H // KV
+    scale = 1.0 / math.sqrt(Dh)
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    nq, nk = -(-Sq // bq), -(-Sk // bk)
+    qpad, kpad = nq * bq - Sq, nk * bk - Sk
+    acc = torch.promote_types(q.dtype, torch.float32)
+    do = dout.to(acc).reshape(B, Sq, KV, g, Dh)
+    delta = torch.sum(do * out.to(acc).reshape(B, Sq, KV, g, Dh), dim=-1)
+    qf = q.to(acc).reshape(B, Sq, KV, g, Dh)
+    lse = lse.to(acc).reshape(B, Sq, KV, g)
+    if qpad:
+        qf, do = F.pad(qf, (0, 0, 0, 0, 0, 0, 0, qpad)), \
+            F.pad(do, (0, 0, 0, 0, 0, 0, 0, qpad))
+        delta = F.pad(delta, (0, 0, 0, 0, 0, qpad))
+        lse = F.pad(lse, (0, 0, 0, 0, 0, qpad))
+    kf, vf = k.to(acc), v.to(acc)
+    if kpad:
+        kf = F.pad(kf, (0, 0, 0, 0, 0, kpad))
+        vf = F.pad(vf, (0, 0, 0, 0, 0, kpad))
+    dq = qf.new_zeros((B, nq * bq, KV, g, Dh))
+    dk = kf.new_zeros((B, nk * bk, KV, Dh))
+    dv = kf.new_zeros((B, nk * bk, KV, Dh))
+    ar_q = torch.arange(bq, device=q.device)
+    ar_k = torch.arange(bk, device=q.device)
+    for ki in range(nk):
+        k0 = ki * bk
+        kc, vc = kf[:, k0:k0 + bk], vf[:, k0:k0 + bk]
+        k_pos = k0 + ar_k
+        dk_acc, dv_acc = dk[:, k0:k0 + bk], dv[:, k0:k0 + bk]
+        for qi in range(nq):
+            q0 = qi * bq
+            if causal and q0 + bq - 1 + q_offset < k0:
+                continue                     # above the diagonal
+            if window and q0 + q_offset - (k0 + bk - 1) >= window:
+                continue                     # behind the window
+            sl = slice(q0, q0 + bq)
+            qc, doc, dc, lc = qf[:, sl], do[:, sl], delta[:, sl], lse[:, sl]
+            q_pos = q0 + ar_q + q_offset
+            s = torch.einsum("bqkgd,btkd->bqkgt", qc, kc) * scale
+            mask = _mask_for(q_pos, k_pos, Sk, causal=causal, window=window)
+            s = torch.where(mask[None, :, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            p = torch.exp(s - lc[..., None])
+            dv_acc += torch.einsum("bqkgt,bqkgd->btkd", p, doc)
+            dp = torch.einsum("bqkgd,btkd->bqkgt", doc, vc)
+            ds = p * (dp - dc[..., None])
+            dq[:, sl] += torch.einsum("bqkgt,btkd->bqkgd", ds, kc) * scale
+            dk_acc += torch.einsum("bqkgt,bqkgd->btkd", ds, qc) * scale
+    return (dq[:, :Sq].reshape(B, Sq, H, Dh).to(q.dtype),
+            dk[:, :Sk].to(k.dtype), dv[:, :Sk].to(v.dtype))
 
 
 def ssd_chunked_ref(x, dt, a, bm, cm, dskip, *, chunk: int):

@@ -33,10 +33,11 @@ What this dry-run checks in its place, per combination:
      (its FLOPs and bytes are linear in S); the record says so.
   4. HBM bytes.  Every op of the step reads its inputs and writes its
      outputs once (views move nothing), and each hand-written kernel
-     (flash_attn_fwd, ssd_scan) counts its own inputs and outputs, not its
-     plain version's intermediates (`counting` swaps kernels/ops' entries
-     for counting versions while a step runs): the traffic of the port's
-     eager step, unfused.  From the realistic 1- and 2-period variants, compensated.
+     (flash_attn_fwd, flash_attn_bwd, ssd_scan) counts its own inputs and
+     outputs, not its plain version's intermediates (`counting` swaps
+     kernels/ops' entries for counting versions while a step runs): the
+     traffic of the port's eager step, unfused.  From the realistic 1- and
+     2-period variants, compensated.
   5. Collective bytes, modelled from the sharding rules
      (roofline/analysis.collective_bytes), and the three roofline terms.
 
@@ -76,7 +77,8 @@ META = torch.device("meta")
 XLSTM_DIRECT_SEQ = 16          # longer xLSTM sequences are extrapolated
 XLSTM_SEQS = (8, 16)           # ... from these two lengths
 ALLOC_GRANULE = 512            # the CUDA caching allocator's block rounding
-KERNEL_ENTRIES = ("attention", "ssd_scan")   # kernels/ops, counted as kernels
+# kernels/ops' entries, counted as kernels
+KERNEL_ENTRIES = ("attention", "attention_bwd", "ssd_scan")
 
 
 def _nbytes(x) -> int:

@@ -12,9 +12,11 @@ runs the same contract as a jnp blockwise scan); MLA's prefill pads v up
 to the qk head dim (192 at DeepSeek-V2's widths) to make one call.
 Train mode runs the same projections and `blockwise_attention`, an
 autograd Function whose forward is that call with the logsumexp asked
-for (`ops.attention(..., return_lse=True)`) and whose backward is the
-reference's `_flash_bwd` line for line in fp32 torch: the reference
-computes it in jnp outside any Pallas kernel.
+for (`ops.attention(..., return_lse=True)`) and whose backward is one
+`ops.attention_bwd` call from the saved (q, k, v, out, lse): the
+flash_attn_bwd kernel on the card, on the CPU its plain version
+`ref.flash_bwd_ref`, the reference's `_flash_bwd` line for line in fp32
+torch (the reference computes it in jnp outside any Pallas kernel).
 Decode is one token against the cache in plain torch, softmax in fp32,
 with the reference's bf16 roundings: GQA's of the scaled query and the
 softmax weights, MLA's of the absorbed query and the weights in the
@@ -41,85 +43,13 @@ NEG_INF = -1e30
 # Blockwise attention for training: the flash forward, a hand-written VJP
 # ---------------------------------------------------------------------------
 
-def _mask_for(q_pos, k_pos, Sk, *, causal, window):
-    mask = k_pos[None, :] < Sk
-    if causal:
-        mask = mask & (k_pos[None, :] <= q_pos[:, None])
-    if window:
-        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
-    return mask
-
-
-def flash_bwd(q, k, v, out, lse, dout, *, causal, window, q_offset,
-              block_q, block_k):
-    """The reference's `_flash_bwd`, doubly blocked: key tiles outer (each
-    emitting its dk, dv tile), query tiles inner (adding into a full-size
-    fp32 dq), in fp32; ragged tiles padded with zeros as the reference
-    pads them, GQA's kv gradients summed over the group axis.  A tile that
-    the causal mask or the window hides whole is skipped: its p is
-    exp(-1e30 - lse) = 0, so the reference adds exact zeros there.
-    q, out, dout: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); lse: (B, Sq, H)
-    fp32 (float64 inputs stay float64, for gradcheck).  Returns (dq, dk,
-    dv) in q's, k's and v's dtypes."""
-    B, Sq, H, Dh = q.shape
-    _, Sk, KV, _ = k.shape
-    g = H // KV
-    scale = 1.0 / math.sqrt(Dh)
-    bq, bk = min(block_q, Sq), min(block_k, Sk)
-    nq, nk = -(-Sq // bq), -(-Sk // bk)
-    qpad, kpad = nq * bq - Sq, nk * bk - Sk
-    acc = torch.promote_types(q.dtype, torch.float32)
-    do = dout.to(acc).reshape(B, Sq, KV, g, Dh)
-    delta = torch.sum(do * out.to(acc).reshape(B, Sq, KV, g, Dh), dim=-1)
-    qf = q.to(acc).reshape(B, Sq, KV, g, Dh)
-    lse = lse.to(acc).reshape(B, Sq, KV, g)
-    if qpad:
-        qf, do = F.pad(qf, (0, 0, 0, 0, 0, 0, 0, qpad)), \
-            F.pad(do, (0, 0, 0, 0, 0, 0, 0, qpad))
-        delta = F.pad(delta, (0, 0, 0, 0, 0, qpad))
-        lse = F.pad(lse, (0, 0, 0, 0, 0, qpad))
-    kf, vf = k.to(acc), v.to(acc)
-    if kpad:
-        kf = F.pad(kf, (0, 0, 0, 0, 0, kpad))
-        vf = F.pad(vf, (0, 0, 0, 0, 0, kpad))
-    dq = qf.new_zeros((B, nq * bq, KV, g, Dh))
-    dk = kf.new_zeros((B, nk * bk, KV, Dh))
-    dv = kf.new_zeros((B, nk * bk, KV, Dh))
-    ar_q = torch.arange(bq, device=q.device)
-    ar_k = torch.arange(bk, device=q.device)
-    for ki in range(nk):
-        k0 = ki * bk
-        kc, vc = kf[:, k0:k0 + bk], vf[:, k0:k0 + bk]
-        k_pos = k0 + ar_k
-        dk_acc, dv_acc = dk[:, k0:k0 + bk], dv[:, k0:k0 + bk]
-        for qi in range(nq):
-            q0 = qi * bq
-            if causal and q0 + bq - 1 + q_offset < k0:
-                continue                     # above the diagonal
-            if window and q0 + q_offset - (k0 + bk - 1) >= window:
-                continue                     # behind the window
-            sl = slice(q0, q0 + bq)
-            qc, doc, dc, lc = qf[:, sl], do[:, sl], delta[:, sl], lse[:, sl]
-            q_pos = q0 + ar_q + q_offset
-            s = torch.einsum("bqkgd,btkd->bqkgt", qc, kc) * scale
-            mask = _mask_for(q_pos, k_pos, Sk, causal=causal, window=window)
-            s = torch.where(mask[None, :, None, None, :], s,
-                            torch.full_like(s, NEG_INF))
-            p = torch.exp(s - lc[..., None])
-            dv_acc += torch.einsum("bqkgt,bqkgd->btkd", p, doc)
-            dp = torch.einsum("bqkgd,btkd->bqkgt", doc, vc)
-            ds = p * (dp - dc[..., None])
-            dq[:, sl] += torch.einsum("bqkgt,btkd->bqkgd", ds, kc) * scale
-            dk_acc += torch.einsum("bqkgt,bqkgd->btkd", ds, qc) * scale
-    return (dq[:, :Sq].reshape(B, Sq, H, Dh).to(q.dtype),
-            dk[:, :Sk].to(k.dtype), dv[:, :Sk].to(v.dtype))
-
-
 class _BlockwiseAttention(torch.autograd.Function):
     """The reference's `_blockwise_attention_vjp`: the forward is one
     `ops.attention` call that also returns the logsumexp (flash_attn_fwd
-    on the card, `ref.attention_ref` on the CPU), the backward
-    `flash_bwd` from the saved (q, k, v, out, lse)."""
+    on the card, `ref.attention_ref` on the CPU), the backward one
+    `ops.attention_bwd` call from the saved (q, k, v, out, lse)
+    (flash_attn_bwd on the card, `ref.flash_bwd_ref` on the CPU, which
+    alone reads block_q and block_k)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, block_q, block_k):
@@ -134,7 +64,8 @@ class _BlockwiseAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, **ctx.opts)
+        dq, dk, dv = ops.attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                       **ctx.opts)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -192,6 +192,21 @@ def test_kernel_counts_as_itself_on_meta():
     assert counter.bytes > 8 * (2 * q.numel() + 2 * kv.numel())
 
 
+def test_backward_kernel_counts_as_itself_on_meta():
+    """The attention backward (flash_attn_bwd on the card) counts its six
+    inputs and three outputs once, none of its plain version's tiles."""
+    q = torch.empty((2, 128, 4, 32), device="meta")
+    kv = torch.empty((2, 128, 2, 32), device="meta")
+    lse = torch.empty((2, 128, 4), device="meta")
+    plain = ops.attention_bwd
+    with dryrun.counting() as (_, counter):
+        grads = ops.attention_bwd(q, kv, kv, q, lse, q)
+    assert [g.shape for g in grads] == [q.shape, kv.shape, kv.shape]
+    assert counter.bytes == 4 * (4 * q.numel() + 4 * kv.numel()
+                                 + lse.numel())
+    assert counter.inside == 0 and ops.attention_bwd is plain
+
+
 def test_argument_bytes_equal_real_tensors():
     cfg = get_smoke_config("llama3.2-1b")
     shape = ShapeConfig("t", 16, 2, "train")

@@ -1,8 +1,10 @@
 """Attention's train mode in the port against the JAX package, on the CPU:
 `models/attention.blockwise_attention`, the autograd Function whose
 forward is `ops.attention(..., return_lse=True)` (on a CPU tensor the
-plain version, `kernels/ref.attention_ref`) and whose backward
-`flash_bwd` ports the reference's `_flash_bwd`.
+plain version, `kernels/ref.attention_ref`) and whose backward is
+`ops.attention_bwd` (on a CPU tensor `kernels/ref.flash_bwd_ref`, the
+port of the reference's `_flash_bwd` and the plain version of the CUDA
+backward `flash_attn_bwd`).
 
 Bars:
   * the value and (dq, dk, dv) against the reference's
@@ -15,8 +17,10 @@ Bars:
     through the plain forward and the backward in float64);
   * the plain version's logsumexp against the reference's
     `_flash_fwd_core` lse within 1e-5 (values ~2-5, fp32 in other orders).
-The kernel's own lse (`csrc/flash_attn_fwd.cu`) is held against the
-plain lse on the card by `chip_smoke.py`'s `llm train` phase.
+The kernel's own lse (`csrc/flash_attn_fwd.cu`) and the backward kernel
+(`csrc/flash_attn_bwd.cu`) are held against their plain versions on the
+card by `chip_smoke.py`'s `llm train` phase and the card tests of
+`test_torch_flash_bwd.py`.
 """
 import numpy as np
 import pytest
