@@ -595,6 +595,15 @@ BWD_CASES = (
 # largest).  fp32: the same terms summed in another order, expf against
 # torch's exp, no final rounding: FP32_BAR of the largest
 BWD_BF16_ULP, BWD_BF16_ABS = 2.0 ** -7, 2.0 ** -12
+# the benchmark cell zamba2-7b.lm-2x4096: its shared attention calls (B, S,
+# H, KV, Dh) at the published scale (Dh / 2)^-1/2, its grouped scan (B, S,
+# H, P, N, G, chunk), and the 12-layer stage (published layers 12-23: ten
+# Mamba2 layers, two hybrids) trained one step at B x S
+ZAMBA7_ATTN = (2, 4096, 32, 32, 224)
+ZAMBA7_SCALE = (224 / 2) ** -0.5
+ZAMBA7_SSD = (2, 4096, 112, 64, 64, 2, 256)
+ZAMBA7_LAYERS = 12
+ZAMBA7_BATCH = (2, 4096)
 LLM_TRAIN_BATCH = (4, 2048)         # Llama's full-width train step, B x S
 LLM_TRAIN_STEPS = 8
 LLM_TRAIN_CPU_LAYERS = 2            # Llama's fp32 card-vs-CPU step
@@ -5255,16 +5264,17 @@ def attn_cost(torch, B, S, H, KV, Dh, dtype):
     return flops, nbytes
 
 
-def ssd_cost(torch, B, S, H, P, N, L, dtype):
-    """(flops, bytes) of the chunked scan: C.B^T once per (b, chunk) over
-    the causal pairs, then per head G.x, the inter-chunk term and the state
-    update; x, B, C in `dtype`, dt, a, D fp32 read once, y written in
+def ssd_cost(torch, B, S, H, P, N, L, dtype, groups=1):
+    """(flops, bytes) of the chunked scan: C.B^T once per (b, chunk, group)
+    over the causal pairs, then per head G.x, the inter-chunk term and the
+    state update; x, B, C in `dtype`, dt, a, D fp32 read once, y written in
     `dtype` and the fp32 state once."""
     nc, pairs = S // L, L * (L + 1) // 2
-    flops = 2.0 * B * nc * (pairs * N + H * (pairs * P + 2 * L * N * P))
+    flops = 2.0 * B * nc * (groups * pairs * N
+                            + H * (pairs * P + 2 * L * N * P))
     esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (esize * B * S * (2 * H * P + 2 * N) + 4 * B * S * H + 8 * H
-              + 4 * B * H * N * P)
+    nbytes = (esize * B * S * (2 * H * P + 2 * groups * N) + 4 * B * S * H
+              + 8 * H + 4 * B * H * N * P)
     return flops, nbytes
 
 
@@ -6372,65 +6382,73 @@ def flash_bwd_check(torch, card_line):
     the kernel's ms (CUDA events) beside its bound (2.5x the forward's 4 Dh
     flops a kept pair and head at 989 TFLOP/s) and the plain version's.
     Returns {case: {ms, bound_ms, plain_ms}}."""
+    return {label: flash_bwd_case(torch, card_line, label, shape, dname)
+            for label, shape, dname in BWD_CASES}
+
+
+def flash_bwd_case(torch, card_line, label, shape, dname, scale=None):
+    """`flash_bwd_check` on one case, (B, Sq, Sk, H, KV, Dh, window,
+    q_offset) in `dname`, at the softmax `scale` (None: 1/sqrt(Dh)).
+    Returns {ms, bound_ms, plain_ms}."""
     from repro_torch.kernels import flash_attention, ref
-    rows = {}
-    for label, (B, Sq, Sk, H, KV, Dh, window, q_offset), dname in BWD_CASES:
-        dtype = getattr(torch, dname)
-        rng = np.random.default_rng(Sq + Sk + Dh)
-        q, do = (torch.from_numpy(rng.normal(size=(B, Sq, H, Dh)).astype(
-            np.float32)).to(DEV).to(dtype) for _ in range(2))
-        k, v = (torch.from_numpy(rng.normal(size=(B, Sk, KV, Dh)).astype(
-            np.float32)).to(DEV).to(dtype) for _ in range(2))
-        kw = dict(causal=True, window=window, q_offset=q_offset)
-        o, lse = flash_attention.flash_attn_fwd(q, k, v, lse=True, **kw)
-        before = read_launches()["flash_attn_bwd"]
-        got = flash_attention.flash_attn_bwd(q, k, v, o, lse, do, **kw)
-        again = flash_attention.flash_attn_bwd(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        check(read_launches()["flash_attn_bwd"] == before + 2,
-              f"{label}: two backward calls counted "
-              f"{read_launches()['flash_attn_bwd'] - before} launches")
-        want = ref.flash_bwd_ref(q, k, v, o, lse, do, block_q=512,
-                                 block_k=512, **kw)
-        worst = []
-        for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
-            check(a.dtype == w.dtype and a.shape == w.shape,
-                  f"{label}: {name} {a.dtype} {tuple(a.shape)}")
-            check(torch.equal(a, a2), f"{label}: two launches' {name} differ")
-            a, w = a.float(), w.float()
-            top = float(w.abs().max())
-            err = (a - w).abs()
-            bar = BWD_BF16_ULP * w.abs() + BWD_BF16_ABS * top \
-                if dname == "bfloat16" else FP32_BAR * top
-            over = int((err > bar).sum())
-            check(over == 0, f"{label}: {over} entries of {name} beyond the "
-                             f"bar, max |kernel - plain| {float(err.max())} "
-                             f"of max |plain| {top}")
-            worst.append(float(err.max()) / top)
-        del got, again, want
-        k_ms = cuda_ms(torch, lambda: flash_attention.flash_attn_bwd(
-            q, k, v, o, lse, do, **kw), reps=10, warmup=2)
-        p_ms = cuda_ms(torch, lambda: ref.flash_bwd_ref(
-            q, k, v, o, lse, do, block_q=512, block_k=512, **kw),
-            reps=1, warmup=0)
-        rows_q = np.arange(Sq)[:, None] + q_offset
-        cols = np.arange(Sk)[None, :]
-        keep = (cols <= rows_q) & ((rows_q - cols < window) if window
-                                   else True)
-        pairs = int(keep.sum()) * B * H
-        bound = 2.5 * 4 * Dh * pairs / H100_BF16_FLOPS * 1e3
-        rows[label] = {"ms": k_ms, "bound_ms": bound, "plain_ms": p_ms}
-        print(f"llm train: flash_attn_bwd {label} (B, Sq, Sk, H, KV, Dh) = "
-              f"{(B, Sq, Sk, H, KV, Dh)} window={window} q_offset="
-              f"{q_offset} {dname}: dq, dk, dv == ref.flash_bwd_ref within "
-              f"the bar (largest |kernel - plain| / max |plain| "
-              f"{max(worst):.3g}), two launches bit for bit, one counted a "
-              f"call; {k_ms:.4f} ms (CUDA events), bound {bound:.4f} ms "
-              f"({100 * bound / k_ms:.1f}%), plain {p_ms:.3f} ms "
-              f"[{card_line}]")
-        del q, k, v, do, o, lse
-        torch.cuda.empty_cache()
-    return rows
+    B, Sq, Sk, H, KV, Dh, window, q_offset = shape
+    dtype = getattr(torch, dname)
+    rng = np.random.default_rng(Sq + Sk + Dh)
+    q, do = (torch.from_numpy(rng.normal(size=(B, Sq, H, Dh)).astype(
+        np.float32)).to(DEV).to(dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, Sk, KV, Dh)).astype(
+        np.float32)).to(DEV).to(dtype) for _ in range(2))
+    kw = dict(causal=True, window=window, q_offset=q_offset, scale=scale)
+    o, lse = flash_attention.flash_attn_fwd(q, k, v, lse=True, **kw)
+    before = read_launches()["flash_attn_bwd"]
+    got = flash_attention.flash_attn_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention.flash_attn_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    check(read_launches()["flash_attn_bwd"] == before + 2,
+          f"{label}: two backward calls counted "
+          f"{read_launches()['flash_attn_bwd'] - before} launches")
+    want = ref.flash_bwd_ref(q, k, v, o, lse, do, block_q=512,
+                             block_k=512, **kw)
+    worst = []
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        check(a.dtype == w.dtype and a.shape == w.shape,
+              f"{label}: {name} {a.dtype} {tuple(a.shape)}")
+        check(torch.equal(a, a2), f"{label}: two launches' {name} differ")
+        a, w = a.float(), w.float()
+        top = float(w.abs().max())
+        err = (a - w).abs()
+        bar = BWD_BF16_ULP * w.abs() + BWD_BF16_ABS * top \
+            if dname == "bfloat16" else FP32_BAR * top
+        over = int((err > bar).sum())
+        check(over == 0, f"{label}: {over} entries of {name} beyond the "
+                         f"bar, max |kernel - plain| {float(err.max())} "
+                         f"of max |plain| {top}")
+        worst.append(float(err.max()) / top)
+    del got, again, want
+    k_ms = cuda_ms(torch, lambda: flash_attention.flash_attn_bwd(
+        q, k, v, o, lse, do, **kw), reps=10, warmup=2)
+    p_ms = cuda_ms(torch, lambda: ref.flash_bwd_ref(
+        q, k, v, o, lse, do, block_q=512, block_k=512, **kw),
+        reps=1, warmup=0)
+    rows_q = np.arange(Sq)[:, None] + q_offset
+    cols = np.arange(Sk)[None, :]
+    keep = (cols <= rows_q) & ((rows_q - cols < window) if window
+                               else True)
+    pairs = int(keep.sum()) * B * H
+    bound = 2.5 * 4 * Dh * pairs / H100_BF16_FLOPS * 1e3
+    row = {"ms": k_ms, "bound_ms": bound, "plain_ms": p_ms}
+    print(f"llm train: flash_attn_bwd {label} (B, Sq, Sk, H, KV, Dh) = "
+          f"{(B, Sq, Sk, H, KV, Dh)} window={window} q_offset="
+          f"{q_offset} scale={'1/sqrt(Dh)' if scale is None else scale}"
+          f" {dname}: dq, dk, dv == ref.flash_bwd_ref within "
+          f"the bar (largest |kernel - plain| / max |plain| "
+          f"{max(worst):.3g}), two launches bit for bit, one counted a "
+          f"call; {k_ms:.4f} ms (CUDA events), bound {bound:.4f} ms "
+          f"({100 * bound / k_ms:.1f}%), plain {p_ms:.3f} ms "
+          f"[{card_line}]")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return row
 
 
 def lm_batches_on(torch, cfg, B, S, steps, seed):
@@ -6640,6 +6658,111 @@ def ssd_train_check(torch, card_line):
             del ins, leaves, f32, gy, gs
             torch.cuda.empty_cache()
     return bwd_ms
+
+
+def zamba2_7b_check(torch, card_line):
+    """The kernels at the shapes of the cell zamba2-7b.lm-2x4096, on the
+    card.  flash_attn_fwd at ZAMBA7_ATTN and ZAMBA7_SCALE, bf16, against
+    `ref.attention_ref` at that scale, entry by entry within the backward's
+    bf16 bar (both round each output once from fp32, so one ulp, 2^-7 of
+    the value, where the two straddle a midpoint; P enters the kernel's
+    products as bf16 hi + lo and its fp32 sums run in another order,
+    2^-12 of the largest), its lse within LSE_BAR; flash_attn_bwd there
+    (`flash_bwd_case`, the same bar); the grouped bf16 ssd_scan at
+    ZAMBA7_SSD against `ref.ssd_chunked_ref` on the same bf16 inputs, y
+    and the final state within BF16_BAR of the plain maximum (the bar of
+    tests/test_kernels.py: the kernel rounds C.B^T, the decays and the
+    chunk states to bf16 before its tensor-core products, about 2^-8 of
+    each, where the plain version stays fp32).  Each kernel's ms (CUDA
+    events) beside its bound.  Then one step of the 12-layer stage at
+    ZAMBA7_BATCH through `make_scan_train_step`, its counters zeroed just
+    before: flash_attn_fwd 2 a hybrid (the forward and the recompute),
+    flash_attn_bwd 1 a hybrid, ssd_scan 2 a Mamba2 mixer (every layer has
+    one), and 1 `ssd_scan_bwd` a mixer.  Returns {kernel: {ms,
+    bound_ms}}."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention, ref, ssm_scan
+    from repro_torch.models import ssm
+    rows = {}
+    bf16 = torch.bfloat16
+    B, S, H, KV, Dh = ZAMBA7_ATTN
+    q, k, v = qkv_inputs(torch, B, S, H, KV, Dh, bf16, 7)
+    kw = dict(causal=True, scale=ZAMBA7_SCALE)
+    got, lse = flash_attention.flash_attn_fwd(q, k, v, lse=True, **kw)
+    want, want_lse = ref.attention_ref(q, k, v, lse=True, **kw)
+    got, want = got.float(), want.float()
+    top = float(want.abs().max())
+    err = (got - want).abs()
+    over = int((err > BWD_BF16_ULP * want.abs() + BWD_BF16_ABS * top).sum())
+    check(over == 0, f"zamba2-7b flash_attn_fwd: {over} entries beyond the "
+                     f"bar, max |kernel - plain| {float(err.max())} of max "
+                     f"|plain| {top}")
+    lse_err = float((lse - want_lse).abs().max())
+    check(lse_err <= LSE_BAR, f"zamba2-7b flash_attn_fwd: lse off by "
+                              f"{lse_err} > {LSE_BAR}")
+    del got, want, lse, want_lse, err
+    ms = cuda_ms(torch, lambda: flash_attention.flash_attn_fwd(q, k, v,
+                                                               **kw),
+                 reps=10, warmup=2)
+    flops, nbytes = attn_cost(torch, B, S, H, KV, Dh, bf16)
+    bound, by = bound_of(flops, nbytes, BF16_FLOPS)
+    rows["flash_attn_fwd"] = {"ms": ms, "bound_ms": bound}
+    print(f"zamba2-7b: flash_attn_fwd (B, S, H, KV, Dh) = {ZAMBA7_ATTN} "
+          f"scale {ZAMBA7_SCALE:.6f} bf16 == ref.attention_ref within the "
+          f"bar, lse within {lse_err:.3g}; {ms:.4f} ms (CUDA events), bound "
+          f"{bound:.4f} ms by {by} ({100 * bound / ms:.1f}%) [{card_line}]")
+    del q, k, v
+    torch.cuda.empty_cache()
+    rows["flash_attn_bwd"] = flash_bwd_case(
+        torch, card_line, "zamba2-7b", (B, S, S, H, KV, Dh, 0, 0),
+        "bfloat16", scale=ZAMBA7_SCALE)
+
+    B, S, H, P, N, G, L = ZAMBA7_SSD
+    x, dt, a, _, _, d = ssd_inputs(torch, B, S, H, P, N, bf16, 8)
+    rng = np.random.default_rng(9)
+    bm, cm = (torch.from_numpy(rng.normal(size=(B, S, G, N)).astype(
+        np.float32)).to(DEV).to(bf16) for _ in range(2))
+    y, st = ssm_scan.ssd_scan(x, dt, a, bm, cm, d, chunk=L)
+    y_ref, st_ref = ref.ssd_chunked_ref(x, dt, a, bm, cm, d, chunk=L)
+    errs = {what: rel_err(g, w) for what, g, w in (("y", y, y_ref),
+                                                   ("state", st, st_ref))}
+    for what, e in errs.items():
+        check(e <= BF16_BAR, f"zamba2-7b ssd_scan {what} off the plain by "
+                             f"{e} of its max > {BF16_BAR}")
+    del y, st, y_ref, st_ref
+    ms = cuda_ms(torch, lambda: ssm_scan.ssd_scan(x, dt, a, bm, cm, d,
+                                                  chunk=L),
+                 reps=10, warmup=2)
+    flops, nbytes = ssd_cost(torch, B, S, H, P, N, L, bf16, groups=G)
+    bound, by = bound_of(flops, nbytes, BF16_FLOPS)
+    rows["ssd_scan"] = {"ms": ms, "bound_ms": bound}
+    print(f"zamba2-7b: ssd_scan (B, S, H, P, N, G, chunk) = {ZAMBA7_SSD} "
+          f"bf16 == ref.ssd_chunked_ref, y and state within "
+          f"{max(errs.values()):.3g} of the plain max (bar {BF16_BAR}); "
+          f"{ms:.4f} ms (CUDA events), bound {bound:.4f} ms by {by} "
+          f"({100 * bound / ms:.1f}%) [{card_line}]")
+    del x, dt, a, bm, cm, d
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"),
+                              num_layers=ZAMBA7_LAYERS, dtype="bfloat16")
+    hybrids = cfg.block_pattern.count("hybrid") * (
+        ZAMBA7_LAYERS // len(cfg.block_pattern))
+    ssm.LAUNCHES["ssd_scan_bwd"] = 0
+    launches, _ = train_run(
+        torch, cfg, *ZAMBA7_BATCH, 1, "zamba2-7b 12-layer stage",
+        card_line, want={"flash_attn_fwd": 2 * hybrids,
+                         "flash_attn_bwd": hybrids,
+                         "ssd_scan": 2 * ZAMBA7_LAYERS},
+        time_steps=False, falling=False)
+    n_bwd = ssm.LAUNCHES["ssd_scan_bwd"]
+    check(n_bwd == ZAMBA7_LAYERS, f"zamba2-7b: {n_bwd} ssd_scan_bwd, not one "
+                                  f"a Mamba2 mixer")
+    print(f"zamba2-7b: one step of the {ZAMBA7_LAYERS}-layer stage launched "
+          f"{_nonzero(launches)} and {n_bwd} ssd_scan_bwd ({hybrids} hybrids,"
+          f" {ZAMBA7_LAYERS} Mamba2 mixers) [{card_line}]")
+    return rows
 
 
 def loss_close(l_gpu, l_cpu, what):
@@ -6959,6 +7082,7 @@ def llm_train_phase(torch, card_line):
         llm_card_vs_cpu(torch, card_line)
         ds_launches, ds_ms = deepseek_train_check(torch, card_line)
         ssd_bwd_ms = ssd_train_check(torch, card_line)
+        zamba7 = zamba2_7b_check(torch, card_line)
         zamba_launches, zamba = zamba_train_check(torch, card_line)
         xlstm = xlstm_train_check(torch, card_line)
         inl_launches, inl = inl_llm_train_run(torch, card_line)
@@ -6968,7 +7092,7 @@ def llm_train_phase(torch, card_line):
     print(f"llm train: the phase {time.perf_counter() - t0:.1f} s "
           f"[{card_line}]")
     times = dict(deepseek_ms=ds_ms, bwd_ms=bwd_ms, ssd_bwd_ms=ssd_bwd_ms,
-                 zamba=zamba, xlstm=xlstm, inl=inl)
+                 zamba=zamba, zamba7=zamba7, xlstm=xlstm, inl=inl)
     flash = {"deepseek-v2-236b fwd+bwd": ds_launches,
              f"zamba2-2.7b {ZAMBA_TRAIN_PERIODS} periods "
              f"{ZAMBA_TRAIN_STEPS} steps": zamba_launches["flash_attn_fwd"],
@@ -7533,6 +7657,10 @@ def main() -> int:
     parser.add_argument("--llm-train", action="store_true",
                         help="build the LLM and cut-layer kernels and run "
                              "only the `llm train` phase")
+    parser.add_argument("--zamba2-7b", action="store_true",
+                        help="build the LLM kernels and run only the "
+                             "checks of the cell zamba2-7b.lm-2x4096's "
+                             "shapes (part of the `llm train` phase)")
     parser.add_argument("--llm-launch", action="store_true",
                         help="build the LLM and cut-layer kernels and run "
                              "only the `llm launch` phase")
@@ -7579,6 +7707,11 @@ def main() -> int:
     if args.llm_train:
         build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)
         llm_train_phase(torch, card)
+        return 0
+    if args.zamba2_7b:
+        build_phase(TENSOR_CORE_KERNELS)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        zamba2_7b_check(torch, card)
         return 0
     if args.llm_launch:
         build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)

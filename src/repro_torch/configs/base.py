@@ -3,7 +3,9 @@
 Reference: src/repro/configs/base.py, copied field for field (the port
 imports nothing of the JAX package).  Every LLM architecture of the
 reference is registered: each registers its full config and a reduced
-smoke config, which the CPU tests instantiate.  The assigned input shapes
+smoke config, which the CPU tests instantiate.  Architectures of the port
+alone (`_PORT_ARCH_MODULES`: Zamba2-7B at its published widths) register
+the same way, with `port_only=True`.  The assigned input shapes
 (`INPUT_SHAPES`), `LONG_CONTEXT_WINDOW` and `arch_for_shape` are the
 reference's, which the launcher and the dry-run read.
 """
@@ -57,6 +59,8 @@ class SSMConfig:
     expand: int = 2
     head_dim: int = 64              # mamba2 SSD head dim
     chunk_size: int = 256           # SSD chunk length
+    ngroups: int = 1                # mamba2 B/C groups; head h reads group
+                                    # h // (heads / ngroups)
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
@@ -105,6 +109,13 @@ class ModelConfig:
     # --- SSM / hybrid ---
     ssm: SSMConfig = field(default_factory=SSMConfig)
     block_pattern: Tuple[str, ...] = ()   # e.g. ('mamba',)*5 + ('mamba+shared_attn',)
+    # Zamba2's published hybrid layer ("hybrid" blocks): the stack holds
+    # num_mem_blocks shared attention blocks, period p's hybrid using block
+    # p % num_mem_blocks, each invocation with its own rank-adapter_rank
+    # adapter on the shared MLP's gate/up product
+    num_mem_blocks: int = 1
+    adapter_rank: int = 0
+    attn_scale: float = 0.0         # softmax scale; 0 = 1/sqrt(head_dim)
     # xlstm: which block types in the repeating pattern ('mlstm' / 'slstm')
     # --- modality ---
     modality: str = "text"          # text | audio_tokens | vlm
@@ -199,20 +210,29 @@ _ARCH_MODULES = [
     "codeqwen1_5_7b", "zamba2_2_7b",
 ]
 
+# architectures of the port alone, which the JAX package does not hold:
+# `get_config` takes them, `list_archs` (the reference's list, which the
+# launcher, the dry-run and the parity tests walk) leaves them out
+_PORT_ARCH_MODULES = ["zamba2_7b"]
+
 _REGISTRY: dict = {}
 _SMOKE_REGISTRY: dict = {}
+_PORT_ONLY: set = set()
 
 
-def register(config: ModelConfig, smoke: ModelConfig) -> ModelConfig:
+def register(config: ModelConfig, smoke: ModelConfig, *,
+             port_only: bool = False) -> ModelConfig:
     _REGISTRY[config.name] = config
     _SMOKE_REGISTRY[config.name] = smoke
+    if port_only:
+        _PORT_ONLY.add(config.name)
     return config
 
 
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    for mod in _ARCH_MODULES:
+    for mod in _ARCH_MODULES + _PORT_ARCH_MODULES:
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 
@@ -231,8 +251,9 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 
 def list_archs() -> list:
+    """The reference's architectures (not those of the port alone)."""
     _ensure_loaded()
-    return sorted(_REGISTRY)
+    return sorted(set(_REGISTRY) - _PORT_ONLY)
 
 
 def arch_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:

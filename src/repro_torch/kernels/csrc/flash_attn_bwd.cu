@@ -13,7 +13,7 @@
 // reading kv head h / (H / KV); lse (B, Sq, H) fp32 in natural-log units
 // of the scaled scores.  With the mask of the forward (j < Sk; with
 // `causal` j <= i + q_offset; with `window` > 0 (i + q_offset) - j <
-// window) and scale = 1 / sqrt(Dh):
+// window) and the forward's scale (1 / sqrt(Dh) but for Zamba2-7B):
 //   P    = exp(scale q k^T - lse)           (0 where masked)
 //   D_i  = sum_d do[i, d] o[i, d]
 //   dS   = P * (do v^T - D)
@@ -58,10 +58,10 @@
 // keys and computes the transposes S^T = k q^T and dP^T = v do^T, so P^T
 // and dS^T are A fragments of P^T do and dS^T q without a trip through
 // shared memory.  Tiles by Dh: launch 1 takes 64 keys a tile (32 at Dh =
-// 192, whose 96 accumulator floats a lane leave less room), launch 2 64 q
-// rows an iteration at Dh <= 80 and 32 above; at Dh = 192 launch 2 runs
-// twice, once for dv and once for dk, each with one accumulator of 96
-// floats a lane.  Rows in shared memory are padded to Dh + 8 elements (an
+// 192, whose 96 accumulator floats a lane leave less room, 16 at Dh = 224,
+// Zamba2-7B's, with 112), launch 2 64 q rows an iteration at Dh <= 80, 32
+// up to 192 and 16 at 224; at Dh > 128 launch 2 runs twice, once for dv
+// and once for dk, each with one accumulator of Dh / 2 floats a lane.  Rows in shared memory are padded to Dh + 8 elements (an
 // odd number of 16-byte units), as in the forward, so `ldmatrix` is free of
 // bank conflicts; tiles arrive by 16-byte `cp.async`, zero-filled past the
 // ragged edge, which the mask then hides: nothing is padded in memory.
@@ -76,7 +76,13 @@
 // t % 16 + 16 j), the same three launches, fp32 FMAs out of shared memory.
 // They serve the fp32 runs on the card (smoke steps, the crash-resume
 // children), whose parity checks need fp32 products; no benchmark cell
-// runs them.  Dispatch is by dtype, never by failure.
+// runs them.  At Dh = 224 four 64-row tiles of 225 floats and the score
+// tile would pass the 227 KB a block may hold, so there launch 1's q tile
+// and launch 2's key tile are 32 rows (RI = 2 rows a thread, not 4).
+// Dispatch is by dtype, never by failure.
+//
+// The scale is an argument: 1/sqrt(Dh) for every model but Zamba2-7B,
+// whose shared attention runs at (Dh / 2)^-1/2.
 #include "cut_common.cuh"
 #include "mma_bf16.cuh"
 
@@ -181,25 +187,27 @@ constexpr int kSStride = kTile + 1;   // the score tile's row stride
 
 __host__ __device__ constexpr int head_stride(int dh) { return dh + 1; }
 
-size_t simt_smem_bytes(int dh) {
-  // four 64-row tiles, the score tile, two 64-float vectors
-  return sizeof(float) * ((size_t)4 * kTile * head_stride(dh) +
-                          (size_t)kTile * kSStride + 2 * kTile);
+size_t simt_smem_bytes(int dh, int rows) {
+  // two tiles of `rows` (launch 1's q and do, launch 2's k and v) and two of
+  // 64 rows, the score tile (rows x 64), two 64-float vectors
+  return sizeof(float) * ((size_t)2 * (rows + kTile) * head_stride(dh) +
+                          (size_t)rows * kSStride + 2 * kTile);
 }
 
 // rows [r0, r0 + nr) of a (B, S, heads, Dh) tensor's head `hd` into a
-// 64-row tile of stride ds, zeros past nr
+// ROWS-row tile of stride ds, zeros past nr
+template <int ROWS>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int b,
                                           int S, int heads, int hd, int r0,
                                           int nr, int Dh, int ds, int tid) {
-  for (int idx = tid; idx < kTile * Dh; idx += kSimtThreads) {
+  for (int idx = tid; idx < ROWS * Dh; idx += kSimtThreads) {
     const int r = idx / Dh, d = idx - r * Dh;
     dst[r * ds + d] =
         r < nr ? src[(((int64_t)b * S + r0 + r) * heads + hd) * Dh + d] : 0.f;
   }
 }
 
-template <int NJ>
+template <int NJ, int RI>
 __global__ void __launch_bounds__(kSimtThreads)
     flash_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -210,11 +218,12 @@ __global__ void __launch_bounds__(kSimtThreads)
                         float* __restrict__ dq, float* __restrict__ delta,
                         int Sq, int Sk, int H, int KV, int Dh, int causal,
                         int window, int q_offset, float scale) {
+  constexpr int TR = 16 * RI;  // q rows of the tile
   extern __shared__ float smem[];
   const int ds = head_stride(Dh);
   float* Qs = smem;
-  float* dOs = Qs + kTile * ds;
-  float* Ks = dOs + kTile * ds;
+  float* dOs = Qs + TR * ds;
+  float* Ks = dOs + TR * ds;
   float* Vs = Ks + kTile * ds;
   float* Ss = Vs + kTile * ds;
 
@@ -223,18 +232,18 @@ __global__ void __launch_bounds__(kSimtThreads)
   const int hk = h / (H / KV);
   const int qt = gridDim.y - 1 - blockIdx.y;
   const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int q0 = qt * kTile;
-  const int nrows = min(kTile, Sq - q0);
+  const int q0 = qt * TR;
+  const int nrows = min(TR, Sq - q0);
 
-  load_rows(Qs, q, b, Sq, H, h, q0, nrows, Dh, ds, tid);
-  load_rows(dOs, dout, b, Sq, H, h, q0, nrows, Dh, ds, tid);
+  load_rows<TR>(Qs, q, b, Sq, H, h, q0, nrows, Dh, ds, tid);
+  load_rows<TR>(dOs, dout, b, Sq, H, h, q0, nrows, Dh, ds, tid);
   __syncthreads();
 
-  // D and lse of this thread's 4 rows (a row's 16 threads are a half-warp)
-  float dl[4], lr[4];
+  // D and lse of this thread's RI rows (a row's 16 threads are a half-warp)
+  float dl[RI], lr[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * rg + i;
+  for (int i = 0; i < RI; ++i) {
+    const int r = RI * rg + i;
     const int64_t row = ((int64_t)b * Sq + q0 + r) * H + h;
     float acc = 0.f;
     if (r < nrows)
@@ -248,9 +257,9 @@ __global__ void __launch_bounds__(kSimtThreads)
     if (cg == 0 && r < nrows) delta[row] = acc;
   }
 
-  float acc[4][NJ];
+  float acc[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
@@ -260,21 +269,21 @@ __global__ void __launch_bounds__(kSimtThreads)
     const int k0 = kt * kTile;
     const int nk = min(kTile, Sk - k0);
     __syncthreads();  // the previous tile's readers are done
-    load_rows(Ks, k, b, Sk, KV, hk, k0, nk, Dh, ds, tid);
-    load_rows(Vs, v, b, Sk, KV, hk, k0, nk, Dh, ds, tid);
+    load_rows<kTile>(Ks, k, b, Sk, KV, hk, k0, nk, Dh, ds, tid);
+    load_rows<kTile>(Vs, v, b, Sk, KV, hk, k0, nk, Dh, ds, tid);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][4], dp[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int d = 0; d < Dh; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      float qv[RI], ov[RI], kv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(4 * rg + i) * ds + d];
-        ov[i] = dOs[(4 * rg + i) * ds + d];
+      for (int i = 0; i < RI; ++i) {
+        qv[i] = Qs[(RI * rg + i) * ds + d];
+        ov[i] = dOs[(RI * rg + i) * ds + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -282,7 +291,7 @@ __global__ void __launch_bounds__(kSimtThreads)
         vv[j] = Vs[(cg + 16 * j) * ds + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
@@ -290,37 +299,37 @@ __global__ void __launch_bounds__(kSimtThreads)
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * rg + i + q_offset;
+    for (int i = 0; i < RI; ++i) {
+      const int qp = q0 + RI * rg + i + q_offset;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool keep = 4 * rg + i < nrows &&
+        const bool keep = RI * rg + i < nrows &&
                           kept(qp, k0 + cg + 16 * j, Sk, causal, window);
         const float p = keep ? expf(s[i][j] * scale - lr[i]) : 0.f;
-        Ss[(4 * rg + i) * kSStride + cg + 16 * j] = p * (dp[i][j] - dl[i]);
+        Ss[(RI * rg + i) * kSStride + cg + 16 * j] = p * (dp[i][j] - dl[i]);
       }
     }
     __syncthreads();
 
     for (int c = 0; c < nk; ++c) {
-      float dsv[4];
+      float dsv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ss[(4 * rg + i) * kSStride + c];
+      for (int i = 0; i < RI; ++i) dsv[i] = Ss[(RI * rg + i) * kSStride + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int d = cg + 16 * j;
         if (d < Dh) {
           const float kx = Ks[c * ds + d];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kx, acc[i][j]);
+          for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(dsv[i], kx, acc[i][j]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * rg + i;
+  for (int i = 0; i < RI; ++i) {
+    const int r = RI * rg + i;
     if (r >= nrows) continue;
     float* out = dq + (((int64_t)b * Sq + q0 + r) * H + h) * Dh;
 #pragma unroll
@@ -331,7 +340,7 @@ __global__ void __launch_bounds__(kSimtThreads)
   }
 }
 
-template <int NJ>
+template <int NJ, int RI>
 __global__ void __launch_bounds__(kSimtThreads)
     flash_bwd_dkdv_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -343,14 +352,15 @@ __global__ void __launch_bounds__(kSimtThreads)
                           float* __restrict__ dv_part, int B, int Sq, int Sk,
                           int H, int KV, int Dh, int causal, int window,
                           int q_offset, int splits, float scale) {
+  constexpr int TR = 16 * RI;  // keys of the tile
   extern __shared__ float smem[];
   const int ds = head_stride(Dh);
   float* Ks = smem;
-  float* Vs = Ks + kTile * ds;
-  float* Qs = Vs + kTile * ds;
+  float* Vs = Ks + TR * ds;
+  float* Qs = Vs + TR * ds;
   float* dOs = Qs + kTile * ds;
   float* Ps = dOs + kTile * ds;
-  float* Ls = Ps + kTile * kSStride;
+  float* Ls = Ps + TR * kSStride;
   float* Dl = Ls + kTile;
 
   const int split = blockIdx.x % splits, bk = blockIdx.x / splits;
@@ -358,28 +368,28 @@ __global__ void __launch_bounds__(kSimtThreads)
   const int gs = H / KV / splits, h0 = hk * (H / KV) + split * gs;
   const int kt = blockIdx.y;
   const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int k0 = kt * kTile;
-  const int nk = min(kTile, Sk - k0);
+  const int k0 = kt * TR;
+  const int nk = min(TR, Sk - k0);
 
-  load_rows(Ks, k, b, Sk, KV, hk, k0, nk, Dh, ds, tid);
-  load_rows(Vs, v, b, Sk, KV, hk, k0, nk, Dh, ds, tid);
+  load_rows<TR>(Ks, k, b, Sk, KV, hk, k0, nk, Dh, ds, tid);
+  load_rows<TR>(Vs, v, b, Sk, KV, hk, k0, nk, Dh, ds, tid);
 
-  float dka[4][NJ], dva[4][NJ];
+  float dka[RI][NJ], dva[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
 
   int t_lo, t_hi;
-  q_tiles(k0, kTile, Sq, Sk, causal, window, q_offset, kTile, &t_lo, &t_hi);
+  q_tiles(k0, TR, Sq, Sk, causal, window, q_offset, kTile, &t_lo, &t_hi);
   const int n_qt = t_hi - t_lo;
   for (int it = 0; it < gs * n_qt; ++it) {
     const int hh = it / n_qt, h = h0 + hh;
     const int r0 = (t_lo + it - hh * n_qt) * kTile;
     const int nr = min(kTile, Sq - r0);
     __syncthreads();  // the previous tile's readers are done
-    load_rows(Qs, q, b, Sq, H, h, r0, nr, Dh, ds, tid);
-    load_rows(dOs, dout, b, Sq, H, h, r0, nr, Dh, ds, tid);
+    load_rows<kTile>(Qs, q, b, Sq, H, h, r0, nr, Dh, ds, tid);
+    load_rows<kTile>(dOs, dout, b, Sq, H, h, r0, nr, Dh, ds, tid);
     if (tid < 2 * kTile) {
       const int r = tid & (kTile - 1);
       const int64_t row = ((int64_t)b * Sq + r0 + r) * H + h;
@@ -388,17 +398,17 @@ __global__ void __launch_bounds__(kSimtThreads)
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][4], dp[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int d = 0; d < Dh; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
+      float kv[RI], vv[RI], qv[4], ov[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(4 * rg + i) * ds + d];
-        vv[i] = Vs[(4 * rg + i) * ds + d];
+      for (int i = 0; i < RI; ++i) {
+        kv[i] = Ks[(RI * rg + i) * ds + d];
+        vv[i] = Vs[(RI * rg + i) * ds + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -406,7 +416,7 @@ __global__ void __launch_bounds__(kSimtThreads)
         ov[j] = dOs[(cg + 16 * j) * ds + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
@@ -415,58 +425,58 @@ __global__ void __launch_bounds__(kSimtThreads)
     }
     // s[i][j] = S^T: key 4 rg + i, q row cg + 16 j
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = cg + 16 * j;
-        const bool keep = r < nr && kept(r0 + r + q_offset, k0 + 4 * rg + i,
+        const bool keep = r < nr && kept(r0 + r + q_offset, k0 + RI * rg + i,
                                          Sk, causal, window);
         s[i][j] = keep ? expf(s[i][j] * scale - Ls[r]) : 0.f;
-        Ps[(4 * rg + i) * kSStride + r] = s[i][j];
+        Ps[(RI * rg + i) * kSStride + r] = s[i][j];
       }
     __syncthreads();
     for (int c = 0; c < nr; ++c) {
-      float pv[4];
+      float pv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * rg + i) * kSStride + c];
+      for (int i = 0; i < RI; ++i) pv[i] = Ps[(RI * rg + i) * kSStride + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int d = cg + 16 * j;
         if (d < Dh) {
           const float ox = dOs[c * ds + d];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dva[i][j] = fmaf(pv[i], ox, dva[i][j]);
+          for (int i = 0; i < RI; ++i) dva[i][j] = fmaf(pv[i], ox, dva[i][j]);
         }
       }
     }
     __syncthreads();  // P's readers are done: the tile takes dS
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = cg + 16 * j;
-        Ps[(4 * rg + i) * kSStride + r] = s[i][j] * (dp[i][j] - Dl[r]);
+        Ps[(RI * rg + i) * kSStride + r] = s[i][j] * (dp[i][j] - Dl[r]);
       }
     __syncthreads();
     for (int c = 0; c < nr; ++c) {
-      float dsv[4];
+      float dsv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ps[(4 * rg + i) * kSStride + c];
+      for (int i = 0; i < RI; ++i) dsv[i] = Ps[(RI * rg + i) * kSStride + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int d = cg + 16 * j;
         if (d < Dh) {
           const float qx = Qs[c * ds + d];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dka[i][j] = fmaf(dsv[i], qx, dka[i][j]);
+          for (int i = 0; i < RI; ++i) dka[i][j] = fmaf(dsv[i], qx, dka[i][j]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * rg + i;
+  for (int i = 0; i < RI; ++i) {
+    const int r = RI * rg + i;
     if (r >= nk) continue;
     const int64_t off =
         ((((int64_t)split * B + b) * Sk + k0 + r) * KV + hk) * Dh;
@@ -481,28 +491,29 @@ __global__ void __launch_bounds__(kSimtThreads)
   }
 }
 
-template <int NJ>
+template <int NJ, int RI>
 int launch_simt(const void* q, const void* k, const void* v, const void* o,
                 const float* lse, const void* dout, void* dq, void* dk,
                 void* dv, float* delta, float* dk_part, float* dv_part, int B,
                 int Sq, int Sk, int H, int KV, int Dh, int causal, int window,
                 int q_offset, int splits, float scale, cudaStream_t stream) {
-  const size_t smem = simt_smem_bytes(Dh);
-  auto dq_kern = flash_bwd_dq_kernel<NJ>;
-  auto kv_kern = flash_bwd_dkdv_kernel<NJ>;
+  constexpr int TR = 16 * RI;  // launch 1's q rows, launch 2's keys a block
+  const size_t smem = simt_smem_bytes(Dh, TR);
+  auto dq_kern = flash_bwd_dq_kernel<NJ, RI>;
+  auto kv_kern = flash_bwd_dkdv_kernel<NJ, RI>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dq_kern<<<dim3(B * H, (Sq + kTile - 1) / kTile), kSimtThreads, smem,
+  dq_kern<<<dim3(B * H, (Sq + TR - 1) / TR), kSimtThreads, smem,
             stream>>>((const float*)q, (const float*)k, (const float*)v,
                       (const float*)o, lse, (const float*)dout, (float*)dq,
                       delta, Sq, Sk, H, KV, Dh, causal, window, q_offset,
                       scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  kv_kern<<<dim3(B * KV * splits, (Sk + kTile - 1) / kTile), kSimtThreads,
+  kv_kern<<<dim3(B * KV * splits, (Sk + TR - 1) / TR), kSimtThreads,
             smem, stream>>>((const float*)q, (const float*)k,
                             (const float*)v, lse, delta, (const float*)dout,
                             dk_part, dv_part, B, Sq, Sk, H, KV, Dh, causal,
@@ -518,12 +529,14 @@ int launch_simt(const void* q, const void* k, const void* v, const void* o,
 
 constexpr int kMmaThreads = 128;   // 4 warps of 16 rows (launch 1) or keys
 
-// launch 1's key tile and launch 2's q rows an iteration, by head dim
+// launch 1's key tile and launch 2's q rows an iteration, by head dim:
+// at Dh = 224 (112 accumulator floats a lane) 16, so that S and dP (or S^T
+// and dP^T) take 16 floats a lane and the lane stays within its registers
 __host__ __device__ constexpr int dq_keys(int dh) {
-  return dh > 128 ? 32 : 64;
+  return dh > 192 ? 16 : (dh > 128 ? 32 : 64);
 }
 __host__ __device__ constexpr int dkdv_rows(int dh) {
-  return dh <= 80 ? 64 : 32;
+  return dh <= 80 ? 64 : (dh <= 192 ? 32 : 16);
 }
 
 __host__ __device__ constexpr size_t dq_smem_bytes(int dh) {
@@ -956,7 +969,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
 // (is_bf16), bf16 pointers 16-byte aligned; lse (B, Sq, H) fp32; scratch
 // the caller allocates: delta (B, Sq, H) fp32 and the partials dk_part,
 // dv_part (splits, B, Sk, KV, Dh) fp32, 16-byte aligned.  splits divides
-// H / KV.  Dh in {32, 64, 80, 128, 192}.  Returns the CUDA error of the
+// H / KV.  Dh in {32, 64, 80, 128, 192, 224}.  Returns the CUDA error of the
 // launches (0 on success); the caller raises if it is not 0.
 extern "C" int flash_attn_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
@@ -983,17 +996,19 @@ extern "C" int flash_attn_bwd_launch(
       case 80: return launch_mma<80>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, causal, window, q_offset, splits, scale, s);
       case 128: return launch_mma<128>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, causal, window, q_offset, splits, scale, s);
       case 192: return launch_mma<192>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, causal, window, q_offset, splits, scale, s);
+      case 224: return launch_mma<224>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, causal, window, q_offset, splits, scale, s);
     }
     return (int)cudaErrorInvalidValue;
   }
   if (((uintptr_t)dk | (uintptr_t)dv) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   switch (Dh) {
-    case 32: return launch_simt<2>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
-    case 64: return launch_simt<4>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
-    case 80: return launch_simt<5>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
-    case 128: return launch_simt<8>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
-    case 192: return launch_simt<12>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
+    case 32: return launch_simt<2, 4>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
+    case 64: return launch_simt<4, 4>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
+    case 80: return launch_simt<5, 4>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
+    case 128: return launch_simt<8, 4>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
+    case 192: return launch_simt<12, 4>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
+    case 224: return launch_simt<14, 2>(q, k, v, o, L, dout, dq, dk, dv, D, pk, pv, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, splits, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -52,6 +52,11 @@
 // Dh = 192 is DeepSeek-V2's MLA prefill (qk 128 + 64 rope, v padded from
 // 128 by the caller, so a third of its P.V multiplies zeros): 24 n-tiles,
 // 96 floats of o a lane, 128,000 bytes of shared memory, one block an SM.
+// Dh = 224 is Zamba2-7B's shared attention: 28 n-tiles, 112 floats of o a
+// lane, so its kv tiles are 32 rows (`fwd_keys`), which halves S (16
+// floats a lane) to keep a lane within its 255 registers; 89,088 bytes of
+// shared memory.  Every other Dh takes tiles of 64.  The scale is an
+// argument: 1/sqrt(Dh) for every model but Zamba2-7B, (Dh/2)^-1/2 there.
 // Numerics: in bf16 a score's products are exact in fp32, so rounding P is
 // the error a tensor-core P.V adds to the plain fp32 version: with P in
 // one bf16, |dp| <= 2^-9 p, so |do| <= 2^-9 sum_j p_j |v_j| / l <=
@@ -273,9 +278,14 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// kv rows a tile of the bf16 kernel
+__host__ __device__ constexpr int fwd_keys(int dh) {
+  return dh > 192 ? 32 : kBK;
+}
+
 __host__ __device__ constexpr size_t mma_smem_bytes(int dh) {
   // the q tile and two buffers each of the k and v tiles
-  return sizeof(bf16) * (size_t)(kBQ + 4 * kBK) * tc::padded(dh);
+  return sizeof(bf16) * (size_t)(kBQ + 4 * fwd_keys(dh)) * tc::padded(dh);
 }
 
 // Dh <= 80 fits 3 blocks (12 warps) an SM in registers (<= 168 a lane);
@@ -294,10 +304,12 @@ __global__ void __launch_bounds__(kMmaThreads,
   constexpr int KS = DH / 16;         // k-steps of q k^T
   constexpr int NT = DH / 8;          // n-tiles of o
   constexpr int CH = DH / 8;          // 16-byte units of a row
+  constexpr int BK = fwd_keys(DH);    // kv rows a tile
+  constexpr int SN = BK / 8;          // n-tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + kBQ * DS;           // two buffers
-  bf16* Vs = Ks + 2 * kBK * DS;       // two buffers
+  bf16* Vs = Ks + 2 * BK * DS;        // two buffers
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
@@ -319,10 +331,10 @@ __global__ void __launch_bounds__(kMmaThreads,
                    ok);
   }
   auto load_kv = [&](int kt, int buf) {
-    const int k0 = kt * kBK;
-    bf16* kd = Ks + buf * kBK * DS;
-    bf16* vd = Vs + buf * kBK * DS;
-    for (int idx = tid; idx < kBK * CH; idx += kMmaThreads) {
+    const int k0 = kt * BK;
+    bf16* kd = Ks + buf * BK * DS;
+    bf16* vd = Vs + buf * BK * DS;
+    for (int idx = tid; idx < BK * CH; idx += kMmaThreads) {
       const int r = idx / CH, c = idx - r * CH;
       const bool ok = k0 + r < Sk;
       const int64_t off = (ok ? k0 + r : 0) * kv_row + c * 8;
@@ -336,7 +348,7 @@ __global__ void __launch_bounds__(kMmaThreads,
   if (causal) k_hi = min(Sk, q0 + nrows + q_offset);
   int k_lo = 0;
   if (window) k_lo = max(0, q0 + q_offset - window + 1);
-  const int t_lo = k_lo / kBK, t_hi = (k_hi + kBK - 1) / kBK;
+  const int t_lo = k_lo / BK, t_hi = (k_hi + BK - 1) / BK;
   if (t_lo < t_hi) load_kv(t_lo, 0);
   tc::cp_async_commit();
 
@@ -359,12 +371,12 @@ __global__ void __launch_bounds__(kMmaThreads,
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kb = Ks + buf * kBK * DS;
-    const bf16* Vb = Vs + buf * kBK * DS;
+    const bf16* Kb = Ks + buf * BK * DS;
+    const bf16* Vb = Vs + buf * BK * DS;
 
-    float s[8][4];
+    float s[SN][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < SN; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
@@ -372,7 +384,7 @@ __global__ void __launch_bounds__(kMmaThreads,
       uint32_t qf[4];  // the resident q tile's A fragment
       tc::load_a(qf, Qs, DS, warp * 16, ks * 16, lane);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < SN / 2; ++np) {
         uint32_t kb[4];
         tc::load_b_nk(kb, Kb, DS, np * 16, ks * 16, lane);
         tc::mma(s[2 * np], qf, kb[0], kb[1]);
@@ -381,12 +393,12 @@ __global__ void __launch_bounds__(kMmaThreads,
     }
 
     // scores in log2 units; the mask only on a tile that crosses an edge
-    const int k0 = kt * kBK;
-    const bool edge = k0 + kBK > Sk ||
-                      (causal && k0 + kBK - 1 > q0 + q_offset) ||
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > Sk ||
+                      (causal && k0 + BK - 1 > q0 + q_offset) ||
                       (window && q0 + kBQ - 1 + q_offset - k0 >= window);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < SN; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * scale_log2;
@@ -402,7 +414,7 @@ __global__ void __launch_bounds__(kMmaThreads,
     }
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < SN; ++j) {
       mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
       mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
     }
@@ -421,7 +433,7 @@ __global__ void __launch_bounds__(kMmaThreads,
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < SN; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(s[j][e] - m[e >> 1]);
@@ -433,7 +445,7 @@ __global__ void __launch_bounds__(kMmaThreads,
     // o += (P_hi + P_lo) v, P_hi = bf16(p), P_lo = bf16(p - P_hi): the
     // accumulators of n-tiles 2kk, 2kk+1 are the A fragment of k-step kk
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < SN / 2; ++kk) {
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {  // q: n-tile 2kk + q / 2, rows q % 2
@@ -495,8 +507,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 // Only the head dims the port supports are instantiated (Dh 32, 64, 80,
-// 128 and 192; fp32: NJ 2, 4, 5, 8 and 12); the wrapper raises on any
-// other.
+// 128, 192 and 224; fp32: NJ 2, 4, 5, 8, 12 and 14); the wrapper raises on
+// any other.
 int dispatch_f32(int Dh, const void* q, const void* k, const void* v,
                  void* o, float* lse, int B, int Sq, int Sk, int H, int KV,
                  int causal, int window, int q_offset, float scale,
@@ -507,6 +519,7 @@ int dispatch_f32(int Dh, const void* q, const void* k, const void* v,
     case 80: return launch<float, 5>(q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
     case 128: return launch<float, 8>(q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
     case 192: return launch<float, 12>(q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
+    case 224: return launch<float, 14>(q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, causal, window, q_offset, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -521,6 +534,7 @@ int dispatch_bf16(int Dh, const void* q, const void* k, const void* v,
     case 80: return launch_mma<80>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
     case 128: return launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
     case 192: return launch_mma<192>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 224: return launch_mma<224>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -530,7 +544,7 @@ int dispatch_bf16(int Dh, const void* q, const void* k, const void* v,
 // Plain C entry point, loaded with ctypes.  q, k, v, o contiguous in the
 // (B, S, heads, Dh) layout; is_bf16 selects their type (fp32 otherwise);
 // bf16 pointers 16-byte aligned.  lse: null, or fp32 (B, Sq, H), each
-// row's logsumexp.  Dh in {32, 64, 80, 128, 192}.  Returns
+// row's logsumexp.  Dh in {32, 64, 80, 128, 192, 224}.  Returns
 // the CUDA error of the launch (0 on success); the caller raises if it is
 // not 0.
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,

@@ -5,8 +5,9 @@
 //   `_ssd_chunked` in src/repro/models/ssm.py, which also returns the final
 //   state.
 //
-// Computes, for each (b, h), with ngroups = 1 (B and C shared by the heads),
-// over chunks of L rows, cum = the in-chunk cumsum of dt * a:
+// Computes, for each (b, h), with B and C in G groups (B, S, G, N), head h
+// reading group h / (H / G) (G = 1: B and C shared by the heads), over
+// chunks of L rows, cum = the in-chunk cumsum of dt * a:
 //   y_i   = sum_{j <= i in the chunk} (C_i . B_j) e^{cum_i - cum_j} dt_j x_j
 //         + e^{cum_i} C_i . state  +  D x_i
 //   state <- e^{cum_last} state + sum_j B_j (e^{cum_last - cum_j} dt_j) x_j^T
@@ -23,11 +24,11 @@
 // bf16: the SSD decomposition, chunk-parallel, on warp-level tensor cores
 // (mma.sync.m16n8k16.f32.bf16.bf16.f32, mma_bf16.cuh), as four launches of
 // one call on the caller's stream, with scratch the wrapper allocates:
-//   (a) ssd_cb_kernel     C.B^T once per (b, chunk), over the N
+//   (a) ssd_cb_kernel     C.B^T once per (b, chunk, group), over the N
 //                         contraction, for the 64 x 64 tiles on or below
-//                         the diagonal, into fp32 scratch (B * nc, tiles,
-//                         64, 64).  ngroups = 1 shares it across the heads,
-//                         so it is formed once, not once per head.
+//                         the diagonal, into fp32 scratch (B * nc * G,
+//                         tiles, 64, 64).  A group's heads share it, so it
+//                         is formed once a group, not once per head.
 //   (b) ssd_state_kernel  per (b, chunk, h) the in-chunk cumsum of dt * a,
 //                         once, in one fixed order (warp 0 scans 32-row
 //                         pieces with shuffles and carries the sum),
@@ -45,7 +46,9 @@
 //   (d) ssd_out_kernel    per (b, chunk, 64-row tile, pair of heads), 8
 //                         warps, 4 per head: y = (CB o decay o dt) x +
 //                         e^{cum} C S_in + D x.  Each C.B^T tile is read
-//                         once for both heads; the accumulators and C's A
+//                         once for both heads (of one group: with G > 1
+//                         a group holds an even number of heads); the
+//                         accumulators and C's A
 //                         fragments stay in registers.  The decay-weighted
 //                         G is formed in registers as the A fragment of
 //                         G x: on the diagonal tile e^{cum_i - cum_j} only
@@ -117,7 +120,7 @@ __global__ void __launch_bounds__(kThreads)
                     const T* __restrict__ bm, const T* __restrict__ cm,
                     const float* __restrict__ dskip, T* __restrict__ y,
                     float* __restrict__ state_out, int S, int H, int P, int N,
-                    int L) {
+                    int ngroups, int L) {
   extern __shared__ float smem[];
   float* St = smem;            // state (N, P)
   float* Ci = St + kTile;      // C rows of the row tile (ni, N)
@@ -133,8 +136,10 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t xrow = (int64_t)H * P;       // x and y row stride
   const T* xb = x + (int64_t)b * S * xrow + (int64_t)h * P;
   T* yb = y + (int64_t)b * S * xrow + (int64_t)h * P;
-  const T* bb = bm + (int64_t)b * S * N;
-  const T* cb = cm + (int64_t)b * S * N;
+  const int64_t bcrow = (int64_t)ngroups * N;  // B and C row stride
+  const int64_t grp = h / (H / ngroups);
+  const T* bb = bm + (int64_t)b * S * bcrow + grp * N;
+  const T* cb = cm + (int64_t)b * S * bcrow + grp * N;
   const float* dtb = dt + (int64_t)b * S * H + h;
 
   for (int idx = tid; idx < kTile; idx += kThreads) St[idx] = 0.f;
@@ -172,7 +177,7 @@ __global__ void __launch_bounds__(kThreads)
       const int i0 = it * kT, ni = min(kT, L - i0);
       const bool last = it == nT - 1;
       __syncthreads();
-      load_tile(Ci, cb + (int64_t)(c0 + i0) * N, N, ni, N);
+      load_tile(Ci, cb + (int64_t)(c0 + i0) * bcrow, bcrow, ni, N);
       __syncthreads();
 
       // inter-chunk term: e^{cum_i} C_i . state
@@ -204,7 +209,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int jt = 0; jt <= it; ++jt) {
         const int j0 = jt * kT, nj = min(kT, L - j0);
         __syncthreads();  // the previous kv tile's readers are done
-        load_tile(Bj, bb + (int64_t)(c0 + j0) * N, N, nj, N);
+        load_tile(Bj, bb + (int64_t)(c0 + j0) * bcrow, bcrow, nj, N);
         load_tile(Xj, xb + (int64_t)(c0 + j0) * xrow, xrow, nj, P);
         __syncthreads();
         float g[4][4];
@@ -303,7 +308,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch(const void* x, const void* dt, const void* a, const void* bm,
            const void* cm, const void* dskip, void* y, void* state, int B,
-           int S, int H, int P, int N, int L, cudaStream_t stream) {
+           int S, int H, int P, int N, int G, int L, cudaStream_t stream) {
   auto kern = ssd_scan_kernel<T>;
   const size_t smem = smem_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(
@@ -312,7 +317,7 @@ int launch(const void* x, const void* dt, const void* a, const void* bm,
   kern<<<B * H, kThreads, smem, stream>>>(
       (const T*)x, (const float*)dt, (const float*)a, (const T*)bm,
       (const T*)cm, (const float*)dskip, (T*)y, (float*)state, S, H, P, N,
-      L);
+      G, L);
   return (int)cudaGetLastError();
 }
 
@@ -343,7 +348,8 @@ size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
 // the scratch of one call, carved in this order; Lp = L rounded up to 64
 struct Workspace {
-  float* cb;      // (B * nc, pairs, 64, 64) C.B^T tiles on/below the diagonal
+  float* cb;      // (B * nc * G, pairs, 64, 64) C.B^T tiles on/below the
+                  // diagonal
   float* sc;      // (B, nc, H, N, P) each chunk's own state
   bf16* sin;      // (B, nc, H, N, P) the state entering each chunk
   float* cum;     // (B, nc, H, Lp) the in-chunk cumsum of dt * a
@@ -351,11 +357,12 @@ struct Workspace {
   float* fac;     // (B, nc, H, Lp) e^{cum_r - cum_j} dt_j, r = j's tile end
 };
 
-size_t workspace_bytes(int B, int S, int H, int P, int N, int L,
+size_t workspace_bytes(int B, int S, int H, int P, int N, int G, int L,
                        Workspace* ws, char* base) {
   const int64_t bnc = (int64_t)B * (S / L);
   const int T = ceil_div(L, kT);
-  const size_t cb = align256(sizeof(float) * bnc * n_pairs(T) * kT * kT);
+  const size_t cb =
+      align256(sizeof(float) * bnc * G * n_pairs(T) * kT * kT);
   const size_t sc = align256(sizeof(float) * bnc * H * N * P);
   const size_t sin = align256(sizeof(bf16) * bnc * H * N * P);
   const size_t cum = align256(sizeof(float) * bnc * H * T * kT);
@@ -441,22 +448,24 @@ __device__ __forceinline__ int tri_row(int pr) {
   return it;
 }
 
-// (a) C.B^T: one block per (tile pair it >= jt, b * nc + c)
+// (a) C.B^T: one block per (tile pair it >= jt, (b * nc + c) * G + group)
 __global__ void __launch_bounds__(kMmaThreads)
     ssd_cb_kernel(const bf16* __restrict__ bm, const bf16* __restrict__ cm,
-                  float* __restrict__ cb, int S, int N, int L) {
+                  float* __restrict__ cb, int S, int N, int G, int L) {
   __shared__ __align__(16) bf16 Cs[kTileB];
   __shared__ __align__(16) bf16 Bs[kTileB];
   const int T = ceil_div(L, kT), nc = S / L;
   const int64_t pairs = n_pairs(T);
-  const int pr = blockIdx.x % pairs, bc = blockIdx.x / pairs;
+  const int pr = blockIdx.x % pairs, bcg = blockIdx.x / pairs;
+  const int bc = bcg / G, grp = bcg - bc * G;
   const int b = bc / nc, c = bc - b * nc;
   const int it = tri_row(pr), jt = pr - it * (it + 1) / 2;
   const int i0 = it * kT, j0 = jt * kT;
   const int Np = round16(N);
+  const int64_t ld = (int64_t)G * N;
   const int64_t row0 = (int64_t)b * S + (int64_t)c * L;
-  copy_tile(Cs, cm + (row0 + i0) * N, N, min(kT, L - i0), N, Np);
-  copy_tile(Bs, bm + (row0 + j0) * N, N, min(kT, L - j0), N, Np);
+  copy_tile(Cs, cm + (row0 + i0) * ld + grp * N, ld, min(kT, L - i0), N, Np);
+  copy_tile(Bs, bm + (row0 + j0) * ld + grp * N, ld, min(kT, L - j0), N, Np);
   tc::cp_async_commit();
   tc::cp_async_wait<0>();
   __syncthreads();
@@ -477,7 +486,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       tc::mma(acc[2 * np + 1], af, bf[2], bf[3]);
     }
   }
-  float* out = cb + ((int64_t)bc * pairs + pr) * kT * kT;
+  float* out = cb + ((int64_t)bcg * pairs + pr) * kT * kT;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -503,7 +512,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                      const float* __restrict__ a, const bf16* __restrict__ bm,
                      float* __restrict__ sc, float* __restrict__ cum_out,
                      float* __restrict__ dt_out, float* __restrict__ fac_out,
-                     int S, int H, int P, int N, int L) {
+                     int S, int H, int P, int N, int G, int L) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int T = ceil_div(L, kT), Lp = T * kT;
   bf16* Bs = reinterpret_cast<bf16*>(smem_raw);   // two buffers
@@ -515,10 +524,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int b = bc / nc, c = bc - b * nc;
   const int64_t row0 = (int64_t)b * S + (int64_t)c * L;
   const int64_t xld = (int64_t)H * P;
+  const int64_t bld = (int64_t)G * N, grp = h / (H / G);
   const int Np = round16(N), Pp = round16(P);
   auto fetch = [&](int jt) {
     const int j0 = jt * kT, nj = min(kT, L - j0), buf = jt & 1;
-    copy_tile(Bs + buf * kTileB, bm + (row0 + j0) * N, N, nj, N, Np);
+    copy_tile(Bs + buf * kTileB, bm + (row0 + j0) * bld + grp * N, bld, nj,
+              N, Np);
     copy_tile(Xs + buf * kTileB, x + (row0 + j0) * xld + (int64_t)h * P,
               xld, nj, P, Pp);
   };
@@ -681,7 +692,7 @@ __global__ void __launch_bounds__(kOutThreads, 2)
                    const float* __restrict__ cumg,
                    const float* __restrict__ dtg,
                    const float* __restrict__ facg, bf16* __restrict__ y,
-                   int S, int H, int P, int N, int L) {
+                   int S, int H, int P, int N, int G, int L) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int T = ceil_div(L, kT), nc = S / L, Lp = T * kT;
   const int ng = ceil_div(H, 2);
@@ -704,7 +715,10 @@ __global__ void __launch_bounds__(kOutThreads, 2)
   const int64_t row0 = (int64_t)b * S + (int64_t)c * L;
   const int Np = round16(N), Pp = round16(P);
   const int64_t xld = (int64_t)H * P;
-  const float* cbrow = cb + ((int64_t)bc * n_pairs(T) + n_pairs(it)) * kT * kT;
+  // the pair's group (with G > 1 a group holds an even number of heads)
+  const int64_t cld = (int64_t)G * N, grp = 2 * hg / (H / G);
+  const float* cbrow =
+      cb + (((int64_t)bc * G + grp) * n_pairs(T) + n_pairs(it)) * kT * kT;
   const int nh = min(2, H - 2 * hg);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int hs = warp >> 2, g = lane >> 2, t = lane & 3;
@@ -732,7 +746,7 @@ __global__ void __launch_bounds__(kOutThreads, 2)
   // C (staged in the second C.B^T buffer), the incoming states and row
   // cum; then kv tile 0 behind them
   bf16* Cst = reinterpret_cast<bf16*>(CBs + kTileC);
-  copy_tile(Cst, cm + (row0 + i0) * N, N, ni, N, Np);
+  copy_tile(Cst, cm + (row0 + i0) * cld + grp * N, cld, ni, N, Np);
   for (int u = 0; u < nh; ++u) {
     copy_tile(Ss + u * kTileB, sin + ((int64_t)bc * H + 2 * hg + u) * N * P,
               P, N, P, Pp);
@@ -877,16 +891,16 @@ __global__ void __launch_bounds__(kOutThreads, 2)
 
 int launch_mma(const void* x, const void* dt, const void* a, const void* bm,
                const void* cm, const void* dskip, void* y, void* state,
-               int B, int S, int H, int P, int N, int L, void* workspace,
-               cudaStream_t stream) {
+               int B, int S, int H, int P, int N, int G, int L,
+               void* workspace, cudaStream_t stream) {
   Workspace ws;
-  workspace_bytes(B, S, H, P, N, L, &ws, static_cast<char*>(workspace));
+  workspace_bytes(B, S, H, P, N, G, L, &ws, static_cast<char*>(workspace));
   const int T = ceil_div(L, kT), nc = S / L;
   const int64_t bnc = (int64_t)B * nc;
   const bf16 *xb = (const bf16*)x, *bb = (const bf16*)bm, *cb = (const bf16*)cm;
 
-  ssd_cb_kernel<<<(unsigned)(n_pairs(T) * bnc), kMmaThreads, 0, stream>>>(
-      bb, cb, ws.cb, S, N, L);
+  ssd_cb_kernel<<<(unsigned)(n_pairs(T) * bnc * G), kMmaThreads, 0,
+                  stream>>>(bb, cb, ws.cb, S, N, G, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -897,7 +911,7 @@ int launch_mma(const void* x, const void* dt, const void* a, const void* bm,
   if (err != cudaSuccess) return (int)err;
   ssd_state_kernel<<<(unsigned)(bnc * H), kMmaThreads, smem, stream>>>(
       xb, (const float*)dt, (const float*)a, bb, ws.sc, ws.cum, ws.dtc,
-      ws.fac, S, H, P, N, L);
+      ws.fac, S, H, P, N, G, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -916,7 +930,7 @@ int launch_mma(const void* x, const void* dt, const void* a, const void* bm,
   ssd_out_kernel<<<(unsigned)(bnc * T * ceil_div(H, 2)), kOutThreads, smem,
                    stream>>>(
       xb, cb, (const float*)dskip, ws.cb, ws.sin, ws.cum, ws.dtc, ws.fac,
-      (bf16*)y, S, H, P, N, L);
+      (bf16*)y, S, H, P, N, G, L);
   return (int)cudaGetLastError();
 }
 
@@ -925,13 +939,15 @@ int launch_mma(const void* x, const void* dt, const void* a, const void* bm,
 // Bytes of scratch the bf16 path of `ssd_scan_launch` needs (0 for fp32);
 // the caller allocates them and passes the pointer as `workspace`.
 extern "C" long long ssd_scan_workspace_bytes(int B, int S, int H, int P,
-                                              int N, int L, int is_bf16) {
-  if (!is_bf16 || L < 1 || S % L != 0) return 0;
-  return (long long)workspace_bytes(B, S, H, P, N, L, nullptr, nullptr);
+                                              int N, int G, int L,
+                                              int is_bf16) {
+  if (!is_bf16 || L < 1 || S % L != 0 || G < 1) return 0;
+  return (long long)workspace_bytes(B, S, H, P, N, G, L, nullptr, nullptr);
 }
 
 // Plain C entry point, loaded with ctypes.  x (B, S, H, P), bm and cm
-// (B, S, N) of one type (is_bf16: bf16, else fp32); dt (B, S, H), a and
+// (B, S, G, N) of one type (is_bf16: bf16, else fp32), G dividing H (and
+// with bf16 and G > 1, H / G even); dt (B, S, H), a and
 // dskip (H,) and the state (B, H, N, P) fp32; y (B, S, H, P) in x's type;
 // all contiguous; workspace of ssd_scan_workspace_bytes bytes, 256-byte
 // aligned (unused for fp32).  1 <= N, P <= 64, S % L == 0, L <= 8192.
@@ -940,18 +956,20 @@ extern "C" long long ssd_scan_workspace_bytes(int B, int S, int H, int P,
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* bm, const void* cm,
                                const void* dskip, void* y, void* state,
-                               int B, int S, int H, int P, int N, int L,
-                               int is_bf16, void* workspace, void* stream) {
+                               int B, int S, int H, int P, int N, int G,
+                               int L, int is_bf16, void* workspace,
+                               void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || P < 1 || P > kT || N < 1 || N > kT ||
-      L < 1 || L > 8192 || S % L != 0)
+      L < 1 || L > 8192 || S % L != 0 || G < 1 || H % G != 0 ||
+      (is_bf16 && G > 1 && (H / G) % 2 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     if (workspace == nullptr || (uintptr_t)workspace % 256 != 0)
       return (int)cudaErrorInvalidValue;
-    return launch_mma(x, dt, a, bm, cm, dskip, y, state, B, S, H, P, N, L,
+    return launch_mma(x, dt, a, bm, cm, dskip, y, state, B, S, H, P, N, G, L,
                       workspace, s);
   }
-  return launch<float>(x, dt, a, bm, cm, dskip, y, state, B, S, H, P, N, L,
-                       s);
+  return launch<float>(x, dt, a, bm, cm, dskip, y, state, B, S, H, P, N, G,
+                       L, s);
 }

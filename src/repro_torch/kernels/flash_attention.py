@@ -53,18 +53,23 @@ LAUNCHES = tracing.launch_counter(("flash_attn_fwd", "flash_attn_bwd"))
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 5 + [_I] * 9 + [_F, _I, _P]
 _BWD_ARGTYPES = [_P] * 12 + [_I] * 10 + [_F, _I, _P]
-HEAD_DIMS = (32, 64, 80, 128, 192)  # the instances both sources build
+HEAD_DIMS = (32, 64, 80, 128, 192, 224)  # the instances both sources build
 BWD_KEY_TILE = 64          # keys a block of the dk, dv launch (kTile)
 # the dk, dv launch splits a kv head's group of query heads until its grid
 # has this many blocks: about four waves of the ~264 that fit the card
 BWD_TARGET_BLOCKS = 1024
 
 
+def _scale(Dh: int, scale) -> float:
+    """The softmax scale of the scores: `scale`, None meaning 1/sqrt(Dh)."""
+    return 1.0 / math.sqrt(Dh) if scale is None else float(scale)
+
+
 def flash_attn_fwd(q, k, v, *, causal: bool = True, window: int = 0,
-                   q_offset: int = 0, lse: bool = False):
+                   q_offset: int = 0, lse: bool = False, scale=None):
     """Launch the kernel: q (B, Sq, H, Dh), k and v (B, Sk, KV, Dh), all
     fp32 or all bf16 (16-byte aligned, as allocations are), contiguous on
-    one CUDA device; Dh in HEAD_DIMS.
+    one CUDA device; Dh in HEAD_DIMS; scores scale q.k (None: 1/sqrt(Dh)).
     Returns o (B, Sq, H, Dh) in q's dtype, on the current stream, or with
     lse=True (o, lse (B, Sq, H) fp32) from the same launch."""
     name = "flash_attn_fwd"
@@ -99,7 +104,7 @@ def flash_attn_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                  None if lse_out is None else lse_out.data_ptr(),
                  B, Sq, Sk, H, KV, Dh,
                  int(causal), int(window), int(q_offset),
-                 1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16),
+                 _scale(Dh, scale), int(q.dtype == torch.bfloat16),
                  what=f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} Dh={Dh}")
     LAUNCHES[name] += 1
     return o if lse_out is None else (o, lse_out)
@@ -143,12 +148,12 @@ def _check_bwd(name, q, k, v, out, lse, dout):
 
 
 def flash_attn_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
-                   window: int = 0, q_offset: int = 0):
+                   window: int = 0, q_offset: int = 0, scale=None):
     """Launch the backward: q, out (the forward's o) and dout (B, Sq, H,
     Dh), k and v (B, Sk, KV, Dh), all fp32 or all bf16 (16-byte aligned),
     lse (B, Sq, H) fp32 the forward's logsumexp, contiguous on one CUDA
-    device; Dh in HEAD_DIMS; the mask as the forward's.  Returns (dq, dk,
-    dv) in the inputs' dtype, on the current stream."""
+    device; Dh in HEAD_DIMS; the mask and the scale as the forward's.
+    Returns (dq, dk, dv) in the inputs' dtype, on the current stream."""
     name = "flash_attn_bwd"
     _check_bwd(name, q, k, v, out, lse, dout)
     build.check_cuda(name, (q, k, v, out, lse, dout))
@@ -168,7 +173,7 @@ def flash_attn_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                      q, k, v, out, lse, dout, dq, dk, dv, delta, part[0],
                      part[1])),
                  B, Sq, Sk, H, KV, Dh, int(causal), int(window),
-                 int(q_offset), splits, 1.0 / math.sqrt(Dh),
+                 int(q_offset), splits, _scale(Dh, scale),
                  int(q.dtype == torch.bfloat16),
                  what=f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} Dh={Dh} "
                       f"splits={splits}")

@@ -49,42 +49,47 @@ def cutlayer(mu, logvar, eps, *, link_bits: int = 32,
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
-              q_offset: int = 0, return_lse: bool = False):
+              q_offset: int = 0, return_lse: bool = False, scale=None):
     """Causal (GQA) attention forward.  q: (B, Sq, H, Dh); k, v:
-    (B, Sk, KV, Dh).  CPU and meta tensors take `ref.attention_ref`, CUDA
+    (B, Sk, KV, Dh); the scores scale q.k, scale None meaning 1/sqrt(Dh).
+    CPU and meta tensors take `ref.attention_ref`, CUDA
     tensors the flash kernel (csrc/flash_attn_fwd.cu).  Returns (B, Sq, H,
     Dh) in q's dtype, or with return_lse=True (out, each query row's
     logsumexp (B, Sq, H) fp32), the residual the attention backward
     reads."""
     if q.device.type in _bn.PLAIN:
         return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, lse=return_lse)
+                                 q_offset=q_offset, lse=return_lse,
+                                 scale=scale)
     return _fa.flash_attn_fwd(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset, lse=return_lse)
+                              q_offset=q_offset, lse=return_lse, scale=scale)
 
 
 def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                   window: int = 0, q_offset: int = 0, block_q: int = 512,
-                  block_k: int = 512):
+                  block_k: int = 512, scale=None):
     """The attention backward from the forward's saved (q, k, v, out, lse)
-    and the output's gradient dout (B, Sq, H, Dh).  CPU and meta tensors
+    and the output's gradient dout (B, Sq, H, Dh), at the forward's scale
+    (None: 1/sqrt(Dh)).  CPU and meta tensors
     take `ref.flash_bwd_ref` (tiles of block_q x block_k), CUDA tensors the
     backward kernel (csrc/flash_attn_bwd.cu, its own tiles).  Returns (dq,
     dk, dv) in q's, k's and v's dtypes."""
     if q.device.type in _bn.PLAIN:
         return ref.flash_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                  window=window, q_offset=q_offset,
-                                 block_q=block_q, block_k=block_k)
+                                 block_q=block_q, block_k=block_k,
+                                 scale=scale)
     return _fa.flash_attn_bwd(q, k, v, out, lse, dout, causal=causal,
-                              window=window, q_offset=q_offset)
+                              window=window, q_offset=q_offset, scale=scale)
 
 
 def ssd_scan(x, dt, a, bm, cm, dskip, *, chunk: int):
     """Chunked Mamba2/SSD scan from a zero state.  x: (B, S, H, P); dt:
-    (B, S, H) fp32 post-softplus; a, dskip: (H,) fp32; bm, cm: (B, S, N).
-    CPU and meta tensors take `ref.ssd_chunked_ref`, CUDA tensors the scan
-    kernel (csrc/ssd_scan.cu).  Returns (y (B, S, H, P) in x's dtype, final
-    state (B, H, N, P) fp32)."""
+    (B, S, H) fp32 post-softplus; a, dskip: (H,) fp32; bm, cm: (B, S, N),
+    or (B, S, G, N) with G groups dividing H (head h reads group h // (H /
+    G)).  CPU and meta tensors take `ref.ssd_chunked_ref`, CUDA tensors the
+    scan kernel (csrc/ssd_scan.cu).  Returns (y (B, S, H, P) in x's dtype,
+    final state (B, H, N, P) fp32)."""
     if x.device.type in _bn.PLAIN:
         return ref.ssd_chunked_ref(x, dt, a, bm, cm, dskip, chunk=chunk)
     return _ssd.ssd_scan(x, dt, a, bm, cm, dskip, chunk=chunk)

@@ -361,19 +361,21 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  q_offset: int = 0, lse: bool = False):
+                  q_offset: int = 0, lse: bool = False, scale=None):
     """Masked softmax attention, in fp32.  q: (B, Sq, H, Dh); k, v:
     (B, Sk, KV, Dh) with H % KV == 0, query head h reading kv head
     h // (H / KV) (by a reshape, no copy).  q_offset is the position of
     q[0] minus k[0]; window > 0 keeps keys with q_pos - k_pos < window.
-    Masked scores are -1e30.  Returns (B, Sq, H, Dh) in q's dtype, or
+    Masked scores are -1e30.  The scores are scale q.k, scale None meaning
+    1/sqrt(Dh).  Returns (B, Sq, H, Dh) in q's dtype, or
     with lse=True (out, the logsumexp of each row's masked fp32 scores
     (B, Sq, H)).  float64 inputs are computed in float64 (the gradient
     checks of the attention backward)."""
     B, Sq, H, Dh = q.shape
     _, Sk, KV, _ = k.shape
     g = H // KV
-    scale = 1.0 / float(np.sqrt(Dh))
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(Dh))
     acc = torch.promote_types(q.dtype, torch.float32)
     qf = (q.to(acc) * scale).reshape(B, Sq, KV, g, Dh)
     s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.to(acc))
@@ -405,7 +407,7 @@ def _mask_for(q_pos, k_pos, Sk, *, causal, window):
 
 
 def flash_bwd_ref(q, k, v, out, lse, dout, *, causal, window, q_offset,
-                  block_q, block_k):
+                  block_q, block_k, scale=None):
     """The attention backward's plain version (the kernel is
     csrc/flash_attn_bwd.cu): the reference's `_flash_bwd`, doubly blocked:
     key tiles outer (each
@@ -415,12 +417,14 @@ def flash_bwd_ref(q, k, v, out, lse, dout, *, causal, window, q_offset,
     the causal mask or the window hides whole is skipped: its p is
     exp(-1e30 - lse) = 0, so the reference adds exact zeros there.
     q, out, dout: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); lse: (B, Sq, H)
-    fp32 (float64 inputs stay float64, for gradcheck).  Returns (dq, dk,
-    dv) in q's, k's and v's dtypes."""
+    fp32 (float64 inputs stay float64, for gradcheck); scale the
+    forward's (None: 1/sqrt(Dh)).  Returns (dq, dk, dv) in q's, k's and
+    v's dtypes."""
     B, Sq, H, Dh = q.shape
     _, Sk, KV, _ = k.shape
     g = H // KV
-    scale = 1.0 / math.sqrt(Dh)
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
     bq, bk = min(block_q, Sq), min(block_k, Sk)
     nq, nk = -(-Sq // bq), -(-Sk // bk)
     qpad, kpad = nq * bq - Sq, nk * bk - Sk
@@ -471,14 +475,71 @@ def flash_bwd_ref(q, k, v, out, lse, dout, *, causal, window, q_offset,
             dk[:, :Sk].to(k.dtype), dv[:, :Sk].to(v.dtype))
 
 
+def _chunk_cumsum(x, dim: int):
+    """The in-chunk cumsum along `dim`.  On the CPU torch.cumsum; on a CUDA
+    tensor, where torch.cumsum of floats has no deterministic path (and so
+    raises under `torch.use_deterministic_algorithms`, as the launcher and
+    the benchmark run), the Hillis-Steele scan: log2(n) shifted adds, each
+    deterministic.  The two differ in the last bits, so the CPU keeps
+    torch.cumsum, the reference model's operation."""
+    if x.device.type != "cuda":
+        return torch.cumsum(x, dim=dim)
+    n, shift = x.shape[dim], 1
+    while shift < n:
+        pad = [0, 0] * (x.dim() - 1 - dim % x.dim()) + [shift, 0]
+        x = x + F.pad(x.narrow(dim, 0, n - shift), pad)
+        shift *= 2
+    return x
+
+
+def _by_group(x, dt, a, bm, cm, dskip):
+    """The heads of each group of B and C: yields (x, dt, a, bm, cm, dskip)
+    of group g, bm and cm (B, S, N), for g in 0..G-1.  bm, cm: (B, S, N)
+    (G = 1) or (B, S, G, N), G dividing H; head h reads group h // (H / G).
+    At G = 1 the one group is the inputs themselves."""
+    H = x.shape[2]
+    if bm.dim() == 3:
+        bm, cm = bm[:, :, None], cm[:, :, None]
+    G = bm.shape[2]
+    if H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups of B, C")
+    hg = H // G
+    for g in range(G):
+        h = slice(g * hg, (g + 1) * hg)
+        yield (x[:, :, h], dt[:, :, h], a[h], bm[:, :, g], cm[:, :, g],
+               dskip[h])
+
+
+def _join(outs):
+    """The groups' (y (B, S, h, P), state (B, h, N, P)) joined along the
+    heads.  One group's come back as they are: a cat there would change
+    the order of the sums in its backward (dskip's gradient moves by an
+    ulp)."""
+    if len(outs) == 1:
+        return outs[0]
+    return (torch.cat([y for y, _ in outs], dim=2),
+            torch.cat([st for _, st in outs], dim=1))
+
+
 def ssd_chunked_ref(x, dt, a, bm, cm, dskip, *, chunk: int):
-    """Chunked SSD scan (Mamba2, ngroups=1), the port of the reference
-    model's `_ssd_chunked` in its fp32 order.
+    """Chunked SSD scan (Mamba2), the port of the reference model's
+    `_ssd_chunked` in its fp32 order, with G groups of B and C.
 
     x: (B, S, H, P); dt: (B, S, H) post-softplus; a: (H,) negative; bm, cm:
-    (B, S, N) shared over heads; dskip: (H,).  chunk = min(chunk, S) must
-    divide S.  The scan starts from a zero state.  Returns (y (B, S, H, P)
-    in x's dtype, final_state (B, H, N, P) fp32)."""
+    (B, S, N) shared over heads (G = 1), or (B, S, G, N) with G dividing H,
+    head h reading group h // (H / G); dskip: (H,).  chunk = min(chunk, S)
+    must divide S.  The scan starts from a zero state.  Returns (y (B, S,
+    H, P) in x's dtype, final_state (B, H, N, P) fp32).  The groups run one
+    after another, each the one-group form over its heads, so C.B^T is
+    formed once per (b, chunk, group) and G = 1 is the one-group form
+    itself, bit for bit."""
+    return _join([_ssd_chunked_group(*grp, chunk=chunk)
+                  for grp in _by_group(x, dt, a, bm, cm, dskip)])
+
+
+def _ssd_chunked_group(x, dt, a, bm, cm, dskip, *, chunk: int):
+    """`ssd_chunked_ref` for one group: B and C (B, S, N) shared by every
+    head of x."""
     Bsz, S, H, P = x.shape
     N = bm.shape[-1]
     chunk = min(chunk, S)
@@ -491,7 +552,7 @@ def ssd_chunked_ref(x, dt, a, bm, cm, dskip, *, chunk: int):
     Cc = cm.reshape(Bsz, nc, chunk, N).float()
 
     dA = dtc * a.float()[None, None, None, :]            # (B,nc,cs,H), <= 0
-    cum = torch.cumsum(dA, dim=2)                        # within-chunk cumsum
+    cum = _chunk_cumsum(dA, 2)                       # within-chunk cumsum
 
     # intra-chunk: decay(i <- j) = exp(cum_i - cum_j), j <= i, else 0.
     # The mask goes in before the exp: above the diagonal seg >= 0 is the
@@ -532,9 +593,16 @@ def ssd_chunked_ref(x, dt, a, bm, cm, dskip, *, chunk: int):
 
 def ssd_scan_ref(x, dt, a, bm, cm, dskip):
     """The sequential SSM recurrence (the definition, not the chunked
-    form): h_t = exp(dt_t a) h_{t-1} + dt_t B_t x_t^T; y_t = C_t h_t + D x_t.
-    Shapes as `ssd_chunked_ref`; returns (y in x's dtype, final state
-    (B, H, N, P) fp32)."""
+    form): h_t = exp(dt_t a) h_{t-1} + dt_t B_t x_t^T; y_t = C_t h_t + D x_t,
+    B_t and C_t those of the head's group.  Shapes as `ssd_chunked_ref`;
+    returns (y in x's dtype, final state (B, H, N, P) fp32)."""
+    return _join([_ssd_scan_group(*grp)
+                  for grp in _by_group(x, dt, a, bm, cm, dskip)])
+
+
+def _ssd_scan_group(x, dt, a, bm, cm, dskip):
+    """`ssd_scan_ref` for one group: B and C (B, S, N) shared by every head
+    of x."""
     B, S, H, P = x.shape
     N = bm.shape[-1]
     xf, dtf, bf, cf = x.float(), dt.float(), bm.float(), cm.float()

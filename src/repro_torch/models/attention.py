@@ -52,13 +52,15 @@ class _BlockwiseAttention(torch.autograd.Function):
     alone reads block_q and block_k)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, block_q, block_k):
+    def forward(ctx, q, k, v, causal, window, q_offset, block_q, block_k,
+                scale):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, lse = ops.attention(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, return_lse=True)
+                                 q_offset=q_offset, return_lse=True,
+                                 scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
-                        block_q=block_q, block_k=block_k)
+                        block_q=block_q, block_k=block_k, scale=scale)
         return out
 
     @staticmethod
@@ -66,28 +68,28 @@ class _BlockwiseAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = ops.attention_bwd(q, k, v, out, lse, dout.contiguous(),
                                        **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, block_q: int = 512,
                         block_k: int = 512, scale=None):
     """Attention with the reference's flash-style VJP.  q: (B, Sq, H, Dh);
-    k, v: (B, Sk, KV, Dh), H % KV == 0.  The scale is the kernel's,
-    1/sqrt(Dh): `scale` may only restate it (MLA passes 1/sqrt(qk head
-    dim), its Dh once v is padded).  Returns (B, Sq, H, Dh) in q's
-    dtype."""
-    Dh = q.shape[-1]
-    if scale is not None and not math.isclose(scale, 1.0 / math.sqrt(Dh),
-                                              rel_tol=1e-6):
-        raise ValueError(f"blockwise_attention runs at the kernel's scale "
-                         f"1/sqrt({Dh}); got {scale}")
+    k, v: (B, Sk, KV, Dh), H % KV == 0.  The scores are scale q.k, scale
+    None meaning 1/sqrt(Dh) (Zamba2-7B's shared attention runs at
+    (Dh / 2)^-1/2); the forward and backward kernels take it as an
+    argument; it must be a positive finite number.  Returns (B, Sq, H,
+    Dh) in q's dtype."""
+    if scale is not None and not (math.isfinite(scale) and scale > 0):
+        raise ValueError(f"blockwise_attention takes a positive finite "
+                         f"scale; got {scale}")
     return _BlockwiseAttention.apply(q, k, v, causal, int(window),
-                                     int(q_offset), block_q, block_k)
+                                     int(q_offset), block_q, block_k,
+                                     None if scale is None else float(scale))
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, k_new, v_new, *,
-                     exclude_slot=None):
+                     exclude_slot=None, scale=None):
     """Single-token attention against a cache.
 
     q: (B, 1, H, Dh); caches: (B, W, KV, Dh); cache_len: the count of valid
@@ -95,7 +97,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, k_new, v_new, *,
     tensor on q's device; entries >= cache_len are masked, and
     `exclude_slot` (likewise) too.  k_new/v_new (B, 1, KV, Dh): the
     current token's kv, attended explicitly so the cache is read before it
-    is written.
+    is written.  scale: the scores' (None: 1/sqrt(Dh)).
 
     As in the reference, q * scale is rounded to the cache's dtype before
     both score products and the softmax weights to v's before the PV
@@ -107,7 +109,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, k_new, v_new, *,
     B, _, H, Dh = q.shape
     _, W, KV, _ = k_cache.shape
     g = H // KV
-    qc = (q.float() * (1.0 / math.sqrt(Dh))).to(k_cache.dtype) \
+    scale = 1.0 / math.sqrt(Dh) if scale is None else scale
+    qc = (q.float() * scale).to(k_cache.dtype) \
         .reshape(B, KV, g, Dh)
     # (B, KV, g, Dh) x (B, W, KV, Dh) -> (B, KV, g, W)
     s = _cache_product(qc, k_cache.permute(0, 2, 3, 1))
@@ -158,21 +161,25 @@ def _cache_product(a, cache_view):
 # GQA module
 # ---------------------------------------------------------------------------
 
-def gqa_init(generator, cfg, dtype, device=None):
+def gqa_init(generator, cfg, dtype, device=None, *, d_in: int = 0):
+    """q, k, v read an input of width d_in (0: d_model; Zamba2-7B's shared
+    attention reads [h, e], 2 d_model), o writes d_model."""
     d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d_in = d_in or d
     kw = dict(bias=cfg.qkv_bias, dtype=dtype, device=device)
     return {
-        "wq": layers.dense_init(generator, d, H * Dh, **kw),
-        "wk": layers.dense_init(generator, d, KV * Dh, **kw),
-        "wv": layers.dense_init(generator, d, KV * Dh, **kw),
+        "wq": layers.dense_init(generator, d_in, H * Dh, **kw),
+        "wk": layers.dense_init(generator, d_in, KV * Dh, **kw),
+        "wv": layers.dense_init(generator, d_in, KV * Dh, **kw),
         "wo": layers.dense_init(generator, H * Dh, d, dtype=dtype,
                                 device=device),
     }
 
 
-def gqa_param_count(cfg) -> int:
+def gqa_param_count(cfg, *, d_in: int = 0) -> int:
     d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    n = d * H * Dh * 2 + d * KV * Dh * 2
+    d_in = d_in or d
+    n = d_in * (H + 2 * KV) * Dh + H * Dh * d
     if cfg.qkv_bias:
         n += H * Dh + 2 * KV * Dh
     return n
@@ -192,8 +199,9 @@ def gqa_apply(p, cfg, x, positions, *, mode: str, cache=None,
     attention forward (`ops.attention`) and a filled cache; 'decode' ->
     S == 1 against the cache, which is updated in place.  Returns (y,
     new_cache)."""
-    B, S, d = x.shape
+    B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = cfg.attn_scale or None
     q = layers.dense(p["wq"], x).reshape(B, S, H, Dh)
     k = layers.dense(p["wk"], x).reshape(B, S, KV, Dh)
     v = layers.dense(p["wv"], x).reshape(B, S, KV, Dh)
@@ -217,13 +225,14 @@ def gqa_apply(p, cfg, x, positions, *, mode: str, cache=None,
         n_valid = torch.clamp(cache_len, max=W)
         excl = slot if cfg.sliding_window else None
         out = decode_attention(q, cache["k"], cache["v"], n_valid, k, v,
-                               exclude_slot=excl)
+                               exclude_slot=excl, scale=scale)
         at = slot.reshape(1)
         cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
         new_cache = cache
     elif mode == "prefill":
-        out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
+        out = ops.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                            scale=scale)
         W = min(S, cfg.sliding_window) if cfg.sliding_window else S
         kc, vc = k[:, S - W:], v[:, S - W:]
         if cfg.sliding_window and S > W:
@@ -236,7 +245,8 @@ def gqa_apply(p, cfg, x, positions, *, mode: str, cache=None,
         out = blockwise_attention(q, k, v, causal=True,
                                   window=cfg.sliding_window,
                                   block_q=cfg.attn_block_q or 512,
-                                  block_k=cfg.attn_block_k or 512)
+                                  block_k=cfg.attn_block_k or 512,
+                                  scale=scale)
         new_cache = None
     else:
         raise ValueError(f"attention mode {mode!r}: one of train, prefill, "

@@ -57,6 +57,16 @@ def rmsnorm(p, x, eps: float = 1e-5):
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def group_rmsnorm(p, x, groups: int, eps: float = 1e-5):
+    """RMS norm over each of `groups` equal parts of the last axis (Mamba2's
+    gated norm with ngroups > 1), one scale over the whole axis; groups=1
+    is `rmsnorm`, bit for bit."""
+    xf = x.float().unflatten(-1, (groups, -1))
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = (xf * torch.rsqrt(var + eps)).flatten(-2)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------
@@ -148,7 +158,13 @@ def gelu_tanh(x):
     return x * cdf
 
 
-_ACTS = {"silu": silu, "gelu": gelu_tanh, "relu": F.relu}
+def gelu_exact(x):
+    """The exact GELU, x Phi(x) by erf (torch's default form)."""
+    return F.gelu(x)
+
+
+_ACTS = {"silu": silu, "gelu": gelu_tanh, "relu": F.relu,
+         "gelu_exact": gelu_exact}
 
 
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, *,
@@ -173,3 +189,29 @@ def mlp(p, x, *, act: str = "silu"):
 
 def mlp_param_count(d_model: int, d_ff: int, act: str = "silu") -> int:
     return (3 if act == "silu" else 2) * d_model * d_ff
+
+
+def gated_mlp_init(generator: torch.Generator, d_model: int, d_ff: int, *,
+                   dtype=torch.float32, device=None):
+    """Zamba2's gated MLP: one (d_model, 2 d_ff) gate/up matrix, whose
+    output halves are [gate, up], and the (d_ff, d_model) down matrix."""
+    kw = dict(dtype=dtype, device=device)
+    return {"gate_up": dense_init(generator, d_model, 2 * d_ff, **kw),
+            "down": dense_init(generator, d_ff, d_model, **kw)}
+
+
+def adapter_init(generator: torch.Generator, d_in: int, rank: int,
+                 d_out: int, *, dtype=torch.float32, device=None):
+    """A rank-`rank` adapter x A B: A drawn, B zeros (a no-op at init)."""
+    kw = dict(dtype=dtype, device=device)
+    return {"a": dense_init(generator, d_in, rank, **kw),
+            "b": {"w": torch.zeros((rank, d_out), **kw)}}
+
+
+def gated_mlp(p, x, *, act: str, adapter=None):
+    """down(act(g) * u), [g, u] = x gate_up (+ x A B with an adapter)."""
+    gu = dense(p["gate_up"], x)
+    if adapter is not None:
+        gu = gu + dense(adapter["b"], dense(adapter["a"], x))
+    g, u = torch.chunk(gu, 2, dim=-1)
+    return dense(p["down"], _ACTS[act](g) * u)

@@ -20,9 +20,20 @@ Train mode runs the same steps through `_scan_chunked_remat`, which
 checkpoints chunks of `cfg.ssm.chunk_size` steps so that the backward
 keeps one carry a chunk, not one a step.
 
+With `cfg.ssm.ngroups` G > 1 (Zamba2-7B) B and C come in G groups, head h
+reading group h // (H / G): the in-projection gives 2 d_in + 2 G N + H
+columns, the conv runs over d_in + 2 G N channels, the scan takes B and C
+(B, S, G, N), and the gated norm runs over G groups of d_in / G channels;
+G = 1 is the layout and the arithmetic of the reference's ngroups = 1.
+
 A_log, D and dt_bias, and every xLSTM state but the conv's, are fp32
 whatever the model's dtype, as in the reference.  A decode step writes
 the new states into the given state in place and returns it.
+
+Tracing: the span "repro.ssm.scan" around a train-mode scan's forward
+launch and "repro.ssm.scan_bwd" around its backward recompute, which is
+also the device-timed sub-mark "ssd_backward" (`tracing.submark`) and
+counts one `LAUNCHES["ssd_scan_bwd"]`.
 """
 from __future__ import annotations
 
@@ -32,8 +43,11 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch import tracing
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
+
+LAUNCHES = tracing.launch_counter(("ssd_scan_bwd",))
 
 
 # ---------------------------------------------------------------------------
@@ -73,12 +87,17 @@ def conv1d_step(p, x_t, conv_state):
 # Mamba2 (SSD)
 # ---------------------------------------------------------------------------
 
+def _bc_width(s) -> int:
+    """Columns of B (and of C) in the in-projection: ngroups * state_dim."""
+    return s.ngroups * s.state_dim
+
+
 def mamba2_init(generator, cfg, dtype, device=None):
     s = cfg.ssm
     d = cfg.d_model
     d_in = s.d_inner(d)
     H = s.num_heads(d)
-    N = s.state_dim
+    N = _bc_width(s)
     # in_proj -> [z, x, B, C, dt]
     proj_out = 2 * d_in + 2 * N + H
     f32 = dict(dtype=torch.float32, device=device)
@@ -101,7 +120,7 @@ def mamba2_param_count(cfg) -> int:
     d = cfg.d_model
     d_in = s.d_inner(d)
     H = s.num_heads(d)
-    N = s.state_dim
+    N = _bc_width(s)
     n = d * (2 * d_in + 2 * N + H)                      # in_proj
     n += s.conv_width * (d_in + 2 * N) + (d_in + 2 * N)  # conv
     n += 3 * H + d_in                                   # A_log, D, dt_bias, norm
@@ -120,12 +139,16 @@ class _SSDChunked(torch.autograd.Function):
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, a, bm, cm, dskip)
-        return ops.ssd_scan(x, dt, a, bm, cm, dskip, chunk=chunk)
+        with tracing.span("ssm.scan"):
+            return ops.ssd_scan(x, dt, a, bm, cm, dskip, chunk=chunk)
 
     @staticmethod
     def backward(ctx, gy, gstate):
         saved = ctx.saved_tensors
-        with torch.enable_grad():
+        LAUNCHES["ssd_scan_bwd"] += 1
+        with tracing.span("ssm.scan_bwd"), \
+                tracing.submark("ssd_backward", saved[0].device), \
+                torch.enable_grad():
             ins = [t.detach().float().requires_grad_(True) for t in saved]
             outs = ref.ssd_chunked_ref(*ins, chunk=ctx.chunk)
             pairs = [(o, g.float()) for o, g in zip(outs, (gy, gstate))
@@ -155,7 +178,7 @@ def mamba2_make_state(cfg, batch: int, dtype, device=None):
     return {
         "ssm": torch.zeros((batch, H, s.state_dim, s.head_dim),
                            dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, s.conv_width - 1, d_in + 2 * s.state_dim),
+        "conv": torch.zeros((batch, s.conv_width - 1, d_in + 2 * _bc_width(s)),
                             dtype=dtype, device=device),
     }
 
@@ -169,11 +192,12 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
     Bsz, S, d = x.shape
     d_in = s.d_inner(d)
     H = s.num_heads(d)
-    N = s.state_dim
+    G, N = s.ngroups, s.state_dim
+    GN = G * N
     P = s.head_dim
 
     zxbcdt = layers.dense(p["in_proj"], x)
-    z, xbc, dt_raw = torch.split(zxbcdt, [d_in, d_in + 2 * N, H], dim=-1)
+    z, xbc, dt_raw = torch.split(zxbcdt, [d_in, d_in + 2 * GN, H], dim=-1)
     A = -torch.exp(p["A_log"])
 
     if mode == "decode":
@@ -182,14 +206,20 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
         xbc_t, conv_state = conv1d_step(p["conv"], xbc[:, 0], state["conv"])
         xbc_t = layers.silu(xbc_t)
         xh = xbc_t[:, :d_in].reshape(Bsz, H, P)
-        Bm = xbc_t[:, d_in:d_in + N]
-        Cm = xbc_t[:, d_in + N:]
+        Bm = xbc_t[:, d_in:d_in + GN]
+        Cm = xbc_t[:, d_in + GN:]
         dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])
         dA = torch.exp(dt * A)                           # (B, H)
-        # state update: S <- S exp(dt A) + dt B x^T
-        upd = torch.einsum("bh,bn,bhp->bhnp", dt, Bm.float(), xh.float())
+        # state update: S <- S exp(dt A) + dt B x^T, group by group (the
+        # heads of group g read its B and C)
+        hs = [slice(g * (H // G), (g + 1) * (H // G)) for g in range(G)]
+        Bm, Cm = (t.float().reshape(Bsz, G, N) for t in (Bm, Cm))
+        upd = torch.cat([torch.einsum("bh,bn,bhp->bhnp", dt[:, h], Bm[:, g],
+                                      xh[:, h].float())
+                         for g, h in enumerate(hs)], dim=1)
         ssm_state = state["ssm"] * dA[..., None, None] + upd
-        y = torch.einsum("bn,bhnp->bhp", Cm.float(), ssm_state)
+        y = torch.cat([torch.einsum("bn,bhnp->bhp", Cm[:, g], ssm_state[:, h])
+                       for g, h in enumerate(hs)], dim=1)
         y = y + p["D"][None, :, None] * xh.float()
         y = y.reshape(Bsz, 1, d_in)
         state["ssm"].copy_(ssm_state)
@@ -198,8 +228,11 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
     elif mode in ("prefill", "train"):
         xbc_act = layers.silu(conv1d_causal(p["conv"], xbc))
         xh = xbc_act[..., :d_in].reshape(Bsz, S, H, P).contiguous()
-        Bm = xbc_act[..., d_in:d_in + N].contiguous()
-        Cm = xbc_act[..., d_in + N:].contiguous()
+        Bm = xbc_act[..., d_in:d_in + GN]
+        Cm = xbc_act[..., d_in + GN:]
+        if G > 1:
+            Bm, Cm = (t.reshape(Bsz, S, G, N) for t in (Bm, Cm))
+        Bm, Cm = Bm.contiguous(), Cm.contiguous()
         dt = F.softplus(dt_raw.float() + p["dt_bias"]).contiguous()
         scan = ops.ssd_scan if mode == "prefill" else _ssd_chunked
         y, fin = scan(xh, dt, A.contiguous(), Bm, Cm, p["D"].contiguous(),
@@ -214,8 +247,8 @@ def mamba2_apply(p, cfg, x, *, mode: str, state=None):
             new_state = {"ssm": fin, "conv": tail.contiguous()}
     else:
         raise ValueError(f"mamba2 mode {mode!r}: train, prefill or decode")
-    y = layers.rmsnorm(p["norm"], y.to(x.dtype) * layers.silu(z),
-                       cfg.norm_eps)
+    y = layers.group_rmsnorm(p["norm"], y.to(x.dtype) * layers.silu(z), G,
+                             cfg.norm_eps)
     return layers.dense(p["out_proj"], y), new_state
 
 

@@ -24,7 +24,15 @@ layer).  The pre-layers are not rematerialised, as in the reference.
 Block kinds, every one of the reference's: "attn" (pre-norm attention,
 GQA or MLA, then a dense MLP, or a MoE with Arctic's dense residual beside
 it), "mamba" and "mamba+shared_attn" (Zamba2), "mlstm" and "slstm"
-(xLSTM; each a pre-norm residual, x + block(norm(x))).  An unknown kind
+(xLSTM; each a pre-norm residual, x + block(norm(x))); and the port's
+"hybrid", Zamba2-7B's published hybrid layer (`configs/zamba2_7b.py`):
+the stack holds `cfg.num_mem_blocks` shared blocks ("mem_blocks": an
+RMSNorm over [x, e], attention from 2 d_model to d_model at
+`cfg.attn_scale`, an RMSNorm, the gated MLP), period p's hybrid runs
+block p % num_mem_blocks with its own adapter on the MLP's gate/up
+product and its own d x d "linear", whose output T enters the Mamba2
+layer's input, x + Mamba2(norm(x + T)), and not the residual.  One
+invocation of a shared block is the span "repro.shared_attn".  An unknown kind
 raises ValueError, as in the reference.  Every block returns the MoE's
 aux values (the load-balance and z losses, the expert load; zeros for a
 block without a MoE), and `stack_apply` returns their sum over the
@@ -44,6 +52,7 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tracing
 from repro_torch import tree_leaves, tree_map, tree_stack, tree_unflatten
 from repro_torch.models import attention, layers, moe, ssm
 
@@ -133,6 +142,46 @@ def _shared_attn_init(generator, cfg, dtype, device=None):
     }
 
 
+def _mem_block_init(generator, cfg, dtype, device=None):
+    """One of Zamba2-7B's shared blocks: the norm of [x, e] (2 d_model),
+    attention reading it, the MLP's norm and the gated MLP."""
+    d, kw = cfg.d_model, dict(dtype=dtype, device=device)
+    return {"norm": layers.rmsnorm_init(2 * d, **kw),
+            "attn": attention.gqa_init(generator, cfg, dtype, device,
+                                       d_in=2 * d),
+            "ffn_norm": layers.rmsnorm_init(d, **kw),
+            "mlp": layers.gated_mlp_init(generator, d, cfg.d_ff, **kw)}
+
+
+def _mem_block_param_count(cfg) -> int:
+    d = cfg.d_model
+    return (2 * d + attention.gqa_param_count(cfg, d_in=2 * d) + d
+            + 3 * d * cfg.d_ff)
+
+
+def _hybrid_apply(p, cfg, x, positions, *, mode, cache, cache_len, shared,
+                  emb0):
+    """Zamba2-7B's hybrid layer: T = linear(shared block(x, e) with this
+    invocation's adapter); x + Mamba2(norm(x + T))."""
+    mcache = cache["mamba"] if cache is not None else None
+    acache = cache["attn"] if cache is not None else None
+    with tracing.span("shared_attn"):
+        c = layers.rmsnorm(shared["norm"], torch.cat([x, emb0], dim=-1),
+                           cfg.norm_eps)
+        a, ast = attention.gqa_apply(shared["attn"], cfg, c, positions,
+                                     mode=mode, cache=acache,
+                                     cache_len=cache_len)
+        t = layers.gated_mlp(
+            shared["mlp"], layers.rmsnorm(shared["ffn_norm"], a,
+                                          cfg.norm_eps),
+            act=cfg.act, adapter=p["adapter"])
+    T = layers.dense(p["linear"], t)
+    h, mst = ssm.mamba2_apply(p["mamba"], cfg,
+                              layers.rmsnorm(p["norm"], x + T, cfg.norm_eps),
+                              mode=mode, state=mcache)
+    return x + h, {"mamba": mst, "attn": ast}
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -151,6 +200,15 @@ def block_init(generator, cfg, kind: str, dtype, device=None, *,
                 "adapter": layers.dense_init(generator, cfg.d_model,
                                              cfg.d_model, dtype=dtype,
                                              scale=1e-4, device=device)}
+    if kind == "hybrid":
+        d = cfg.d_model
+        return {"norm": layers.rmsnorm_init(d, dtype, device),
+                "mamba": ssm.mamba2_init(generator, cfg, dtype, device),
+                "linear": layers.dense_init(generator, d, d, dtype=dtype,
+                                            device=device),
+                "adapter": layers.adapter_init(generator, d, cfg.adapter_rank,
+                                               2 * cfg.d_ff, dtype=dtype,
+                                               device=device)}
     if kind == "mlstm":
         return {"norm": layers.rmsnorm_init(cfg.d_model, dtype, device),
                 "mlstm": ssm.mlstm_init(generator, cfg, dtype, device)}
@@ -166,7 +224,7 @@ def block_make_cache(cfg, kind: str, batch: int, max_len: int, dtype,
         return attention.attn_make_cache(cfg, batch, max_len, dtype, device)
     if kind == "mamba":
         return ssm.mamba2_make_state(cfg, batch, dtype, device)
-    if kind == "mamba+shared_attn":
+    if kind in ("mamba+shared_attn", "hybrid"):
         return {"mamba": ssm.mamba2_make_state(cfg, batch, dtype, device),
                 "attn": attention.attn_make_cache(cfg, batch, max_len, dtype,
                                                   device)}
@@ -211,6 +269,10 @@ def block_apply(p, cfg, kind: str, x, positions, *, mode, cache=None,
         # per-invocation (unshared) output adapter
         x = x + layers.dense(p["adapter"], g)
         return x, {"mamba": mst, "attn": ast}, aux
+    if kind == "hybrid":
+        x, st = _hybrid_apply(p, cfg, x, positions, mode=mode, cache=cache,
+                              cache_len=cache_len, shared=shared, emb0=emb0)
+        return x, st, aux
     if kind in ("mlstm", "slstm"):
         apply = ssm.mlstm_apply if kind == "mlstm" else ssm.slstm_apply
         h, st = apply(p[kind], cfg,
@@ -251,7 +313,8 @@ def _stacked_blocks(make, nper: int):
 def stack_init(generator, cfg, dtype, device=None):
     """{"pre": [DeepSeek-V2's dense pre-layers] (when it has any),
     "pattern": [one tree per period position, leaves (nper, ...)],
-    "shared": the shared attention block (when the pattern uses it)}."""
+    "shared": the shared attention block (when the pattern uses it),
+    "mem_blocks": [num_mem_blocks shared blocks] (when it has "hybrid")}."""
     pat = block_pattern(cfg)
     nper = num_periods(cfg)
     p = {}
@@ -265,6 +328,9 @@ def stack_init(generator, cfg, dtype, device=None):
             use_moe=_use_moe(cfg, kind)), nper) for kind in pat]
     if any("shared_attn" in k for k in pat):
         p["shared"] = _shared_attn_init(generator, cfg, dtype, device)
+    if "hybrid" in pat:
+        p["mem_blocks"] = [_mem_block_init(generator, cfg, dtype, device)
+                           for _ in range(cfg.num_mem_blocks)]
     return p
 
 
@@ -282,6 +348,9 @@ def stack_param_count(cfg) -> int:
         "mamba": lambda: ssm.mamba2_param_count(cfg) + cfg.d_model,
         "mamba+shared_attn": lambda: (ssm.mamba2_param_count(cfg) + cfg.d_model
                                       + cfg.d_model * cfg.d_model),
+        "hybrid": lambda: (ssm.mamba2_param_count(cfg) + cfg.d_model
+                           + cfg.d_model * cfg.d_model + cfg.adapter_rank
+                           * (cfg.d_model + 2 * cfg.d_ff)),
         "mlstm": lambda: ssm.mlstm_param_count(cfg) + cfg.d_model,
         "slstm": lambda: ssm.slstm_param_count(cfg) + cfg.d_model,
     }
@@ -293,6 +362,8 @@ def stack_param_count(cfg) -> int:
         n += (2 * cfg.d_model * cfg.d_model + 2 * cfg.d_model
               + attention.attn_param_count(cfg)
               + layers.mlp_param_count(cfg.d_model, cfg.d_ff, cfg.act))
+    if "hybrid" in pat:
+        n += cfg.num_mem_blocks * _mem_block_param_count(cfg)
     return n
 
 
@@ -327,8 +398,8 @@ def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None,
     is the blocks' aux values summed in the reference's order."""
     pat = block_pattern(cfg)
     nper = num_periods(cfg)
-    shared = p.get("shared")
-    emb0 = x if shared is not None else None
+    shared, mem = p.get("shared"), p.get("mem_blocks")
+    emb0 = x if shared is not None or mem is not None else None
     aux_sum = _zero_aux(cfg, x.device)
     new_cache = {}
     if "pre" in p:
@@ -341,7 +412,7 @@ def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None,
             pre.append(nc)
         new_cache["pre"] = pre
 
-    def period(x, aux_acc, params, caches):
+    def period(x, aux_acc, params, caches, shared):
         ncs = []
         for i, kind in enumerate(pat):
             x, nc, aux = block_apply(
@@ -358,11 +429,13 @@ def stack_apply(p, cfg, x, positions, *, mode, cache=None, cache_len=None,
     for per in range(nper):
         caches = ([tree_map(lambda t: t[per], c) for c in cache["pattern"]]
                   if mode == "decode" else [None] * len(pat))
+        blk = shared if mem is None else mem[per % len(mem)]
         if remat:
             x, aux_sum, _ = torch.utils.checkpoint.checkpoint(
-                period, x, aux_sum, params[per], caches, use_reentrant=False)
+                period, x, aux_sum, params[per], caches, blk,
+                use_reentrant=False)
         else:
-            x, aux_sum, ncs = period(x, aux_sum, params[per], caches)
+            x, aux_sum, ncs = period(x, aux_sum, params[per], caches, blk)
             for i, nc in enumerate(ncs):
                 outs[i].append(nc)
     if mode == "train":

@@ -32,6 +32,12 @@ replayed for every round, and once with them, replayed for a signature's
 last round of each epoch call; the loop harvests at each epoch's start
 and a read does.  That is the sample a graph can give in any case.
 
+Sub-marks.  `with submark("ssd_backward", device):` times a part of a
+phase of an eager step on the card (the SSD backward recompute inside
+"backward", `models/ssm.py`); the step's sample sums each sub-mark under
+its name in `ms`.  A sub-mark is no phase: it enters neither the phases'
+sum nor "other", and inside a capture or off the card it records nothing.
+
 `samples()` returns one `Sample` a unit: the device ms of each phase,
 summed over the unit, the unit's ms, "other" (the unit less its phases),
 whether a profiler was recording when the unit was launched (a profiler
@@ -86,7 +92,8 @@ SPANS = True
 class Sample(NamedTuple):
     kind: str                       # "eager" (a step) or "graph" (a replay)
     profiled: bool                  # a profiler recorded at its launch
-    ms: Dict[str, float]            # PHASES, "unit", "other": device ms
+    ms: Dict[str, float]            # PHASES, "unit", "other" and the
+                                    # sub-marks made: device ms
     alloc_retries: Optional[int]    # the allocator's retries (eager, card)
 
 
@@ -130,11 +137,14 @@ def span(name: str):
 
 
 class _Step:
-    """An eager step: its marks (phase, start event, end event)."""
-    __slots__ = ("marks", "profiled", "retries0", "retries", "optimized")
+    """An eager step: its marks and sub-marks (name, start event, end
+    event)."""
+    __slots__ = ("marks", "submarks", "profiled", "retries0", "retries",
+                 "optimized")
 
     def __init__(self, profiled: bool, retries0: Optional[int]):
         self.marks: list = []
+        self.submarks: list = []
         self.profiled = profiled
         self.retries0 = retries0
         self.retries: Optional[int] = None
@@ -198,13 +208,15 @@ def launch_counter(names) -> Dict[str, int]:
     return counts
 
 
-def _sample(kind, profiled, marks, bounds, retries) -> Sample:
+def _sample(kind, profiled, marks, bounds, retries, submarks=()) -> Sample:
     ms = dict.fromkeys(PHASES, 0.0)
     for name, start, end in marks:
         ms[name] += start.elapsed_time(end)
     first, last = bounds or (marks[0][1], marks[-1][2])
     ms["unit"] = first.elapsed_time(last)
     ms["other"] = ms["unit"] - sum(ms[p] for p in PHASES)
+    for name, start, end in submarks:
+        ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
     return Sample(kind, profiled, ms, retries)
 
 
@@ -223,7 +235,7 @@ def _resolve() -> None:
             left.append(step)
             continue
         _state.add(_sample("eager", step.profiled, step.marks, None,
-                           step.retries))
+                           step.retries, step.submarks))
     _state.pending = left
 
 
@@ -272,6 +284,21 @@ def _exit(name, device, start) -> None:
             step.retries = _clock.retries(device) - step.retries0
     if len(step.marks) >= MAX_STEP_MARKS:
         _close_step()
+
+
+@contextlib.contextmanager
+def submark(name: str, device):
+    """Time a part of the open eager step's current phase on `device` (a
+    CUDA device outside a capture; elsewhere it records nothing)."""
+    if not MARKS or device.type != "cuda" or _clock.capturing(device):
+        yield
+        return
+    start = _clock.event(device)
+    yield
+    end = _clock.event(device)
+    with _state.lock:
+        if _state.step is not None:
+            _state.step.submarks.append((name, start, end))
 
 
 @contextlib.contextmanager

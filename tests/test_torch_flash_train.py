@@ -124,9 +124,18 @@ def test_mla_padded_v_matches_reference_vjp():
 
 
 def test_blockwise_attention_refuses_another_scale():
+    """A scale that is no softmax scale (not positive, not finite) raises;
+    another positive scale is taken, as the plain attention takes it
+    (Zamba2-7B's shared attention runs at (Dh / 2)^-1/2)."""
     q = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(ValueError, match="scale"):
-        attention.blockwise_attention(q, q, q, scale=0.5)
+    for bad in (0.0, -0.5, float("nan"), float("inf")):
+        with pytest.raises(ValueError, match="scale"):
+            attention.blockwise_attention(q, q, q, scale=bad)
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(1, 6, 2, 16, generator=g) for _ in range(3))
+    got = attention.blockwise_attention(q, k, v, scale=0.5)
+    assert torch.equal(got, ref.attention_ref(q, k, v, scale=0.5))
+    assert not torch.equal(got, ref.attention_ref(q, k, v))
 
 
 @pytest.mark.parametrize("window,q_offset", [(0, 0), (3, 0), (0, 2)])
