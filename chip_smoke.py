@@ -407,7 +407,15 @@ Phases, each checked; any failed check exits non-zero before the last line:
                 the Llama smoke config in fp32 at link_bits 16, 8, 4 and 4
                 with learned
                 priors, card against the CPU with their launches; the
-                phase's seconds.
+                multi-tensor AdamW on INL over StarCoder2-3B's leaves (3
+                layers, 1.8 B parameters): 2 donated scan steps, one
+                adamw_norm and one adamw_update a step, its norm within
+                1e-6 of global_norm, its update == ref.adamw_update_ref_
+                bit for bit given that norm, two runs bit for bit, its ms
+                beside its bound, the functional update's and
+                torch._fused_adamw_'s; the phase's seconds.  Every train
+                run through make_scan_train_step (donated on the card)
+                also expects one adamw_norm and one adamw_update a step.
 
  10. llm launch the launcher at full width, in-process: `python -m
                 repro_torch.launch.train --arch llama3.2-1b --steps 8
@@ -460,7 +468,9 @@ flash_attn_bwd entry with its ms, bound and plain ms on BWD_CASES,
 `launches_on_train`, and the plain SSD backward's ms,
 `train_backward_ms`; the cut-layer and wire kernels' counts in INL over
 an LLM, `launches_on_inl_llm`, and in the crash-resume children,
-`launches_on_crash_resume`),
+`launches_on_crash_resume`; an adamw entry with its ms, bound, the
+functional update's ms as plain_ms and torch._fused_adamw_'s as
+library_ms),
 the one before the last
 nvidia-smi's name and power limit, and the last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -473,7 +483,7 @@ launches by name with its time), and no result line; with --decode-times
 it builds the two LLM kernels and prints only Zamba2-2.7B's decode
 latency per token (phase 8's `llm decode latency` and graphed decode
 lines, seeded weights), and no result line; with --llm-train (--llm-launch) it builds
-the two LLM kernels and the cut-layer kernels and runs only phase 9 (10),
+the LLM kernels, AdamW's and the cut-layer kernels and runs only phase 9 (10),
 and no result line; with --tracing it builds the same kernels and runs
 only phase 11, the phase marks' cost and what they read (`tracing:`
 lines), and no result line.  Either times
@@ -534,6 +544,9 @@ LLM_CPU_STEPS = 8
 LLM_MARGIN = 1e-2                   # top-2 logit margin of a decided token
 LLM_CONSIST_P = 255                 # P and P + 1 both prefill in one chunk
 TENSOR_CORE_KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "ssd_scan")
+# what an LLM train step launches besides the cut layer: built before the
+# first timed or phase-marked run
+LLM_TRAIN_KERNELS = TENSOR_CORE_KERNELS + ("adamw",)
 # the attention-block models served in the `llm attn` phase: (arch, depth on
 # the card (None: the full config), flash_attn_fwd launches per prefill)
 ATTN_MODELS = (("llama3.2-1b", None, 16), ("qwen1.5-4b", None, 40),
@@ -628,6 +641,14 @@ INL_CPU_BITS = (16, 8, 4)           # smoke width, fp32, card vs CPU
 # the cut-layer and wire kernels INL over an LLM launches at link_bits < 8
 INL_LLM_KERNELS = ("cut_fwd", "cut_bwd", "pack", "unpack_dequant")
 INL_LLM_RUN = f"inl over llama3.2-1b {INL_LLM_STEPS} steps"
+# the multi-tensor AdamW on the leaves of the cell inl-starcoder2-3b (INL
+# over StarCoder2-3B at published widths, 3 of 30 layers, bf16, fp32
+# master): its parameter count, the scan steps that drive it (B, S), the
+# updates timed, and the plain norm's agreement
+ADAMW_PARAMS = 1_797_892_608
+ADAMW_SCAN = (2, 1, 512)            # K steps of make_scan_train_step, B, S
+ADAMW_TIMED = 10
+ADAMW_NORM_RTOL = 1e-6
 # the llm launch phase: launch.train at full width, the crash-resume check
 # on the card, DeepSeek-V2's MoE layer over 2 gloo ranks, the dry-run
 LAUNCH_STEPS, LAUNCH_GROUP, LAUNCH_BATCH = 8, 4, (4, 2048)
@@ -1427,9 +1448,17 @@ def serving_phase(torch, card_line):
 # ---------------------------------------------------------------------------
 
 def _counters():
-    from repro_torch.kernels import flash_attention, inl_bottleneck, ssm_scan
+    from repro_torch.kernels import (adamw, flash_attention, inl_bottleneck,
+                                     ssm_scan)
     return (inl_bottleneck.LAUNCHES, flash_attention.LAUNCHES,
-            ssm_scan.LAUNCHES)
+            ssm_scan.LAUNCHES, adamw.LAUNCHES)
+
+
+def adamw_launches(n_steps):
+    """The multi-tensor AdamW's launches over n_steps in-place optimizer
+    steps (a donated `make_scan_train_step` call on the card): one norm
+    and one update a step, whatever the number of leaves."""
+    return {"adamw_norm": n_steps, "adamw_update": n_steps}
 
 
 def reset_launches():
@@ -6806,7 +6835,8 @@ def train_run(torch, cfg, B, S, n_steps, what, card_line, *, want,
               time_steps=True, falling=True):
     """`cfg` at B x S: `make_scan_train_step` with
     `default_optimizer(cfg, total_steps=n_steps)` over n_steps Markov
-    batches, launches set to 0 just before and read just after (== `want`);
+    batches, launches set to 0 just before and read just after (== `want`
+    and the in-place AdamW's `adamw_launches(n_steps)`);
     every loss finite and, with falling, the last below the first; the
     steps' ms (CUDA events) and peak memory; with time_steps, one step's
     ms (median of 3 `make_train_step` calls) and tokens/s, else the
@@ -6835,7 +6865,8 @@ def train_run(torch, cfg, B, S, n_steps, what, card_line, *, want,
     epoch_ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = ms["loss"].tolist()
-    expect_launches(launches, want, f"{what}, {n_steps} train steps")
+    expect_launches(launches, {**want, **adamw_launches(n_steps)},
+                    f"{what}, {n_steps} train steps")
     check(all(np.isfinite(losses)) and (losses[-1] < losses[0]
                                         or not falling),
           f"{what} train losses {losses}")
@@ -6978,6 +7009,7 @@ def inl_llm_train_run(torch, card_line):
     want["flash_attn_fwd"] = 2 * (J * enc_layers + dec_layers) \
         * INL_LLM_STEPS
     want["flash_attn_bwd"] = (J * enc_layers + dec_layers) * INL_LLM_STEPS
+    want.update(adamw_launches(INL_LLM_STEPS))
     expect_launches(launches, want, "INL over Llama-3.2-1B")
     losses = ms["loss"].tolist()
     check(all(np.isfinite(losses)), f"INL over Llama losses {losses}")
@@ -7010,6 +7042,168 @@ def inl_llm_train_run(torch, card_line):
     torch.cuda.empty_cache()
     return launches, {"step_ms": step_ms, "peak_gib": peak,
                       "peak_fwd_bwd_gib": peak_fwd_bwd}
+
+
+def adamw_check(torch, card_line):
+    """The multi-tensor AdamW (csrc/adamw.cu) on the leaves of the cell
+    inl-starcoder2-3b, AdamW as the cell runs it (warm-up cosine, weight
+    decay 0.1, clip at 1, an fp32 master): ADAMW_SCAN's K steps of
+    `make_scan_train_step(scheme="inl")` (donated, so in place from the
+    first step) with one norm and one update launch a step; then, on one
+    step's gradients, the kernel's norm within ADAMW_NORM_RTOL of
+    `optim.global_norm` (fp64 sums against fp32 sums by leaf), the update
+    given the kernel's scale equal to `ref.adamw_update_ref_` bit for bit
+    in m, v, the master and the weights, two in-place steps from one state
+    equal bit for bit (norms included), and ADAMW_TIMED steps of
+    `update_` timed with CUDA events beside the bytes bound (28 bytes a
+    parameter and 2 for the norm over 3.35 TB/s), the two launches alone,
+    the functional `update` (the plain version) and PyTorch's
+    `torch._fused_adamw_` on the fp32 master with fp32 gradients (the
+    library's, which the port never calls: no clip, no bf16 weight).
+    Returns {metric: value}, "launches" the scan's counts."""
+    import dataclasses
+    from repro_torch import optim, tree_leaves, tree_map, value_and_grad
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import inl_llm
+    from repro_torch.kernels import adamw, ref
+    from repro_torch.launch import steps
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), num_layers=3)
+    params = inl_llm.init(cfg, torch.Generator(device=DEV).manual_seed(0),
+                          device=DEV)
+    leaves = tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    check(n == ADAMW_PARAMS, f"adamw: {n} parameters, the cell's "
+          f"{ADAMW_PARAMS}")
+    dtypes = sorted({str(t.dtype) for t in leaves})
+    sched = optim.warmup_cosine_schedule(3e-4, 100, 1000)
+    opt = optim.adamw(sched, weight_decay=0.1, clip_norm=1.0)
+    state = opt.init(params)
+    K, B, S = ADAMW_SCAN
+    batches = lm_batches_on(torch, cfg, B, S, K, 5)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    epoch = steps.make_scan_train_step(cfg, opt, scheme="inl")
+    torch.cuda.synchronize()
+    before = dict(adamw.LAUNCHES)
+    out = epoch(params, state, batches, gen)
+    torch.cuda.synchronize()
+    launches = {k: adamw.LAUNCHES[k] - before[k] for k in before}
+    check(launches == {"adamw_norm": K, "adamw_update": K},
+          f"adamw: {K} scan steps launched {launches}")
+    check(all(a is b for a, b in zip(tree_leaves((params, state)),
+                                     tree_leaves(out[:2]))),
+          "adamw: the donated scan call did not update its buffers in place")
+    losses = out[2]["loss"].tolist()
+    check(all(np.isfinite(losses)), f"adamw: scan losses {losses}")
+    del out, batches
+    batch = {k: v[0] for k, v in lm_batches_on(torch, cfg, B, S, 1,
+                                                 6).items()}
+    _, _, grads = value_and_grad(
+        lambda p: inl_llm.loss_fn(p, cfg, batch, gen), params)
+    grads = tree_leaves(grads)
+    norm, scale = adamw.grad_norm(grads, 1.0)
+    want = optim.global_norm(grads)
+    norm_rel = abs(float(norm) - float(want)) / float(want)
+    check(norm_rel <= ADAMW_NORM_RTOL,
+          f"adamw: the kernel's norm {float(norm)!r} against global_norm's "
+          f"{float(want)!r}: {norm_rel:.3e} of it")
+    # the update given the kernel's scale, kernel against the plain version
+    twin = tree_map(torch.clone, (params, state))
+    for st in (state, twin[1]):
+        step = st["step"].add_(1)
+        scalars = (sched(step).to(torch.float32),
+                   1 - 0.9 ** step.to(torch.float32),
+                   1 - 0.95 ** step.to(torch.float32))
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    adamw.adamw_update(grads, tree_leaves(state["m"]),
+                       tree_leaves(state["v"]), tree_leaves(state["master"]),
+                       leaves, scale, *scalars, **kw)
+    ref.adamw_update_ref_(grads, tree_leaves(twin[1]["m"]),
+                          tree_leaves(twin[1]["v"]),
+                          tree_leaves(twin[1]["master"]),
+                          tree_leaves(twin[0]), scale, *scalars, **kw)
+    torch.cuda.synchronize()
+    differ = sum(int((a != b).sum()) for a, b in
+                 zip(tree_leaves((params, state)), tree_leaves(twin)))
+    check(differ == 0, f"adamw: {differ} elements of m, v, the master and "
+          f"the weights differ from the plain version's")
+    # two in-place steps from one state (the two copies are equal now)
+    n1 = opt.update_(grads, state, params)
+    n2 = opt.update_(grads, twin[1], twin[0])
+    torch.cuda.synchronize()
+    check(torch.equal(n1, n2) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves((params, state)),
+                                          tree_leaves(twin))),
+          "adamw: two steps from one state differ")
+    del twin
+    torch.cuda.empty_cache()
+    before = dict(adamw.LAUNCHES)
+    step_ms = events_ms(torch, lambda: [opt.update_(grads, state, params)
+                                        for _ in range(ADAMW_TIMED)])
+    step_ms /= ADAMW_TIMED
+    per_step = {k: (adamw.LAUNCHES[k] - before[k]) / ADAMW_TIMED
+                for k in before}
+    check(per_step == {"adamw_norm": 1, "adamw_update": 1},
+          f"adamw: launches a step {per_step}")
+    master = tree_leaves(state["master"])
+
+    def kernels():
+        for _ in range(ADAMW_TIMED):
+            _, s = adamw.grad_norm(grads, 1.0)
+            adamw.adamw_update(grads, tree_leaves(state["m"]),
+                               tree_leaves(state["v"]), master, leaves, s,
+                               *scalars, **kw)
+    kernel_ms = events_ms(torch, kernels) / ADAMW_TIMED
+
+    def functional():
+        for _ in range(ADAMW_TIMED):
+            opt.update(grads, state, params)     # each new tree dropped
+    opt.update(grads, state, params)             # the allocator's first
+    plain_ms = events_ms(torch, functional) / ADAMW_TIMED
+    library_ms = None
+    fused = getattr(torch, "_fused_adamw_", None)
+    if fused is not None:
+        g32 = [g.float() for g in grads]
+        counts = [torch.ones((), device=DEV) for _ in master]
+        m, v = tree_leaves(state["m"]), tree_leaves(state["v"])
+
+        def library():
+            for _ in range(ADAMW_TIMED):
+                fused(master, g32, m, v, [], counts, lr=3e-4, beta1=0.9,
+                      beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
+                      maximize=False)
+        library_ms = events_ms(torch, library) / ADAMW_TIMED
+        del g32, counts, m, v
+    # the gradient read twice (norm, update), m, v and the master read and
+    # written, the weight written
+    nbytes = sum(t.numel() * (2 * g.element_size() + 24 + t.element_size())
+                 for g, t in zip(grads, leaves))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"llm train: adamw on the leaves of inl-starcoder2-3b ({n} "
+          f"parameters in {len(leaves)} leaves, {dtypes}, an fp32 master): "
+          f"{K} scan steps (B={B} S={S}) launched {launches}, losses "
+          f"{[round(x, 4) for x in losses]}; norm {float(norm)!r} against "
+          f"global_norm's {float(want)!r} ({norm_rel:.3e} of it, bar "
+          f"{ADAMW_NORM_RTOL}), clip scale {float(scale)!r}; the update "
+          f"given that scale == ref.adamw_update_ref_ bit for bit (m, v, "
+          f"master, weights); two steps from one state bit for bit; "
+          f"update_ {step_ms:.3f} ms a step over {ADAMW_TIMED} (CUDA "
+          f"events; launches a step {per_step}), the two launches alone "
+          f"{kernel_ms:.3f} ms, bound {bound_ms:.3f} ms ({nbytes / 1e9:.2f} "
+          f"GB at 3.35 TB/s): {100 * bound_ms / kernel_ms:.1f}% of it; the "
+          f"functional update {plain_ms:.3f} ms, torch._fused_adamw_ (fp32 "
+          f"master and gradients, no clip) "
+          + ("not in this torch" if library_ms is None
+             else f"{library_ms:.3f} ms")
+          + f"; {time.perf_counter() - t0:.1f} s [{card_line}]")
+    del params, state, grads, leaves, master
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "norm_rel": norm_rel, "launches": launches,
+            "per_step": per_step}
 
 
 def inl_llm_card_vs_cpu(torch, card_line):
@@ -7087,12 +7281,14 @@ def llm_train_phase(torch, card_line):
         xlstm = xlstm_train_check(torch, card_line)
         inl_launches, inl = inl_llm_train_run(torch, card_line)
         inl_cpu_launches = inl_llm_card_vs_cpu(torch, card_line)
+        adamw_times = adamw_check(torch, card_line)
     finally:
         torch.use_deterministic_algorithms(False)
     print(f"llm train: the phase {time.perf_counter() - t0:.1f} s "
           f"[{card_line}]")
     times = dict(deepseek_ms=ds_ms, bwd_ms=bwd_ms, ssd_bwd_ms=ssd_bwd_ms,
-                 zamba=zamba, zamba7=zamba7, xlstm=xlstm, inl=inl)
+                 zamba=zamba, zamba7=zamba7, xlstm=xlstm, inl=inl,
+                 adamw=adamw_times)
     flash = {"deepseek-v2-236b fwd+bwd": ds_launches,
              f"zamba2-2.7b {ZAMBA_TRAIN_PERIODS} periods "
              f"{ZAMBA_TRAIN_STEPS} steps": zamba_launches["flash_attn_fwd"],
@@ -7146,7 +7342,8 @@ def launch_cli_check(torch, card_line):
     expect_launches(launches, {"flash_attn_fwd":
                                2 * cfg.num_layers * LAUNCH_STEPS,
                                "flash_attn_bwd":
-                               cfg.num_layers * LAUNCH_STEPS},
+                               cfg.num_layers * LAUNCH_STEPS,
+                               **adamw_launches(LAUNCH_STEPS)},
                     f"{LAUNCH_RUN}")
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -7183,9 +7380,10 @@ def crash_resume_card(torch, card_line):
     import threading
     from repro_torch import chaos
     wants = {"dense": ("cut_fwd", "cut_bwd", "flash_attn_fwd",
-                       "flash_attn_bwd"),
+                       "flash_attn_bwd", "adamw_norm", "adamw_update"),
              "learned prior": ("cut_prior_fwd", "cut_prior_bwd",
-                               "flash_attn_fwd", "flash_attn_bwd")}
+                               "flash_attn_fwd", "flash_attn_bwd",
+                               "adamw_norm", "adamw_update")}
     results = {}
 
     def one(name):
@@ -7661,6 +7859,11 @@ def main() -> int:
                         help="build the LLM kernels and run only the "
                              "checks of the cell zamba2-7b.lm-2x4096's "
                              "shapes (part of the `llm train` phase)")
+    parser.add_argument("--adamw", action="store_true",
+                        help="build the LLM kernels and the AdamW kernel "
+                             "and run only the AdamW check on the cell "
+                             "inl-starcoder2-3b's leaves (part of the "
+                             "`llm train` phase)")
     parser.add_argument("--llm-launch", action="store_true",
                         help="build the LLM and cut-layer kernels and run "
                              "only the `llm launch` phase")
@@ -7705,20 +7908,25 @@ def main() -> int:
         decode_timing(torch, cfg, params, card)
         return 0
     if args.llm_train:
-        build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)
+        build_phase(LLM_TRAIN_KERNELS + CUT_LAYER_SOURCES)
         llm_train_phase(torch, card)
         return 0
     if args.zamba2_7b:
-        build_phase(TENSOR_CORE_KERNELS)
+        build_phase(LLM_TRAIN_KERNELS)
         torch.use_deterministic_algorithms(True, warn_only=True)
         zamba2_7b_check(torch, card)
         return 0
+    if args.adamw:
+        build_phase(LLM_TRAIN_KERNELS + CUT_LAYER_SOURCES)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        adamw_check(torch, card)
+        return 0
     if args.llm_launch:
-        build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)
+        build_phase(LLM_TRAIN_KERNELS + CUT_LAYER_SOURCES)
         llm_launch_phase(torch, card)
         return 0
     if args.tracing:
-        build_phase(TENSOR_CORE_KERNELS + CUT_LAYER_SOURCES)
+        build_phase(LLM_TRAIN_KERNELS + CUT_LAYER_SOURCES)
         tracing_paper_phase(torch, card)
         tracing_llm_phase(torch, card)
         return 0
@@ -7995,6 +8203,20 @@ def main() -> int:
         "by_case": train_times["bwd_ms"],
         "launches_per_train_step": "1 an attention layer",
         "path": "LLM training (blockwise_attention's backward)"})
+    aw = train_times["adamw"]
+    kernels.append({
+        "name": "adamw", "route": "cuda", "source": f"{src}adamw.cu",
+        "replaces": "no TPU kernel: src/repro/optim's adamw update is jnp",
+        "launches": aw["launches"], "max_abs_err": 0.0,
+        "norm_rel_err": aw["norm_rel"], "ms": aw["kernel_ms"],
+        "plain_ms": aw["plain_ms"], "bound_ms": aw["bound_ms"],
+        "bound_by": "bytes", "library_ms": aw["library_ms"],
+        "update_ms": aw["step_ms"],
+        "shape": f"inl-starcoder2-3b's {ADAMW_PARAMS} parameters, bf16 "
+                 f"weights, fp32 m, v and master",
+        "launches_per_train_step": aw["per_step"],
+        "path": "LLM training (make_scan_train_step's in-place AdamW, "
+                "standard and inl schemes)"})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

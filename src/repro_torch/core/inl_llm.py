@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch import as_generator, resolve_device, value_and_grad
+from repro_torch import as_generator, optim, resolve_device, value_and_grad
 from repro_torch.core import bottleneck, linkmodel
 from repro_torch.models import layers, transformer, zoo
 
@@ -253,16 +253,23 @@ def loss_fn(params: INLLLMParams, cfg, batch, generator=None, *, noise=None,
 
 
 def make_train_step(cfg, optimizer):
-    """(params, opt_state, batch, generator=None, *, noise=None, eps=None)
-    -> (params, opt_state, metrics detached)."""
+    """(params, opt_state, batch, generator=None, *, noise=None, eps=None,
+    inplace=False) -> (params, opt_state, metrics detached), "grad_norm"
+    the gradients' global norm before the clip.  With inplace=True the
+    optimizer's `update_` updates the params and opt_state passed in,
+    which come back, and gives the norm."""
     def step(params, opt_state, batch, generator=None, *, noise=None,
-             eps=None):
+             eps=None, inplace: bool = False):
         _, metrics, grads = value_and_grad(
             lambda p: loss_fn(p, cfg, batch, generator, noise=noise,
                               eps=eps), params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if inplace:
+            metrics["grad_norm"] = optimizer.update_(grads, opt_state, params)
+            return params, opt_state, metrics
         new_params, new_opt = optimizer.update(grads, opt_state, params)
-        return new_params, new_opt, {k: v.detach()
-                                     for k, v in metrics.items()}
+        metrics["grad_norm"] = optim.global_norm(grads)
+        return new_params, new_opt, metrics
     return step
 
 

@@ -1,8 +1,9 @@
 """Dispatching wrappers for the kernels.
 
 Reference: src/repro/kernels/ops.py (`cutlayer`, `attention`,
-`ssd_scan`); `attention_bwd` has no counterpart there (the reference's
-attention backward is jnp).  The JAX package picks an implementation with
+`ssd_scan`); `attention_bwd`, `grad_norm` and `adamw_` have no
+counterpart there (the reference's attention backward and optimizer are
+jnp).  The JAX package picks an implementation with
 `backend="auto"|"pallas"|"reference"`; here the device
 of the tensors decides, and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor the hand-written kernel or an exception.  A `meta`
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import inl_bottleneck as _bn
 from repro_torch.kernels import ref
@@ -93,3 +95,31 @@ def ssd_scan(x, dt, a, bm, cm, dskip, *, chunk: int):
     if x.device.type in _bn.PLAIN:
         return ref.ssd_chunked_ref(x, dt, a, bm, cm, dskip, chunk=chunk)
     return _ssd.ssd_scan(x, dt, a, bm, cm, dskip, chunk=chunk)
+
+
+def grad_norm(grads, max_norm):
+    """The global norm of a list of gradients and the clip scale min(1,
+    max_norm / max(norm, 1e-9)) (1 where max_norm is None or 0), fp32 0-dim
+    tensors.  CPU and meta tensors take `ref.grad_norm_ref`, CUDA tensors
+    the norm kernel (csrc/adamw.cu): fp64 partial sums in a fixed order,
+    no atomics."""
+    if grads[0].device.type in _bn.PLAIN:
+        return ref.grad_norm_ref(grads, max_norm)
+    return _adamw.grad_norm(grads, max_norm)
+
+
+def adamw_(grads, m, v, master, params, scale, lr, bc1, bc2, *, b1: float,
+           b2: float, eps: float, weight_decay: float) -> None:
+    """AdamW over lists of leaves, in place: m, v, master (a list, or None:
+    the weights are the base) and params, from the gradients times `scale`
+    (from `grad_norm`), the learning rate and bias corrections bc1 = 1 -
+    b1^t, bc2 = 1 - b2^t (fp32 0-dim tensors).  CPU and meta tensors take
+    `ref.adamw_update_ref_`, CUDA tensors the update kernel
+    (csrc/adamw.cu), the same operations element by element."""
+    if params[0].device.type in _bn.PLAIN:
+        return ref.adamw_update_ref_(grads, m, v, master, params, scale, lr,
+                                     bc1, bc2, b1=b1, b2=b2, eps=eps,
+                                     weight_decay=weight_decay)
+    return _adamw.adamw_update(grads, m, v, master, params, scale, lr, bc1,
+                               bc2, b1=b1, b2=b2, eps=eps,
+                               weight_decay=weight_decay)

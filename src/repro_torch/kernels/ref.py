@@ -16,7 +16,11 @@ The LLM stack's: `attention_ref` (the flash-attention kernel's function),
 `flash_bwd_ref` (its backward's, from the saved lse),
 `ssd_chunked_ref` (the SSD scan kernel's: the port of the JAX model's
 `_ssd_chunked`, with its final state) and `ssd_scan_ref` (the sequential
-definition of the scan, for the tests).
+definition of the scan, for the tests).  The multi-tensor AdamW's
+(csrc/adamw.cu, no TPU kernel): `grad_norm_ref` (from `global_norm_ref`
+and `clip_scale_ref`) and `adamw_update_ref_`, in place, leaf by leaf
+through `adamw_leaf_ref`; `optim`'s norm, clip and functional AdamW
+update are these same functions.
 
 Modes: "sample" (the paper's eq.-(6) estimator at the quantized latent),
 "analytic" (closed-form Gaussian KL) and "none" (rate == 0, the
@@ -616,3 +620,67 @@ def _ssd_scan_group(x, dt, a, bm, cm, dskip):
     y = torch.stack(ys, dim=1)
     y = y + dskip.float()[None, None, :, None] * xf
     return y.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# The multi-tensor AdamW (csrc/adamw.cu): the norm, then the update in place
+# ---------------------------------------------------------------------------
+
+def global_norm_ref(leaves):
+    """sqrt of the sum of squares of every tensor of `leaves`, in fp32: the
+    sums leaf by leaf, then their sum (`optim.global_norm`)."""
+    sums = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves]
+    if not sums:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.sqrt(torch.sum(torch.stack(sums)))
+
+
+def clip_scale_ref(norm, max_norm: float):
+    """min(1, max_norm / max(norm, 1e-9)), a tensor like `norm`."""
+    return torch.clamp(torch.full_like(norm, max_norm)
+                       / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def grad_norm_ref(grads, max_norm):
+    """(global norm of the list `grads` in fp32, clip scale): 1 where
+    max_norm is None or 0."""
+    norm = global_norm_ref(grads)
+    if not max_norm:
+        return norm, torch.ones((), dtype=torch.float32, device=norm.device)
+    return norm, clip_scale_ref(norm, max_norm)
+
+
+def adamw_leaf_ref(g, m, v, w, lr, bc1, bc2, *, b1: float, b2: float,
+                   eps: float, weight_decay: float):
+    """One leaf of AdamW, the operations the kernel repeats element by
+    element: g the clipped gradient, m and v fp32, w the base (the fp32
+    master, or the weight itself), lr, bc1 = 1 - b1^t and bc2 = 1 - b2^t
+    fp32 0-dim tensors.  Returns the new (m, v, base in fp32)."""
+    g = g.to(torch.float32)
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * torch.square(g)
+    w = w.to(torch.float32)
+    step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    if weight_decay:
+        step = step + weight_decay * w
+    return m, v, w - lr * step
+
+
+@torch.no_grad()
+def adamw_update_ref_(grads, m, v, master, params, scale, lr, bc1, bc2, *,
+                      b1: float, b2: float, eps: float,
+                      weight_decay: float) -> None:
+    """AdamW in place, leaf by leaf (`adamw_leaf_ref`): the gradient times
+    `scale` in its own type, then m, v, the master (a list, or None: the
+    weight itself) and the weight in its type.  scale, lr, bc1, bc2: fp32
+    0-dim tensors."""
+    masters = [None] * len(params) if master is None else master
+    for g, m_, v_, w_, p in zip(grads, m, v, masters, params):
+        new_m, new_v, new = adamw_leaf_ref(
+            g * scale.to(g.dtype), m_, v_, p if w_ is None else w_, lr, bc1,
+            bc2, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+        m_.copy_(new_m)
+        v_.copy_(new_v)
+        if w_ is not None:
+            w_.copy_(new)
+        p.copy_(new)

@@ -58,7 +58,9 @@ def make_train_step(cfg, optimizer, *, microbatches: int = 1,
                     unroll: bool = False):
     """(params, opt_state, batch) -> (params, opt_state, metrics), metrics
     detached tensors on the parameters' device with "grad_norm", the
-    global norm of the gradients before clipping, added.
+    global norm of the gradients before clipping, added.  With
+    inplace=True (keyword) the optimizer's `update_` updates the params
+    and opt_state passed in, which come back, and gives the norm.
 
     microbatches > 1 splits the batch along axis 0 and accumulates the
     microbatches' gradients in fp32 buffers (never in a bf16 leaf's
@@ -73,7 +75,7 @@ def make_train_step(cfg, optimizer, *, microbatches: int = 1,
             lambda p: zoo.loss_and_metrics(p, cfg, batch), params)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, *, inplace: bool = False):
         if microbatches == 1:
             grads, metrics = grads_of(params, batch)
         else:
@@ -96,6 +98,9 @@ def make_train_step(cfg, optimizer, *, microbatches: int = 1,
             grads = tree_unflatten(params, [g / microbatches for g in gsum])
             metrics = {k: torch.stack([m[k] for m in ms]).mean(dim=0)
                        for k in ms[0]}
+        if inplace:
+            metrics["grad_norm"] = optimizer.update_(grads, opt_state, params)
+            return params, opt_state, metrics
         new_params, new_opt = optimizer.update(grads, opt_state, params)
         metrics["grad_norm"] = optim.global_norm(grads)
         return new_params, new_opt, metrics
@@ -198,13 +203,17 @@ def make_scan_train_step(cfg, optimizer, *, scheme: str = "standard",
     """K optimizer steps in one call: (params, opt_state, batches) ->
     (params, opt_state, metrics stacked over the K steps), `batches` the
     batch dict with a leading K axis (on the parameters' device).  The
-    steps run back to back with no read on the host between them.  Each
-    step's old params and optimizer state are dropped as the next are
-    made, so the peak holds one step's; with donate (None: on a CUDA
-    device, as the reference donates only on accelerators) the caller's
-    params and opt_state are freed after the first step, the counterpart
-    of the reference's donated buffers: the caller must not read them
-    again.
+    steps run back to back with no read on the host between them.  Where
+    the optimizer updates in place (`update_`: AdamW), every step after
+    the first updates the buffers the call made, and so does the first
+    with donate (None: on a CUDA device, as the reference donates only on
+    accelerators): the caller's params and opt_state are then updated in
+    place, the counterpart of the reference's donated buffers, and the
+    caller must not read them again.  Without donation the first step is
+    the functional update, which leaves the caller's tensors as they
+    were.  An optimizer without `update_` makes each step's params and
+    state anew, the old dropped as the next are made (with donate, the
+    caller's freed after the first step).
 
     scheme "inl" (INL over an LLM, `make_inl_train_step`): (params,
     opt_state, batches, generator=None, *, noise=None, eps=None), params
@@ -217,16 +226,17 @@ def make_scan_train_step(cfg, optimizer, *, scheme: str = "standard",
             raise ValueError("the inl scheme takes no microbatches")
         inl_step = make_inl_train_step(cfg, optimizer)
 
-        def inner(params, opt_state, batch, i, generator, noise, eps):
+        def inner(params, opt_state, batch, i, generator, noise, eps, own):
             draws = {} if noise is None else {"noise": noise[i],
                                               "eps": eps[i]}
-            return inl_step(params, opt_state, batch, generator, **draws)
+            return inl_step(params, opt_state, batch, generator, **draws,
+                            inplace=own)
     elif scheme == "standard":
         train_step = make_train_step(cfg, optimizer,
                                      microbatches=microbatches)
 
-        def inner(params, opt_state, batch, *_):
-            return train_step(params, opt_state, batch)
+        def inner(params, opt_state, batch, i, generator, noise, eps, own):
+            return train_step(params, opt_state, batch, inplace=own)
     else:
         raise ValueError(f"scheme {scheme!r}: standard or inl")
 
@@ -243,9 +253,12 @@ def make_scan_train_step(cfg, optimizer, *, scheme: str = "standard",
         ms = []
         for i in range(K):
             batch = tree_map(lambda x: x[i], batches)
+            # in place where the step owns the buffers: those it made, or
+            # the caller's where they were given
+            own = optimizer.update_ is not None and (i > 0 or give)
             new_params, new_opt, m = inner(params, opt_state, batch, i,
-                                           generator, noise, eps)
-            if i == 0 and give:
+                                           generator, noise, eps, own)
+            if i == 0 and give and not own:
                 _release((params, opt_state), (new_params, new_opt))
             params, opt_state = new_params, new_opt
             del new_params, new_opt

@@ -262,9 +262,11 @@ def step_split(split, device) -> str:
 def _launches() -> dict:
     """The hand-written kernels' launch counts in this process (nonzero
     ones; none on the CPU)."""
-    from repro_torch.kernels import flash_attention, inl_bottleneck, ssm_scan
+    from repro_torch.kernels import (adamw, flash_attention, inl_bottleneck,
+                                     ssm_scan)
     return {k: n for counts in (inl_bottleneck.LAUNCHES,
-                                flash_attention.LAUNCHES, ssm_scan.LAUNCHES)
+                                flash_attention.LAUNCHES, ssm_scan.LAUNCHES,
+                                adamw.LAUNCHES)
             for k, n in counts.items() if n}
 
 

@@ -12,12 +12,20 @@ b2, clipping and eps placement differ.
 `init(params) -> state` and `update(grads, state, params) -> (new_params,
 new_state)` build new tensors (no in-place update) under torch.no_grad();
 the state is a dict of tensors on the parameters' device, the step an int32
-0-dim tensor.  On a mesh (core/sharded.py) each rank updates its own shard
+0-dim tensor.  AdamW also has `update_(grads, state, params) -> norm`,
+which updates the params and the state's tensors in place, the same
+operations element by element, and returns the gradients' global norm
+before the clip: one multi-tensor kernel pass on the card
+(`kernels/ops.grad_norm` and `.adamw_`, csrc/adamw.cu), the plain version
+on the CPU.  A caller takes it where it owns the buffers
+(`launch/steps.make_scan_train_step`); its norm sums in another order than
+`global_norm`, so on the card the clip scale can differ from `update`'s
+by an ulp.  On a mesh (core/sharded.py) each rank updates its own shard
 of the parameters and moments, the global-norm clip reading the norm the
 round computed over every shard (`update(..., norm=)`); the ZeRO-1
 layout of the LLM optimizer state is `launch/sharding.opt_state_shardings`
-(the dry-run's per-rank bytes).  Each `update`, its clip included, is a
-step's "optimizer" phase (`tracing.phase`).
+(the dry-run's per-rank bytes).  Each `update` and `update_`, its clip
+included, is a step's "optimizer" phase (`tracing.phase`).
 """
 from __future__ import annotations
 
@@ -27,12 +35,16 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch import tracing, tree_leaves, tree_map
+from repro_torch import tracing, tree_leaves, tree_map, tree_unflatten
+from repro_torch.kernels import ops, ref
 
 
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable      # (grads, state, params) -> (new_params, new_state)
+    # (grads, state, params) -> the gradients' global norm, the state and
+    # params updated in place; None: the optimizer has no in-place update
+    update_: Optional[Callable] = None
 
 
 def _tree_zeros_like(tree):
@@ -56,11 +68,7 @@ def _device(tree) -> torch.device:
 
 def global_norm(tree):
     """sqrt of the sum of squares of every leaf, in fp32."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree_leaves(tree)]
-    if not leaves:
-        return torch.zeros((), dtype=torch.float32)
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    return ref.global_norm_ref(tree_leaves(tree))
 
 
 def clip_by_global_norm(grads, max_norm: float, norm=None):
@@ -69,8 +77,7 @@ def clip_by_global_norm(grads, max_norm: float, norm=None):
     gradient tree sharded over a mesh holds only part of it)."""
     if norm is None:
         norm = global_norm(grads)
-    scale = torch.clamp(torch.full_like(norm, max_norm)
-                        / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = ref.clip_scale_ref(norm, max_norm)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
@@ -181,21 +188,16 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         step_f = step.to(torch.float32)
         bc1 = 1 - b1 ** step_f
         bc2 = 1 - b2 ** step_f
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(torch.float32),
-                     state["m"], grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2)
-                     * torch.square(g.to(torch.float32)), state["v"], grads)
         base = state.get("master", params)
-
-        def upd(p, m_, v_):
-            mh = m_ / bc1
-            vh = v_ / bc2
-            step_ = mh / (torch.sqrt(vh) + eps)
-            if weight_decay:
-                step_ = step_ + weight_decay * p.to(torch.float32)
-            return p.to(torch.float32) - lr_t * step_
-
-        new_master = tree_map(upd, base, m, v)
+        new = [ref.adamw_leaf_ref(g, m_, v_, w, lr_t, bc1, bc2, b1=b1, b2=b2,
+                                  eps=eps, weight_decay=weight_decay)
+               for g, m_, v_, w in zip(tree_leaves(grads),
+                                       tree_leaves(state["m"]),
+                                       tree_leaves(state["v"]),
+                                       tree_leaves(base))]
+        m, v, new_master = (tree_unflatten(tree, [n[i] for n in new])
+                            for i, tree in enumerate((state["m"], state["v"],
+                                                      base)))
         new_params = tree_map(lambda nm, p: nm.to(p.dtype), new_master,
                               params)
         new_state = {"step": step, "m": m, "v": v}
@@ -203,7 +205,24 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             new_state["master"] = new_master
         return new_params, new_state
 
-    return Optimizer(init, _marked(update))
+    @torch.no_grad()
+    def update_(grads, state, params):
+        """`update` in place: params, m, v, the master and the step; returns
+        the gradients' global norm before the clip."""
+        g = tree_leaves(grads)
+        norm, scale = ops.grad_norm(g, clip_norm)
+        step = state["step"].add_(1)
+        lr_t = sched(step).to(torch.float32)
+        step_f = step.to(torch.float32)
+        bc1 = 1 - b1 ** step_f
+        bc2 = 1 - b2 ** step_f
+        master = tree_leaves(state["master"]) if "master" in state else None
+        ops.adamw_(g, tree_leaves(state["m"]), tree_leaves(state["v"]),
+                   master, tree_leaves(params), scale, lr_t, bc1, bc2, b1=b1,
+                   b2=b2, eps=eps, weight_decay=weight_decay)
+        return norm
+
+    return Optimizer(init, _marked(update), _marked(update_))
 
 
 def adam(lr, **kw):

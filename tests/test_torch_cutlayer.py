@@ -182,7 +182,7 @@ def test_fused_sample_rate_eps_from_generator():
 
 def test_build_module_finds_sources_and_names_missing_nvcc(monkeypatch,
                                                            tmp_path):
-    assert build.sources() == ("cut_bwd", "cut_fwd", "cut_fwd_pack",
+    assert build.sources() == ("adamw", "cut_bwd", "cut_fwd", "cut_fwd_pack",
                                "cut_prior_bwd", "cut_prior_fwd",
                                "flash_attn_bwd", "flash_attn_fwd", "pack",
                                "ssd_scan", "unpack_dequant")
